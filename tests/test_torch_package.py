@@ -1,0 +1,163 @@
+"""Package-level properties of the PyTorch port.
+
+* Importing the port and building its S3D model never imports JAX, nor
+  the JAX package; the port's copy of the config schema equals the JAX
+  package's.
+* The kernel wrappers take their plain versions only for CPU tensors; on
+  CUDA tensors they launch the kernel or raise (``cuda`` marker: skipped
+  where no GPU is present; run them on the card with
+  ``python -m pytest -m cuda tests/test_torch_package.py``).
+* The trainer entry point runs on the CPU when asked to, and refuses
+  ``--device cuda`` without a GPU instead of moving to the CPU.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from video_graph_ssl_tpu_torch import train_video_contrast_dis as train
+from video_graph_ssl_tpu_torch.ops import _build
+from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
+from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["MODEL.BACKBONE", "tiny3d", "MODEL.AUG_FLAG", "True",
+        "DATASET.SOURCE", "synthetic", "DATASET.NUM_CLASS", "4",
+        "DATALOADER.BATCH_SIZE", "4", "INPUT.VIDEO_LENGTH", "4",
+        "INPUT.SCALE_SIZE", "[20, 20]", "INPUT.BASE_SIZE", "[16, 16]",
+        "CONTRAST.NCE_K", "16", "CROSS.FEAT_DIM", "32",
+        "CHECKPOINT.PRINT_FREQ", "1"]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(device, b=3, t=8, d=40, shape=(3, 8, 2, 3, 16)):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(b, t, d, generator=g).to(device)
+    k = torch.randn(b, t, d, generator=g).to(device)
+    theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(device)
+    adj = torch.rand(shape[0], shape[1], shape[1], generator=g).to(device)
+    x = torch.randn(shape, generator=g).to(device)
+    return q, k, theta, adj, x
+
+
+def test_port_never_imports_jax():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+        from video_graph_ssl_tpu_torch.models.build import create_visual_model
+        from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+        from video_graph_ssl_tpu_torch.engine.pretrain import make_fused_pretrain_step
+        from video_graph_ssl_tpu_torch.utils import jax_weights
+        import video_graph_ssl_tpu_torch.ops._build
+        c = load_config({os.path.join(REPO, 'configs', 'visual_moco.yaml')!r},
+                        ['MODEL.AUG_FLAG', 'True', 'CONTRAST.NCE_K', '256'])
+        model, dim = create_visual_model(c)
+        state = create_pretrain_state(c, model, 'cpu')
+        make_fused_pretrain_step(c)
+        assert dim == 1024 and len(model.model.encoder.base_model.aug_points) == 3
+        bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))
+        assert not bad, bad
+        jax_pkg = sorted(m for m in sys.modules if m.split('.')[0] == 'video_graph_ssl_tpu')
+        assert not jax_pkg, jax_pkg
+        print('ok')
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("yaml_file", [None, "visual_moco.yaml", "smoke_simsiam.yaml"])
+def test_config_schema_equals_jax(yaml_file):
+    from video_graph_ssl_tpu.config import cfg as jax_cfg
+    from video_graph_ssl_tpu_torch.config import cfg as port_cfg
+
+    ours, ref = port_cfg.clone(), jax_cfg.clone()
+    if yaml_file:
+        for c in (ours, ref):
+            c.merge_from_file(os.path.join(REPO, "configs", yaml_file))
+            c.merge_from_list(["MODEL.AUG_FLAG", "True", "GRAPH.AUG_POINTS", "[5, 9]"])
+    assert ours.to_dict() == ref.to_dict()
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """On the CPU the wrappers run their plain versions and never reach the
+    kernel library (made unloadable here)."""
+    def absent():
+        raise RuntimeError("kernel library absent")
+
+    monkeypatch.setattr(_build, "library", absent)
+    gk.launches = gp.launches = 0
+    q, k, theta, adj, x = _inputs("cpu")
+    out = gk.graph_adjacency(q, k, theta, seed=3)
+    assert out.shape == (3, 8, 8) and out.dtype == torch.float32
+    assert torch.equal(gp.gcn_propagate(adj, x), gp.propagate_plain(adj, x))
+    assert gk.launches == gp.launches == 0
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_without_the_library(monkeypatch):
+    """No fallback: on CUDA tensors a wrapper whose library cannot load
+    raises, and counts no launch."""
+    dev = _cuda()
+
+    def absent():
+        raise RuntimeError("kernel library absent")
+
+    monkeypatch.setattr(_build, "library", absent)
+    gk.launches = gp.launches = 0
+    q, k, theta, adj, x = _inputs(dev)
+    with pytest.raises(RuntimeError, match="absent"):
+        gk.graph_adjacency(q, k, theta, seed=3)
+    with pytest.raises(RuntimeError, match="absent"):
+        gp.gcn_propagate(adj, x)
+    assert gk.launches == gp.launches == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, theta, adj, x = _inputs(dev)
+    gk.launches = gp.launches = 0
+    u = torch.rand(3, 8, 8, device=dev) * 0.99 + 0.005
+    for sample in (False, True):
+        out = gk.graph_adjacency(q, k, theta, sample=sample, u=u)
+        ref = gk.graph_adjacency_plain(q, k, theta, sample=sample, u=u)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    for dt in (torch.float32, torch.bfloat16):
+        out = gp.gcn_propagate(adj.to(dt), x.to(dt))
+        ref = gp.propagate_plain(adj.to(dt), x.to(dt))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2 if dt == torch.bfloat16
+                                   else 1e-5, atol=1e-2 if dt == torch.bfloat16 else 1e-5)
+    assert gk.launches == 2 and gp.launches == 2
+
+
+def test_trainer_runs_on_cpu_when_asked(capsys):
+    # options after the overrides, as the README's command writes them
+    train.main(["--config_file", os.path.join(REPO, "configs", "visual_moco.yaml"),
+                "--device", "cpu", *TINY, "--max_steps", "2"])
+    lines = [l for l in capsys.readouterr().out.splitlines() if l.startswith("Epoch: [0]")]
+    assert len(lines) == 2 and "Loss" in lines[0] and "Prec@1" in lines[0]
+    losses = [float(l.split("Loss ")[1].split()[0]) for l in lines]
+    assert np.isfinite(losses).all()
+
+
+def test_trainer_refuses_cuda_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    c = train.load_config(os.path.join(REPO, "configs", "visual_moco.yaml"), TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.Trainer(c, max_steps=1, device="cuda")

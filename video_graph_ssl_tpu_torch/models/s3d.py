@@ -1,0 +1,118 @@
+"""S3D backbone (counterpart of ``video_graph_ssl_tpu/models/s3d.py``).
+
+``base`` is the reference's 16-stage Sequential; a stage at a graph-aug
+point becomes ``Sequential(TemporalGraphAug, stage)`` (names ``base.{i}.0``
+and ``base.{i}.1``), the augmentation running on the stage's input.
+
+| idx | stage                   | out ch |
+|-----|-------------------------|--------|
+| 0   | SepConv3d k7 s2 p3      | 64     |
+| 1   | MaxPool (1,3,3)/(1,2,2) | 64     |
+| 2   | BasicConv3d k1          | 64     |
+| 3   | SepConv3d k3 p1         | 192    |
+| 4   | MaxPool (1,3,3)/(1,2,2) | 192    |
+| 5,6 | Mixed_3b, 3c            | 256, 480 |
+| 7   | MaxPool 3/2             | 480    |
+| 8-12| Mixed_4b..4f            | 512, 512, 512, 528, 832 |
+| 13  | MaxPool 2/2             | 832    |
+| 14,15 | Mixed_5b, 5c          | 832, 1024 |
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.temporal_graph import TemporalGraphAug, stage_seed
+from .layers import BasicConv3d, InceptionBlock, MaxPool3d, SepConv3d
+
+_MIXED_SPECS = {
+    5: (64, (96, 128), (16, 32), 32),
+    6: (128, (128, 192), (32, 96), 64),
+    8: (192, (96, 208), (16, 48), 64),
+    9: (160, (112, 224), (24, 64), 64),
+    10: (128, (128, 256), (24, 64), 64),
+    11: (112, (144, 288), (32, 64), 64),
+    12: (256, (160, 320), (32, 128), 128),
+    14: (256, (160, 320), (32, 128), 128),
+    15: (384, (192, 384), (48, 128), 128),
+}
+
+S3D_FEATURE_DIM = 1024
+
+
+def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, C, T, H, W) view in channels_last_3d memory."""
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def to_bthwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, H, W) -> (B, T, H, W, C); free for channels_last_3d."""
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def run_stages(base: nn.Sequential, x: torch.Tensor, aug_points,
+               seed: int) -> torch.Tensor:
+    """Run a backbone's stage Sequential on an NCDHW tensor; aug-wrapped
+    stages run their graph block on the (B, T, H, W, C) view first."""
+    for idx, stage in enumerate(base):
+        if idx in aug_points:
+            graph, stage = stage[0], stage[1]
+            x = to_ncdhw(graph(to_bthwc(x), seed=stage_seed(seed, idx)))
+        x = stage(x)
+    return x
+
+
+def head_pool(x: torch.Tensor) -> torch.Tensor:
+    """Reference head pooling: spatial mean, average of adjacent-frame
+    pairs, temporal mean -- endpoint frames get half weight when T' > 2."""
+    y = x.float().mean(dim=(3, 4)).transpose(1, 2)      # (B, T', C)
+    if y.shape[1] > 1:
+        y = (y[:, :-1] + y[:, 1:]) * 0.5
+    return y.mean(dim=1)
+
+
+class S3D(nn.Module):
+    """S3D encoder: (B, T, H, W, 3) clips -> (B, 1024) fp32 features."""
+
+    def __init__(self, aug_points: Tuple[int, ...] = (),
+                 graph_cfg: Optional[Dict[str, Any]] = None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        kw = dict(dtype=dtype)
+        stages = [
+            SepConv3d(3, 64, 7, 2, 3, **kw),
+            MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+            BasicConv3d(64, 64, 1, **kw),
+            SepConv3d(64, 192, 3, 1, 1, **kw),
+            MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+        ]
+        cin = 192
+        cins = [3, 64, 64, 64, 192]
+        for idx in range(5, 16):
+            cins.append(cin)
+            if idx == 7:
+                stages.append(MaxPool3d(3, 2, 1))
+            elif idx == 13:
+                stages.append(MaxPool3d(2, 2, 0))
+            else:
+                spec = _MIXED_SPECS[idx]
+                stages.append(InceptionBlock(cin, *spec, **kw))
+                cin = InceptionBlock.out_channels(*spec)
+        self.aug_points = tuple(int(i) for i in aug_points)
+        for idx in self.aug_points:
+            graph = TemporalGraphAug(cins[idx], dtype=dtype, **(graph_cfg or {}))
+            stages[idx] = nn.Sequential(graph, stages[idx])
+        self.base = nn.Sequential(*stages)
+        self.dtype = dtype
+
+    @property
+    def feature_dim(self) -> int:
+        return S3D_FEATURE_DIM
+
+    def forward(self, x: torch.Tensor, graph_seed: int = 0) -> torch.Tensor:
+        x = to_ncdhw(x).to(self.dtype)
+        x = run_stages(self.base, x, self.aug_points, graph_seed)
+        return head_pool(x)

@@ -1,0 +1,192 @@
+"""Temporal-graph adjacency: similarity, row softmax, hop reweighting and
+the relaxed-Bernoulli draw in one kernel.
+
+Counterpart of ``video_graph_ssl_tpu/ops/pallas/graph_kernel.py``::
+
+    sim = q k^T          (per clip, T x T, T <= 32, contracted over D)
+    S   = softmax(sim)   (optionally band-masked: |i - j| < nei_size)
+    p   = S * theta
+    adj = sigmoid((logit(clip(p)) + logit(u)) / tau)   if sample, else p
+
+On a CUDA tensor :func:`graph_adjacency` launches the hand-written kernel
+in ``csrc/graph_adjacency.cu``; on a CPU tensor it runs
+:func:`graph_adjacency_plain`, the plain PyTorch version (autograd through
+torch ops) that the tests and ``chip_smoke.py`` hold the kernel to.
+
+The noise ``u`` is either passed in (tests inject a draw) or drawn from
+``seed``: in the kernel by Philox4x32-10 keyed by the seed with counter
+(element, clip), in the plain version by a ``torch.Generator`` seeded with
+it.  The two draws share a distribution, not bits.
+
+The backward (:func:`_adjacency_bwd`) is the closed form of the JAX
+package's custom VJP, in torch ops on the small (B, T, T) tensors; dq and dk
+are ``torch.bmm``.  ``u`` is a constant of the draw, as in
+``RelaxedBernoulli.rsample``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from . import _build
+from .matmul import bmm_f32
+
+EPS = 1e-6
+MAX_T = 32
+
+# Kernel launches since the last reset (one per forward).
+launches = 0
+
+
+def draw_uniform(shape, seed: int, device) -> torch.Tensor:
+    """U(EPS, 1 - EPS) noise of the plain version, from a seeded generator."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed) & 0x7FFF_FFFF_FFFF_FFFF)
+    u = torch.rand(shape, generator=g, device=device, dtype=torch.float32)
+    return u * (1.0 - 2.0 * EPS) + EPS
+
+
+def _band_mask(sim: torch.Tensor, nei_size: int) -> torch.Tensor:
+    t = sim.shape[-1]
+    if not 0 < nei_size < t:
+        return sim
+    idx = torch.arange(t, device=sim.device)
+    band = (idx[:, None] - idx[None, :]).abs() < nei_size
+    return sim.masked_fill(~band, float("-inf"))
+
+
+def relaxed_bernoulli(p: torch.Tensor, u: torch.Tensor, temperature: float,
+                      eps: float = EPS) -> torch.Tensor:
+    """``sigmoid((logit(clip(p, eps, 1 - eps)) + logit(u)) / temperature)``."""
+    pc = p.clamp(eps, 1.0 - eps)
+    logits = (torch.log(pc) - torch.log1p(-pc)
+              + torch.log(u) - torch.log1p(-u))
+    return torch.sigmoid(logits / temperature)
+
+
+def _adjacency_fwd_plain(q, k, theta, u, seed, temperature, sample, nei_size
+                         ) -> Tuple[torch.Tensor, ...]:
+    """(adj, S, p) in fp32, the same outputs as the kernel.  The similarity
+    is summed in at least fp32 and rounded to fp32 (the JAX einsum's
+    ``preferred_element_type``)."""
+    sim = bmm_f32(q, k.transpose(1, 2))
+    s = torch.softmax(_band_mask(sim, nei_size), dim=-1)
+    p = s * theta.float()[None]
+    if not sample:
+        return p, s, p
+    if u is None:
+        u = draw_uniform(p.shape, seed, p.device)
+    return relaxed_bernoulli(p, u, temperature), s, p
+
+
+def graph_adjacency_plain(q: torch.Tensor, k: torch.Tensor,
+                          theta: torch.Tensor, seed: int = 0,
+                          temperature: float = 1.0, sample: bool = True,
+                          u: Optional[torch.Tensor] = None,
+                          nei_size: int = 0) -> torch.Tensor:
+    """Plain PyTorch version; gradients by autograd through torch ops."""
+    return _adjacency_fwd_plain(q, k, theta, u, seed, temperature, sample,
+                                nei_size)[0]
+
+
+def _check(q, k, theta, u) -> None:
+    if q.dim() != 3 or q.shape != k.shape:
+        raise ValueError(f"graph_adjacency: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} must both be (B, T, D)")
+    b, t, _ = q.shape
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"graph_adjacency: T={t} outside [1, {MAX_T}]")
+    if q.dtype != k.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"graph_adjacency: q/k dtypes {q.dtype}/{k.dtype} "
+                        "(want one of fp32, bf16)")
+    if tuple(theta.shape) != (t, t):
+        raise ValueError(f"graph_adjacency: theta {tuple(theta.shape)} != ({t}, {t})")
+    tensors = [q, k, theta] + ([u] if u is not None else [])
+    if not all(x.is_cuda and x.device == q.device for x in tensors):
+        raise ValueError("graph_adjacency: all tensors must be on one CUDA device")
+    if u is not None and tuple(u.shape) != (b, t, t):
+        raise ValueError(f"graph_adjacency: u {tuple(u.shape)} != ({b}, {t}, {t})")
+
+
+def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
+                         u_out: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """One kernel launch -> (adj, S, p), fp32.  ``u_out`` (B,T,T fp32), when
+    given, receives the noise the kernel drew."""
+    global launches
+    _check(q, k, theta, u)
+    q, k = q.contiguous(), k.contiguous()
+    theta = theta.float().contiguous()
+    u = u.float().contiguous() if u is not None else None
+    b, t, d = q.shape
+    adj = torch.empty((b, t, t), device=q.device, dtype=torch.float32)
+    s = torch.empty_like(adj)
+    p = torch.empty_like(adj)
+    if u_out is not None and (u_out.shape != adj.shape or u_out.dtype != torch.float32
+                              or not u_out.is_contiguous() or u_out.device != q.device):
+        raise ValueError("graph_adjacency: u_out must be a contiguous fp32 "
+                         f"(B, T, T) tensor on {q.device}")
+    lib = _build.library()
+    code = lib.vgs_graph_adjacency(
+        q.data_ptr(), k.data_ptr(), theta.data_ptr(),
+        u.data_ptr() if u is not None else None,
+        adj.data_ptr(), s.data_ptr(), p.data_ptr(),
+        u_out.data_ptr() if u_out is not None else None,
+        b, t, d, int(q.dtype == torch.bfloat16),
+        int(seed) & 0xFFFF_FFFF_FFFF_FFFF, float(temperature), int(sample),
+        int(nei_size), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "vgs_graph_adjacency")
+    launches += 1
+    return adj, s, p
+
+
+def _adjacency_bwd(g, q, k, theta, s, p, adj, temperature, sample):
+    """Closed-form VJP (the JAX package's ``_graph_adjacency_bwd``)."""
+    g = g.float()
+    if sample:
+        pc = p.clamp(EPS, 1.0 - EPS)
+        dp = g * adj * (1.0 - adj) / temperature / (pc * (1.0 - pc))
+        # zero gradient where p was clipped (saturated sample)
+        dp = torch.where((p > EPS) & (p < 1.0 - EPS), dp, torch.zeros_like(dp))
+    else:
+        dp = g
+    ds = dp * theta.float()[None]
+    dsim = s * (ds - (ds * s).sum(dim=-1, keepdim=True))
+    dq = torch.bmm(dsim, k.float())
+    dk = torch.bmm(dsim.transpose(1, 2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype)
+
+
+class GraphAdjacencyFn(torch.autograd.Function):
+    """Forward through ``fwd`` (the kernel, or the plain forward in tests of
+    the closed-form backward), backward in closed form."""
+
+    @staticmethod
+    def forward(ctx, fwd: Callable, q, k, theta, u, seed, temperature,
+                sample, nei_size):
+        adj, s, p = fwd(q, k, theta, u, seed, temperature, sample, nei_size)
+        ctx.save_for_backward(q, k, theta, s, p, adj)
+        ctx.temperature, ctx.sample = temperature, sample
+        return adj
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, theta, s, p, adj = ctx.saved_tensors
+        dq, dk = _adjacency_bwd(g, q, k, theta, s, p, adj, ctx.temperature,
+                                ctx.sample)
+        return None, dq, dk, None, None, None, None, None, None
+
+
+def graph_adjacency(q: torch.Tensor, k: torch.Tensor, theta: torch.Tensor,
+                    seed: int = 0, temperature: float = 1.0,
+                    sample: bool = True, u: Optional[torch.Tensor] = None,
+                    nei_size: int = 0) -> torch.Tensor:
+    """Sampled adjacency (B,T,T) fp32 from q, k (B,T,D); the CUDA kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu" and k.device.type == "cpu":
+        return graph_adjacency_plain(q, k, theta, seed, temperature, sample,
+                                     u, nei_size)
+    return GraphAdjacencyFn.apply(adjacency_fwd_kernel, q, k, theta, u, seed,
+                                  temperature, sample, nei_size)

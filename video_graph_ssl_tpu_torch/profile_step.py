@@ -1,0 +1,175 @@
+"""Where the pretrain step's time goes on the card.
+
+    python -m video_graph_ssl_tpu_torch.profile_step \\
+        --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
+        DATASET.SOURCE synthetic
+
+Builds the trainer, runs ``--warmup`` steps, times ``--steps`` steps, then
+traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities)
+and prints: the step time (host clock around synchronised steps, untraced
+and traced), the device-busy share (union of kernel intervals over wall
+time), device time by kernel class and by phase of the step, and the top
+kernels and aten ops by device time.  Needs a CUDA device; it never
+measures on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import time
+from collections import defaultdict
+
+import torch
+
+from .data.synthetic import iterate_batches
+from .ops import gcn_propagate as gp
+from .ops import graph_kernel as gk
+from .engine.pretrain import PHASES
+from .train_video_contrast_dis import Trainer, load_config
+
+# kernel-name pattern -> class, first match wins
+CLASSES = (
+    ("K1 graph_adjacency", r"adjacency_kernel"),
+    ("K2 gcn_propagate", r"propagate_kernel"),
+    ("batch norm", r"batch_norm|batchnorm|bn_fw|bn_bw|bn_"),
+    ("conv (cuDNN/cutlass)", r"conv|cudnn|xmma|implicit|dgrad|wgrad|fprop|sm90_|cutlass|nhwc"),
+    ("gemm", r"gemm|cublas|matmul"),
+    ("max pool", r"max_pool|maxpool|pool"),
+    ("reduce", r"reduce"),
+    ("copy / layout", r"copy|transpose|permute|cat|fill|index"),
+    ("elementwise", r"elementwise|vectorized|unrolled"),
+)
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    for label, pat in CLASSES:
+        if re.search(pat, low):
+            return label
+    return "other"
+
+
+def busy_ms(intervals) -> float:
+    """Length of the union of [start, end) intervals, in ms (us inputs)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def _self_device_us(avg) -> float:
+    v = getattr(avg, "self_device_time_total", None)
+    return avg.self_cuda_time_total if v is None else v
+
+
+def _device_us(event) -> float:
+    v = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if v is None else v
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config_file", default="configs/visual_moco.yaml")
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--top_ops", type=int, default=25,
+                    help="aten ops (with input shapes) by self device time")
+    ap.add_argument("opts", nargs="*", help="config overrides: KEY VALUE ...")
+    args = ap.parse_intermixed_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA device")
+
+    cfg = load_config(args.config_file, args.opts)
+    trainer = Trainer(cfg, device="cuda")
+    bsz = trainer.batch_size
+    n = args.warmup + 2 * args.steps
+    batches = [trainer.to_device(b) for b, _ in
+               zip(iterate_batches(trainer.dataset, bsz, 0, 1), range(n))]
+    batches = (batches * n)[:n]   # an epoch may hold fewer batches than n
+    lr = trainer.lr_fn(0)
+    for clips in batches[:args.warmup]:
+        trainer.train_step(clips, lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for clips in batches[args.warmup:args.warmup + args.steps]:
+        trainer.train_step(clips, lr)
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    gk.launches = gp.launches = 0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for clips in batches[args.warmup + args.steps:]:
+            trainer.train_step(clips, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = wall_ms / args.steps
+
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the record_function spans also appear as device annotation ranges
+    kernels = [e for e in device_events if e.name not in PHASES]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity; time "
+                           "with CUDA events instead")
+    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+    dev_total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy = busy_ms(intervals)
+    span = (max(e for _, e in intervals) - min(s for s, _ in intervals)) / 1e3
+    by_name, by_class, count = defaultdict(float), defaultdict(float), defaultdict(int)
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] += us
+        by_class[classify(e.name)] += us
+        count[e.name] += 1
+
+    print(f"device: {torch.cuda.get_device_name(0)}; batch {bsz}; "
+          f"{args.steps} traced steps after {args.warmup} warm-up")
+    print(f"step: {plain_step_ms:.1f} ms untraced ({bsz / plain_step_ms * 1e3:.1f} "
+          f"clips/s), {step_ms:.1f} ms traced (host clock, {args.steps} steps each); "
+          f"kernels per step: {len(kernels) / args.steps:.0f}; K1/K2 launches per "
+          f"step: {gk.launches / args.steps:.0f}/{gp.launches / args.steps:.0f}")
+    print(f"traced: device busy {busy:.1f} ms of a {span:.1f} ms kernel span and "
+          f"{wall_ms:.1f} ms wall, idle share {1 - busy / wall_ms:.3f} (tracing "
+          f"slows the host); untraced estimate {1 - busy / args.steps / plain_step_ms:.3f} "
+          f"(1 - busy per step / untraced step)")
+    print(f"device time by class (sum over kernels, {dev_total / args.steps:.1f} ms/step):")
+    for label, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {label:<24s} {us / 1e3 / args.steps:8.2f} ms/step  "
+              f"{us / 1e3 / dev_total:6.1%}")
+    print("device time by phase of the step (kernels launched inside each "
+          "record_function span; the backward runs on the autograd thread "
+          "and falls in the rest):")
+    phase_ms = defaultdict(float)
+    for e in prof.events():
+        if e.name in PHASES and e.device_type == torch.autograd.DeviceType.CPU:
+            phase_ms[e.name] += _device_us(e) / 1e3
+    for name in PHASES:
+        if name != "backward":
+            print(f"  {name:<12s} {phase_ms[name] / args.steps:8.2f} ms/step")
+    rest = (dev_total - sum(phase_ms.values())) / args.steps
+    print(f"  {'backward and the rest':<12s} {rest:8.2f} ms/step")
+    print(f"top {args.top} kernels by device time:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
+        print(f"  {us / 1e3 / args.steps:8.2f} ms/step  x{count[name] // args.steps:<4d} "
+              f"{name[:110]}")
+    print(f"top {args.top_ops} aten ops by self device time (input shapes):")
+    ops = [a for a in prof.key_averages(group_by_input_shape=True)
+           if a.key.startswith("aten::") and _self_device_us(a) > 0]
+    for a in sorted(ops, key=lambda a: -_self_device_us(a))[:args.top_ops]:
+        print(f"  {_self_device_us(a) / 1e3 / args.steps:8.2f} ms/step  "
+              f"x{a.count // args.steps:<4d} {a.key:<36s} {str(a.input_shapes)[:120]}")
+
+
+if __name__ == "__main__":
+    main()
