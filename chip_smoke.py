@@ -7,29 +7,46 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. device and set-up: needs ``torch.cuda.is_available()``; prints the
    card's name and power limit, the torch and CUDA versions; builds the
-   kernels from ``video_graph_ssl_tpu_torch/csrc`` with nvcc (sm_90a).
+   kernels from ``video_graph_ssl_tpu_torch/csrc`` with nvcc (sm_90a), one
+   nvcc per source, in parallel.
 2. K1 (graph adjacency) against its plain PyTorch version at the three S3D
    aug-point shapes of the bs-128 16x112x112 step, fp32 and bf16 inputs:
    unsampled, sampled with given noise, the in-kernel Philox draw, and the
    closed-form backward against autograd of the plain version.
 3. K2 (GCN propagation) likewise: forward, transpose mode, autograd dx and
-   dadj; then kernel and plain times (CUDA events, median of 20).
-4. the slice: one small S3D+graph step on the card against the same step on
-   the CPU (plain versions), then the port's trainer at full S3D width
-   (configs/visual_moco.yaml, graph on, bs 128, 16x112x112, NCE_K 16384,
-   bf16 compute) for 2 warm-up and 3 timed steps, with the kernels' launch
-   counts read around exactly those steps.
+   dadj; then kernel, plain and ``torch.bmm`` times.
+4. K3/K4 (max-pool backward) at the shape of every pool of one S3D pass,
+   fp32 and bf16: against the plain version (exact), against torch's own
+   max_pool3d backward (random cotangent; ones cotangent on inputs that
+   tie), then kernel, plain and torch times.
+5. K5 (SepConv pair backward) against its plain version on all seven
+   outputs at five Mixed-block shapes and one small ragged shape, fp32 and
+   bf16; then kernel and plain times at all 18 fused SepConvs of a pass.
+6. the slice: a small S3D+graph step on the card against the same step on
+   the CPU; the port's trainer at full S3D width (configs/visual_moco.yaml,
+   graph on, bs 128, 16x112x112, NCE_K 16384, bf16 compute) for 2 warm-up
+   and 3 timed steps, with the kernels' launch counts read around exactly
+   those steps; then the same with ``TPU.SEPCONV_FUSED True`` (small step
+   card vs CPU, then the full-width trainer).
+
+Times are CUDA events, the median of 20 launches (10 for K5).  ``bound``
+is the least time the card could take: the larger of the bytes the
+function must move over 3.35 TB/s and its operations over the peak rate
+of its type (989 TFLOP/s bf16, 67 TFLOP/s fp32), for the published H100
+SXM at 700 W.
 
 The line before the last is the per-kernel JSON record: ``launches`` is
-the kernel's launch count over the 5 trainer steps, ``max_abs_err`` the
-largest kernel-vs-plain difference of its forward checks, ``ms`` and
-``plain_ms`` the kernel's and its plain version's forward times summed over
-the three aug-point shapes in bf16.  The last line is
+the kernel's wrapper-call count over the 5 steps of the trainer run that
+uses it, ``max_abs_err`` the largest kernel-vs-plain difference of its
+checks, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` the
+kernel's, its plain version's, its bound's and the library call's times
+summed over the shapes of one encoder pass in bf16.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -54,6 +71,55 @@ TOL = {"fp32": 1e-5, "bf16": 8e-3}
 TOL_SAMPLED = 1e-4   # logit(p) amplifies p's rounding by 1/(p(1-p))
 TOL_GRAD = {"fp32": 1e-4, "bf16": 1e-2}   # relative to max|grad|
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+CL = torch.channels_last_3d
+
+# H100 SXM published peaks at 700 W
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+
+# (name, kernel, x (B, T, H, W, C), window, stride, padding) of every max
+# pool of one S3D pass at bs 128, 16x112x112
+POOLS = [("pool_1", "K4", (128, 8, 56, 56, 64), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+         ("pool_4", "K4", (128, 8, 28, 28, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+         ("pool_7", "K4", (128, 8, 14, 14, 480), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+         ("pool_13", "K4", (128, 4, 7, 7, 832), (2, 2, 2), (2, 2, 2), (0, 0, 0))] + [
+    (f"mixed_{blk} pool", "K3", shape, (3, 3, 3), (1, 1, 1), (1, 1, 1))
+    for blk, shape in (("3b", (128, 8, 14, 14, 192)), ("3c", (128, 8, 14, 14, 256)),
+                       ("4b", (128, 4, 7, 7, 480)), ("4c", (128, 4, 7, 7, 512)),
+                       ("4d", (128, 4, 7, 7, 512)), ("4e", (128, 4, 7, 7, 512)),
+                       ("4f", (128, 4, 7, 7, 528)), ("5b", (128, 2, 3, 3, 832)),
+                       ("5c", (128, 2, 3, 3, 832)))]
+# (name, (B, T, H, W), C, F) of the 18 fused SepConvs of one S3D pass
+_MIXED = {"3b": ((128, 8, 14, 14), (96, 128), (16, 32)),
+          "3c": ((128, 8, 14, 14), (128, 192), (32, 96)),
+          "4b": ((128, 4, 7, 7), (96, 208), (16, 48)),
+          "4c": ((128, 4, 7, 7), (112, 224), (24, 64)),
+          "4d": ((128, 4, 7, 7), (128, 256), (24, 64)),
+          "4e": ((128, 4, 7, 7), (144, 288), (32, 64)),
+          "4f": ((128, 4, 7, 7), (160, 320), (32, 128)),
+          "5b": ((128, 2, 3, 3), (160, 320), (32, 128)),
+          "5c": ((128, 2, 3, 3), (192, 384), (48, 128))}
+SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
+            for br, (c, f) in zip(("b1", "b2"), brs)]
+# K5 checks: four branch-1 shapes, one narrow branch-2 shape, and a small
+# ragged one (64-row tiles straddle clip edges; C, F not tile multiples)
+K5_CHECKS = ["3b b1", "3c b1", "4f b1", "5c b1", "4c b2"]
+K5_SMALL = ("small", (2, 4, 6, 6), 5, 7)
+# K5 tolerances, per output.  The function is discontinuous: dz = [z > 0] g
+# at both ReLUs.  The kernel sums in another order than cuDNN, so a
+# pre-activation within rounding of 0 can land on the other side of its
+# ReLU (fp32: a few of 25M elements; bf16, whose y1/y2 rounding step is
+# 2^-8: many more).  One flip moves its channel's BN sums by about
+# 1/sqrt(elements per channel) relative, and through the BN mean terms every
+# element of dy, dx and dW a little, so at bs 128 two fp32 summation orders
+# of this function differ by far more than fp32 rounding.  Each output is
+# held to a rel-L2 bound, and the small shape, where a flip is improbable,
+# to the fp32 summation-order bound.
+TOL_K5 = {"fp32": 1e-2, "bf16": 2e-2}
+TOL_K5_SMALL = 1e-4
+# torch's own pool backward: fp32 sums in another order; bf16 accumulates in
+# bf16 (atomics), several bf16 steps off the kernel's fp32 sums
+TOL_POOL_LIB = {"fp32": 1e-5, "bf16": 5e-2}
 
 
 def gpu_line() -> str:
@@ -79,6 +145,22 @@ def check(name: str, err: float, tol: float) -> None:
         raise RuntimeError(f"{name}: error {err:.3e} above {tol:.0e}")
 
 
+def bound(nbytes: float, flops: float, dn: str):
+    """(ms, "bytes" or "operations"): the larger of the two floors."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / PEAK_FLOPS[dn] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _bound_by(bys) -> str:
+    return "operations" if "operations" in bys else "bytes"
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     """Median time of ``fn`` in ms over ``iters`` launches (CUDA events)."""
     for _ in range(3):
@@ -102,7 +184,8 @@ def phase_k1(dev) -> dict:
     from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
 
     print("phase 2: K1 graph adjacency vs plain")
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
+    bys = set()
     g = torch.Generator(device=dev).manual_seed(0)
     timings = []
     for b, t, d in K1_SHAPES:
@@ -152,10 +235,15 @@ def phase_k1(dev) -> dict:
                 q, k, theta, None, 7, 1.0, True, 0))
             tp = cuda_ms(lambda: gk._adjacency_fwd_plain(
                 q, k, theta, None, 7, 1.0, True, 0))
-            timings.append((tag, tk, tp))
+            # reads q, k, theta; writes adj, S, p (fp32); q.k^T dominates
+            bm, by = bound(2 * q.numel() * q.element_size() + 4 * t * t + 3 * 4 * b * t * t,
+                           2 * b * t * t * d, dn)
+            timings.append((tag, tk, tp, bm, by))
             if dn == "bf16":
+                bys.add(by)
                 ms += tk
                 plain_ms += tp
+                bound_ms += bm
     # Philox moments on 4096 x 32 x 32 draws: std of the mean ~1.4e-4
     b, t, d = 4096, 32, 8
     q = torch.randn(b, t, d, device=dev, generator=g)
@@ -176,19 +264,22 @@ def phase_k1(dev) -> dict:
     if not (0.99e-6 <= u_min and u_max <= 1.0 - 0.99e-6):
         raise RuntimeError(f"K1 Philox u range [{u_min!r}, {u_max!r}] "
                            "outside [1e-6, 1 - 1e-6]")
-    for tag, tk, tp in timings:
-        print(f"  K1 {tag} sampled fwd: kernel {tk:.4f} ms  plain {tp:.4f} ms")
+    for tag, tk, tp, bm, by in timings:
+        print(f"  K1 {tag} sampled fwd: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
+              f"bound {bm:.4f} ms ({by})  library: no single call")
     return {"name": "graph_adjacency", "route": "cuda",
             "source": "video_graph_ssl_tpu_torch/csrc/graph_adjacency.cu",
             "replaces": "video_graph_ssl_tpu/ops/pallas/graph_kernel.py:75",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": _bound_by(bys), "library_ms": None}
 
 
 def phase_k2(dev) -> dict:
     from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
 
     print("phase 3: K2 GCN propagation vs plain")
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, bound_ms, lib_ms = 0.0, 0.0, 0.0, 0.0, 0.0
+    bys = set()
     g = torch.Generator(device=dev).manual_seed(1)
     timings = []
     for shape in K2_SHAPES:
@@ -215,10 +306,17 @@ def phase_k2(dev) -> dict:
             check(f"K2 {tag} dadj (rel)", err, TOL_GRAD[dn])
             tk = cuda_ms(lambda: gp._launch(adj, x, transpose=False))
             tp = cuda_ms(lambda: gp.propagate_plain(adj, x))
-            timings.append((tag, tk, tp))
+            tl = cuda_ms(lambda: torch.bmm(adj, x.view(b, t, -1)))
+            # reads x and adj, writes out; 2 T FLOPs per output element
+            bm, by = bound((2 * x.numel() + adj.numel()) * x.element_size(),
+                           2 * t * x.numel(), dn)
+            timings.append((tag, tk, tp, tl, bm, by))
             if dn == "bf16":
+                bys.add(by)
                 ms += tk
                 plain_ms += tp
+                lib_ms += tl
+                bound_ms += bm
     # edge shapes: T = 32 (dynamic shared memory above 48 KB), and an F that
     # is not a multiple of the 16-byte vector (scalar path)
     for shape in ((4, 32, 4, 4, 64), (2, 3, 3, 5, 7)):
@@ -229,29 +327,178 @@ def phase_k2(dev) -> dict:
                 check(f"K2 {shape} {dn} transpose={tr}",
                       rel_err(gp._launch(adj, x, transpose=tr),
                               gp.propagate_plain(adj, x, transpose=tr)), TOL[dn])
-    for tag, tk, tp in timings:
-        print(f"  K2 {tag} fwd: kernel {tk:.4f} ms  plain {tp:.4f} ms")
+    for tag, tk, tp, tl, bm, by in timings:
+        print(f"  K2 {tag} fwd: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
+              f"torch.bmm {tl:.4f} ms  bound {bm:.4f} ms ({by})")
     return {"name": "gcn_propagate", "route": "cuda",
             "source": "video_graph_ssl_tpu_torch/csrc/gcn_propagate.cu",
             "replaces": "video_graph_ssl_tpu/ops/pallas/gcn_propagate.py:74",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": _bound_by(bys), "library_ms": lib_ms}
 
+
+
+def _ncdhw(shape_bthwc, dev, dt, g, fill=None) -> torch.Tensor:
+    """A (B, C, T, H, W) channels_last_3d tensor for a (B, T, H, W, C) shape."""
+    b, t, h, w, c = shape_bthwc
+    x = (torch.randn((b, c, t, h, w), device=dev, generator=g) if fill is None
+         else fill((b, c, t, h, w)))
+    return x.to(dt).contiguous(memory_format=CL)
+
+
+def phase_pools(dev) -> list:
+    from video_graph_ssl_tpu_torch.ops import maxpool as mp
+    import torch.nn.functional as F
+
+    print("phase 4: K3/K4 max-pool backward vs plain and torch")
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = {"K3": 0.0, "K4": 0.0}
+    sums = {kn: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for kn in worst}
+    rows = []
+    for name, kn, shape, k, s, p in POOLS:
+        for dn, dt in DTYPES.items():
+            x = _ncdhw(shape, dev, dt, g)
+            y, idx = F.max_pool3d(x, k, s, p, return_indices=True)
+            y = y.contiguous(memory_format=CL)
+            dy = torch.randn(y.shape, device=dev, generator=g).to(dt).contiguous(
+                memory_format=CL)
+            tag = f"{kn} {name} {shape} {dn}"
+            dx_k = mp._launch(x, y, dy, k, s, p)
+            dx_p = mp.max_pool3d_bwd_plain(x, y, dy, k, s, p)
+            check(f"{tag} vs plain (max abs)", max_abs(dx_k, dx_p), 0.0)
+            worst[kn] = max(worst[kn], max_abs(dx_k, dx_p))
+            dx_l = torch.ops.aten.max_pool3d_with_indices_backward(
+                dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx)
+            check(f"{tag} vs torch", rel_err(dx_k, dx_l), TOL_POOL_LIB[dn])
+            if dn == "bf16":   # few levels: most windows tie
+                xt = _ncdhw(shape, dev, dt, g, fill=lambda sh: torch.randint(
+                    0, 4, sh, device=dev, generator=g).float())
+                yt, it = F.max_pool3d(xt, k, s, p, return_indices=True)
+                yt = yt.contiguous(memory_format=CL)
+                ones = torch.ones_like(yt)
+                tied = mp._launch(xt, yt, ones, k, s, p)
+                ref = torch.ops.aten.max_pool3d_with_indices_backward(
+                    ones, xt, list(k), list(s), list(p), [1, 1, 1], False, it)
+                check(f"{tag} ties, ones cotangent vs torch (max abs)",
+                      max_abs(tied, ref), 0.0)
+            tk = cuda_ms(lambda: mp._launch(x, y, dy, k, s, p))
+            tp = cuda_ms(lambda: mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
+            tl = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx))
+            # reads x, y, dy; writes dx; one byte of tap scratch per output
+            # element written and read
+            bm, by = bound(2 * (x.numel() + y.numel()) * x.element_size()
+                           + 2 * y.numel(), 0, dn)
+            rows.append((tag, tk, tp, tl, bm, by))
+            if dn == "bf16":
+                for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                                  (tk, tp, tl, bm)):
+                    sums[kn][key] += v
+            del x, y, idx, dy, dx_k, dx_p, dx_l
+    for tag, tk, tp, tl, bm, by in rows:
+        print(f"  {tag}: kernel {tk:.4f} ms  plain {tp:.4f} ms  torch {tl:.4f} ms  "
+              f"bound {bm:.4f} ms ({by})")
+    src = "video_graph_ssl_tpu_torch/csrc/maxpool_bwd.cu"
+    return [{"name": "maxpool_bwd_s1", "route": "cuda", "source": src,
+             "replaces": "video_graph_ssl_tpu/ops/pallas/maxpool_kernel.py:130",
+             "max_abs_err": worst["K3"], "bound_by": "bytes", **sums["K3"]},
+            {"name": "maxpool_bwd_strided", "route": "cuda", "source": src,
+             "replaces": "video_graph_ssl_tpu/ops/pallas/maxpool_kernel.py:259",
+             "max_abs_err": worst["K4"], "bound_by": "bytes", **sums["K4"]}]
+
+
+def _sep_inputs(bthwc, dev, dt, g):
+    """x, the pair's parameters, its forward statistics and a cotangent:
+    the argument tuple of sepconv_bwd / bwd_reference."""
+    from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
+
+    b, t, h, w, c, f = bthwc
+    x = _ncdhw((b, t, h, w, c), dev, dt, g)
+    ws = torch.randn(f, c, 1, 3, 3, device=dev, generator=g) / (9 * c) ** 0.5
+    wt = torch.randn(f, f, 3, 1, 1, device=dev, generator=g) / (3 * f) ** 0.5
+    bn = [1 + 0.1 * torch.randn(f, device=dev, generator=g) if i % 2 == 0
+          else 0.1 * torch.randn(f, device=dev, generator=g) for i in range(4)]
+    out, stats = fs.sepconv_fwd_core(x, ws, wt, *bn, dt)
+    gy = torch.randn(out.shape, device=dev, generator=g).to(dt).contiguous(
+        memory_format=CL)
+    return (x, ws, wt, *bn, *stats, gy, dt)
+
+
+def _sep_bound(bthwc, dn):
+    """Six conv-sized products (y1, y2, da, dx, dWt, dWs) against reading x
+    and g and writing dx."""
+    b, t, h, w, c, f = bthwc
+    rows = b * t * h * w
+    flops = 3 * 2 * rows * 9 * c * f + 3 * 2 * rows * 3 * f * f
+    isz = 2 if dn == "bf16" else 4
+    nbytes = rows * (2 * c + f) * isz + (9 * c * f + 3 * f * f) * (isz + 4)
+    return bound(nbytes, flops, dn)
+
+
+def phase_k5(dev) -> dict:
+    from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
+    from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
+
+    print("phase 5: K5 SepConv pair backward vs plain (cudnn.allow_tf32 False)")
+    g = torch.Generator(device=dev).manual_seed(3)
+    names = ["dx", "dWs", "dWt", "dg1", "db1", "dg2", "db2"]
+    by_name = {n: (bthw, c, f) for n, bthw, c, f in SEPCONVS + [K5_SMALL]}
+    worst = 0.0
+    for name in K5_CHECKS + [K5_SMALL[0]]:
+        bthw, c, f = by_name[name]
+        for dn, dt in DTYPES.items():
+            args = _sep_inputs((*bthw, c, f), dev, dt, g)
+            got = sb.sepconv_bwd(*args)
+            want = fs.bwd_reference(*args)
+            for n, a, r in zip(names, got, want):
+                tag = f"K5 {name} {bthw} {c}->{f} {dn} {n}"
+                worst = max(worst, max_abs(a, r))
+                mx = float((a.float() - r.float()).abs().max()
+                           / r.float().abs().max().clamp_min(1e-30))
+                print(f"  {tag}: max rel {mx:.3e}")
+                check(f"{tag} (rel-L2)", rel_l2(a, r), TOL_K5[dn])
+                if name == K5_SMALL[0] and dn == "fp32":
+                    check(f"{tag} (max rel)", mx, TOL_K5_SMALL)
+            del args, got, want
+    rows, sums, bys = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0), set()
+    for name, bthw, c, f in SEPCONVS:
+        args = _sep_inputs((*bthw, c, f), dev, torch.bfloat16, g)
+        tk = cuda_ms(lambda: sb.sepconv_bwd(*args), iters=10)
+        tp = cuda_ms(lambda: fs.bwd_reference(*args), iters=10)
+        bm, by = _sep_bound((*bthw, c, f), "bf16")
+        rows.append((name, bthw, c, f, tk, tp, bm, by))
+        for key, v in zip(("ms", "plain_ms", "bound_ms"), (tk, tp, bm)):
+            sums[key] += v
+        bys.add(by)
+        del args
+    for name, bthw, c, f, tk, tp, bm, by in rows:
+        print(f"  K5 {name} {bthw} {c}->{f} bf16: kernel {tk:.3f} ms  plain {tp:.3f} ms  "
+              f"bound {bm:.4f} ms ({by})  library: no single call")
+    print(f"  K5 all 18 SepConvs of a pass, bf16: kernel {sums['ms']:.2f} ms  "
+          f"plain {sums['plain_ms']:.2f} ms  bound {sums['bound_ms']:.3f} ms")
+    return {"name": "sepconv_bwd", "route": "cuda",
+            "source": "video_graph_ssl_tpu_torch/csrc/sepconv_bwd.cu",
+            "replaces": "video_graph_ssl_tpu/ops/pallas/sepconv_bwd.py:307 and "
+                        "video_graph_ssl_tpu/ops/pallas/sepconv_bwd_grid.py:314",
+            "max_abs_err": worst, "bound_by": _bound_by(bys), "library_ms": None,
+            **sums}
 
 # --------------------------------------------------------------------------- #
-def small_step_parity(dev) -> None:
+def small_step_parity(dev, fused: bool) -> None:
     """One MoCo step of a small S3D+graph model (graph blocks at 5, 9, 14;
-    fp32; sampler none) from one initial state and one batch: the card
-    (kernels) against the CPU (plain versions)."""
+    fp32; sampler none; TPU.SEPCONV_FUSED as given) from one initial state
+    and one batch: the card (kernels) against the CPU (plain versions)."""
     from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
     from video_graph_ssl_tpu_torch.engine.pretrain import make_moco_step
     from video_graph_ssl_tpu_torch.models.build import create_visual_model
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
 
-    print("phase 4a: small S3D+graph MoCo step (4x16x64x64, fp32), card vs CPU")
+    print(f"  small S3D+graph MoCo step (4x16x64x64, fp32, SEPCONV_FUSED {fused}), "
+          "card vs CPU")
     c = load_config(CONFIG, [
         "MODEL.AUG_FLAG", "True", "GRAPH.SAMPLER", "none",
         "TPU.COMPUTE_DTYPE", "float32", "CONTRAST.NCE_K", "64",
-        "CONTRAST.NCE_T", "1.0"])
+        "CONTRAST.NCE_T", "1.0", "TPU.SEPCONV_FUSED", str(fused)])
     clips = torch.randn(4, 2, 16, 64, 64, 3,
                         generator=torch.Generator().manual_seed(3))
     runs = {}
@@ -265,28 +512,50 @@ def small_step_parity(dev) -> None:
                            for p, q in zip(state.model.parameters(), p0)])
         runs[name] = (loss, state.contrast.queue.cpu(), delta)
     (lc, qc, dc), (lg, qg, dg) = runs["cpu"], runs["gpu"]
-    check("slice small: loss", abs(lc - lg) / max(1.0, abs(lc)), 1e-4)
+    tag = f"slice small (fused {fused})"
+    check(f"{tag}: loss", abs(lc - lg) / max(1.0, abs(lc)), 1e-4)
     # Train-mode BN over 4 clips amplifies rounding in the deep stages: the
     # keys of fp32 and fp64 runs on the CPU already differ by 8e-5.
-    check("slice small: queue (keys of the EMA pass)", rel_err(qg, qc), 1e-3)
+    check(f"{tag}: queue (keys of the EMA pass)", rel_err(qg, qc), 1e-3)
     # At init the features of all clips nearly coincide, so the gradient
     # through the L2 normalisation cancels: fp32 against fp64 on the CPU
     # already differs by 3e-2 (rel-L2 of the whole update).
-    check("slice small: parameter update (rel-L2)",
+    check(f"{tag}: parameter update (rel-L2)",
           float((dg - dc).norm() / dc.norm()), 1e-1)
 
 
-def phase_slice(dev, gpu: str) -> dict:
+def _counters():
     from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
     from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+    from video_graph_ssl_tpu_torch.ops import maxpool as mp
+    from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
+    return gk, gp, mp, sb
+
+
+def reset_counts() -> None:
+    gk, gp, mp, sb = _counters()
+    gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = 0
+    sb.launches = mp.dy_copies = sb.g_copies = 0
+
+
+def read_counts() -> dict:
+    gk, gp, mp, sb = _counters()
+    return {"graph_adjacency": gk.launches, "gcn_propagate": gp.launches,
+            "maxpool_bwd_s1": mp.launches_s1, "maxpool_bwd_strided": mp.launches_strided,
+            "sepconv_bwd": sb.launches}
+
+
+def run_trainer(dev, gpu: str, fused: bool) -> dict:
+    """5 trainer steps at full S3D width; returns the launch counts of
+    exactly those steps."""
     from video_graph_ssl_tpu_torch.data.synthetic import iterate_batches
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
-    small_step_parity(dev)
-
-    print("phase 4b: trainer at full S3D width, bs 128, 16x112x112")
+    _, _, mp, sb = _counters()
+    print(f"  trainer at full S3D width, bs 128, 16x112x112, SEPCONV_FUSED {fused}")
     c = load_config(CONFIG, ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic",
-                             "DATALOADER.BATCH_SIZE", "128"])
+                             "DATALOADER.BATCH_SIZE", "128",
+                             "TPU.SEPCONV_FUSED", str(fused)])
     if int(c.CONTRAST.NCE_K) != 16384 or c.TPU.COMPUTE_DTYPE != "bfloat16":
         raise RuntimeError("configs/visual_moco.yaml no longer gives NCE_K 16384 "
                            "with bf16 compute")
@@ -298,19 +567,38 @@ def phase_slice(dev, gpu: str) -> dict:
     lr = trainer.lr_fn(0)
     state = trainer.state
     bsz = 128
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gk.launches = gp.launches = 0
-    step_ms, losses, ptrs = [], [], []
-    for clips in batches:
-        ptr0 = state.contrast.ptr
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(clips, lr)
+    # record the shapes the kernels see, to hold them to the tables above
+    seen_pools, seen_seps = set(), set()
+    pool_launch, sep_launch = mp._launch, sb.sepconv_bwd
+
+    def pool_rec(x, y, dy, k, s, p):
+        b, cc, t, h, w = x.shape
+        seen_pools.add(((b, t, h, w, cc), tuple(k), tuple(s), tuple(p)))
+        return pool_launch(x, y, dy, k, s, p)
+
+    def sep_rec(x, ws, *rest):
+        b, cc, t, h, w = x.shape
+        seen_seps.add(((b, t, h, w), cc, ws.shape[0]))
+        return sep_launch(x, ws, *rest)
+
+    mp._launch, sb.sepconv_bwd = pool_rec, sep_rec
+    try:
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
-        ptrs.append((ptr0, state.contrast.ptr))
-    counts = {"graph_adjacency": gk.launches, "gcn_propagate": gp.launches}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step_ms, losses, ptrs = [], [], []
+        for clips in batches:
+            ptr0 = state.contrast.ptr
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(clips, lr)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            ptrs.append((ptr0, state.contrast.ptr))
+        counts = read_counts()
+        copies = (mp.dy_copies, sb.g_copies)
+    finally:
+        mp._launch, sb.sepconv_bwd = pool_launch, sep_launch
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for i, (ms, loss) in enumerate(zip(step_ms, losses)):
         print(f"  step {i} ({'warm-up' if i < 2 else 'timed'}): {ms:.1f} ms, loss {loss:.4f}")
@@ -326,14 +614,42 @@ def phase_slice(dev, gpu: str) -> dict:
         raise RuntimeError("EMA params equal the params after 5 steps")
     print(f"  EMA vs params max |diff| {diff:.3e}; queue ptr {state.contrast.ptr}")
     n = len(batches)
-    want = {"graph_adjacency": 6 * n, "gcn_propagate": 9 * n}
-    print(f"  kernel launches in the 5 steps: {counts} (want {want})")
+    # K3/K4/K5 run in the query pass's backward only (the key pass takes no
+    # gradient)
+    want = {"graph_adjacency": 6 * n, "gcn_propagate": 9 * n, "maxpool_bwd_s1": 9 * n,
+            "maxpool_bwd_strided": 4 * n, "sepconv_bwd": 18 * n if fused else 0}
+    print(f"  kernel calls in the 5 steps: {counts} (want {want})")
+    print(f"  cotangents copied to channels_last_3d in the 5 steps: pool dy "
+          f"{copies[0]}, SepConv g {copies[1]}")
     if counts != want:
-        raise RuntimeError(f"launch counts {counts} != {want}")
+        raise RuntimeError(f"kernel call counts {counts} != {want}")
+    want_pools = {(shape, k, s, p) for _, _, shape, k, s, p in POOLS}
+    if seen_pools != want_pools:
+        raise RuntimeError(f"pool shapes {sorted(seen_pools)} != {sorted(want_pools)}")
+    want_seps = {(bthw, c_, f) for _, bthw, c_, f in SEPCONVS} if fused else set()
+    if seen_seps != want_seps:
+        raise RuntimeError(f"SepConv shapes {sorted(seen_seps)} != {sorted(want_seps)}")
     timed = step_ms[2:]
     mean_ms = sum(timed) / len(timed)
-    print(f"slice: {mean_ms:.1f} ms/step, {bsz / mean_ms * 1e3:.1f} clips/s "
-          f"(mean of 3 timed steps, bs {bsz}, peak {peak:.1f} GiB) on {gpu}")
+    print(f"slice (SEPCONV_FUSED {fused}): {mean_ms:.1f} ms/step, "
+          f"{bsz / mean_ms * 1e3:.1f} clips/s (mean of 3 timed steps, bs {bsz}, "
+          f"peak {peak:.1f} GiB) on {gpu}")
+    del trainer, state, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_slice(dev, gpu: str) -> dict:
+    """The default GCA step, then the TPU.SEPCONV_FUSED step; each kernel's
+    count comes from the run of the path that uses it."""
+    print("phase 6a: the GCA step")
+    small_step_parity(dev, fused=False)
+    counts = run_trainer(dev, gpu, fused=False)
+    print("phase 6b: the GCA step with TPU.SEPCONV_FUSED True")
+    small_step_parity(dev, fused=True)
+    fused_counts = run_trainer(dev, gpu, fused=True)
+    counts["sepconv_bwd"] = fused_counts["sepconv_bwd"]
     return counts
 
 
@@ -355,11 +671,13 @@ def main() -> int:
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.last_build_seconds:.1f} s) -> {_build.library_path().name}")
 
-    kernels = [phase_k1(dev), phase_k2(dev)]
+    kernels = [phase_k1(dev), phase_k2(dev), *phase_pools(dev), phase_k5(dev)]
     counts = phase_slice(dev, gpu)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
         k["launches"] = counts[k["name"]]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,8 +22,11 @@ import torch
 
 from video_graph_ssl_tpu_torch import train_video_contrast_dis as train
 from video_graph_ssl_tpu_torch.ops import _build
+from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
 from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
 from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+from video_graph_ssl_tpu_torch.ops import maxpool as mp
+from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
 from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
 
 torch.set_num_threads(1)
@@ -40,6 +43,42 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _reset_counts():
+    gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = sb.launches = 0
+
+
+def _counts():
+    return (gk.launches, gp.launches, mp.launches_s1, mp.launches_strided, sb.launches)
+
+
+def _backward_inputs(device, dtype=torch.float32):
+    """x (B, C, T, H, W) channels_last_3d for a pool and a fused SepConv
+    pair, and the pair's parameters (ws, wt, g1, b1, g2, b2)."""
+    g = torch.Generator().manual_seed(1)
+    c, f = 8, 16
+    x = torch.randn(2, c, 4, 6, 6, generator=g)
+    params = (torch.randn(f, c, 1, 3, 3, generator=g) / 5,
+              torch.randn(f, f, 3, 1, 1, generator=g) / 5,
+              1 + 0.1 * torch.randn(f, generator=g), 0.1 * torch.randn(f, generator=g),
+              1 + 0.1 * torch.randn(f, generator=g), 0.1 * torch.randn(f, generator=g))
+    x = x.to(device, dtype).contiguous(memory_format=torch.channels_last_3d)
+    return x, [p.to(device) for p in params]
+
+
+def _pool_and_pair_backward(x, params, dtype):
+    """dx through a stride-1 pool into the fused pair, plus a strided pool
+    pair read out directly, under fixed random cotangents (a plain sum of a
+    BN output would cancel)."""
+    xa = x.clone().requires_grad_()
+    out, _ = fs.fused_sepconv_train(mp.max_pool3d(xa, 3, 1, 1), *params, dtype)
+    pooled = mp.max_pool3d(mp.max_pool3d(xa, 3, 2, 1), 2, 2, 0)
+    g = torch.Generator().manual_seed(2)
+    loss = sum((y.double() * torch.randn(y.shape, generator=g, dtype=torch.float64)
+                .to(y.device)).sum() for y in (out, pooled))
+    loss.backward()
+    return xa.grad
 
 
 def _inputs(device, b=3, t=8, d=40, shape=(3, 8, 2, 3, 16)):
@@ -62,8 +101,12 @@ def test_port_never_imports_jax():
         from video_graph_ssl_tpu_torch.engine.pretrain import make_fused_pretrain_step
         from video_graph_ssl_tpu_torch.utils import jax_weights
         import video_graph_ssl_tpu_torch.ops._build
-        c = load_config({os.path.join(REPO, 'configs', 'visual_moco.yaml')!r},
-                        ['MODEL.AUG_FLAG', 'True', 'CONTRAST.NCE_K', '256'])
+        import video_graph_ssl_tpu_torch.ops.maxpool
+        import video_graph_ssl_tpu_torch.ops.sepconv_bwd
+        import video_graph_ssl_tpu_torch.profile_step
+        cfg_file = {os.path.join(REPO, 'configs', 'visual_moco.yaml')!r}
+        create_visual_model(load_config(cfg_file, ['TPU.SEPCONV_FUSED', 'True']))
+        c = load_config(cfg_file, ['MODEL.AUG_FLAG', 'True', 'CONTRAST.NCE_K', '256'])
         model, dim = create_visual_model(c)
         state = create_pretrain_state(c, model, 'cpu')
         make_fused_pretrain_step(c)
@@ -99,12 +142,15 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         raise RuntimeError("kernel library absent")
 
     monkeypatch.setattr(_build, "library", absent)
-    gk.launches = gp.launches = 0
+    _reset_counts()
     q, k, theta, adj, x = _inputs("cpu")
     out = gk.graph_adjacency(q, k, theta, seed=3)
     assert out.shape == (3, 8, 8) and out.dtype == torch.float32
     assert torch.equal(gp.gcn_propagate(adj, x), gp.propagate_plain(adj, x))
-    assert gk.launches == gp.launches == 0
+    xb, params = _backward_inputs("cpu")
+    dx = _pool_and_pair_backward(xb, params, torch.float32)
+    assert dx.shape == xb.shape and torch.isfinite(dx).all()
+    assert _counts() == (0, 0, 0, 0, 0)
 
 
 @pytest.mark.cuda
@@ -117,13 +163,23 @@ def test_cuda_wrappers_raise_without_the_library(monkeypatch):
         raise RuntimeError("kernel library absent")
 
     monkeypatch.setattr(_build, "library", absent)
-    gk.launches = gp.launches = 0
+    _reset_counts()
     q, k, theta, adj, x = _inputs(dev)
     with pytest.raises(RuntimeError, match="absent"):
         gk.graph_adjacency(q, k, theta, seed=3)
     with pytest.raises(RuntimeError, match="absent"):
         gp.gcn_propagate(adj, x)
-    assert gk.launches == gp.launches == 0
+    xb, params = _backward_inputs(dev)
+    for k3 in (True, False):     # the stride-1 (K3) and a strided (K4) pool
+        xa = xb.clone().requires_grad_()
+        y = mp.max_pool3d(xa, 3, 1, 1) if k3 else mp.max_pool3d(xa, 3, 2, 1)
+        with pytest.raises(RuntimeError, match="absent"):
+            y.sum().backward()
+    xa = xb.clone().requires_grad_()
+    out, _ = fs.fused_sepconv_train(xa, *params, torch.float32)
+    with pytest.raises(RuntimeError, match="absent"):
+        out.sum().backward()
+    assert _counts() == (0, 0, 0, 0, 0)
 
 
 @pytest.mark.cuda
@@ -143,6 +199,22 @@ def test_cuda_kernels_match_plain_versions():
         torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2 if dt == torch.bfloat16
                                    else 1e-5, atol=1e-2 if dt == torch.bfloat16 else 1e-5)
     assert gk.launches == 2 and gp.launches == 2
+    torch.backends.cudnn.allow_tf32 = False
+    for dt in (torch.float32, torch.bfloat16):
+        xb, params = _backward_inputs(dev, dt)
+        _reset_counts()
+        got = _pool_and_pair_backward(xb, params, dt)
+        assert _counts() == (0, 0, 1, 2, 1)
+        want = _pool_and_pair_backward(xb.cpu().double(), [p.cpu() for p in params],
+                                       torch.float64)
+        # rel-L2 of the whole gradient.  fp32: summation order.  bf16: the
+        # pair rounds y1, a, y2, dy2 and dy1 to bf16 where the float64 run
+        # does not, and at this size one ReLU mask flipped by a 2^-8
+        # rounding step moves the result by a few percent (7e-2 measured),
+        # so bf16 is a coarse check here; chip_smoke.py holds the bf16
+        # kernels to their plain versions at the step's shapes.
+        err = float((got.cpu().double() - want).norm() / want.norm())
+        assert err < (1e-5 if dt == torch.float32 else 2e-1), (dt, err)
 
 
 def test_trainer_runs_on_cpu_when_asked(capsys):

@@ -58,10 +58,15 @@ def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
             f"{cfg.CROSS.MODALITY}/{cfg.CONTRAST.MEM_TYPE}")
     ctor, feat_dim, default_aug = BACKBONES_3D[name]
     aug = bool(cfg.MODEL.AUG_FLAG)
+    extra = {}
+    if bool(cfg.TPU.SEPCONV_FUSED):
+        if name != "S3D":
+            raise ValueError(f"TPU.SEPCONV_FUSED only applies to S3D, got {name}")
+        extra["fused_sepconv"] = True
     backbone = ctor(
         aug_points=(tuple(cfg.GRAPH.AUG_POINTS) or default_aug) if aug else (),
         graph_cfg=graph_cfg_from(cfg) if aug else None,
-        dtype=compute_dtype(cfg))
+        dtype=compute_dtype(cfg), **extra)
     encoder = VisualEncoder(backbone, float(cfg.MODEL.DROPOUT))
     model = GraphWrapper(ContrastWrapper(encoder, feat_dim,
                                          int(cfg.CROSS.FEAT_DIM),

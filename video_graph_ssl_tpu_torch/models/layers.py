@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fused_sepconv, maxpool
+
 
 def _triple(v) -> Tuple[int, int, int]:
     if isinstance(v, (tuple, list)):
@@ -120,10 +122,19 @@ class BasicConv3d(nn.Module):
 
 class SepConv3d(nn.Module):
     """Spatial (1,k,k)/(1,s,s) conv + BN + ReLU, then temporal (k,1,1)/(s,1,1)
-    conv + BN + ReLU (reference s3d_1.py:50-69; JAX ``SepConv3d``)."""
+    conv + BN + ReLU (reference s3d_1.py:50-69; JAX ``SepConv3d``).
+
+    ``fused_bwd`` (``TPU.SEPCONV_FUSED``) routes a (k, s, p) == (3, 1, 1)
+    instance through ``ops/fused_sepconv.py``: in train mode the pair is one
+    autograd function whose backward is the three-sweep kernel K5 on CUDA
+    tensors, with flax's fast-variance batch statistics; in eval mode it is
+    the running-statistics composition.  Other shapes (the k=7 stem) keep
+    the standard path.  The parameters and their names do not change.
+    """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, dtype: torch.dtype = torch.bfloat16):
+                 padding: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 fused_bwd: bool = False):
         super().__init__()
         k, s, p = kernel_size, stride, padding
         self.conv_s = nn.Conv3d(cin, cout, (1, k, k), (1, s, s), (0, p, p),
@@ -133,8 +144,11 @@ class SepConv3d(nn.Module):
                                 bias=False)
         self.bn_t = BatchNorm(cout, momentum=0.999, eps=1e-3)
         self.dtype = dtype
+        self.fused = bool(fused_bwd) and (k, s, p) == (3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return self._fused(x)
         dt = self.dtype
         for conv, bn in ((self.conv_s, self.bn_s), (self.conv_t, self.bn_t)):
             x = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
@@ -142,15 +156,40 @@ class SepConv3d(nn.Module):
             x = F.relu(bn(x).to(dt))
         return x
 
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        ws, wt = self.conv_s.weight, self.conv_t.weight
+        bs, bt = self.bn_s, self.bn_t
+        if self.training:
+            out, (mu1, var1, mu2, var2) = fused_sepconv.fused_sepconv_train(
+                x, ws, wt, bs.weight, bs.bias, bt.weight, bt.bias, dt)
+            with torch.no_grad():   # flax momentum, biased variance
+                for bn, mu, var in ((bs, mu1, var1), (bt, mu2, var2)):
+                    m = bn.momentum
+                    bn.running_mean.mul_(m).add_(mu, alpha=1.0 - m)
+                    bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            return out
+        y1 = fused_sepconv.conv_s(x.to(dt), ws.to(dt))
+        a = fused_sepconv.bn_relu(y1.float(), bs.running_mean, bs.running_var,
+                                  bs.weight, bs.bias, dt)
+        y2 = fused_sepconv.conv_t(a, wt.to(dt))
+        return fused_sepconv.bn_relu(y2.float(), bt.running_mean, bt.running_var,
+                                     bt.weight, bt.bias, dt)
+
 
 class MaxPool3d(nn.Module):
-    """3D max pooling with PyTorch padding semantics.
+    """3D max pooling with PyTorch padding semantics (``ops/maxpool.py``:
+    library forward; on CUDA tensors the backward is kernel K3 for stride-1
+    pools and K4 for strided ones).
 
     The JAX package's stride-1 pools are a separable ``where(>=)`` chain and
-    its strided pools ``reduce_window``; both have this forward.  Gradients
-    differ only where a window holds tied maxima (torch routes the gradient
-    to the first maximum in t, h, w scan order); inside the network such
-    ties are almost always ReLU zeros, whose upstream ReLU gradient is 0.
+    its strided pools ``reduce_window``; both have this forward.  The port
+    sends a tied window's gradient to its first maximum in t, h, w scan
+    order (PyTorch's rule and the JAX K4 kernel's); the JAX where-chain
+    routes ties axis by axis and the JAX K3 kernel splits them among all
+    maxima.  All of these agree wherever the window max is unique; inside
+    the network ties are almost always ReLU zeros, whose upstream ReLU
+    gradient is 0.
     """
 
     def __init__(self, kernel_size, stride, padding=0):
@@ -160,12 +199,11 @@ class MaxPool3d(nn.Module):
         self.padding = _triple(padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.max_pool3d(x, self.kernel_size, self.stride, self.padding)
+        return maxpool.max_pool3d(x, self.kernel_size, self.stride, self.padding)
 
 
 def max_pool_3d(x: torch.Tensor, kernel_size, stride, padding=0) -> torch.Tensor:
-    return F.max_pool3d(x, _triple(kernel_size), _triple(stride),
-                        _triple(padding))
+    return maxpool.max_pool3d(x, kernel_size, stride, padding)
 
 
 class InceptionBlock(nn.Module):
@@ -173,17 +211,20 @@ class InceptionBlock(nn.Module):
     ``InceptionBlock``): 1x1x1 | 1x1x1 -> SepConv | 1x1x1 -> SepConv |
     3x3x3 max pool -> 1x1x1, concatenated on channels.  The JAX
     ``TPU.PACK_POINTWISE`` packing is the same math on the same parameters,
-    so the three 1x1x1 convs stay separate here."""
+    so the three 1x1x1 convs stay separate here.  ``fused_sepconv``
+    (``TPU.SEPCONV_FUSED``) sets ``fused_bwd`` on both branch SepConvs."""
 
     def __init__(self, cin: int, b0: int, b1: Sequence[int], b2: Sequence[int],
-                 b3: int, dtype: torch.dtype = torch.bfloat16):
+                 b3: int, dtype: torch.dtype = torch.bfloat16,
+                 fused_sepconv: bool = False):
         super().__init__()
         kw = dict(dtype=dtype)
+        sep = dict(fused_bwd=fused_sepconv, **kw)
         self.branch0 = nn.Sequential(BasicConv3d(cin, b0, 1, **kw))
         self.branch1 = nn.Sequential(BasicConv3d(cin, b1[0], 1, **kw),
-                                     SepConv3d(b1[0], b1[1], 3, 1, 1, **kw))
+                                     SepConv3d(b1[0], b1[1], 3, 1, 1, **sep))
         self.branch2 = nn.Sequential(BasicConv3d(cin, b2[0], 1, **kw),
-                                     SepConv3d(b2[0], b2[1], 3, 1, 1, **kw))
+                                     SepConv3d(b2[0], b2[1], 3, 1, 1, **sep))
         self.branch3 = nn.Sequential(MaxPool3d(3, 1, 1),
                                      BasicConv3d(cin, b3, 1, **kw))
 

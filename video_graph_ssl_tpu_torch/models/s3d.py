@@ -75,11 +75,16 @@ def head_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 class S3D(nn.Module):
-    """S3D encoder: (B, T, H, W, 3) clips -> (B, 1024) fp32 features."""
+    """S3D encoder: (B, T, H, W, 3) clips -> (B, 1024) fp32 features.
+
+    ``fused_sepconv`` (``TPU.SEPCONV_FUSED``) gives the Mixed blocks' branch
+    SepConvs the three-sweep backward (``SepConv3d.fused_bwd``); the stem
+    SepConvs keep the standard path, as in the JAX S3D."""
 
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 fused_sepconv: bool = False):
         super().__init__()
         kw = dict(dtype=dtype)
         stages = [
@@ -99,7 +104,8 @@ class S3D(nn.Module):
                 stages.append(MaxPool3d(2, 2, 0))
             else:
                 spec = _MIXED_SPECS[idx]
-                stages.append(InceptionBlock(cin, *spec, **kw))
+                stages.append(InceptionBlock(cin, *spec, fused_sepconv=fused_sepconv,
+                                             **kw))
                 cin = InceptionBlock.out_channels(*spec)
         self.aug_points = tuple(int(i) for i in aug_points)
         for idx in self.aug_points:

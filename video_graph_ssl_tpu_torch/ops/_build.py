@@ -1,7 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Every ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``.
 The library is built at first use, cached by a hash of the sources and
 flags under ``video_graph_ssl_tpu_torch/_build/`` (listed in
 ``.gitignore``), and reused by later processes.  No PyTorch header is
@@ -28,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,13 @@ SIGNATURES = {
     # seed, temperature, sample, nei_size, stream
     "vgs_graph_adjacency": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I,
                             ctypes.c_ulonglong, _F, _I, _I, _P),
+    # x, y, dy, dx, tap, B, T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw,
+    # pt, ph, pw, is_bf16, stream
+    "vgs_maxpool3d_bwd": (_P, _P, _P, _P, _P) + (_I,) * 18 + (_P,),
+    # x, g, w1, w2, w3, w4, bn1, bn2, y1, a, y2, dz1, bn_part, wpart,
+    # s1, m1, s2, m2, dx, dws, dwt, B, T, H, W, C, F, splits_s, splits_t,
+    # is_bf16, stream
+    "vgs_sepconv_bwd": (_P,) * 21 + (_I,) * 9 + (_P,),
 }
 
 # seconds the last build of this process took (0.0 when it came from cache)
@@ -82,13 +91,27 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         cu, _ = _sources()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True))
+                 for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                             for f, o in zip(cu, objs))]
+        results = []
+        for cmd, p in procs:
+            so, se = p.communicate()
+            results.append((cmd, p.returncode, so, se))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        if all(rc == 0 for _, rc, _, _ in results):
+            cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            results.append((cmd, res.returncode, res.stdout, res.stderr))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        for cmd, rc, so, se in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{so}\n{se}")
         os.replace(tmp, out)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))

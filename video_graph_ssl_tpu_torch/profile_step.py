@@ -25,6 +25,8 @@ import torch
 from .data.synthetic import iterate_batches
 from .ops import gcn_propagate as gp
 from .ops import graph_kernel as gk
+from .ops import maxpool as mp
+from .ops import sepconv_bwd as sb
 from .engine.pretrain import PHASES
 from .train_video_contrast_dis import Trainer, load_config
 
@@ -32,6 +34,9 @@ from .train_video_contrast_dis import Trainer, load_config
 CLASSES = (
     ("K1 graph_adjacency", r"adjacency_kernel"),
     ("K2 gcn_propagate", r"propagate_kernel"),
+    ("K3/K4 max-pool backward", r"argmax_tap_kernel|grad_gather_kernel"),
+    ("K5 sepconv backward", r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|"
+                            r"bn_bwd_kernel|split_sum_kernel"),
     ("batch norm", r"batch_norm|batchnorm|bn_fw|bn_bw|bn_"),
     ("conv (cuDNN/cutlass)", r"conv|cudnn|xmma|implicit|dgrad|wgrad|fprop|sm90_|cutlass|nhwc"),
     ("gemm", r"gemm|cublas|matmul"),
@@ -105,7 +110,8 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    gk.launches = gp.launches = 0
+    gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = 0
+    sb.launches = mp.dy_copies = sb.g_copies = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
@@ -137,8 +143,12 @@ def main(argv=None) -> None:
           f"{args.steps} traced steps after {args.warmup} warm-up")
     print(f"step: {plain_step_ms:.1f} ms untraced ({bsz / plain_step_ms * 1e3:.1f} "
           f"clips/s), {step_ms:.1f} ms traced (host clock, {args.steps} steps each); "
-          f"kernels per step: {len(kernels) / args.steps:.0f}; K1/K2 launches per "
-          f"step: {gk.launches / args.steps:.0f}/{gp.launches / args.steps:.0f}")
+          f"kernels per step: {len(kernels) / args.steps:.0f}")
+    calls = {"K1": gk.launches, "K2": gp.launches, "K3": mp.launches_s1,
+             "K4": mp.launches_strided, "K5": sb.launches,
+             "pool dy copies": mp.dy_copies, "sepconv g copies": sb.g_copies}
+    print("kernel wrapper calls per step: " + ", ".join(
+        f"{k} {v / args.steps:g}" for k, v in calls.items()))
     print(f"traced: device busy {busy:.1f} ms of a {span:.1f} ms kernel span and "
           f"{wall_ms:.1f} ms wall, idle share {1 - busy / wall_ms:.3f} (tracing "
           f"slows the host); untraced estimate {1 - busy / args.steps / plain_step_ms:.3f} "
