@@ -37,6 +37,10 @@ TINY = ["MODEL.BACKBONE", "tiny3d", "MODEL.AUG_FLAG", "True",
         "INPUT.SCALE_SIZE", "[20, 20]", "INPUT.BASE_SIZE", "[16, 16]",
         "CONTRAST.NCE_K", "16", "CROSS.FEAT_DIM", "32",
         "CHECKPOINT.PRINT_FREQ", "1"]
+# rel-L2 limit of the on-card bf16 pool -> fused-pair gradient against the
+# CPU's bf16 graph: 2.3e-4 measured at these inputs on an H100 (one element
+# one bf16 step apart), up to 1.1e-3 on other random inputs of this size
+BF16_LIMIT = 2e-3
 
 
 def _cuda():
@@ -205,16 +209,19 @@ def test_cuda_kernels_match_plain_versions():
         _reset_counts()
         got = _pool_and_pair_backward(xb, params, dt)
         assert _counts() == (0, 0, 1, 2, 1)
-        want = _pool_and_pair_backward(xb.cpu().double(), [p.cpu() for p in params],
-                                       torch.float64)
-        # rel-L2 of the whole gradient.  fp32: summation order.  bf16: the
-        # pair rounds y1, a, y2, dy2 and dy1 to bf16 where the float64 run
-        # does not, and at this size one ReLU mask flipped by a 2^-8
-        # rounding step moves the result by a few percent (7e-2 measured),
-        # so bf16 is a coarse check here; chip_smoke.py holds the bf16
-        # kernels to their plain versions at the step's shapes.
+        # fp32 against float64 on the CPU; bf16 against the same bf16 graph
+        # on the CPU (plain versions), which rounds y1, a, y2, dy2 and dy1
+        # at the same points (bf16 against float64 differs by 7e-2 on the
+        # CPU alone, so float64 could not hold the bf16 kernels tightly)
+        ref_dt = torch.float64 if dt == torch.float32 else dt
+        want = _pool_and_pair_backward(xb.cpu().to(ref_dt), [p.cpu() for p in params],
+                                       ref_dt).double()
+        # rel-L2 of the whole gradient: fp32, summation order; bf16, where
+        # cuDNN and the CPU's convolutions sum in other orders, a y1 or y2
+        # element may round to the neighbouring bf16 value
         err = float((got.cpu().double() - want).norm() / want.norm())
-        assert err < (1e-5 if dt == torch.float32 else 2e-1), (dt, err)
+        print(f"pool -> fused pair dx, {dt}: rel-L2 {err:.3e}")
+        assert err < (1e-5 if dt == torch.float32 else BF16_LIMIT), (dt, err)
 
 
 def test_trainer_runs_on_cpu_when_asked(capsys):

@@ -25,10 +25,12 @@
 // Ties go to the first tap in t, h, w scan order: PyTorch's rule and the rule
 // of the TPU K4; the TPU K3 split ties among all maxima instead.
 //
-// What bounds it on the H100: bytes.  It reads x, y and dy, writes dx, and
-// writes and reads one byte per output element of tap scratch; a handful
-// of integer operations per byte.  At pool_1 of the bs-128 S3D step in bf16
-// (x (128, 8, 56, 56, 64)) that is 1.13 GB, 0.34 ms at 3.35 TB/s.  Threads
+// What bounds it on the H100: bytes.  The function must read x, y and dy
+// and write dx, with a handful of integer operations per byte.  At pool_1
+// of the bs-128 S3D step in bf16 (x (128, 8, 56, 56, 64)) that is 1.03 GB,
+// 0.31 ms at 3.35 TB/s.  This design also writes and reads one byte of tap
+// scratch per output element (0.10 GB more there), which a one-pass
+// gather would not need.  Threads
 // run along C with 16-byte vectors (8 bf16 or 4 fp32) on the channels-last
 // layout, so every load and store is a full, coalesced vector.
 #include <cuda_bf16.h>

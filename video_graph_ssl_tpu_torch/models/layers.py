@@ -127,9 +127,10 @@ class SepConv3d(nn.Module):
     ``fused_bwd`` (``TPU.SEPCONV_FUSED``) routes a (k, s, p) == (3, 1, 1)
     instance through ``ops/fused_sepconv.py``: in train mode the pair is one
     autograd function whose backward is the three-sweep kernel K5 on CUDA
-    tensors, with flax's fast-variance batch statistics; in eval mode it is
-    the running-statistics composition.  Other shapes (the k=7 stem) keep
-    the standard path.  The parameters and their names do not change.
+    tensors, with flax's fast-variance batch statistics.  Eval mode, and
+    other shapes (the k=7 stem), take the standard path, which in eval mode
+    is the same running-statistics composition.  The parameters and their
+    names do not change.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
@@ -147,8 +148,8 @@ class SepConv3d(nn.Module):
         self.fused = bool(fused_bwd) and (k, s, p) == (3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused:
-            return self._fused(x)
+        if self.fused and self.training:
+            return self._fused_train(x)
         dt = self.dtype
         for conv, bn in ((self.conv_s, self.bn_s), (self.conv_t, self.bn_t)):
             x = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
@@ -156,25 +157,17 @@ class SepConv3d(nn.Module):
             x = F.relu(bn(x).to(dt))
         return x
 
-    def _fused(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        ws, wt = self.conv_s.weight, self.conv_t.weight
+    def _fused_train(self, x: torch.Tensor) -> torch.Tensor:
         bs, bt = self.bn_s, self.bn_t
-        if self.training:
-            out, (mu1, var1, mu2, var2) = fused_sepconv.fused_sepconv_train(
-                x, ws, wt, bs.weight, bs.bias, bt.weight, bt.bias, dt)
-            with torch.no_grad():   # flax momentum, biased variance
-                for bn, mu, var in ((bs, mu1, var1), (bt, mu2, var2)):
-                    m = bn.momentum
-                    bn.running_mean.mul_(m).add_(mu, alpha=1.0 - m)
-                    bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
-            return out
-        y1 = fused_sepconv.conv_s(x.to(dt), ws.to(dt))
-        a = fused_sepconv.bn_relu(y1.float(), bs.running_mean, bs.running_var,
-                                  bs.weight, bs.bias, dt)
-        y2 = fused_sepconv.conv_t(a, wt.to(dt))
-        return fused_sepconv.bn_relu(y2.float(), bt.running_mean, bt.running_var,
-                                     bt.weight, bt.bias, dt)
+        out, (mu1, var1, mu2, var2) = fused_sepconv.fused_sepconv_train(
+            x, self.conv_s.weight, self.conv_t.weight, bs.weight, bs.bias,
+            bt.weight, bt.bias, self.dtype)
+        with torch.no_grad():   # flax momentum, biased variance
+            for bn, mu, var in ((bs, mu1, var1), (bt, mu2, var2)):
+                m = bn.momentum
+                bn.running_mean.mul_(m).add_(mu, alpha=1.0 - m)
+                bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return out
 
 
 class MaxPool3d(nn.Module):

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,6 +84,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvgs_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Start every command at once; after all have ended, raise on the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, p, output in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{output}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
@@ -91,28 +103,14 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         cu, _ = _sources()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{out.stem}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
         t0 = time.perf_counter()
-        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True))
-                 for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
-                             for f, o in zip(cu, objs))]
-        results = []
-        for cmd, p in procs:
-            so, se = p.communicate()
-            results.append((cmd, p.returncode, so, se))
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        if all(rc == 0 for _, rc, _, _ in results):
-            cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            results.append((cmd, res.returncode, res.stdout, res.stderr))
-        for o in objs:
-            o.unlink(missing_ok=True)
-        for cmd, rc, so, se in results:
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{so}\n{se}")
-        os.replace(tmp, out)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, f"{f.stem}.o") for f in cu]
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(f)]
+                      for f, o in zip(cu, objs)])
+            so = os.path.join(tmp, out.name)
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+            os.replace(so, out)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
