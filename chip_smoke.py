@@ -18,7 +18,10 @@ Phases (each raises on failure; the script then exits non-zero):
 4. K3/K4 (max-pool backward) at the shape of every pool of one S3D pass,
    fp32 and bf16: against the plain version (exact), against torch's own
    max_pool3d backward (random cotangent; ones cotangent on inputs that
-   tie), then kernel, plain and torch times.
+   tie), then kernel, plain and torch times beside each launch's shared
+   memory per block and block count; then every pool geometry at ragged
+   shapes (C not a multiple of 8, odd H and W, T = 1) against the plain
+   version (exact).
 5. K5 (SepConv pair backward) against its plain version on all seven
    outputs at five Mixed-block shapes and one small ragged shape, fp32 and
    bf16; then kernel and plain times at all 18 fused SepConvs of a pass.
@@ -47,6 +50,7 @@ summed over the shapes of one encoder pass in bf16.  The last line is
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import os
@@ -120,6 +124,9 @@ TOL_K5_SMALL = 1e-4
 # torch's own pool backward: fp32 sums in another order; bf16 accumulates in
 # bf16 (atomics), several bf16 steps off the kernel's fp32 sums
 TOL_POOL_LIB = {"fp32": 1e-5, "bf16": 5e-2}
+# ragged pool shapes (B, T, H, W, C): C 12 (bf16) or 6 (fp32) takes the
+# kernel's scalar path; odd H, W; T = 1 where the window fits
+POOL_RAGGED = [(2, 5, 9, 7, None), (2, 1, 9, 9, None), (3, 4, 7, 5, 40)]
 
 
 def gpu_line() -> str:
@@ -385,18 +392,34 @@ def phase_pools(dev) -> list:
             tp = cuda_ms(lambda: mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
             tl = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
                 dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx))
-            # what the function needs: read x, y and dy, write dx (the
-            # kernel's tap scratch is its own cost, not the function's)
+            # what the function needs: read x, y and dy, write dx
             bm, by = bound(2 * (x.numel() + y.numel()) * x.element_size(), 0, dn)
-            rows.append((tag, tk, tp, tl, bm, by))
+            plan = mp.bwd_plan(x.shape, k, s, p, dt)
+            rows.append((tag, tk, tp, tl, bm, by, plan))
             if dn == "bf16":
                 for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                                   (tk, tp, tl, bm)):
                     sums[kn][key] += v
             del x, y, idx, dy, dx_k, dx_p, dx_l
-    for tag, tk, tp, tl, bm, by in rows:
+    for tag, tk, tp, tl, bm, by, plan in rows:
         print(f"  {tag}: kernel {tk:.4f} ms  plain {tp:.4f} ms  torch {tl:.4f} ms  "
-              f"bound {bm:.4f} ms ({by})")
+              f"bound {bm:.4f} ms ({by})  [{plan.slab} slabs, {plan.group}-channel "
+              f"groups, {plan.smem_bytes} B shared memory per block, {plan.blocks} "
+              f"blocks of {plan.threads} threads]")
+    geoms = sorted({(k, s, p) for _, _, _, k, s, p in POOLS})
+    for (k, s, p), shape, (dn, dt) in itertools.product(geoms, POOL_RAGGED,
+                                                         DTYPES.items()):
+        shape = shape[:4] + (shape[4] or (12 if dn == "bf16" else 6),)
+        if shape[1] + 2 * p[0] < k[0]:
+            continue
+        kn = "K3" if s == (1, 1, 1) else "K4"
+        x = _ncdhw(shape, dev, dt, g)
+        y = F.max_pool3d(x, k, s, p).contiguous(memory_format=CL)
+        dy = torch.randn(y.shape, device=dev, generator=g).to(dt).contiguous(
+            memory_format=CL)
+        err = max_abs(mp._launch(x, y, dy, k, s, p), mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
+        check(f"{kn} k{k} s{s} p{p} {shape} {dn} vs plain (max abs)", err, 0.0)
+        worst[kn] = max(worst[kn], err)
     src = "video_graph_ssl_tpu_torch/csrc/maxpool_bwd.cu"
     return [{"name": "maxpool_bwd_s1", "route": "cuda", "source": src,
              "replaces": "video_graph_ssl_tpu/ops/pallas/maxpool_kernel.py:130",

@@ -10,16 +10,19 @@
   reduce_window) and ``max_pool_3d_ref`` on tie-free fp32 inputs, to 1e-6.
   The JAX K3/K4 kernels run only on a TPU, so the JAX side is its plain
   reference, as in ``tests/test_maxpool.py``.
+* On the card (``cuda`` marker, ``python -m pytest -m cuda
+  tests/test_torch_maxpool.py``): the kernel against the plain version, bit
+  for bit, on the same geometries plus ragged C, odd H/W and T = 1, in fp32
+  and bf16, with one launch and one allocation (dx) per call.  JAX is
+  imported inside the test that uses it, so the file also runs where JAX is
+  absent.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from video_graph_ssl_tpu.models.layers import max_pool_3d, max_pool_3d_ref
 from video_graph_ssl_tpu_torch.models.layers import MaxPool3d
 from video_graph_ssl_tpu_torch.ops import maxpool
 
@@ -80,6 +83,10 @@ def test_plain_matches_torch_autograd_bf16_ties(case, shape):
 def test_module_grad_matches_jax_tie_free(case, shape):
     """MaxPool3d (forward and plain backward through autograd) against
     jax.grad of the JAX max_pool_3d and max_pool_3d_ref."""
+    import jax
+    import jax.numpy as jnp
+    from video_graph_ssl_tpu.models.layers import max_pool_3d, max_pool_3d_ref
+
     k, s, p = case
     g = np.random.default_rng(2)
     x = g.permutation(np.prod(shape)).reshape(shape).astype(np.float32)
@@ -118,3 +125,59 @@ def test_channels_last_input_and_float64():
     _, ref = _torch_grad(x.detach(), lambda _: gy, k, s, p)
     assert x.grad.dtype == torch.float64
     torch.testing.assert_close(x.grad, ref, rtol=1e-12, atol=1e-12)
+
+
+# on the card: GRID, then ragged C (12 in bf16, 6 in fp32: the kernel's
+# scalar path), odd H and W, and T = 1 where the window fits
+CARD_SHAPES = [(2, 5, 9, 7, None), (2, 1, 9, 9, None)]
+CARD_GRID = [(case, shape, dt) for dt in (torch.float32, torch.bfloat16)
+             for case, shape in GRID + [
+                 (case, shape[:4] + ((12 if dt == torch.bfloat16 else 6),))
+                 for case in CASES for shape in CARD_SHAPES
+                 if shape[1] + 2 * case[2][0] >= case[0][0]]]
+CARD_IDS = [f"{str(dt)[6:]}-k{''.join(map(str, c[0]))}s{''.join(map(str, c[1]))}-"
+            f"{'x'.join(map(str, shape))}" for c, shape, dt in CARD_GRID]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _card_call(x, y, dy, k, s, p):
+    """One backward call: (dx, wrapper calls counted, allocations made)."""
+    before = (maxpool.launches_s1, maxpool.launches_strided)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    dx = maxpool._launch(x, y, dy, k, s, p)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    counted = (maxpool.launches_s1 - before[0], maxpool.launches_strided - before[1])
+    return dx, counted, allocs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,shape,dtype", CARD_GRID, ids=CARD_IDS)
+def test_kernel_equals_plain_on_card(case, shape, dtype):
+    """Random inputs and cotangent, then the tie-rich bf16 inputs with a
+    ones cotangent of test_plain_matches_torch_autograd_bf16_ties: the
+    kernel equals the plain version bit for bit; each call is one counted
+    launch whose only allocation is dx (no tap scratch)."""
+    dev = _cuda()
+    k, s, p = case
+    g = np.random.default_rng(5)
+    cl = torch.channels_last_3d
+    ties = _ncdhw(np.random.default_rng(1).standard_normal(shape).astype(np.float32))
+    for x, ones in ((_ncdhw(g.standard_normal(shape).astype(np.float32)), False),
+                    (ties, True)):
+        x = x.to(dtype).to(dev).contiguous(memory_format=cl)
+        y = F.max_pool3d(x, k, s, p).contiguous(memory_format=cl)
+        dy = (torch.ones_like(y) if ones else torch.from_numpy(
+            g.standard_normal(tuple(y.shape)).astype(np.float32)).to(dev, dtype)
+            .contiguous(memory_format=cl))
+        dx, counted, allocs = _card_call(x, y, dy, k, s, p)
+        assert counted == ((1, 0) if s == (1, 1, 1) else (0, 1))
+        assert allocs == 1 and dx.dtype == dtype
+        want = maxpool.max_pool3d_bwd_plain(x.cpu(), y.cpu(), dy.cpu(), k, s, p)
+        assert torch.equal(dx.cpu(), want), float((dx.cpu().float() - want.float()).abs().max())

@@ -10,37 +10,56 @@
 // Replaces the TPU kernels video_graph_ssl_tpu/ops/pallas/maxpool_kernel.py:
 // K3 (_mp_bwd -> _bwd_kernel, the 3x3x3 stride-1 pool of every Inception
 // pool branch) and K4 (_strided_bwd -> _bwd_kernel_spatial/_bwd_kernel_full,
-// the four strided pools).  One design serves both:
+// the four strided pools).  One kernel, one launch per backward call, serves
+// both, with the TPU kernels' blocking: a block owns one slab and one group
+// of channels, where a slab is a whole clip (T, H, W), or one frame (H, W)
+// when the window and stride are 1 in t (the wrapper then passes the clips
+// as B*T clips of one frame).  Every output whose window reads the slab
+// lies in it, so no block needs a halo or another block's result.
 //
-//   pass 1 (argmax_tap_kernel), per output o and channel: the index of the
-//     first tap whose x equals y[o], into a uint8 scratch of y's shape.
-//     Taps in the padding never match; y is a copy of one x tap, so the
-//     fp32 compare is exact.  No int64 indices are saved by the forward.
-//   pass 2 (grad_gather_kernel), per input j and channel: a gather over the
-//     taps a with (j + p - a) divisible by s and o = (j + p - a) / s in
-//     range, adding dy[o] where tap[o] == a.  No atomics: deterministic.
-//     Taps run in reverse scan order, i.e. the covering outputs in
-//     increasing order, the order in which PyTorch's CPU backward adds.
+//   stage x: the slab's channel group (32 to 256 bytes a position, chosen
+//     by the wrapper) goes to dynamic shared memory with cp.async.
+//   phase A, per output o and channel: the first maximal tap, found in
+//     shared memory.  A thread walks one output column (ho, wo) along t:
+//     each frame's 3x3 spatial best is computed once and reused by the
+//     next outputs whose windows hold that frame (three at stride 1 in t),
+//     so a 3x3x3 output costs 12 compares, not 27.  Compares are strict
+//     (>), so the first of equal maxima stays.  y is read once per output,
+//     for one purpose: where y is NaN (torch's forward propagates a NaN in
+//     the window) no tap is chosen, as no tap equals NaN.  The tap indices
+//     go to a shared uint8 array.
+//   stage dy: the slab's dy group overwrites x's space.
+//   phase B, per input j and channel: a gather over the taps a with
+//     (j + p - a) divisible by s and o = (j + p - a) / s in range, adding
+//     dy[o] where tap[o] == a, from shared memory; dx is written once.  Taps
+//     run in reverse scan order, i.e. the covering outputs in increasing
+//     order, the order in which PyTorch's CPU backward adds.  No atomics:
+//     deterministic, and bit for bit the wrapper's plain version.
 //
 // Ties go to the first tap in t, h, w scan order: PyTorch's rule and the rule
 // of the TPU K4; the TPU K3 split ties among all maxima instead.
 //
-// What bounds it on the H100: bytes.  The function must read x, y and dy
-// and write dx, with a handful of integer operations per byte.  At pool_1
-// of the bs-128 S3D step in bf16 (x (128, 8, 56, 56, 64)) that is 1.03 GB,
-// 0.31 ms at 3.35 TB/s.  This design also writes and reads one byte of tap
-// scratch per output element (0.10 GB more there), which a one-pass
-// gather would not need.  Threads
-// run along C with 16-byte vectors (8 bf16 or 4 fp32) on the channels-last
-// layout, so every load and store is a full, coalesced vector.
+// What bounds it on the H100: bytes, in principle.  The function must read
+// x, y and dy and write dx, and this kernel moves exactly those bytes
+// through device memory (no scratch).  At pool_1 of the bs-128 S3D step in
+// bf16 (x (128, 8, 56, 56, 64)) that is 1.03 GB, 0.31 ms at 3.35 TB/s.
+// In practice the 3x3x3 pools are bound by the tap work (27 tap checks per
+// input and channel in phase B) and every pool by the block's serial
+// stage / compute / stage / compute order.  Threads run along C with
+// 16-byte vectors (8 bf16 or 4 fp32) of the channels-last layout, bf16
+// compares two lanes at a time.  The largest S3D slab (pool_1, one 56x56
+// frame) takes 113 KB of shared memory; the wrapper refuses a slab above
+// 227 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr unsigned char kNoTap = 255;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWindow = 3;
+constexpr int kMaxSmem = 232448;   // 227 KB: the most one block may take
+constexpr int kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -55,130 +74,354 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+// n / d for 0 <= n < 2^31 and d >= 1 by a multiply and a shift (the
+// kernel's index arithmetic has no hardware divide).
+struct FastDiv {
+  unsigned m, s;
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, m) + (unsigned)n) >> s);
+  }
+};
+
+FastDiv make_div(int d) {
+  unsigned s = 0;
+  while ((1ull << s) < (unsigned long long)d) ++s;
+  return {(unsigned)(((1ull << 32) * ((1ull << s) - d)) / d + 1), s};
+}
+
 struct PoolGeom {
-  int xt, xh, xw, nc;    // x (batch is the leading dim of the flat index)
-  int yt, yh, yw;        // y
+  int xt, xh, xw, nc;    // one slab of x, and the channels
+  int yt, yh, yw;        // the slab's outputs
   int kt, kh, kw;
   int st, sh, sw;
   int pt, ph, pw;
+  FastDiv xh_d, xw_d, yh_d, yw_d, st_d, sh_d, sw_d;
+};
+
+// One channel vector from device to shared memory; 16-byte vectors go
+// through cp.async (completed by stage_wait).
+template <typename T, int VEC>
+__device__ __forceinline__ void stage(T* dst, const T* src) {
+  if constexpr (sizeof(T) * VEC == 16) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  } else {
+    *reinterpret_cast<Pack<T, VEC>*>(dst) = *reinterpret_cast<const Pack<T, VEC>*>(src);
+  }
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The running maximum of a window and its first maximal tap, per channel:
+// init takes the first tap, offer a later one (strict >, so the first of
+// equal maxima stays; offering the first tap again changes nothing);
+// init_from and take do the same with a sub-window's best, its taps
+// shifted by dt.  Values are moved, never converted, so a winner is one of
+// the window's inputs.
+template <typename T, int VEC>
+struct Best {
+  Pack<T, VEC> val;
+  unsigned char tap[VEC];
+  __device__ __forceinline__ void init(const Pack<T, VEC>& v, unsigned ti) {
+    val = v;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) tap[e] = (unsigned char)ti;
+  }
+  __device__ __forceinline__ void offer(const Pack<T, VEC>& v, unsigned ti) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if (to_f(v.v[e]) > to_f(val.v[e])) {
+        val.v[e] = v.v[e];
+        tap[e] = (unsigned char)ti;
+      }
+  }
+  __device__ __forceinline__ void init_from(const Best& b, unsigned dt) {
+    val = b.val;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) tap[e] = (unsigned char)(b.tap[e] + dt);
+  }
+  __device__ __forceinline__ void take(const Best& b, unsigned dt) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if (to_f(b.val.v[e]) > to_f(val.v[e])) {
+        val.v[e] = b.val.v[e];
+        tap[e] = (unsigned char)(b.tap[e] + dt);
+      }
+  }
+  __device__ __forceinline__ unsigned char get(int e) const { return tap[e]; }
+};
+
+// bf16x2 compares (0xffff per greater lane), bitwise selects, and four
+// channels' taps per word
+template <>
+struct Best<__nv_bfloat16, 8> {
+  unsigned val[4];
+  unsigned tap[2];
+  __device__ __forceinline__ void init(const Pack<__nv_bfloat16, 8>& v, unsigned ti) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) val[k] = reinterpret_cast<const unsigned*>(v.v)[k];
+    tap[0] = tap[1] = ti * 0x01010101u;
+  }
+  __device__ __forceinline__ void merge(const unsigned (&v)[4], const unsigned (&t)[2]) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const unsigned m0 = __hgt2_mask(as_bf2(v[2 * k]), as_bf2(val[2 * k]));
+      const unsigned m1 = __hgt2_mask(as_bf2(v[2 * k + 1]), as_bf2(val[2 * k + 1]));
+      val[2 * k] = (val[2 * k] & ~m0) | (v[2 * k] & m0);
+      val[2 * k + 1] = (val[2 * k + 1] & ~m1) | (v[2 * k + 1] & m1);
+      const unsigned bm = __byte_perm(m0, m1, 0x6420);
+      tap[k] = (tap[k] & ~bm) | (t[k] & bm);
+    }
+  }
+  __device__ __forceinline__ void offer(const Pack<__nv_bfloat16, 8>& v, unsigned ti) {
+    const unsigned t[2] = {ti * 0x01010101u, ti * 0x01010101u};
+    merge(reinterpret_cast<const unsigned(&)[4]>(v.v), t);
+  }
+  __device__ __forceinline__ void init_from(const Best& b, unsigned dt) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) val[k] = b.val[k];
+    tap[0] = b.tap[0] + dt * 0x01010101u;
+    tap[1] = b.tap[1] + dt * 0x01010101u;
+  }
+  __device__ __forceinline__ void take(const Best& b, unsigned dt) {
+    const unsigned t[2] = {b.tap[0] + dt * 0x01010101u, b.tap[1] + dt * 0x01010101u};
+    merge(b.val, t);
+  }
+  __device__ __forceinline__ unsigned char get(int e) const {
+    return (unsigned char)(tap[e / 4] >> 8 * (e % 4));
+  }
+  static __device__ __forceinline__ __nv_bfloat162 as_bf2(unsigned u) {
+    return *reinterpret_cast<const __nv_bfloat162*>(&u);
+  }
 };
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-argmax_tap_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                  unsigned char* __restrict__ tap, PoolGeom g, long long n_vec) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_vec) return;
-  const int cv = g.nc / VEC;
-  const int c = (int)(i % cv) * VEC;
-  long long o = i / cv;
-  const int wo = (int)(o % g.yw); o /= g.yw;
-  const int ho = (int)(o % g.yh); o /= g.yh;
-  const int to = (int)(o % g.yt);
-  const long long b = o / g.yt;
-
-  const Pack<T, VEC> yv = *reinterpret_cast<const Pack<T, VEC>*>(y + i * VEC);
-  float yf[VEC];
-  unsigned char res[VEC];
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) {
-    yf[v] = to_f(yv.v[v]);
-    res[v] = kNoTap;
-  }
-  int ti = 0;
-  for (int a = 0; a < g.kt; ++a) {
-    const int t = to * g.st - g.pt + a;
-    for (int bb = 0; bb < g.kh; ++bb) {
-      const int h = ho * g.sh - g.ph + bb;
-      for (int cc = 0; cc < g.kw; ++cc, ++ti) {
-        const int w = wo * g.sw - g.pw + cc;
-        if (t < 0 || t >= g.xt || h < 0 || h >= g.xh || w < 0 || w >= g.xw) continue;
-        const long long off = (((b * g.xt + t) * g.xh + h) * (long long)g.xw + w) * g.nc + c;
-        const Pack<T, VEC> xv = *reinterpret_cast<const Pack<T, VEC>*>(x + off);
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          if (res[v] == kNoTap && to_f(xv.v[v]) == yf[v]) res[v] = (unsigned char)ti;
-      }
-    }
-  }
-  Pack<unsigned char, VEC> out;
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) out.v[v] = res[v];
-  *reinterpret_cast<Pack<unsigned char, VEC>*>(tap + i * VEC) = out;
+__device__ __forceinline__ bool is_nan(const Pack<T, VEC>& v, int e) {
+  return to_f(v.v[e]) != to_f(v.v[e]);
 }
 
-// Output coordinate of input coordinate j under tap a, or -1 when tap a does
-// not connect j to any output.
-__device__ __forceinline__ int out_coord(int j, int a, int s, int p, int n_out) {
-  const int num = j + p - a;
-  if (num < 0 || num % s) return -1;
-  const int o = num / s;
-  return o < n_out ? o : -1;
+// The spatial best of one frame: base points at x (t, h0, w0) of the
+// thread's channels; rows [b_lo, b_hi) and columns [c_lo, c_hi) lie inside.
+template <typename T, int VEC>
+__device__ __forceinline__ Best<T, VEC> frame_best(const T* base, const PoolGeom& g, int group,
+                                                   int b_lo, int b_hi, int c_lo, int c_hi) {
+  Best<T, VEC> b;
+  b.init(*reinterpret_cast<const Pack<T, VEC>*>(base + (b_lo * g.xw + c_lo) * group),
+         b_lo * g.kw + c_lo);
+#pragma unroll
+  for (int bb = 0; bb < kMaxWindow; ++bb) {
+    if (bb < b_lo || bb >= b_hi) continue;
+#pragma unroll
+    for (int cc = 0; cc < kMaxWindow; ++cc) {
+      if (cc < c_lo || cc >= c_hi) continue;
+      b.offer(*reinterpret_cast<const Pack<T, VEC>*>(base + (bb * g.xw + cc) * group),
+              bb * g.kw + cc);
+    }
+  }
+  return b;
+}
+
+// A vector's tap bytes xor'd with tap ti, a word per four channels.
+template <int VEC>
+struct TapWords {
+  static constexpr int kWords = (VEC + 3) / 4;
+  unsigned w[kWords];
+  __device__ __forceinline__ TapWords(const unsigned char* p, unsigned ti) {
+    if constexpr (VEC % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k)
+        w[k] = reinterpret_cast<const unsigned*>(p)[k] ^ ti * 0x01010101u;
+    } else {
+      w[0] = 0;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) w[0] |= (unsigned)(p[e] ^ ti) << 8 * e;
+    }
+  }
+  __device__ __forceinline__ bool chose(int e) const {
+    return (w[e / 4] & 0xffu << 8 * (e % 4)) == 0;
+  }
+};
+
+// The taps of one axis that connect input coordinate j to an output: with
+// q = (j + p) / s and r = (j + p) - q s, tap a = r + m s reaches output
+// q - m.  Bit m of the result is set when both exist (m < kMaxWindow).
+__device__ __forceinline__ int axis_taps(int j, int k, int s, int p, int n_out,
+                                         FastDiv s_d, int& q, int& r) {
+  q = s_d.div(j + p);
+  r = j + p - q * s;
+  int mask = 0;
+#pragma unroll
+  for (int m = 0; m < kMaxWindow; ++m)
+    if (r + m * s < k && q - m >= 0 && q - m < n_out) mask |= 1 << m;
+  return mask;
+}
+
+// Block i owns slab i / groups and channels [c0, c0 + group) with
+// c0 = (i % groups) * group, masked at C.  Thread t works on channel vector
+// t % nv (nv = group / VEC = 1 << nv_shift) of positions t / nv, t / nv +
+// blockDim / nv, ...  Shared memory: x, then dy, as [position][group] of T
+// (max(slab inputs, slab outputs) positions), then the taps as
+// [output][group] bytes.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+maxpool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                   const T* __restrict__ dy, T* __restrict__ dx, PoolGeom g,
+                   int group, int groups, int nv_shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nin = g.xt * g.xh * g.xw;
+  const int nout = g.yt * g.yh * g.yw;
+  T* sv = reinterpret_cast<T*>(smem);
+  unsigned char* stap = smem + (size_t)max(nin, nout) * group * sizeof(T);
+  const long long slab = blockIdx.x / groups;
+  const int c0 = (int)(blockIdx.x % groups) * group;
+  const int v = threadIdx.x & ((1 << nv_shift) - 1);
+  const int first = threadIdx.x >> nv_shift, step = blockDim.x >> nv_shift;
+  const int cv = v * VEC;
+  // a masked vector of the last group (C % VEC == 0) idles but keeps to the
+  // barriers
+  const bool live = c0 + cv < g.nc;
+  const int n_in = live ? nin : 0, n_out = live ? nout : 0;
+  const T* xs = x + slab * nin * g.nc + c0 + cv;
+  const T* ys = y + slab * nout * g.nc + c0 + cv;
+  const T* dys = dy + slab * nout * g.nc + c0 + cv;
+  T* dxs = dx + slab * nin * g.nc + c0 + cv;
+
+  for (int j = first; j < n_in; j += step)
+    stage<T, VEC>(sv + j * group + cv, xs + (long long)j * g.nc);
+  stage_wait();
+  __syncthreads();
+
+  // phase A: the first maximal tap of every output, by output column
+  // (ho, wo) walked along t.  Where y is NaN the window held a NaN and no
+  // tap is chosen (255), as in the plain version, where no tap equals NaN.
+  const int ncol = n_out == 0 ? 0 : g.yh * g.yw;
+  for (int col = first; col < ncol; col += step) {
+    const int ho = g.yw_d.div(col), wo = col - ho * g.yw;
+    const int h0 = ho * g.sh - g.ph, w0 = wo * g.sw - g.pw;
+    const int b_lo = max(0, -h0), b_hi = min(g.kh, g.xh - h0);
+    const int c_lo = max(0, -w0), c_hi = min(g.kw, g.xw - w0);
+    const int tap_hw = g.kh * g.kw;
+    Best<T, VEC> fb[kMaxWindow];   // fb[a]: frame have + a
+    int have = -(1 << 30);
+    for (int to = 0; to < g.yt; ++to) {
+      const int t0 = to * g.st - g.pt;
+      const int a_lo = max(0, -t0), a_hi = min(g.kt, g.xt - t0);
+      // frame t0 + a is the previous output's frame a + d (d = 1 or 2 at
+      // stride 1 or 2): reuse it.  Ascending a reads fb[a + d] before it
+      // is overwritten; the index guards keep dead unrolled copies in range.
+      const int d = t0 - have;
+#pragma unroll
+      for (int a = 0; a < kMaxWindow; ++a) {
+        if (a < a_lo || a >= a_hi) continue;
+        if (a + 1 < kMaxWindow && d == 1 && a + 1 < g.kt)
+          fb[a] = fb[a + 1 < kMaxWindow ? a + 1 : a];
+        else if (a + 2 < kMaxWindow && d == 2 && a + 2 < g.kt)
+          fb[a] = fb[a + 2 < kMaxWindow ? a + 2 : a];
+        else
+          fb[a] = frame_best<T, VEC>(sv + (((t0 + a) * g.xh + h0) * g.xw + w0) * group + cv,
+                                         g, group, b_lo, b_hi, c_lo, c_hi);
+      }
+      have = t0;
+      Best<T, VEC> best;
+      bool first_frame = true;
+#pragma unroll
+      for (int a = 0; a < kMaxWindow; ++a) {
+        if (a < a_lo || a >= a_hi) continue;
+        if (first_frame) best.init_from(fb[a], a * tap_hw);
+        else best.take(fb[a], a * tap_hw);
+        first_frame = false;
+      }
+      const int o = to * g.yh * g.yw + col;
+      const Pack<T, VEC> yv = *reinterpret_cast<const Pack<T, VEC>*>(ys + (long long)o * g.nc);
+      Pack<unsigned char, VEC> out;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) out.v[e] = is_nan(yv, e) ? 255 : best.get(e);
+      *reinterpret_cast<Pack<unsigned char, VEC>*>(stap + o * group + cv) = out;
+    }
+  }
+  __syncthreads();
+
+  for (int o = first; o < n_out; o += step)
+    stage<T, VEC>(sv + o * group + cv, dys + (long long)o * g.nc);
+  stage_wait();
+  __syncthreads();
+
+  // phase B: gather dy over the outputs that chose each input, in
+  // increasing output order (m descending on every axis)
+  for (int j = first; j < n_in; j += step) {
+    const int th = g.xw_d.div(j), w = j - th * g.xw;
+    const int t = g.xh_d.div(th), h = th - t * g.xh;
+    int qt, rt, qh, rh, qw, rw;
+    const int mt = axis_taps(t, g.kt, g.st, g.pt, g.yt, g.st_d, qt, rt);
+    const int mh = axis_taps(h, g.kh, g.sh, g.ph, g.yh, g.sh_d, qh, rh);
+    const int mw = axis_taps(w, g.kw, g.sw, g.pw, g.yw, g.sw_d, qw, rw);
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int it = kMaxWindow - 1; it >= 0; --it) {
+      if (!((mt >> it) & 1)) continue;
+      const int a = rt + it * g.st, ot = qt - it;
+#pragma unroll
+      for (int ih = kMaxWindow - 1; ih >= 0; --ih) {
+        if (!((mh >> ih) & 1)) continue;
+        const int bb = rh + ih * g.sh, oh = qh - ih;
+        const int row = (ot * g.yh + oh) * g.yw;
+        const int tab = (a * g.kh + bb) * g.kw;
+#pragma unroll
+        for (int iw = kMaxWindow - 1; iw >= 0; --iw) {
+          if (!((mw >> iw) & 1)) continue;
+          const unsigned char ti = (unsigned char)(tab + rw + iw * g.sw);
+          const int off = (row + qw - iw) * group + cv;
+          // bytes of tw ^ ti are 0 where the output chose this input
+          const TapWords<VEC> tw(stap + off, ti);
+          const Pack<T, VEC> dv = *reinterpret_cast<const Pack<T, VEC>*>(sv + off);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (tw.chose(e)) acc[e] += to_f(dv.v[e]);
+        }
+      }
+    }
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out.v[e] = from_f<T>(acc[e]);
+    *reinterpret_cast<Pack<T, VEC>*>(dxs + (long long)j * g.nc) = out;
+  }
 }
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-grad_gather_kernel(const T* __restrict__ dy, const unsigned char* __restrict__ tap,
-                   T* __restrict__ dx, PoolGeom g, long long n_vec) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_vec) return;
-  const int cv = g.nc / VEC;
-  const int c = (int)(i % cv) * VEC;
-  long long j = i / cv;
-  const int w = (int)(j % g.xw); j /= g.xw;
-  const int h = (int)(j % g.xh); j /= g.xh;
-  const int t = (int)(j % g.xt);
-  const long long b = j / g.xt;
-
-  float acc[VEC];
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
-  for (int a = g.kt - 1; a >= 0; --a) {
-    const int ot = out_coord(t, a, g.st, g.pt, g.yt);
-    if (ot < 0) continue;
-    for (int bb = g.kh - 1; bb >= 0; --bb) {
-      const int oh = out_coord(h, bb, g.sh, g.ph, g.yh);
-      if (oh < 0) continue;
-      for (int cc = g.kw - 1; cc >= 0; --cc) {
-        const int ow = out_coord(w, cc, g.sw, g.pw, g.yw);
-        if (ow < 0) continue;
-        const int ti = (a * g.kh + bb) * g.kw + cc;
-        const long long off =
-            (((b * g.yt + ot) * g.yh + oh) * (long long)g.yw + ow) * g.nc + c;
-        const Pack<unsigned char, VEC> tv =
-            *reinterpret_cast<const Pack<unsigned char, VEC>*>(tap + off);
-        const Pack<T, VEC> dv = *reinterpret_cast<const Pack<T, VEC>*>(dy + off);
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          if (tv.v[v] == ti) acc[v] += to_f(dv.v[v]);
-      }
-    }
-  }
-  Pack<T, VEC> out;
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) out.v[v] = from_f<T>(acc[v]);
-  *reinterpret_cast<Pack<T, VEC>*>(dx + i * VEC) = out;
-}
-
-template <typename T, int VEC>
-int launch(const void* x, const void* y, const void* dy, void* dx, void* tap,
-           int B, const PoolGeom& g, cudaStream_t stream) {
-  const long long n_out = (long long)B * g.yt * g.yh * g.yw * (g.nc / VEC);
-  const long long n_in = (long long)B * g.xt * g.xh * g.xw * (g.nc / VEC);
-  if (n_out > 0) {
-    argmax_tap_kernel<T, VEC><<<(unsigned)((n_out + kThreads - 1) / kThreads),
-                                kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(y),
-        static_cast<unsigned char*>(tap), g, n_out);
-    cudaError_t e = cudaGetLastError();
+int launch(const void* x, const void* y, const void* dy, void* dx, int slabs,
+           PoolGeom g, int group, int threads, cudaStream_t stream) {
+  const int nin = g.xt * g.xh * g.xw, nout = g.yt * g.yh * g.yw;
+  const long long smem =
+      (long long)(nin > nout ? nin : nout) * group * sizeof(T) + (long long)nout * group;
+  const long long groups = (g.nc + group - 1) / group;
+  const long long blocks = slabs * groups;
+  const int nv = group / VEC;
+  int nv_shift = 0;
+  while ((1 << nv_shift) < nv) ++nv_shift;
+  if (group <= 0 || group % VEC || nv != (1 << nv_shift) || threads <= 0 ||
+      threads > kMaxThreads || threads % nv || smem > kMaxSmem || blocks > 0x7fffffffLL ||
+      g.kt > kMaxWindow || g.kh > kMaxWindow || g.kw > kMaxWindow)
+    return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        maxpool_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (n_in > 0) {
-    grad_gather_kernel<T, VEC><<<(unsigned)((n_in + kThreads - 1) / kThreads),
-                                 kThreads, 0, stream>>>(
-        static_cast<const T*>(dy), static_cast<const unsigned char*>(tap),
-        static_cast<T*>(dx), g, n_in);
-  }
+  g.xh_d = make_div(g.xh);
+  g.xw_d = make_div(g.xw);
+  g.yh_d = make_div(g.yh);
+  g.yw_d = make_div(g.yw);
+  g.st_d = make_div(g.st);
+  g.sh_d = make_div(g.sh);
+  g.sw_d = make_div(g.sw);
+  maxpool_bwd_kernel<T, VEC><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(dy),
+      static_cast<T*>(dx), g, group, (int)groups, nv_shift);
   return (int)cudaGetLastError();
 }
 
@@ -186,22 +429,24 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// x, dx (B, T, H, W, C); y, dy, tap (B, To, Ho, Wo, C); all contiguous in
-// that order (channels-last), x/y/dy/dx of one dtype, tap uint8.
+// x, dx (slabs, T, H, W, C); y, dy (slabs, To, Ho, Wo, C); all contiguous in
+// that order (channels-last), of one dtype.  A slab is a clip, or a frame
+// (T = To = 1) for windows of 1 in t.  group (channels per block) and threads
+// come from the wrapper's plan (ops/maxpool.py:bwd_plan).
 extern "C" int vgs_maxpool3d_bwd(const void* x, const void* y, const void* dy,
-                                 void* dx, void* tap, int B, int T, int H, int W,
+                                 void* dx, int slabs, int T, int H, int W,
                                  int C, int To, int Ho, int Wo, int kt, int kh,
                                  int kw, int st, int sh, int sw, int pt, int ph,
-                                 int pw, int is_bf16, void* stream) {
+                                 int pw, int group, int threads, int is_bf16,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PoolGeom g{T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw, pt, ph, pw};
-  const bool vec_ok = aligned16(x) && aligned16(y) && aligned16(dy) &&
-                      aligned16(dx) && aligned16(tap);
+  const PoolGeom g{T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw, pt, ph, pw, {}, {}, {}, {}, {}, {}, {}};
+  const bool vec_ok = aligned16(x) && aligned16(y) && aligned16(dy) && aligned16(dx);
   if (is_bf16) {
     if (vec_ok && C % 8 == 0)
-      return launch<__nv_bfloat16, 8>(x, y, dy, dx, tap, B, g, s);
-    return launch<__nv_bfloat16, 1>(x, y, dy, dx, tap, B, g, s);
+      return launch<__nv_bfloat16, 8>(x, y, dy, dx, slabs, g, group, threads, s);
+    return launch<__nv_bfloat16, 1>(x, y, dy, dx, slabs, g, group, threads, s);
   }
-  if (vec_ok && C % 4 == 0) return launch<float, 4>(x, y, dy, dx, tap, B, g, s);
-  return launch<float, 1>(x, y, dy, dx, tap, B, g, s);
+  if (vec_ok && C % 4 == 0) return launch<float, 4>(x, y, dy, dx, slabs, g, group, threads, s);
+  return launch<float, 1>(x, y, dy, dx, slabs, g, group, threads, s);
 }

@@ -46,9 +46,9 @@ SIGNATURES = {
     # seed, temperature, sample, nei_size, stream
     "vgs_graph_adjacency": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I,
                             ctypes.c_ulonglong, _F, _I, _I, _P),
-    # x, y, dy, dx, tap, B, T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw,
-    # pt, ph, pw, is_bf16, stream
-    "vgs_maxpool3d_bwd": (_P, _P, _P, _P, _P) + (_I,) * 18 + (_P,),
+    # x, y, dy, dx, slabs, T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw,
+    # pt, ph, pw, group, threads, is_bf16, stream
+    "vgs_maxpool3d_bwd": (_P, _P, _P, _P) + (_I,) * 20 + (_P,),
     # x, g, w1, w2, w3, w4, bn1, bn2, y1, a, y2, dz1, bn_part, wpart,
     # s1, m1, s2, m2, dx, dws, dwt, B, T, H, W, C, F, splits_s, splits_t,
     # is_bf16, stream

@@ -34,7 +34,7 @@ from .train_video_contrast_dis import Trainer, load_config
 CLASSES = (
     ("K1 graph_adjacency", r"adjacency_kernel"),
     ("K2 gcn_propagate", r"propagate_kernel"),
-    ("K3/K4 max-pool backward", r"argmax_tap_kernel|grad_gather_kernel"),
+    ("K3/K4 max-pool backward", r"maxpool_bwd_kernel"),
     ("K5 sepconv backward", r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|"
                             r"bn_bwd_kernel|split_sum_kernel"),
     ("batch norm", r"batch_norm|batchnorm|bn_fw|bn_bw|bn_"),
