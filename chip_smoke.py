@@ -23,8 +23,13 @@ Phases (each raises on failure; the script then exits non-zero):
    shapes (C not a multiple of 8, odd H and W, T = 1) against the plain
    version (exact).
 5. K5 (SepConv pair backward) against its plain version on all seven
-   outputs at five Mixed-block shapes and one small ragged shape, fp32 and
-   bf16; then kernel and plain times at all 18 fused SepConvs of a pass.
+   outputs at five Mixed-block shapes, one small ragged shape (the simt
+   route in both dtypes) and one small aligned shape (128-row tiles that
+   straddle clip edges), fp32 and bf16, each with its route (bf16 with C
+   and F multiples of 8 takes the tensor-core route); two calls bit-equal;
+   then kernel, plain and unfused-backward times at all 18 fused SepConvs
+   of a pass, each with its launch plan, and the wrapper's host time per
+   call.
 6. the slice: a small S3D+graph step on the card against the same step on
    the CPU; the port's trainer at full S3D width (configs/visual_moco.yaml,
    graph on, bs 128, 16x112x112, NCE_K 16384, bf16 compute) for 2 warm-up
@@ -105,10 +110,15 @@ _MIXED = {"3b": ((128, 8, 14, 14), (96, 128), (16, 32)),
           "5c": ((128, 2, 3, 3), (192, 384), (48, 128))}
 SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
             for br, (c, f) in zip(("b1", "b2"), brs)]
-# K5 checks: four branch-1 shapes, one narrow branch-2 shape, and a small
-# ragged one (64-row tiles straddle clip edges; C, F not tile multiples)
+# K5 checks: four branch-1 shapes, one narrow branch-2 shape, a small
+# ragged one (C, F not multiples of 8: the simt route in both dtypes; 64-row
+# tiles straddle clip edges) and a small aligned one (the tensor-core route
+# in bf16 on 128-row tiles that straddle clip edges, N below a tile)
 K5_CHECKS = ["3b b1", "3c b1", "4f b1", "5c b1", "4c b2"]
 K5_SMALL = ("small", (2, 4, 6, 6), 5, 7)
+K5_ALIGNED = ("small aligned", (2, 4, 6, 6), 16, 24)
+# two calls bit-equal (no atomics): an S3D shape and both small shapes
+K5_DETERMINISM = ["4f b1", "small aligned", "small"]
 # K5 tolerances, per output.  The function is discontinuous: dz = [z > 0] g
 # at both ReLUs.  The kernel sums in another order than cuDNN, so a
 # pre-activation within rounding of 0 can land on the other side of its
@@ -457,6 +467,36 @@ def _sep_bound(bthwc, dn):
     return bound(nbytes, flops, dn)
 
 
+def _sep_plan_str(p) -> str:
+    """One line of a K5 launch plan (ops/sepconv_bwd.py:plan)."""
+    if p.route == "simt":
+        return "simt, 64x64x16 fp32 tiles"
+    p1, p5 = p.product("P1 y1"), p.product("P5 dx")
+    wg = ", ".join(f"{q.name.split()[1]} {q.tile[0]}x{q.tile[1]}x{q.shared_taps} taps, "
+                   f"{q.splits} splits" for q in (p.product("P4 dWt"), p.product("P6 dWs")))
+    return (f"tc, conv 128x{p1.tile[1]} (F) / 128x{p5.tile[1]} (C), "
+            f"{p1.smem_bytes}/{p5.smem_bytes} B smem, {p.mtiles} row tiles; {wg}")
+
+
+def _unfused_bwd(args, dev):
+    """The pair's backward through the path the default step runs: autograd
+    of SepConv3d(fused_bwd=False) (cuDNN conv + BN) with the same weights,
+    input and cotangent; returns a function that runs it once."""
+    from video_graph_ssl_tpu_torch.models.layers import SepConv3d
+
+    x, ws, wt, g1, b1, g2, b2, _, _, _, _, gy, dt = args
+    f, c = ws.shape[:2]
+    m = SepConv3d(c, f, 3, 1, 1, dtype=dt).to(dev).train()
+    with torch.no_grad():
+        for prm, v in zip((m.conv_s.weight, m.conv_t.weight, m.bn_s.weight, m.bn_s.bias,
+                           m.bn_t.weight, m.bn_t.bias), (ws, wt, g1, b1, g2, b2)):
+            prm.copy_(v)
+    xr = x.detach().requires_grad_()
+    out = m(xr)
+    leaves = [xr, *m.parameters()]
+    return lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True)
+
+
 def phase_k5(dev) -> dict:
     from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
     from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
@@ -464,16 +504,17 @@ def phase_k5(dev) -> dict:
     print("phase 5: K5 SepConv pair backward vs plain (cudnn.allow_tf32 False)")
     g = torch.Generator(device=dev).manual_seed(3)
     names = ["dx", "dWs", "dWt", "dg1", "db1", "dg2", "db2"]
-    by_name = {n: (bthw, c, f) for n, bthw, c, f in SEPCONVS + [K5_SMALL]}
+    by_name = {n: (bthw, c, f) for n, bthw, c, f in SEPCONVS + [K5_SMALL, K5_ALIGNED]}
     worst = 0.0
-    for name in K5_CHECKS + [K5_SMALL[0]]:
+    for name in K5_CHECKS + [K5_SMALL[0], K5_ALIGNED[0]]:
         bthw, c, f = by_name[name]
         for dn, dt in DTYPES.items():
             args = _sep_inputs((*bthw, c, f), dev, dt, g)
+            route = sb.plan(*bthw, c, f, dt).route
             got = sb.sepconv_bwd(*args)
             want = fs.bwd_reference(*args)
             for n, a, r in zip(names, got, want):
-                tag = f"K5 {name} {bthw} {c}->{f} {dn} {n}"
+                tag = f"K5 {name} {bthw} {c}->{f} {dn} ({route}) {n}"
                 worst = max(worst, max_abs(a, r))
                 mx = float((a.float() - r.float()).abs().max()
                            / r.float().abs().max().clamp_min(1e-30))
@@ -482,22 +523,53 @@ def phase_k5(dev) -> dict:
                 if name == K5_SMALL[0] and dn == "fp32":
                     check(f"{tag} (max rel)", mx, TOL_K5_SMALL)
             del args, got, want
-    rows, sums, bys = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0), set()
+    for name in K5_DETERMINISM:
+        bthw, c, f = by_name[name]
+        for dn, dt in DTYPES.items():
+            args = _sep_inputs((*bthw, c, f), dev, dt, g)
+            first, second = sb.sepconv_bwd(*args), sb.sepconv_bwd(*args)
+            same = all(torch.equal(a, b) for a, b in zip(first, second))
+            route = sb.plan(*bthw, c, f, dt).route
+            print(f"  K5 {name} {dn} ({route}): two calls bit-equal: {same}")
+            if not same:
+                raise RuntimeError(f"K5 {name} {dn}: two calls differ")
+            del args, first, second
+    rows, sums, bys = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, unfused_ms=0.0), set()
     for name, bthw, c, f in SEPCONVS:
         args = _sep_inputs((*bthw, c, f), dev, torch.bfloat16, g)
+        unfused = _unfused_bwd(args, dev)
         tk = cuda_ms(lambda: sb.sepconv_bwd(*args), iters=10)
         tp = cuda_ms(lambda: fs.bwd_reference(*args), iters=10)
+        tu = cuda_ms(unfused, iters=10)
         bm, by = _sep_bound((*bthw, c, f), "bf16")
-        rows.append((name, bthw, c, f, tk, tp, bm, by))
-        for key, v in zip(("ms", "plain_ms", "bound_ms"), (tk, tp, bm)):
+        rows.append((name, bthw, c, f, tk, tp, tu, bm, by,
+                     _sep_plan_str(sb.plan(*bthw, c, f, torch.bfloat16))))
+        for key, v in zip(("ms", "plain_ms", "unfused_ms", "bound_ms"), (tk, tp, tu, bm)):
             sums[key] += v
         bys.add(by)
-        del args
-    for name, bthw, c, f, tk, tp, bm, by in rows:
-        print(f"  K5 {name} {bthw} {c}->{f} bf16: kernel {tk:.3f} ms  plain {tp:.3f} ms  "
-              f"bound {bm:.4f} ms ({by})  library: no single call")
-    print(f"  K5 all 18 SepConvs of a pass, bf16: kernel {sums['ms']:.2f} ms  "
-          f"plain {sums['plain_ms']:.2f} ms  bound {sums['bound_ms']:.3f} ms")
+        del args, unfused
+    for name, bthw, c, f, tk, tp, tu, bm, by, plan in rows:
+        print(f"  K5 {name} {bthw} {c}->{f} bf16: kernel {tk:.4f} ms  plain {tp:.3f} ms  "
+              f"unfused {tu:.4f} ms  bound {bm:.4f} ms ({by})  library: no single call  "
+              f"[{plan}]")
+    print(f"  K5 all 18 SepConvs of a pass, bf16: kernel {sums['ms']:.3f} ms  "
+          f"plain {sums['plain_ms']:.2f} ms  unfused {sums['unfused_ms']:.3f} ms  "
+          f"bound {sums['bound_ms']:.3f} ms")
+    # the wrapper's host time: 100 calls at 5b b2 without a sync
+    name, bthw, c, f = next(r for r in SEPCONVS if r[0] == "5b b2")
+    args = _sep_inputs((*bthw, c, f), dev, torch.bfloat16, g)
+    for _ in range(3):
+        sb.sepconv_bwd(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        sb.sepconv_bwd(*args)
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    print(f"  K5 wrapper host time per call at {name} {bthw} {c}->{f} bf16: {host_us:.1f} us "
+          "(100 calls, no sync)")
+    del args
+    sums.pop("unfused_ms")
     return {"name": "sepconv_bwd", "route": "cuda",
             "source": "video_graph_ssl_tpu_torch/csrc/sepconv_bwd.cu",
             "replaces": "video_graph_ssl_tpu/ops/pallas/sepconv_bwd.py:307 and "
@@ -557,7 +629,7 @@ def _counters():
 def reset_counts() -> None:
     gk, gp, mp, sb = _counters()
     gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = 0
-    sb.launches = mp.dy_copies = sb.g_copies = 0
+    sb.launches = sb.launches_tc = mp.dy_copies = sb.g_copies = 0
 
 
 def read_counts() -> dict:
@@ -619,6 +691,7 @@ def run_trainer(dev, gpu: str, fused: bool) -> dict:
             ptrs.append((ptr0, state.contrast.ptr))
         counts = read_counts()
         copies = (mp.dy_copies, sb.g_copies)
+        tc_calls = sb.launches_tc
     finally:
         mp._launch, sb.sepconv_bwd = pool_launch, sep_launch
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -643,8 +716,12 @@ def run_trainer(dev, gpu: str, fused: bool) -> dict:
     print(f"  kernel calls in the 5 steps: {counts} (want {want})")
     print(f"  cotangents copied to channels_last_3d in the 5 steps: pool dy "
           f"{copies[0]}, SepConv g {copies[1]}")
+    print(f"  K5 calls on the tensor-core route: {tc_calls} (want {want['sepconv_bwd']})")
     if counts != want:
         raise RuntimeError(f"kernel call counts {counts} != {want}")
+    if tc_calls != want["sepconv_bwd"] or copies[1] != 0:
+        raise RuntimeError(f"K5: {tc_calls} tensor-core calls of {want['sepconv_bwd']}, "
+                           f"{copies[1]} cotangent copies (want 0)")
     want_pools = {(shape, k, s, p) for _, _, shape, k, s, p in POOLS}
     if seen_pools != want_pools:
         raise RuntimeError(f"pool shapes {sorted(seen_pools)} != {sorted(want_pools)}")

@@ -6,21 +6,23 @@ Shapes are those of ``tests/test_fused_sepconv.py`` (B, T, H, W, C, F =
 kernels run in interpret mode, as the JAX package's own tests run them.
 The port keeps PyTorch layouts: x (B, C, T, H, W), ws (F, C, 1, 3, 3),
 wt (F, F, 3, 1, 1).
+
+On the card (``cuda`` marker, ``python -m pytest -m cuda
+tests/test_torch_fused_sepconv.py``): the kernel's tensor-core route
+against ``bwd_reference`` at a small aligned shape and an S3D shape, a
+cotangent that is a channel slice against its copy (bit-equal), two calls
+bit-equal, and the route counters.  JAX is imported inside the tests that
+use it, so the file also runs where JAX is absent.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import np_tree
-from test_torch_models import s3d_cfg
-from video_graph_ssl_tpu.models.layers import SepConv3d as JaxSepConv3d
-from video_graph_ssl_tpu.ops import fused_sepconv as jfs
 from video_graph_ssl_tpu_torch.models.build import create_visual_model
 from video_graph_ssl_tpu_torch.models.layers import SepConv3d
 from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
+from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
 from video_graph_ssl_tpu_torch.utils import jax_weights
 
 torch.set_num_threads(1)
@@ -74,6 +76,9 @@ def _grads_np(grads):
 
 
 def test_fwd_core_and_stats_match_jax():
+    import jax.numpy as jnp
+    from video_graph_ssl_tpu.ops import fused_sepconv as jfs
+
     args, _ = _inputs()
     out_ref, stats_ref = jfs.sepconv_fwd_core(*map(jnp.asarray, args), jnp.float32)
     out, stats = fs.sepconv_fwd_core(*_port_args(args), torch.float32)
@@ -84,6 +89,8 @@ def test_fwd_core_and_stats_match_jax():
 
 def _jax_bwd(name, args, gout):
     """The JAX backward named ``name`` on the same inputs."""
+    import jax.numpy as jnp
+    from video_graph_ssl_tpu.ops import fused_sepconv as jfs
     from video_graph_ssl_tpu.ops.pallas.sepconv_bwd import sepconv_bwd_pallas
     from video_graph_ssl_tpu.ops.pallas.sepconv_bwd_grid import sepconv_bwd_pallas_grid
 
@@ -146,6 +153,11 @@ def test_sepconv_module_fused_matches_jax():
     """SepConv3d(fused_bwd=True) against JAX SepConv3d(fused_bwd=True):
     train forward, running statistics, eval forward, parameter and input
     gradients."""
+    import jax
+    import jax.numpy as jnp
+    from _torch_port_util import np_tree
+    from video_graph_ssl_tpu.models.layers import SepConv3d as JaxSepConv3d
+
     r = np.random.default_rng(2)
     x = r.standard_normal((2, 4, 8, 8, 12)).astype(np.float32)
     jm = JaxSepConv3d(16, 3, 1, 1, fused_bwd=True, dtype=jnp.float32,
@@ -197,8 +209,119 @@ def test_sepconv_module_fused_matches_jax():
 
 
 def test_sepconv_fused_needs_s3d():
+    from test_torch_models import s3d_cfg
+
     cfg = s3d_cfg()
     cfg.TPU.SEPCONV_FUSED = True
     cfg.MODEL.BACKBONE = "tiny3d"
     with pytest.raises(ValueError, match="SEPCONV_FUSED only applies to S3D"):
         create_visual_model(cfg)
+
+
+# --------------------------------------------------------------------------- #
+# on the card: the kernel (csrc/sepconv_bwd.cu) against bwd_reference
+
+# rel-L2 per output, bf16 (chip_smoke.py's TOL_K5): both round y1, y2, da and
+# the conv outputs to bf16 but sum in other orders, and a pre-activation
+# within a rounding step of 0 may land on the other side of its ReLU
+TOL_BF16 = 2e-2
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_args(shape, dtype, dev, seed=0, g_pad=0):
+    """bwd_reference's arguments on the card for (B, T, H, W, C, F), from a
+    seeded CPU generator; the cotangent is a channel slice of a
+    channels_last_3d tensor ``g_pad`` channels wider (0: the whole tensor)."""
+    b, t, h, w, c, f = shape
+    r = torch.Generator().manual_seed(seed)
+    cl = torch.channels_last_3d
+    x = torch.randn(b, c, t, h, w, generator=r).to(dev, dtype).contiguous(memory_format=cl)
+    ws = (torch.randn(f, c, 1, 3, 3, generator=r) / (9 * c) ** 0.5).to(dev)
+    wt = (torch.randn(f, f, 3, 1, 1, generator=r) / (3 * f) ** 0.5).to(dev)
+    bn = [(1 + 0.1 * torch.randn(f, generator=r) if i % 2 == 0
+           else 0.1 * torch.randn(f, generator=r)).to(dev) for i in range(4)]
+    _, stats = fs.sepconv_fwd_core(x, ws, wt, *bn, dtype)
+    wide = torch.randn(b, f + g_pad, t, h, w, generator=r).to(dev, dtype).contiguous(
+        memory_format=cl)
+    g = wide[:, g_pad // 2:g_pad // 2 + f]
+    return (x, ws, wt, *bn, *stats, g, dtype)
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 6, 6, 16, 24), (128, 4, 7, 7, 24, 64)],
+                         ids=["small_aligned", "mixed_4c_b2"])
+def test_cuda_tc_matches_reference(shape):
+    dev = _cuda()
+    args = _card_args(shape, torch.bfloat16, dev)
+    assert sb.plan(*shape, torch.bfloat16).route == "tc"
+    got = sb.sepconv_bwd(*args)
+    want = fs.bwd_reference(*args)
+    for name, a, r in zip(GRAD_NAMES, got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, r) < TOL_BF16, (name, _rel_l2(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tc", "simt"])
+def test_cuda_cotangent_slice_is_read_in_place(dtype):
+    """A channel slice of a wider channels_last_3d cotangent (an Inception
+    concat's gradient), the same values laid out (B, T, C, H, W) (the
+    head's gradient at Mixed_5c) and NCDHW give the bits of a contiguous
+    channels_last_3d copy, with no copy made; a cotangent in another dtype
+    is converted and counted."""
+    dev = _cuda()
+    shape = (2, 4, 6, 6, 16, 24)
+    args = _card_args(shape, dtype, dev, g_pad=16)
+    g = args[-2]
+    assert not g.is_contiguous(memory_format=torch.channels_last_3d)
+    sb.g_copies = 0
+    want = sb.sepconv_bwd(*args[:-2], g.contiguous(memory_format=torch.channels_last_3d),
+                          dtype)
+    btchw = g.permute(0, 2, 1, 3, 4).contiguous().permute(0, 2, 1, 3, 4)
+    for layout in (g, btchw, g.contiguous()):
+        got = sb.sepconv_bwd(*args[:-2], layout, dtype)
+        for name, a, b in zip(GRAD_NAMES, got, want):
+            assert torch.equal(a, b), name
+    assert sb.g_copies == 0
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    sb.sepconv_bwd(*args[:-2], g.to(other), dtype)
+    assert sb.g_copies == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((128, 2, 3, 3, 160, 320), torch.bfloat16),
+                                         ((2, 4, 6, 6, 16, 24), torch.bfloat16),
+                                         ((2, 4, 6, 6, 5, 7), torch.float32)],
+                         ids=["tc_mixed_5b", "tc_small", "simt_small"])
+def test_cuda_two_calls_bit_equal(shape, dtype):
+    dev = _cuda()
+    args = _card_args(shape, dtype, dev, seed=3)
+    first = sb.sepconv_bwd(*args)
+    second = sb.sepconv_bwd(*args)
+    for name, a, b in zip(GRAD_NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_route_counters():
+    dev = _cuda()
+    sb.launches = sb.launches_tc = 0
+    for shape, dtype, tc in (((2, 4, 6, 6, 16, 24), torch.bfloat16, 1),
+                             ((2, 4, 6, 6, 16, 24), torch.float32, 0),
+                             ((2, 4, 6, 6, 5, 7), torch.bfloat16, 0)):
+        before = (sb.launches, sb.launches_tc)
+        sb.sepconv_bwd(*_card_args(shape, dtype, dev))
+        assert (sb.launches, sb.launches_tc) == (before[0] + 1, before[1] + tc)
+        assert sb.plan(*shape, dtype).route == ("tc" if tc else "simt")

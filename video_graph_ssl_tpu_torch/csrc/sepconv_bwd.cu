@@ -24,35 +24,48 @@
 //   2. dy2 (elementwise); da = conv_t^T(dy2) -> dz1 and per-tile BN1 sums;
 //      dWt = sum a (x) dy2 over rows and temporal taps;
 //   3. dy1 (elementwise); dx = conv_s^T(dy1); dWs = sum x (x) dy1.
-// The TPU kernels recomputed y1, a and y2 in every sweep to keep them out
-// of HBM.  On the H100 the intermediates go to device memory in the compute
-// dtype instead (y1, a, y2 -> dy2 in place, dz1 -> dy1 in place): storing
-// them costs a few activation passes at 3.35 TB/s, recomputing them would
-// cost four more conv passes.  Rounding a stored value to the compute dtype
-// is exactly the rounding the recompute applies, so the outputs are the same.
+// A prep launch first lays the weights out for the products (w1..w4 in
+// the compute dtype) and builds the BN constants.  The TPU kernels
+// recomputed y1, a and y2 in every sweep to keep them out of HBM.  On the
+// H100 the intermediates go to device memory in the compute dtype instead
+// (y1, a, y2 -> dy2 in place, dz1 -> dy1 in place): rounding a stored
+// value to the compute dtype is exactly the rounding the recompute
+// applies, so the outputs are the same.
 //
-// Every product is one hand-written tap-shifted implicit GEMM
-// (conv_taps_kernel): output rows are the (b, t, h, w) positions, each tap
-// reads the input rows shifted by its (dt, dh, dw) offset (zero outside the
-// clip, which is the conv padding), and the sum over taps and channels
-// runs in fp32 on 64x64 tiles staged in shared memory.  The weight
-// gradients are the same product contracted over rows (wgrad_taps_kernel).
+// Every product is a tap-shifted implicit GEMM: output rows are the
+// (b, t, h, w) positions, each tap reads the input rows shifted by its
+// (dt, dh, dw) offset (zero outside the clip, which is the conv padding).
+// The weight gradients are the same product contracted over rows.
+//
+// Two routes, chosen by the caller from the shape (ops/sepconv_bwd.py:
+// plan), both deterministic:
+//   tc    bf16 with C and F multiples of 8 (every S3D SepConv): the six
+//         products on the tensor cores, mma.sync bf16 with fp32
+//         accumulators fed by a cp.async ring (sepconv_bwd_tc.cuh), and
+//         16-byte elementwise passes;
+//   simt  fp32, or channels that are not multiples of 8: the products in
+//         fp32 FMA on the CUDA cores on 64x64 tiles (conv_taps_kernel,
+//         wgrad_taps_kernel).
 //
 // Cross-block sums.  Blocks run in no order, so nothing accumulates across
-// them: each tile writes its own fp32 partial (BN sums per 64-row tile,
+// them: each tile writes its own fp32 partial (BN sums per row tile,
 // weight gradients per row split) and a reduction kernel adds the partials
-// in a fixed order.  The result is deterministic, and bounded in memory:
-// the weight-gradient splits are chosen by the caller (a few tens).
+// in a fixed order.  No atomics: two calls give the same bits.
 //
-// What bounds it on the H100: operations.  Six conv-sized products
-// (2 * rows * taps * Cin * Cout each) against a few activation passes of
-// bytes; the bound is the FLOP count over the bf16 dense tensor-core rate:
-// for the 18 fused SepConvs of a bs-128 S3D pass, 1.1 TFLOP, 1.12 ms at
-// 989 TFLOP/s.  This first version runs the products on the CUDA cores in
-// fp32 FMA, far from that bound.
+// What bounds it on the H100: operations, then its own intermediates.  Six
+// conv-sized products (2 * rows * taps * Cin * Cout each); for the 18
+// fused SepConvs of a bs-128 S3D pass, 1.11 TFLOP, 1.12 ms at the 989
+// TFLOP/s bf16 dense tensor-core rate.  The stored intermediates (y1, a,
+// y2/dy2, dz1/dy1, each written and read again) move about 4.7 GB per
+// pass, 1.41 ms at 3.35 TB/s: that is the floor of this design until the
+// BN-backward passes are fused into the GEMM prologues.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -78,6 +91,60 @@ struct Rows {      // the (b, t, h, w) positions of the clip tensor
   int nt, nh, nw;
   int m;           // B * nt * nh * nw
 };
+
+// n / d for 0 <= n < 2^31 and d >= 1 by a multiply and a shift
+struct FastDiv {
+  unsigned m, s;
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, m) + (unsigned)n) >> s);
+  }
+};
+
+FastDiv make_div(int d) {
+  unsigned s = 0;
+  while ((1ull << s) < (unsigned long long)d) ++s;
+  return {(unsigned)(((1ull << 32) * ((1ull << s) - d)) / d + 1), s};
+}
+
+// Where row r = (b, t, h, w), channel n of the cotangent g lies: at
+// b * sb + t * st + h * sh + w * sw + n * cs.  The cotangent reaches a
+// branch SepConv as a channel slice of its Inception concat's gradient, of
+// whatever layout the layers above gave it (channels_last_3d from the next
+// block's convolutions; (B, T, C, H, W) from the head's mean at Mixed_5c),
+// and is read in place.  vec: contiguous channels and 16-byte aligned rows
+// (vector loads).
+struct GView {
+  long long sb, st, sh, sw, cs;
+  int vec, thw, hw, nw;
+  FastDiv d_thw, d_hw, d_w;
+  __device__ __forceinline__ long long row(int r) const {
+    const int b = d_thw.div(r);
+    int rem = r - b * thw;
+    const int t = d_hw.div(rem);
+    rem -= t * hw;
+    const int h = d_w.div(rem);
+    return (long long)b * sb + (long long)t * st + (long long)h * sh +
+           (long long)(rem - h * nw) * sw;
+  }
+};
+
+GView make_view(int nt, int nh, int nw, long long sb, long long st, long long sh,
+                long long sw, long long cs, int vec) {
+  GView v;
+  v.sb = sb;
+  v.st = st;
+  v.sh = sh;
+  v.sw = sw;
+  v.cs = cs;
+  v.vec = vec;
+  v.thw = nt * nh * nw;
+  v.hw = nh * nw;
+  v.nw = nw;
+  v.d_thw = make_div(v.thw);
+  v.d_hw = make_div(v.hw);
+  v.d_w = make_div(nw);
+  return v;
+}
 
 struct Taps {      // row offsets of the taps of one conv
   int n;
@@ -107,7 +174,7 @@ template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 conv_taps_kernel(const T* __restrict__ A, const T* __restrict__ Wk, int K, int N,
                  Rows rows, Taps taps, const float* __restrict__ bn,
-                 const T* __restrict__ aux, T* __restrict__ out0,
+                 const T* __restrict__ aux, GView gv, T* __restrict__ out0,
                  T* __restrict__ out1, float* __restrict__ partial) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN + 4];
@@ -191,7 +258,8 @@ conv_taps_kernel(const T* __restrict__ A, const T* __restrict__ Wk, int K, int N
       } else if constexpr (MODE == kY2) {
         const float y = rnd<T>(acc[i][c]);
         const float xhat = bn_xhat(y, bn, N, n);
-        const float dz = bn_z(xhat, bn, N, n) > 0.f ? to_f(aux[o]) : 0.f;
+        const float dz = bn_z(xhat, bn, N, n) > 0.f
+            ? to_f(aux[gv.row(r) + n * gv.cs]) : 0.f;
         out0[o] = from_f<T>(y);
         s0[c] += dz;
         s1[c] = fmaf(dz, xhat, s1[c]);
@@ -251,16 +319,18 @@ bn_sums_kernel(const float* __restrict__ partial, int tiles, int N, float count,
 //   dz = MASK ? [z > 0] src : src,   z, xhat from y and the BN constants,
 //   out = (gamma * rs) * (dz - mean(S_g) - xhat * mean(S_gx)), rounded.
 // out may alias y (sweep 2) or src (sweep 3): each element is read, then
-// written, by one thread.
+// written, by one thread.  y and out are [rows][N], src lies at its GView.
 template <typename T, bool MASK>
 __global__ void __launch_bounds__(kThreads)
-bn_bwd_kernel(const T* y, const T* src, const float* __restrict__ bn,
-              const float* __restrict__ means, int N, long long total, T* out) {
+bn_bwd_kernel(const T* y, const T* src, GView sv,
+              const float* __restrict__ bn, const float* __restrict__ means, int N,
+              long long total, T* out) {
   const long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (o >= total) return;
-  const int n = (int)(o % N);
+  const int r = (int)(o / N);
+  const int n = (int)(o - (long long)r * N);
   const float xhat = bn_xhat(to_f(y[o]), bn, N, n);
-  float dz = to_f(src[o]);
+  float dz = to_f(src[sv.row(r) + n * sv.cs]);
   if (MASK && !(bn_z(xhat, bn, N, n) > 0.f)) dz = 0.f;
   const float alpha = __fmul_rn(bn[2 * N + n], bn[N + n]);
   const float d = __fsub_rn(__fsub_rn(dz, means[n]), __fmul_rn(xhat, means[N + n]));
@@ -338,16 +408,81 @@ wgrad_taps_kernel(const T* __restrict__ A, int K, const T* __restrict__ D, int N
   }
 }
 
-// out[e] = sum over splits of partial[split][e], in order.
+// out = sum over splits of partial[split][j][k][n], in split order, written
+// in PyTorch's weight layout: out[(n * K + k) * taps + j] (dWs (F, C, 1, 3,
+// 3) with j = kh * 3 + kw, dWt (F, F', 3, 1, 1) with j = kt).  Threads walk
+// the partials' order, so the split reads are coalesced.
 __global__ void __launch_bounds__(kThreads)
-split_sum_kernel(const float* __restrict__ partial, int splits, long long size,
+split_sum_kernel(const float* __restrict__ partial, int splits, int taps, int K, int N,
                  float* __restrict__ out) {
+  const long long size = (long long)taps * K * N;
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (e >= size) return;
+  const int n = (int)(e % N);
+  const long long jk = e / N;
+  const int k = (int)(jk % K), j = (int)(jk / K);
   float tot = 0.f;
-  for (int s = 0; s < splits; ++s) tot += partial[(long long)s * size + e];
-  out[e] = tot;
+  for (int s = 0; s < splits; ++s) tot += partial[s * size + e];
+  out[((long long)n * K + k) * taps + j] = tot;
 }
+
+// The products' weight layouts and the BN constants, from PyTorch's:
+//   w1[j][c][f] = w4[j][f][c] = ws[f][c][0][kh][kw]   (j = kh * 3 + kw)
+//   w2[k][f'][f] = w3[k][f][f'] = wt[f][f'][k][0][0]
+//   bn1, bn2 [4][F] = mu, 1 / sqrt(var + eps), gamma, beta
+// Weights are rounded to the compute dtype; every input is fp32.  Index
+// math in 32 bits: the plan keeps 18 C F + 6 F^2 + 8 F below 2^31.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sep_prep_kernel(const float* __restrict__ ws, const float* __restrict__ wt,
+                const float* __restrict__ g1, const float* __restrict__ b1,
+                const float* __restrict__ g2, const float* __restrict__ b2,
+                const float* __restrict__ mu1, const float* __restrict__ var1,
+                const float* __restrict__ mu2, const float* __restrict__ var2, float eps,
+                int C, int F, T* __restrict__ w1, T* __restrict__ w2, T* __restrict__ w3,
+                T* __restrict__ w4, float* __restrict__ bn1, float* __restrict__ bn2) {
+  const int cf = C * F, ff = F * F;
+  const int total = 18 * cf + 6 * ff + 8 * F;
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < total; e += gridDim.x * kThreads) {
+    int i = e;
+    if (i < 9 * cf) {
+      const int j = i / cf, r = i - j * cf, c = r / F, f = r - c * F;
+      w1[i] = from_f<T>(ws[(f * C + c) * 9 + j]);
+      continue;
+    }
+    i -= 9 * cf;
+    if (i < 9 * cf) {
+      const int j = i / cf, r = i - j * cf, f = r / C, c = r - f * C;
+      w4[i] = from_f<T>(ws[(f * C + c) * 9 + j]);
+      continue;
+    }
+    i -= 9 * cf;
+    if (i < 3 * ff) {
+      const int k = i / ff, r = i - k * ff, fi = r / F, fo = r - fi * F;
+      w2[i] = from_f<T>(wt[(fo * F + fi) * 3 + k]);
+      continue;
+    }
+    i -= 3 * ff;
+    if (i < 3 * ff) {
+      const int k = i / ff, r = i - k * ff, fo = r / F, fi = r - fo * F;
+      w3[i] = from_f<T>(wt[(fo * F + fi) * 3 + k]);
+      continue;
+    }
+    i -= 3 * ff;
+    const int q = i / F, n = i - q * F;
+    const float* mu = q < 4 ? mu1 : mu2;
+    const float* var = q < 4 ? var1 : var2;
+    const float* gamma = q < 4 ? g1 : g2;
+    const float* beta = q < 4 ? b1 : b2;
+    float* dst = q < 4 ? bn1 : bn2;
+    const int which = q % 4;
+    dst[which * F + n] = which == 0 ? mu[n]
+                       : which == 1 ? __frsqrt_rn(__fadd_rn(var[n], eps))
+                       : which == 2 ? gamma[n] : beta[n];
+  }
+}
+
+#include "sepconv_bwd_tc.cuh"
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
@@ -380,76 +515,254 @@ Taps temporal_taps(int sign) {  // (sign*(k-1), 0, 0), j = k
     cudaError_t e_ = cudaGetLastError();             \
     if (e_ != cudaSuccess) return (int)e_;           \
   } while (0)
+#define VGS_TRY(expr)                                \
+  do {                                               \
+    const int e_ = (expr);                           \
+    if (e_ != 0) return e_;                          \
+  } while (0)
+
+// The launch plan of one call, as ops/sepconv_bwd.py:Plan.c_fields() lays
+// it out (int64, in this order).  Offsets are in elements of the fp32
+// buffer (o_bn1 .. o_sums) and of the compute-dtype buffer (o_w1 ..).
+struct SepPlan {
+  long long B, T, H, W, C, F;
+  long long tc, is_bf16;
+  long long bn_f, bn_c;                   // tc: conv tile widths for N = F, N = C
+  long long wbm_t, wbn_t, splits_t, rps_t;  // dWt: tile (tc), row splits
+  long long wbm_s, wbn_s, splits_s, rps_s;  // dWs
+  long long ew_rows;                      // tc: rows per step of the elementwise pass
+  long long mtiles;                       // row tiles of the conv products
+  long long o_dws, o_dwt, o_sums, o_bn1, o_bn2, o_m1, o_m2, o_part, o_wpart;
+  long long o_w1, o_w2, o_w3, o_w4, o_y1, o_a, o_y2, o_dz1;
+};
+
+// cudaFuncAttributeMaxDynamicSharedMemorySize, set again only when a launch
+// needs more than the kernel's last setting
+int set_smem(const void* fn, int bytes) {
+  static const void* fns[64];
+  static int set[64];
+  static int n = 0;
+  int i = 0;
+  while (i < n && fns[i] != fn) ++i;
+  if (i < n && set[i] >= bytes) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (i == n && n < 64) fns[n++] = fn;
+  if (i < n) set[i] = bytes;
+  return 0;
+}
+
+using ConvKernel = void (*)(tc::ConvArgs);
+template <int BN>
+ConvKernel conv_kernel_for(int mode) {
+  switch (mode) {
+    case kY1: return tc::sep_tc_p1_y1_kernel<BN>;
+    case kY2: return tc::sep_tc_p2_y2_kernel<BN>;
+    case kDA: return tc::sep_tc_p3_da_kernel<BN>;
+    default: return tc::sep_tc_p5_dx_kernel<BN>;
+  }
+}
+
+int launch_conv(int mode, int bn, int mtiles, const tc::ConvArgs& a, cudaStream_t st) {
+  ConvKernel k;
+  int smem;
+  const bool aux = mode == kY2 || mode == kDA;
+  const int nw = a.rows.nw;
+#define VGS_CONV_CASE(W)                                                       \
+  case W:                                                                      \
+    k = conv_kernel_for<W>(mode);                                              \
+    smem = aux ? tc::ConvCfg<W>::SMEM_AUX : tc::ConvCfg<W>::halo_smem(nw);     \
+    break;
+  switch (bn) {
+    VGS_CONV_CASE(16)
+    VGS_CONV_CASE(32)
+    VGS_CONV_CASE(64)
+    VGS_CONV_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VGS_CONV_CASE
+  VGS_TRY(set_smem((const void*)k, smem));
+  k<<<dim3(mtiles, (a.N + bn - 1) / bn), tc::kConvThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+using WgradKernel = void (*)(tc::WgradArgs);
+template <int WBM, int WBN>
+WgradKernel wgrad_kernel_for(bool temporal) {
+  return temporal ? tc::sep_tc_p4_dwt_kernel<WBM, WBN> : tc::sep_tc_p6_dws_kernel<WBM, WBN>;
+}
+
+int launch_wgrad(bool temporal, int wbm, int wbn, int splits, int rps,
+                 const __nv_bfloat16* A, int K, const __nv_bfloat16* D, int N, Rows rows,
+                 float* partial, cudaStream_t st) {
+  WgradKernel k;
+  int smem;
+  switch (wbm * 1000 + wbn) {
+    case 32032: k = wgrad_kernel_for<32, 32>(temporal); smem = tc::WgradCfg<32, 32>::SMEM; break;
+    case 32064: k = wgrad_kernel_for<32, 64>(temporal); smem = tc::WgradCfg<32, 64>::SMEM; break;
+    case 64032: k = wgrad_kernel_for<64, 32>(temporal); smem = tc::WgradCfg<64, 32>::SMEM; break;
+    case 64064: k = wgrad_kernel_for<64, 64>(temporal); smem = tc::WgradCfg<64, 64>::SMEM; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  VGS_TRY(set_smem((const void*)k, smem));
+  tc::WgradArgs a{};
+  a.A = A;
+  a.D = D;
+  a.K = K;
+  a.N = N;
+  a.rows = rows;
+  a.taps = temporal ? temporal_taps(1) : spatial_taps(1);
+  a.ktiles = (K + wbm - 1) / wbm;
+  a.ntiles = (N + wbn - 1) / wbn;
+  a.rows_per_split = rps;
+  a.d_thw = make_div(rows.nt * rows.nh * rows.nw);
+  a.d_hw = make_div(rows.nh * rows.nw);
+  a.d_w = make_div(rows.nw);
+  a.partial = partial;
+  k<<<dim3(a.taps.n / tc::kTapsPerBlock * a.ktiles * a.ntiles, splits), tc::kWgradThreads,
+        smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+tc::ConvArgs conv_args(const __nv_bfloat16* A, const __nv_bfloat16* W, int K, int N,
+                       Rows rows, Taps taps, const float* bn, const __nv_bfloat16* aux,
+                       GView gv, __nv_bfloat16* out0, __nv_bfloat16* out1, float* partial) {
+  tc::ConvArgs a{};
+  a.A = A;
+  a.W = W;
+  a.K = K;
+  a.N = N;
+  a.rows = rows;
+  a.taps = taps;
+  a.bn = bn;
+  a.aux = aux;
+  a.g = gv;
+  a.out0 = out0;
+  a.out1 = out1;
+  a.partial = partial;
+  return a;
+}
+
+struct Params {   // fp32 PyTorch-layout inputs of the prep launch
+  const float *ws, *wt, *g1, *b1, *g2, *b2, *mu1, *var1, *mu2, *var2;
+};
 
 template <typename T>
-int run(const void* x_, const void* g_, const void* w1_, const void* w2_,
-        const void* w3_, const void* w4_, const float* bn1, const float* bn2,
-        void* y1_, void* a_, void* y2_, void* dz1_, float* bn_part, float* wpart,
-        float* s1, float* m1, float* s2, float* m2, void* dx_, float* dws,
-        float* dwt, int B, int nt, int nh, int nw, int C, int F, int splits_s,
-        int splits_t, cudaStream_t st) {
-  const T* x = static_cast<const T*>(x_);
-  const T* g = static_cast<const T*>(g_);
-  const T* w1 = static_cast<const T*>(w1_);   // [9][C][F]: conv_s
-  const T* w2 = static_cast<const T*>(w2_);   // [3][F][F]: conv_t
-  const T* w3 = static_cast<const T*>(w3_);   // [3][F][F]: conv_t^T
-  const T* w4 = static_cast<const T*>(w4_);   // [9][F][C]: conv_s^T
-  T* y1 = static_cast<T*>(y1_);
-  T* a = static_cast<T*>(a_);
-  T* y2 = static_cast<T*>(y2_);     // y2, then dy2 in place
-  T* dz1 = static_cast<T*>(dz1_);   // dz1, then dy1 in place
-  T* dx = static_cast<T*>(dx_);
-
-  const Rows rows{nt, nh, nw, B * nt * nh * nw};
+int run(const T* x, const T* g, GView gv, const Params& in, float eps, float* f32,
+        T* act, T* dx, const SepPlan& p, cudaStream_t st) {
+  const int C = (int)p.C, F = (int)p.F;
+  T *w1 = act + p.o_w1, *w2 = act + p.o_w2, *w3 = act + p.o_w3, *w4 = act + p.o_w4;
+  T* y1 = act + p.o_y1;
+  T* a = act + p.o_a;
+  T* y2 = act + p.o_y2;     // y2, then dy2 in place
+  T* dz1 = act + p.o_dz1;   // dz1, then dy1 in place
+  float *bn1 = f32 + p.o_bn1, *bn2 = f32 + p.o_bn2, *m1 = f32 + p.o_m1, *m2 = f32 + p.o_m2;
+  float *part = f32 + p.o_part, *wpart = f32 + p.o_wpart;
+  float *dws = f32 + p.o_dws, *dwt = f32 + p.o_dwt;
+  float *s1 = f32 + p.o_sums, *s2 = s1 + 2 * F;   // [2][F] each: S_g, S_gx
+  const Rows rows{(int)p.T, (int)p.H, (int)p.W, (int)(p.B * p.T * p.H * p.W)};
   const long long elems = (long long)rows.m * F;
   const float count = (float)rows.m;
-  const int mtiles = (rows.m + BM - 1) / BM;
+  const int mtiles = (int)p.mtiles;
+  const GView dense = make_view(rows.nt, rows.nh, rows.nw,   // a [rows][F] scratch
+                                (long long)rows.nt * rows.nh * rows.nw * F,
+                                (long long)rows.nh * rows.nw * F, (long long)rows.nw * F, F, 1, 1);
+
+  const long long prep_elems = 18LL * C * F + 6LL * F * F + 8LL * F;
+  sep_prep_kernel<T><<<(unsigned)std::min<long long>(blocks_for(prep_elems), 1024), kThreads, 0,
+                       st>>>(in.ws, in.wt, in.g1, in.b1, in.g2, in.b2, in.mu1, in.var1,
+                             in.mu2, in.var2, eps, C, F, w1, w2, w3, w4, bn1, bn2);
+  VGS_CHECK();
+
+  if (p.tc) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      const int bnf = (int)p.bn_f, bnc = (int)p.bn_c;
+      const unsigned ew_blocks =
+          (unsigned)(((long long)(F / 8) * p.ew_rows + 255) / 256);
+      // sweep 1
+      VGS_TRY(launch_conv(kY1, bnf, mtiles, conv_args(x, w1, C, F, rows, spatial_taps(1),
+                                                      bn1, nullptr, dense, y1, a, nullptr),
+                          st));
+      VGS_TRY(launch_conv(kY2, bnf, mtiles, conv_args(a, w2, F, F, rows, temporal_taps(1),
+                                                      bn2, g, gv, y2, nullptr, part), st));
+      bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s2, m2);
+      VGS_CHECK();
+      // sweep 2
+      tc::bn_bwd_vec_kernel<true><<<ew_blocks, 256, 0, st>>>(
+          y2, g, gv, bn2, m2, F, rows.m, (int)p.ew_rows, y2);
+      VGS_CHECK();
+      VGS_TRY(launch_conv(kDA, bnf, mtiles, conv_args(y2, w3, F, F, rows, temporal_taps(-1),
+                                                      bn1, y1, dense, dz1, nullptr, part),
+                          st));
+      bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s1, m1);
+      VGS_CHECK();
+      VGS_TRY(launch_wgrad(true, (int)p.wbm_t, (int)p.wbn_t, (int)p.splits_t, (int)p.rps_t,
+                           a, F, y2, F, rows, wpart, st));
+      split_sum_kernel<<<blocks_for(3LL * F * F), kThreads, 0, st>>>(
+          wpart, (int)p.splits_t, 3, F, F, dwt);
+      VGS_CHECK();
+      // sweep 3
+      tc::bn_bwd_vec_kernel<false><<<ew_blocks, 256, 0, st>>>(
+          y1, dz1, dense, bn1, m1, F, rows.m, (int)p.ew_rows, dz1);
+      VGS_CHECK();
+      VGS_TRY(launch_conv(kDX, bnc, mtiles, conv_args(dz1, w4, F, C, rows, spatial_taps(-1),
+                                                      nullptr, nullptr, dense, dx, nullptr,
+                                                      nullptr), st));
+      VGS_TRY(launch_wgrad(false, (int)p.wbm_s, (int)p.wbn_s, (int)p.splits_s, (int)p.rps_s,
+                           x, C, dz1, F, rows, wpart, st));
+      split_sum_kernel<<<blocks_for(9LL * C * F), kThreads, 0, st>>>(
+          wpart, (int)p.splits_s, 9, C, F, dws);
+      VGS_CHECK();
+      return 0;
+    } else {
+      return (int)cudaErrorInvalidValue;   // the tc route is bf16 only
+    }
+  }
+
   const dim3 grid_f(mtiles, (F + BN - 1) / BN);
   const dim3 grid_c(mtiles, (C + BN - 1) / BN);
-
   // sweep 1
   conv_taps_kernel<T, kY1><<<grid_f, kThreads, 0, st>>>(
-      x, w1, C, F, rows, spatial_taps(1), bn1, nullptr, y1, a, nullptr);
+      x, w1, C, F, rows, spatial_taps(1), bn1, nullptr, dense, y1, a, nullptr);
   VGS_CHECK();
   conv_taps_kernel<T, kY2><<<grid_f, kThreads, 0, st>>>(
-      a, w2, F, F, rows, temporal_taps(1), bn2, g, y2, nullptr, bn_part);
+      a, w2, F, F, rows, temporal_taps(1), bn2, g, gv, y2, nullptr, part);
   VGS_CHECK();
-  bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(bn_part, mtiles, F, count, s2, m2);
+  bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s2, m2);
   VGS_CHECK();
   // sweep 2
   bn_bwd_kernel<T, true><<<blocks_for(elems), kThreads, 0, st>>>(
-      y2, g, bn2, m2, F, elems, y2);
+      y2, g, gv, bn2, m2, F, elems, y2);
   VGS_CHECK();
   conv_taps_kernel<T, kDA><<<grid_f, kThreads, 0, st>>>(
-      y2, w3, F, F, rows, temporal_taps(-1), bn1, y1, dz1, nullptr, bn_part);
+      y2, w3, F, F, rows, temporal_taps(-1), bn1, y1, dense, dz1, nullptr, part);
   VGS_CHECK();
-  bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(bn_part, mtiles, F, count, s1, m1);
+  bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s1, m1);
   VGS_CHECK();
   {
-    const int rps = ((rows.m + splits_t - 1) / splits_t + BK - 1) / BK * BK;
-    const dim3 grid((F + BM - 1) / BM, (F + BN - 1) / BN, 3 * splits_t);
+    const dim3 grid((F + BM - 1) / BM, (F + BN - 1) / BN, 3 * (int)p.splits_t);
     wgrad_taps_kernel<T><<<grid, kThreads, 0, st>>>(
-        a, F, y2, F, rows, temporal_taps(1), splits_t, rps, wpart);
+        a, F, y2, F, rows, temporal_taps(1), (int)p.splits_t, (int)p.rps_t, wpart);
     VGS_CHECK();
-    const long long size = 3LL * F * F;
-    split_sum_kernel<<<blocks_for(size), kThreads, 0, st>>>(wpart, splits_t, size, dwt);
+    split_sum_kernel<<<blocks_for(3LL * F * F), kThreads, 0, st>>>(
+        wpart, (int)p.splits_t, 3, F, F, dwt);
     VGS_CHECK();
   }
   // sweep 3
   bn_bwd_kernel<T, false><<<blocks_for(elems), kThreads, 0, st>>>(
-      y1, dz1, bn1, m1, F, elems, dz1);
+      y1, dz1, dense, bn1, m1, F, elems, dz1);
   VGS_CHECK();
   conv_taps_kernel<T, kDX><<<grid_c, kThreads, 0, st>>>(
-      dz1, w4, F, C, rows, spatial_taps(-1), nullptr, nullptr, dx, nullptr, nullptr);
+      dz1, w4, F, C, rows, spatial_taps(-1), nullptr, nullptr, dense, dx, nullptr, nullptr);
   VGS_CHECK();
   {
-    const int rps = ((rows.m + splits_s - 1) / splits_s + BK - 1) / BK * BK;
-    const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, 9 * splits_s);
+    const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, 9 * (int)p.splits_s);
     wgrad_taps_kernel<T><<<grid, kThreads, 0, st>>>(
-        x, C, dz1, F, rows, spatial_taps(1), splits_s, rps, wpart);
+        x, C, dz1, F, rows, spatial_taps(1), (int)p.splits_s, (int)p.rps_s, wpart);
     VGS_CHECK();
-    const long long size = 9LL * C * F;
-    split_sum_kernel<<<blocks_for(size), kThreads, 0, st>>>(wpart, splits_s, size, dws);
+    split_sum_kernel<<<blocks_for(9LL * C * F), kThreads, 0, st>>>(
+        wpart, (int)p.splits_s, 9, C, F, dws);
     VGS_CHECK();
   }
   return 0;
@@ -457,31 +770,38 @@ int run(const void* x_, const void* g_, const void* w1_, const void* w2_,
 
 }  // namespace
 
-// x (B, T, H, W, C) and g (B, T, H, W, F) channels-last in the compute
-// dtype; w1 [9][C][F], w2 and w3 [3][F][F], w4 [9][F][C] in the compute
-// dtype; bn1, bn2 [4][F] fp32 (mu, rsqrt(var + eps), gamma, beta).
-// Scratch: y1, a, y2, dz1 (B, T, H, W, F) compute dtype; bn_part
-// [ceil(rows / 64)][2][F] and wpart [max(splits_t * 3 * F * F,
-// splits_s * 9 * C * F)] fp32.  Out: s1, m1, s2, m2 [2][F] (sums of dz and
-// dz * xhat, and their means); dx (B, T, H, W, C) compute dtype; dws
-// [9][C][F] and dwt [3][F][F] fp32.
-extern "C" int vgs_sepconv_bwd(const void* x, const void* g, const void* w1,
-                               const void* w2, const void* w3, const void* w4,
-                               const void* bn1, const void* bn2, void* y1, void* a,
-                               void* y2, void* dz1, void* bn_part, void* wpart,
-                               void* s1, void* m1, void* s2, void* m2, void* dx,
-                               void* dws, void* dwt, int B, int T, int H, int W,
-                               int C, int F, int splits_s, int splits_t,
-                               int is_bf16, void* stream) {
+// Fields of the plan array vgs_sepconv_bwd reads (the wrapper checks it).
+extern "C" int vgs_sepconv_plan_fields() { return (int)(sizeof(SepPlan) / sizeof(long long)); }
+
+// x (B, T, H, W, C) channels-last in the compute dtype, and g (B, F, T, H,
+// W) in it at strides g_sb, g_cs, g_st, g_sh, g_sw (GView; g_vec: 16-byte
+// loads allowed); ws (F, C, 1,
+// 3, 3), wt (F, F, 3, 1, 1), the BN parameters and the forward's batch
+// statistics (F,), all fp32.  f32 is the fp32 buffer (BN constants and
+// means, partials; the outputs dWs (F, C, 1, 3, 3), dWt (F, F, 3, 1, 1)
+// and the BN sums [4][F] = S_g1, S_gx1, S_g2, S_gx2), act the compute-dtype
+// buffer (w1..w4, y1, a, y2, dz1), at the plan's offsets; dx (B, T, H, W,
+// C) in the compute dtype.
+extern "C" int vgs_sepconv_bwd(const void* x, const void* g, const void* ws, const void* wt,
+                               const void* g1, const void* b1, const void* g2,
+                               const void* b2, const void* mu1, const void* var1,
+                               const void* mu2, const void* var2, void* f32, void* act,
+                               void* dx, const long long* plan, long long g_sb,
+                               long long g_cs, long long g_st, long long g_sh,
+                               long long g_sw, int g_vec, float eps, void* stream) {
+  SepPlan p;
+  memcpy(&p, plan, sizeof p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto fm = [](void* p) { return static_cast<float*>(p); };
-  if (is_bf16)
-    return run<__nv_bfloat16>(x, g, w1, w2, w3, w4, f(bn1), f(bn2), y1, a, y2, dz1,
-                              fm(bn_part), fm(wpart), fm(s1), fm(m1), fm(s2), fm(m2),
-                              dx, fm(dws), fm(dwt), B, T, H, W, C, F, splits_s,
-                              splits_t, st);
-  return run<float>(x, g, w1, w2, w3, w4, f(bn1), f(bn2), y1, a, y2, dz1,
-                    fm(bn_part), fm(wpart), fm(s1), fm(m1), fm(s2), fm(m2), dx,
-                    fm(dws), fm(dwt), B, T, H, W, C, F, splits_s, splits_t, st);
+  auto f = [](const void* q) { return static_cast<const float*>(q); };
+  const Params in{f(ws), f(wt), f(g1), f(b1), f(g2), f(b2), f(mu1), f(var1), f(mu2), f(var2)};
+  float* buf = static_cast<float*>(f32);
+  const GView gv =
+      make_view((int)p.T, (int)p.H, (int)p.W, g_sb, g_st, g_sh, g_sw, g_cs, g_vec);
+  if (p.is_bf16) {
+    using bf = __nv_bfloat16;
+    return run<bf>(static_cast<const bf*>(x), static_cast<const bf*>(g), gv, in, eps,
+                   buf, static_cast<bf*>(act), static_cast<bf*>(dx), p, st);
+  }
+  return run<float>(static_cast<const float*>(x), static_cast<const float*>(g), gv, in,
+                    eps, buf, static_cast<float*>(act), static_cast<float*>(dx), p, st);
 }

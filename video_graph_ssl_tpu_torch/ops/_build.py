@@ -49,10 +49,12 @@ SIGNATURES = {
     # x, y, dy, dx, slabs, T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw,
     # pt, ph, pw, group, threads, is_bf16, stream
     "vgs_maxpool3d_bwd": (_P, _P, _P, _P) + (_I,) * 20 + (_P,),
-    # x, g, w1, w2, w3, w4, bn1, bn2, y1, a, y2, dz1, bn_part, wpart,
-    # s1, m1, s2, m2, dx, dws, dwt, B, T, H, W, C, F, splits_s, splits_t,
-    # is_bf16, stream
-    "vgs_sepconv_bwd": (_P,) * 21 + (_I,) * 9 + (_P,),
+    # x, g, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, f32 buffer,
+    # compute-dtype buffer, dx, plan (int64 array), g's five strides,
+    # g_vec, eps, stream
+    "vgs_sepconv_bwd": (_P,) * 16 + (_L,) * 5 + (_I, _F, _P),
+    # fields of the plan array vgs_sepconv_bwd reads
+    "vgs_sepconv_plan_fields": (),
 }
 
 # seconds the last build of this process took (0.0 when it came from cache)

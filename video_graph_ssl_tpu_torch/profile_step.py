@@ -36,7 +36,8 @@ CLASSES = (
     ("K2 gcn_propagate", r"propagate_kernel"),
     ("K3/K4 max-pool backward", r"maxpool_bwd_kernel"),
     ("K5 sepconv backward", r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|"
-                            r"bn_bwd_kernel|split_sum_kernel"),
+                            r"bn_bwd_kernel|bn_bwd_vec_kernel|split_sum_kernel|"
+                            r"sep_prep_kernel|sep_tc_p[1-6]_"),
     ("batch norm", r"batch_norm|batchnorm|bn_fw|bn_bw|bn_"),
     ("conv (cuDNN/cutlass)", r"conv|cudnn|xmma|implicit|dgrad|wgrad|fprop|sm90_|cutlass|nhwc"),
     ("gemm", r"gemm|cublas|matmul"),
@@ -53,6 +54,13 @@ def classify(name: str) -> str:
         if re.search(pat, low):
             return label
     return "other"
+
+
+def k5_product(name: str):
+    """"P1".."P6" for a kernel of K5's tensor-core route (one kernel name
+    per product, ``csrc/sepconv_bwd_tc.cuh``), else None."""
+    m = re.search(r"sep_tc_(p[1-6])_", name.lower())
+    return m.group(1).upper() if m else None
 
 
 def busy_ms(intervals) -> float:
@@ -111,7 +119,7 @@ def main(argv=None) -> None:
     plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = 0
-    sb.launches = mp.dy_copies = sb.g_copies = 0
+    sb.launches = sb.launches_tc = mp.dy_copies = sb.g_copies = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
@@ -133,11 +141,14 @@ def main(argv=None) -> None:
     busy = busy_ms(intervals)
     span = (max(e for _, e in intervals) - min(s for s, _ in intervals)) / 1e3
     by_name, by_class, count = defaultdict(float), defaultdict(float), defaultdict(int)
+    by_product = defaultdict(float)
     for e in kernels:
         us = e.time_range.elapsed_us()
         by_name[e.name] += us
         by_class[classify(e.name)] += us
         count[e.name] += 1
+        if k5_product(e.name):
+            by_product[k5_product(e.name)] += us
 
     print(f"device: {torch.cuda.get_device_name(0)}; batch {bsz}; "
           f"{args.steps} traced steps after {args.warmup} warm-up")
@@ -145,7 +156,7 @@ def main(argv=None) -> None:
           f"clips/s), {step_ms:.1f} ms traced (host clock, {args.steps} steps each); "
           f"kernels per step: {len(kernels) / args.steps:.0f}")
     calls = {"K1": gk.launches, "K2": gp.launches, "K3": mp.launches_s1,
-             "K4": mp.launches_strided, "K5": sb.launches,
+             "K4": mp.launches_strided, "K5": sb.launches, "K5 tc": sb.launches_tc,
              "pool dy copies": mp.dy_copies, "sepconv g copies": sb.g_copies}
     print("kernel wrapper calls per step: " + ", ".join(
         f"{k} {v / args.steps:g}" for k, v in calls.items()))
@@ -157,6 +168,10 @@ def main(argv=None) -> None:
     for label, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {label:<24s} {us / 1e3 / args.steps:8.2f} ms/step  "
               f"{us / 1e3 / dev_total:6.1%}")
+    if by_product:
+        print("K5 tensor-core products: " + ", ".join(
+            f"{k} {v / 1e3 / args.steps:.2f}" for k, v in sorted(by_product.items()))
+            + " ms/step")
     print("device time by phase of the step (kernels launched inside each "
           "record_function span; the backward runs on the autograd thread "
           "and falls in the rest):")
