@@ -12,16 +12,23 @@ Phases (each raises on failure; the script then exits non-zero):
 2. K1 (graph adjacency) against its plain PyTorch version at the three S3D
    aug-point shapes of the bs-128 16x112x112 step, fp32 and bf16 inputs:
    unsampled, sampled with given noise, the in-kernel Philox draw, and the
-   closed-form backward against autograd of the plain version.
-3. K2 (GCN propagation) likewise: forward, transpose mode, autograd dx and
-   dadj; then kernel, plain and ``torch.bmm`` times.
+   closed-form backward against autograd of the plain version; then T = 32
+   at the first aug point's D, a ragged D and a D below one split, two
+   calls bit-equal; kernel and plain times, and in bf16 the kernels'
+   device-only time (``torch.profiler``) and the wrapper's host time per
+   call (``video_graph_ssl_tpu_torch/kernel_times.py``).
+3. K2 (GCN propagation) likewise: forward, transpose mode (each twice,
+   bit-equal), autograd dx and dadj; T = 32, F ragged to 64 and to 8, adj
+   in fp32; then kernel, plain, ``torch.bmm``, device-only and host times.
 4. K3/K4 (max-pool backward) at the shape of every pool of one S3D pass,
    fp32 and bf16: against the plain version (exact), against torch's own
    max_pool3d backward (random cotangent; ones cotangent on inputs that
    tie), then kernel, plain and torch times beside each launch's shared
    memory per block and block count; then every pool geometry at ragged
    shapes (C not a multiple of 8, odd H and W, T = 1) against the plain
-   version (exact).
+   version (exact); then every pool of the 16x224x224 step at bs 32
+   against the plain version (exact), each with its plan (strips of dx
+   rows where a slab exceeds a block), the strip plans timed.
 5. K5 (SepConv pair backward) against its plain version on all seven
    outputs at five Mixed-block shapes, one small ragged shape (the simt
    route in both dtypes) and one small aligned shape (128-row tiles that
@@ -35,17 +42,20 @@ Phases (each raises on failure; the script then exits non-zero):
    graph on, bs 128, 16x112x112, NCE_K 16384, bf16 compute) for 2 warm-up
    and 3 timed steps, with the kernels' launch counts read around exactly
    those steps; then the same with ``TPU.SEPCONV_FUSED True`` (small step
-   card vs CPU, then the full-width trainer).
+   card vs CPU, then the full-width trainer); then the default step at
+   16x224x224 (``INPUT.BASE_SIZE [224, 224]``, ``SCALE_SIZE [256, 256]``)
+   at bs 32, whose stem and Mixed_3b/3c pools run K3/K4 in strips.
 
-Times are CUDA events, the median of 20 launches (10 for K5).  ``bound``
+Times are CUDA events around one call, the median of 20 calls (10 for K5;
+``kernel_times.event_ms``).  ``bound``
 is the least time the card could take: the larger of the bytes the
 function must move over 3.35 TB/s and its operations over the peak rate
 of its type (989 TFLOP/s bf16, 67 TFLOP/s fp32), for the published H100
 SXM at 700 W.
 
 The line before the last is the per-kernel JSON record: ``launches`` is
-the kernel's wrapper-call count over the 5 steps of the trainer run that
-uses it, ``max_abs_err`` the largest kernel-vs-plain difference of its
+the kernel's wrapper-call count over the 5 steps of the 112x112 trainer run
+that uses it, ``max_abs_err`` the largest kernel-vs-plain difference of its
 checks, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` the
 kernel's, its plain version's, its bound's and the library call's times
 summed over the shapes of one encoder pass in bf16.  The last line is
@@ -65,13 +75,18 @@ import time
 
 import torch
 
+# kernel timing shared with the script that times older trees; K1_SHAPES
+# (B, T, D) of K1's q/k and K2_SHAPES (B, T, H, W, C) of K2's input at S3D
+# aug points 5, 9 and 14 of the bs-128, 16x112x112 step
+from video_graph_ssl_tpu_torch.kernel_times import (K1_SHAPES, K2_SHAPES, PATTERNS, device_us,
+                                                    event_ms, host_us)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "visual_moco.yaml")
 
-# (B, T, D) of K1's q/k and (B, T, H, W, C) of K2's input at S3D aug points
-# 5, 9 and 14 of the bs-128, 16x112x112 step.
-K1_SHAPES = [(128, 8, 7 * 7 * 96), (128, 4, 3 * 3 * 256), (128, 2, 1 * 1 * 416)]
-K2_SHAPES = [(128, 8, 14, 14, 192), (128, 4, 7, 7, 512), (128, 2, 3, 3, 832)]
+# K1 edges: T = 32 at the first aug point's D (many splits), ragged D
+# (scalar loads), D below one split
+K1_EDGE = [(4, 32, 7 * 7 * 96), (5, 8, 37), (64, 8, 3)]
 
 # Tolerances, as max|kernel - plain| / max(1, max|plain|) unless noted.
 # fp32: the kernels sum in another order than cuBLAS -> ~1e-6 relative.
@@ -98,6 +113,12 @@ POOLS = [("pool_1", "K4", (128, 8, 56, 56, 64), (1, 3, 3), (1, 2, 2), (0, 1, 1))
                        ("4d", (128, 4, 7, 7, 512)), ("4e", (128, 4, 7, 7, 512)),
                        ("4f", (128, 4, 7, 7, 528)), ("5b", (128, 2, 3, 3, 832)),
                        ("5c", (128, 2, 3, 3, 832)))]
+# the same pools in the 16x224x224 step at bs 32 (activations of the size
+# of the bs-128 112x112 step's): frame sizes 56, 28, 14, 7, 3 at 112x112
+# are 112, 56, 28, 14, 7 at 224x224 (pool_13 rounds 7 down to 3, not 14 to 6)
+HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 3: 7}
+POOLS_224 = [(name, kn, (32, t, HW_224[h], HW_224[w], c), k, s, p)
+             for name, kn, (_, t, h, w, c), k, s, p in POOLS]
 # (name, (B, T, H, W), C, F) of the 18 fused SepConvs of one S3D pass
 _MIXED = {"3b": ((128, 8, 14, 14), (96, 128), (16, 32)),
           "3c": ((128, 8, 14, 14), (128, 192), (32, 96)),
@@ -178,23 +199,6 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Median time of ``fn`` in ms over ``iters`` launches (CUDA events)."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
 # --------------------------------------------------------------------------- #
 def phase_k1(dev) -> dict:
     from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
@@ -248,14 +252,17 @@ def phase_k1(dev) -> dict:
                     err = float((x.float() - y.float()).abs().max()
                                 / y.float().abs().max().clamp_min(1e-30))
                     check(f"K1 {tag} sample={sample} {name} (rel)", err, TOL_GRAD[dn])
-            tk = cuda_ms(lambda: gk.adjacency_fwd_kernel(
-                q, k, theta, None, 7, 1.0, True, 0))
-            tp = cuda_ms(lambda: gk._adjacency_fwd_plain(
+            fwd = lambda: gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0)
+            tk = event_ms(fwd)
+            tp = event_ms(lambda: gk._adjacency_fwd_plain(
                 q, k, theta, None, 7, 1.0, True, 0))
             # reads q, k, theta; writes adj, S, p (fp32); q.k^T dominates
             bm, by = bound(2 * q.numel() * q.element_size() + 4 * t * t + 3 * 4 * b * t * t,
                            2 * b * t * t * d, dn)
-            timings.append((tag, tk, tp, bm, by))
+            dev_us = host = None
+            if dn == "bf16":
+                dev_us, host = device_us(fwd, PATTERNS["K1"]), host_us(fwd)
+            timings.append((tag, tk, tp, bm, by, dev_us, host))
             if dn == "bf16":
                 bys.add(by)
                 ms += tk
@@ -281,9 +288,28 @@ def phase_k1(dev) -> dict:
     if not (0.99e-6 <= u_min and u_max <= 1.0 - 0.99e-6):
         raise RuntimeError(f"K1 Philox u range [{u_min!r}, {u_max!r}] "
                            "outside [1e-6, 1 - 1e-6]")
-    for tag, tk, tp, bm, by in timings:
+    # T = 32 at a step-sized D, ragged D (scalar loads), D below one split
+    for b, t, d in K1_EDGE:
+        theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
+        for dn, dt in DTYPES.items():
+            q = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(dt)
+            k = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(dt)
+            plan = gk.adjacency_plan(b, t, d, dt)
+            tag = f"K1 ({b},{t},{d}) {dn} [{plan.splits} splits, {plan.vec}-element loads]"
+            for name, x, y in zip(("adj", "S", "p"),
+                                  gk.adjacency_fwd_kernel(q, k, theta, None, 0, 1.0, False, 0),
+                                  gk._adjacency_fwd_plain(q, k, theta, None, 0, 1.0, False, 0)):
+                check(f"{tag} {name}", rel_err(x, y), TOL["fp32"])
+                worst = max(worst, max_abs(x, y))
+            first = gk.adjacency_fwd_kernel(q, k, theta, None, 5, 1.0, True, 0)
+            second = gk.adjacency_fwd_kernel(q, k, theta, None, 5, 1.0, True, 0)
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                raise RuntimeError(f"{tag}: two calls with one seed differ")
+    for tag, tk, tp, bm, by, dev_us, host in timings:
         print(f"  K1 {tag} sampled fwd: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
-              f"bound {bm:.4f} ms ({by})  library: no single call")
+              f"bound {bm:.4f} ms ({by})  library: no single call"
+              + (f"  device-only {dev_us:.2f} us, wrapper host {host:.1f} us per call"
+                 if dev_us is not None else ""))
     return {"name": "graph_adjacency", "route": "cuda",
             "source": "video_graph_ssl_tpu_torch/csrc/graph_adjacency.cu",
             "replaces": "video_graph_ssl_tpu/ops/pallas/graph_kernel.py:75",
@@ -310,6 +336,8 @@ def phase_k2(dev) -> dict:
                 y_p = gp.propagate_plain(adj, x, transpose=tr)
                 check(f"K2 {tag} transpose={tr}", rel_err(y_k, y_p), TOL[dn])
                 worst = max(worst, max_abs(y_k, y_p))
+                if not torch.equal(y_k, gp._launch(adj, x, transpose=tr)):
+                    raise RuntimeError(f"K2 {tag} transpose={tr}: two calls differ")
             gout = torch.randn(shape, device=dev, generator=g).to(dt)
             xa, aa = x.clone().requires_grad_(), adj.clone().requires_grad_()
             dx_k, da_k = torch.autograd.grad(
@@ -321,32 +349,45 @@ def phase_k2(dev) -> dict:
             err = float((da_k.float() - da_p.float()).abs().max()
                         / da_p.float().abs().max())
             check(f"K2 {tag} dadj (rel)", err, TOL_GRAD[dn])
-            tk = cuda_ms(lambda: gp._launch(adj, x, transpose=False))
-            tp = cuda_ms(lambda: gp.propagate_plain(adj, x))
-            tl = cuda_ms(lambda: torch.bmm(adj, x.view(b, t, -1)))
+            fwd = lambda: gp._launch(adj, x, transpose=False)
+            tk = event_ms(fwd)
+            tp = event_ms(lambda: gp.propagate_plain(adj, x))
+            tl = event_ms(lambda: torch.bmm(adj, x.view(b, t, -1)))
             # reads x and adj, writes out; 2 T FLOPs per output element
             bm, by = bound((2 * x.numel() + adj.numel()) * x.element_size(),
                            2 * t * x.numel(), dn)
-            timings.append((tag, tk, tp, tl, bm, by))
+            dev_us = host = None
+            if dn == "bf16":
+                dev_us, host = device_us(fwd, PATTERNS["K2"]), host_us(fwd)
+            plan = gp.propagate_plan(b, t, x.numel() // (b * t), dt)
+            timings.append((tag, tk, tp, tl, bm, by, dev_us, host, plan))
             if dn == "bf16":
                 bys.add(by)
                 ms += tk
                 plain_ms += tp
                 lib_ms += tl
                 bound_ms += bm
-    # edge shapes: T = 32 (dynamic shared memory above 48 KB), and an F that
-    # is not a multiple of the 16-byte vector (scalar path)
-    for shape in ((4, 32, 4, 4, 64), (2, 3, 3, 5, 7)):
-        for dn, dt in DTYPES.items():
+    # edge shapes: T = 32 (T padded to 32 on the tensor cores; dynamic shared
+    # memory above 48 KB), F not a multiple of 64 (a part-full last slice),
+    # F not a multiple of 8 (CUDA cores), adj in fp32 (rounded in the kernel)
+    for shape in ((4, 32, 4, 4, 64), (3, 32, 3, 3, 40), (2, 3, 3, 5, 7)):
+        for (dn, dt), adj_dt in itertools.product(DTYPES.items(), (None, torch.float32)):
             x = torch.randn(shape, device=dev, generator=g).to(dt)
-            adj = torch.rand(shape[0], shape[1], shape[1], device=dev, generator=g).to(dt)
+            adj = torch.rand(shape[0], shape[1], shape[1], device=dev, generator=g).to(
+                adj_dt or dt)
+            route = gp.propagate_plan(shape[0], shape[1], x.numel() // (shape[0] * shape[1]),
+                                      dt).route
             for tr in (False, True):
-                check(f"K2 {shape} {dn} transpose={tr}",
-                      rel_err(gp._launch(adj, x, transpose=tr),
-                              gp.propagate_plain(adj, x, transpose=tr)), TOL[dn])
-    for tag, tk, tp, tl, bm, by in timings:
-        print(f"  K2 {tag} fwd: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
-              f"torch.bmm {tl:.4f} ms  bound {bm:.4f} ms ({by})")
+                y_k = gp._launch(adj, x, transpose=tr)
+                check(f"K2 {shape} {dn} adj {str(adj.dtype)[6:]} ({route}) transpose={tr}",
+                      rel_err(y_k, gp.propagate_plain(adj, x, transpose=tr)), TOL[dn])
+                if not torch.equal(y_k, gp._launch(adj, x, transpose=tr)):
+                    raise RuntimeError(f"K2 {shape} {dn}: two calls differ")
+    for tag, tk, tp, tl, bm, by, dev_us, host, plan in timings:
+        print(f"  K2 {tag} fwd ({plan.route}, {plan.blocks} blocks): kernel {tk:.4f} ms  "
+              f"plain {tp:.4f} ms  torch.bmm {tl:.4f} ms  bound {bm:.4f} ms ({by})"
+              + (f"  device-only {dev_us:.2f} us, wrapper host {host:.1f} us per call"
+                 if dev_us is not None else ""))
     return {"name": "gcn_propagate", "route": "cuda",
             "source": "video_graph_ssl_tpu_torch/csrc/gcn_propagate.cu",
             "replaces": "video_graph_ssl_tpu/ops/pallas/gcn_propagate.py:74",
@@ -398,9 +439,9 @@ def phase_pools(dev) -> list:
                     ones, xt, list(k), list(s), list(p), [1, 1, 1], False, it)
                 check(f"{tag} ties, ones cotangent vs torch (max abs)",
                       max_abs(tied, ref), 0.0)
-            tk = cuda_ms(lambda: mp._launch(x, y, dy, k, s, p))
-            tp = cuda_ms(lambda: mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
-            tl = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+            tk = event_ms(lambda: mp._launch(x, y, dy, k, s, p))
+            tp = event_ms(lambda: mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
+            tl = event_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
                 dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx))
             # what the function needs: read x, y and dy, write dx
             bm, by = bound(2 * (x.numel() + y.numel()) * x.element_size(), 0, dn)
@@ -430,6 +471,32 @@ def phase_pools(dev) -> list:
         err = max_abs(mp._launch(x, y, dy, k, s, p), mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
         check(f"{kn} k{k} s{s} p{p} {shape} {dn} vs plain (max abs)", err, 0.0)
         worst[kn] = max(worst[kn], err)
+    # every pool of the 16x224x224 step at bs 32, exact; the slabs above
+    # one block's shared memory run in strips of dx rows with halos
+    print("  K3/K4 at 16x224x224, bs 32 (strips where a slab exceeds a block):")
+    for name, kn, shape, k, s, p in POOLS_224:
+        for dn, dt in DTYPES.items():
+            x = _ncdhw(shape, dev, dt, g)
+            y = F.max_pool3d(x, k, s, p).contiguous(memory_format=CL)
+            dy = torch.randn(y.shape, device=dev, generator=g).to(dt).contiguous(
+                memory_format=CL)
+            plan = mp.bwd_plan(x.shape, k, s, p, dt)
+            strips = plan.t_strips * plan.h_strips
+            tag = (f"{kn} {name} {shape} {dn} [{strips} strip(s) of {plan.t_strip} frames x "
+                   f"{plan.h_strip} rows, {plan.blocks} blocks, {plan.smem_bytes} B]")
+            err = max_abs(mp._launch(x, y, dy, k, s, p), mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
+            check(f"{tag} vs plain (max abs)", err, 0.0)
+            worst[kn] = max(worst[kn], err)
+            if dn == "bf16" and strips > 1:
+                idx = F.max_pool3d(x, k, s, p, return_indices=True)[1]
+                tk = event_ms(lambda: mp._launch(x, y, dy, k, s, p))
+                tl = event_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                    dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx))
+                bm, by = bound(2 * (x.numel() + y.numel()) * x.element_size(), 0, dn)
+                print(f"  {kn} {name} {shape} bf16 in strips: kernel {tk:.4f} ms  torch "
+                      f"{tl:.4f} ms  bound {bm:.4f} ms ({by})")
+                del idx
+            del x, y, dy
     src = "video_graph_ssl_tpu_torch/csrc/maxpool_bwd.cu"
     return [{"name": "maxpool_bwd_s1", "route": "cuda", "source": src,
              "replaces": "video_graph_ssl_tpu/ops/pallas/maxpool_kernel.py:130",
@@ -538,9 +605,9 @@ def phase_k5(dev) -> dict:
     for name, bthw, c, f in SEPCONVS:
         args = _sep_inputs((*bthw, c, f), dev, torch.bfloat16, g)
         unfused = _unfused_bwd(args, dev)
-        tk = cuda_ms(lambda: sb.sepconv_bwd(*args), iters=10)
-        tp = cuda_ms(lambda: fs.bwd_reference(*args), iters=10)
-        tu = cuda_ms(unfused, iters=10)
+        tk = event_ms(lambda: sb.sepconv_bwd(*args), iters=10)
+        tp = event_ms(lambda: fs.bwd_reference(*args), iters=10)
+        tu = event_ms(unfused, iters=10)
         bm, by = _sep_bound((*bthw, c, f), "bf16")
         rows.append((name, bthw, c, f, tk, tp, tu, bm, by,
                      _sep_plan_str(sb.plan(*bthw, c, f, torch.bfloat16))))
@@ -639,28 +706,32 @@ def read_counts() -> dict:
             "sepconv_bwd": sb.launches}
 
 
-def run_trainer(dev, gpu: str, fused: bool) -> dict:
-    """5 trainer steps at full S3D width; returns the launch counts of
-    exactly those steps."""
+def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> dict:
+    """5 trainer steps at full S3D width (2 warm-up, 3 timed), bs ``bsz``,
+    16 x size x size (224: INPUT.BASE_SIZE [224, 224], SCALE_SIZE [256,
+    256]); returns the launch counts of exactly those steps."""
     from video_graph_ssl_tpu_torch.data.synthetic import iterate_batches
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
     _, _, mp, sb = _counters()
-    print(f"  trainer at full S3D width, bs 128, 16x112x112, SEPCONV_FUSED {fused}")
+    print(f"  trainer at full S3D width, bs {bsz}, 16x{size}x{size}, SEPCONV_FUSED {fused}")
+    geometry = [] if size == 112 else ["INPUT.BASE_SIZE", f"[{size}, {size}]",
+                                       "INPUT.SCALE_SIZE", f"[{size * 8 // 7}, {size * 8 // 7}]"]
     c = load_config(CONFIG, ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic",
-                             "DATALOADER.BATCH_SIZE", "128",
-                             "TPU.SEPCONV_FUSED", str(fused)])
+                             "DATALOADER.BATCH_SIZE", str(bsz),
+                             "TPU.SEPCONV_FUSED", str(fused)] + geometry)
+    if list(c.INPUT.BASE_SIZE) != [size, size]:
+        raise RuntimeError(f"INPUT.BASE_SIZE {c.INPUT.BASE_SIZE}, want {size}")
     if int(c.CONTRAST.NCE_K) != 16384 or c.TPU.COMPUTE_DTYPE != "bfloat16":
         raise RuntimeError("configs/visual_moco.yaml no longer gives NCE_K 16384 "
                            "with bf16 compute")
     trainer = Trainer(c, max_steps=5, device="cuda")
     t0 = time.perf_counter()
     batches = [trainer.to_device(bt) for bt, _ in
-               zip(iterate_batches(trainer.dataset, 128, 0, 1), range(5))]
+               zip(iterate_batches(trainer.dataset, bsz, 0, 1), range(5))]
     print(f"  5 synthetic batches made in {time.perf_counter() - t0:.1f} s")
     lr = trainer.lr_fn(0)
     state = trainer.state
-    bsz = 128
     # record the shapes the kernels see, to hold them to the tables above
     seen_pools, seen_seps = set(), set()
     pool_launch, sep_launch = mp._launch, sb.sepconv_bwd
@@ -722,7 +793,8 @@ def run_trainer(dev, gpu: str, fused: bool) -> dict:
     if tc_calls != want["sepconv_bwd"] or copies[1] != 0:
         raise RuntimeError(f"K5: {tc_calls} tensor-core calls of {want['sepconv_bwd']}, "
                            f"{copies[1]} cotangent copies (want 0)")
-    want_pools = {(shape, k, s, p) for _, _, shape, k, s, p in POOLS}
+    want_pools = {((bsz, *shape[1:]), k, s, p)
+                  for _, _, shape, k, s, p in (POOLS if size == 112 else POOLS_224)}
     if seen_pools != want_pools:
         raise RuntimeError(f"pool shapes {sorted(seen_pools)} != {sorted(want_pools)}")
     want_seps = {(bthw, c_, f) for _, bthw, c_, f in SEPCONVS} if fused else set()
@@ -730,7 +802,7 @@ def run_trainer(dev, gpu: str, fused: bool) -> dict:
         raise RuntimeError(f"SepConv shapes {sorted(seen_seps)} != {sorted(want_seps)}")
     timed = step_ms[2:]
     mean_ms = sum(timed) / len(timed)
-    print(f"slice (SEPCONV_FUSED {fused}): {mean_ms:.1f} ms/step, "
+    print(f"slice (SEPCONV_FUSED {fused}, 16x{size}x{size}): {mean_ms:.1f} ms/step, "
           f"{bsz / mean_ms * 1e3:.1f} clips/s (mean of 3 timed steps, bs {bsz}, "
           f"peak {peak:.1f} GiB) on {gpu}")
     del trainer, state, batches, metrics
@@ -740,8 +812,9 @@ def run_trainer(dev, gpu: str, fused: bool) -> dict:
 
 
 def phase_slice(dev, gpu: str) -> dict:
-    """The default GCA step, then the TPU.SEPCONV_FUSED step; each kernel's
-    count comes from the run of the path that uses it."""
+    """The default GCA step, then the TPU.SEPCONV_FUSED step, then the
+    default step at 16x224x224; each kernel's count comes from the 112x112
+    run of the path that uses it."""
     print("phase 6a: the GCA step")
     small_step_parity(dev, fused=False)
     counts = run_trainer(dev, gpu, fused=False)
@@ -749,6 +822,11 @@ def phase_slice(dev, gpu: str) -> dict:
     small_step_parity(dev, fused=True)
     fused_counts = run_trainer(dev, gpu, fused=True)
     counts["sepconv_bwd"] = fused_counts["sepconv_bwd"]
+    print("phase 6c: the GCA step at 16x224x224, bs 32 (K3/K4 in strips)")
+    big = run_trainer(dev, gpu, fused=False, bsz=32, size=224)
+    if not all(big[n] > 0 for n in ("graph_adjacency", "gcn_propagate", "maxpool_bwd_s1",
+                                    "maxpool_bwd_strided")):
+        raise RuntimeError(f"224x224 step: a kernel was not launched: {big}")
     return counts
 
 

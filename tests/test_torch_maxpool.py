@@ -13,9 +13,10 @@
 * On the card (``cuda`` marker, ``python -m pytest -m cuda
   tests/test_torch_maxpool.py``): the kernel against the plain version, bit
   for bit, on the same geometries plus ragged C, odd H/W and T = 1, in fp32
-  and bf16, with one launch and one allocation (dx) per call.  JAX is
-  imported inside the test that uses it, so the file also runs where JAX is
-  absent.
+  and bf16, with one launch and one allocation (dx) per call; and at the
+  224x224 stem and Mixed_3b pools, whose slabs the kernel cuts into
+  strips.  JAX is imported inside the test that uses it, so the file also
+  runs where JAX is absent.
 """
 
 import numpy as np
@@ -157,14 +158,11 @@ def _card_call(x, y, dy, k, s, p):
     return dx, counted, allocs
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case,shape,dtype", CARD_GRID, ids=CARD_IDS)
-def test_kernel_equals_plain_on_card(case, shape, dtype):
+def _kernel_equals_plain(case, shape, dtype, dev):
     """Random inputs and cotangent, then the tie-rich bf16 inputs with a
     ones cotangent of test_plain_matches_torch_autograd_bf16_ties: the
     kernel equals the plain version bit for bit; each call is one counted
     launch whose only allocation is dx (no tap scratch)."""
-    dev = _cuda()
     k, s, p = case
     g = np.random.default_rng(5)
     cl = torch.channels_last_3d
@@ -181,3 +179,26 @@ def test_kernel_equals_plain_on_card(case, shape, dtype):
         assert allocs == 1 and dx.dtype == dtype
         want = maxpool.max_pool3d_bwd_plain(x.cpu(), y.cpu(), dy.cpu(), k, s, p)
         assert torch.equal(dx.cpu(), want), float((dx.cpu().float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,shape,dtype", CARD_GRID, ids=CARD_IDS)
+def test_kernel_equals_plain_on_card(case, shape, dtype):
+    _kernel_equals_plain(case, shape, dtype, _cuda())
+
+
+# 224x224 pools whose slabs exceed one block (batch cut to keep the CPU
+# oracle quick): stage 1's pool in frame strips, Mixed_3b's in clip strips
+STRIP_SHAPES = {"stem_224": (CASES[3], (4, 8, 112, 112, 64)),
+                "mixed_3b_224": (CASES[0], (8, 8, 28, 28, 192))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", list(STRIP_SHAPES))
+def test_kernel_equals_plain_on_card_in_strips(name, dtype):
+    dev = _cuda()
+    case, (b, t, h, w, c) = STRIP_SHAPES[name]
+    plan = maxpool.bwd_plan((b, c, t, h, w), *case, dtype)
+    assert plan.t_strips * plan.h_strips > 1
+    _kernel_equals_plain(case, (b, t, h, w, c), dtype, dev)

@@ -7,12 +7,17 @@ blocking is checked here:
 * the 13 pool geometries of one S3D pass (bs 128, 16x112x112) give the
   shared-memory bytes and block counts of the design table at 32-byte
   channel groups, and the plan's own (wider) groups fit two blocks per SM,
-  within the 227 KB one block may take;
+  within the 227 KB one block may take, each slab in one block;
+* the same 13 pools at 16x224x224, 32x112x112 and 32x224x224 plan without
+  raising: slabs above 227 KB are cut into strips of dx rows;
 * for the geometries of ``tests/test_torch_maxpool.py`` (plus ragged C and
-  T = 1), every input and every output is owned by exactly one block, and
-  every output that covers an owned input, and every input that an owned
-  output reads, lies in the same block: no block needs a halo;
-* a slab above 227 KB raises.
+  T = 1) and for strip plans, every dx element is owned by exactly one
+  block, every output whose window covers an owned input is staged in that
+  block, and every input a staged output reads is staged (the halo);
+* a plain-PyTorch emulation of a strip plan (each block's halo'd extent
+  through the plain version, its owned dx rows kept) equals the plain
+  version on the whole tensor bit for bit;
+* only a W too wide for a strip of one row with its halo raises.
 """
 
 import itertools
@@ -20,6 +25,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from video_graph_ssl_tpu_torch.ops import maxpool
 
@@ -78,20 +84,106 @@ def test_s3d_pool_geometries_fit(name):
         assert plan.group * plan.element_size == group_bytes
         assert plan.smem_bytes == want <= maxpool.TWO_BLOCKS_SMEM < maxpool.MAX_SMEM_BYTES
         assert plan.slab == ("frame" if k[0] == 1 else "clip")
+        assert (plan.t_strips, plan.h_strips) == (1, 1)     # a slab per block
         assert plan.vec * plan.element_size == 16          # no ragged S3D pool
         assert 32 <= plan.threads <= maxpool.MAX_THREADS and plan.threads % 32 == 0
         if dt == torch.bfloat16:
             assert plan.blocks == blocks == plan.slabs * plan.groups
 
 
+# frame sizes of the S3D pools' inputs at 112x112 and at 224x224 (pool_13
+# rounds 7 down to 3 at 112x112, 14 to 7 at 224x224)
+HW = {112: {56: 56, 28: 28, 14: 14, 7: 7, 3: 3},
+      224: {56: 112, 28: 56, 14: 28, 7: 14, 3: 7}}
+
+
+def _scaled(shape, frames, size):
+    """An S3D pool's x at another clip length and frame size (T scales with
+    the clip length: every stride in t is 1 or 2 on even lengths)."""
+    b, t, h, w, c = shape
+    return (b, t * frames // 16, HW[size][h], HW[size][w], c)
+
+
+# the pools that need strips there: (geometry, pool) -> (frames, rows) a
+# bf16 block owns; every other pool keeps one slab per block
+STRIPPED = {("16x224", "pool_1"): (1, 24), ("16x224", "mixed_3b"): (8, 7),
+            ("16x224", "mixed_3c"): (8, 7), ("32x224", "pool_1"): (1, 24),
+            ("32x224", "pool_7"): (16, 4), ("32x224", "mixed_3b"): (16, 2),
+            ("32x224", "mixed_3c"): (16, 2)}
+GEOMETRIES = {"16x224": (16, 224), "32x112": (32, 112), "32x224": (32, 224)}
+
+
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+@pytest.mark.parametrize("name", list(S3D_POOLS))
+def test_s3d_pools_plan_at_224_and_32_frames(name, geom):
+    shape, k, s, p = S3D_POOLS[name][:4]
+    shape = _scaled(shape, *GEOMETRIES[geom])
+    for dt in (torch.bfloat16, torch.float32):
+        plan = maxpool.bwd_plan(_ncdhw_shape(shape), k, s, p, dt)
+        assert plan.smem_bytes <= maxpool.MAX_SMEM_BYTES
+        strips = (plan.t_strip, plan.h_strip) if plan.t_strips * plan.h_strips > 1 else None
+        if dt == torch.bfloat16:
+            assert strips == STRIPPED.get((geom, name)), (strips, plan)
+        if strips:      # narrowest groups, two blocks per SM
+            assert plan.group * plan.element_size == 32
+            assert plan.smem_bytes <= maxpool.TWO_BLOCKS_SMEM
+        # one batch element suffices for ownership: blocks repeat per slab
+        _check_ownership(maxpool.bwd_plan(_ncdhw_shape((1,) + shape[1:]), k, s, p, dt),
+                         shape[1:4], k, s, p)
+
+
 def _out_len(n, k, s, p):
     return (n + 2 * p - k) // s + 1
 
 
-# the shapes of tests/test_torch_maxpool.py, ragged C and T = 1
+def _check_ownership(plan, thw, k, s, p):
+    """Every dx element owned by one block; the outputs covering its owned
+    inputs and the inputs those outputs read lie in its staged ranges, and
+    the ranges fit the plan's shared layout."""
+    t, h, w = thw
+    to, ho, wo = (_out_len(n, *a) for n, a in zip(thw, zip(k, s, p)))
+    b, c = plan.slabs // (t if plan.slab == "frame" else 1), plan.channels
+    owned = np.zeros((b, c, t, h), np.int64)     # a block takes whole W
+    staged_out = np.zeros((b, c, to, ho), np.int64)
+    for blk in range(plan.blocks):
+        e = plan.block(blk)
+        (c0, c1), (t0, t1), (h0, h1) = e.chans, e.own_t, e.own_h
+        assert c1 - c0 <= plan.group
+        owned[e.b, c0:c1, t0:t1, h0:h1] += 1
+        staged_out[e.b, c0:c1, e.out_t[0]:e.out_t[1], e.out_h[0]:e.out_h[1]] += 1
+        if plan.slab == "clip":
+            assert e.x_t[1] - e.x_t[0] <= plan.x_frames
+            assert e.out_t[1] - e.out_t[0] <= plan.y_frames
+        assert e.x_h[1] - e.x_h[0] <= plan.x_rows and e.out_h[1] - e.out_h[0] <= plan.y_rows
+        for axis, (a0, a1), (o0, o1), (x0, x1) in ((0, e.own_t, e.out_t, e.x_t),
+                                                   (1, e.own_h, e.out_h, e.x_h)):
+            if axis == 0 and plan.slab == "frame":
+                continue
+            n, n_out = thw[axis], (to, ho)[axis]
+            ka, sa, pa = k[axis], s[axis], p[axis]
+            for a in range(a0, a1):          # outputs that cover an owned input
+                cover = [o for o in range(n_out) if o * sa - pa <= a < o * sa - pa + ka]
+                assert all(o0 <= o < o1 for o in cover), (blk, axis, a, cover)
+            for o in range(o0, o1):          # inputs a staged output reads
+                taps = [o * sa - pa + i for i in range(ka)]
+                assert all(x0 <= i < x1 for i in taps if 0 <= i < n), (blk, axis, o)
+    assert (owned == 1).all()
+    if plan.t_strips * plan.h_strips == 1:   # a slab per block: outputs once too
+        assert (staged_out == 1).all()
+    else:
+        assert (staged_out >= 1).all()
+
+
+# the shapes of tests/test_torch_maxpool.py, ragged C and T = 1; then strip
+# plans: a 224x224-like stem frame and Mixed_3b clip with shrunk channels,
+# and clips cut along T too
 OWNERSHIP = [(case, shape, dn) for case, shape, dn in itertools.product(
     CASES, [(2, 6, 9, 9, 8), (2, 5, 9, 9, 16), (2, 5, 9, 7, None), (2, 1, 9, 9, None)],
-    DTYPES) if shape[1] + 2 * case[2][0] >= case[0][0]]
+    DTYPES) if shape[1] + 2 * case[2][0] >= case[0][0]] + [
+    (case, shape, dn) for case, shape in (
+        (CASES[3], (1, 2, 112, 112, 16)), (CASES[0], (1, 8, 28, 28, 16)),
+        (CASES[0], (1, 16, 6, 80, 16)), (CASES[1], (1, 16, 7, 80, 16)),
+        (CASES[2], (2, 5, 9, 300, 16))) for dn in DTYPES]
 
 
 @pytest.mark.parametrize("case,shape,dn", OWNERSHIP,
@@ -101,32 +193,90 @@ def test_every_input_and_output_in_exactly_one_block(case, shape, dn):
     b, t, h, w, c = shape
     c = c or (12 if dn == "bf16" else 6)         # ragged: the scalar path
     plan = maxpool.bwd_plan((b, c, t, h, w), k, s, p, DTYPES[dn])
-    to, ho, wo = (_out_len(n, *a) for n, a in zip((t, h, w), zip(k, s, p)))
-    owned_in = np.zeros((b, c, t), np.int64)     # a block takes whole H, W
-    owned_out = np.zeros((b, c, to), np.int64)
-    for blk in range(plan.blocks):
-        bi, (t0, t1), (o0, o1), (c0, c1) = plan.extent(blk)
-        assert c1 - c0 <= plan.group and t1 - t0 == plan.t_in and o1 - o0 == plan.t_out
-        owned_in[bi, c0:c1, t0:t1] += 1
-        owned_out[bi, c0:c1, o0:o1] += 1
-        for tt in range(t0, t1):                 # outputs that cover an owned input
-            cover = [ot for ot in range(to) if ot * s[0] - p[0] <= tt < ot * s[0] - p[0] + k[0]]
-            assert all(o0 <= ot < o1 for ot in cover), (blk, tt, cover)
-        for ot in range(o0, o1):                 # inputs an owned output reads
-            taps = [ot * s[0] - p[0] + a for a in range(k[0])]
-            assert all(t0 <= tt < t1 for tt in taps if 0 <= tt < t), (blk, ot, taps)
-    assert (owned_in == 1).all() and (owned_out == 1).all()
-    n_in, n_out = plan.t_in * h * w, plan.t_out * ho * wo
-    assert plan.smem_bytes == (max(n_in, n_out) * plan.group * plan.element_size
-                               + n_out * plan.group)
-    assert plan.threads >= min(maxpool.MAX_THREADS,
-                               max(n_in, n_out) * plan.group // plan.vec)
+    _check_ownership(plan, (t, h, w), k, s, p)
+    ho, wo = (_out_len(n, *a) for n, a in zip((h, w), zip(k[1:], s[1:], p[1:])))
+    n_x, n_y = plan.x_frames * plan.x_rows * w, plan.y_frames * plan.y_rows * wo
+    assert plan.smem_bytes == (max(n_x, n_y) * plan.group * plan.element_size
+                               + n_y * plan.group)
+    assert plan.threads >= min(maxpool.MAX_THREADS, max(n_x, n_y) * plan.group // plan.vec)
+    if plan.t_strips * plan.h_strips == 1:
+        to = _out_len(t, k[0], s[0], p[0])
+        assert (plan.x_frames, plan.x_rows, plan.y_rows) == (plan.t_in, h, ho)
+        assert plan.y_frames == (1 if plan.slab == "frame" else to)
+
+
+def emulate_plan(plan, x, y, dy, k, s, p):
+    """dx by the plan's blocks in plain PyTorch: each block's staged x (its
+    rows of the padding as -inf) and staged y, dy through
+    ``max_pool3d_bwd_plain``; only the block's owned dx rows are kept."""
+    dx = torch.full_like(x, float("nan"))
+    for i in range(0, plan.blocks, plan.groups):   # channels: all at once
+        e = plan.block(i)
+        (ot0, ot1), (oh0, oh1) = e.out_t, e.out_h
+        (t0, t1), (h0, h1) = e.own_t, e.own_h
+        dx[e.b, :, t0:t1, h0:h1] = 0.0
+        if ot1 == ot0 or oh1 == oh0:
+            continue
+        pads, start = [], []
+        for (o0, o1), (x0, x1), ka, sa, pa in ((e.out_t, e.x_t, k[0], s[0], p[0]),
+                                               (e.out_h, e.x_h, k[1], s[1], p[1])):
+            first, end = o0 * sa - pa, (o1 - 1) * sa - pa + ka
+            assert x0 >= first and end >= x1       # never more than the windows
+            pads = [x0 - first, end - x1] + pads
+            start.append(first)
+        xs = F.pad(x[e.b:e.b + 1, :, e.x_t[0]:e.x_t[1], e.x_h[0]:e.x_h[1]],
+                   (0, 0, *pads), value=float("-inf"))
+        sub = (slice(e.b, e.b + 1), slice(None), slice(ot0, ot1), slice(oh0, oh1))
+        d = maxpool.max_pool3d_bwd_plain(xs, y[sub], dy[sub], k, s, (0, 0, p[2]))[0]
+        lt0, lh0 = t0 - start[0], h0 - start[1]
+        # owned rows that no staged window reads keep dx = 0
+        a0, a1 = max(lt0, 0), min(lt0 + t1 - t0, d.shape[1])
+        b0, b1 = max(lh0, 0), min(lh0 + h1 - h0, d.shape[2])
+        dx[e.b, :, a0 + t0 - lt0:a1 + t0 - lt0, b0 + h0 - lh0:b1 + h0 - lh0] = \
+            d[:, a0:a1, b0:b1]
+    return dx
+
+
+# (window, stride, padding), x (B, T, H, W, C) with 224x224 proportions and
+# shrunk channels: the stem's frame strips, Mixed_3b's clip strips, clip
+# strips along T and H (stride 1 and 2), and strips with ragged last rows
+EMULATED = {"stem_224_frame_strips": (CASES[3], (1, 2, 112, 112, 16)),
+            "mixed_3b_224_clip_strips": (CASES[0], (2, 8, 28, 28, 16)),
+            "s1_t_and_h_strips": (CASES[0], (1, 16, 6, 80, 16)),
+            "pool7_t_and_h_strips": (CASES[1], (1, 16, 7, 80, 16)),
+            "pool13_ragged_strips": (CASES[2], (2, 5, 9, 300, 16))}
+
+
+@pytest.mark.parametrize("dn", list(DTYPES))
+@pytest.mark.parametrize("name", list(EMULATED))
+def test_strip_plan_emulation_equals_plain(name, dn):
+    (k, s, p), (b, t, h, w, c) = EMULATED[name]
+    dt = DTYPES[dn]
+    plan = maxpool.bwd_plan((b, c, t, h, w), k, s, p, dt)
+    assert plan.t_strips * plan.h_strips > 1
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((b, c, t, h, w), generator=g).to(dt)
+    y = F.max_pool3d(x, k, s, p)
+    dy = torch.randn(y.shape, generator=g).to(dt)
+    want = maxpool.max_pool3d_bwd_plain(x, y, dy, k, s, p)
+    got = emulate_plan(plan, x, y, dy, k, s, p)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
 
 
 @pytest.mark.parametrize("shape,k,s,p", [
     ((1, 16, 8, 112, 112), (3, 3, 3), (1, 1, 1), (1, 1, 1)),   # clip slab
     ((1, 64, 8, 112, 112), (1, 3, 3), (1, 2, 2), (0, 1, 1)),   # frame slab
+    ((1, 16, 8, 8, 247), (3, 3, 3), (1, 1, 1), (1, 1, 1)),     # W too wide
 ])
 def test_oversized_slab_raises(shape, k, s, p):
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        maxpool.bwd_plan(shape, k, s, p, torch.bfloat16)
+    """A slab above 227 KB no longer raises: it is cut into strips.  Only a
+    W too wide for a strip of one input row with its halo still raises
+    (246 is the widest for this geometry in bf16)."""
+    if shape[-1] > 246:
+        with pytest.raises(ValueError, match="a strip of one input row"):
+            maxpool.bwd_plan(shape, k, s, p, torch.bfloat16)
+        maxpool.bwd_plan(shape[:-1] + (246,), k, s, p, torch.bfloat16)
+        return
+    plan = maxpool.bwd_plan(shape, k, s, p, torch.bfloat16)
+    assert plan.t_strips * plan.h_strips > 1
+    assert plan.smem_bytes <= maxpool.TWO_BLOCKS_SMEM

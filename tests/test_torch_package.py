@@ -108,6 +108,7 @@ def test_port_never_imports_jax():
         import video_graph_ssl_tpu_torch.ops.maxpool
         import video_graph_ssl_tpu_torch.ops.sepconv_bwd
         import video_graph_ssl_tpu_torch.profile_step
+        import video_graph_ssl_tpu_torch.kernel_times
         cfg_file = {os.path.join(REPO, 'configs', 'visual_moco.yaml')!r}
         create_visual_model(load_config(cfg_file, ['TPU.SEPCONV_FUSED', 'True']))
         c = load_config(cfg_file, ['MODEL.AUG_FLAG', 'True', 'CONTRAST.NCE_K', '256'])

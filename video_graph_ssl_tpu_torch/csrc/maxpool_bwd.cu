@@ -11,11 +11,20 @@
 // K3 (_mp_bwd -> _bwd_kernel, the 3x3x3 stride-1 pool of every Inception
 // pool branch) and K4 (_strided_bwd -> _bwd_kernel_spatial/_bwd_kernel_full,
 // the four strided pools).  One kernel, one launch per backward call, serves
-// both, with the TPU kernels' blocking: a block owns one slab and one group
-// of channels, where a slab is a whole clip (T, H, W), or one frame (H, W)
-// when the window and stride are 1 in t (the wrapper then passes the clips
-// as B*T clips of one frame).  Every output whose window reads the slab
-// lies in it, so no block needs a halo or another block's result.
+// both, with the TPU kernels' blocking where it fits: a block owns one slab
+// and one group of channels, where a slab is a whole clip (T, H, W), or one
+// frame (H, W) when the window and stride are 1 in t (the wrapper then
+// passes the clips as B*T clips of one frame).  A slab too large for one
+// block's shared memory (stage 1's pool or Mixed_3b's at 224x224) is cut
+// into strips of dx rows: along H, and along T where one row of every
+// frame does not fit.  A block owns the dx of its strip alone and stages
+// what that needs: the outputs whose windows cover one of its rows (their
+// y, dy and taps) and the x rows those windows read, a halo on either
+// side.  It re-derives those outputs' first-max taps (a neighbour strip
+// derives the shared ones again, from the same x), so no block needs
+// another block's result, and the cut runs between input rows: a cut
+// between output rows would leave the input row under a 3-wide stride-2
+// window to two blocks.  An unstriped slab is the strip of all rows.
 //
 //   stage x: the slab's channel group (32 to 256 bytes a position, chosen
 //     by the wrapper) goes to dynamic shared memory with cp.async.
@@ -48,8 +57,8 @@
 // stage / compute / stage / compute order.  Threads run along C with
 // 16-byte vectors (8 bf16 or 4 fp32) of the channels-last layout, bf16
 // compares two lanes at a time.  The largest S3D slab (pool_1, one 56x56
-// frame) takes 113 KB of shared memory; the wrapper refuses a slab above
-// 227 KB.
+// frame) takes 113 KB of shared memory; at 224x224 the wrapper cuts
+// slabs above 227 KB into strips (ops/maxpool.py:bwd_plan).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,8 +104,32 @@ struct PoolGeom {
   int kt, kh, kw;
   int st, sh, sw;
   int pt, ph, pw;
-  FastDiv xh_d, xw_d, yh_d, yw_d, st_d, sh_d, sw_d;
+  int ts, hs;            // dx frames and rows a block owns (a strip)
+  int t_strips, h_strips;
+  int nxt, nxh, nyt, nyh;  // shared layout: x [nxt][nxh][xw], y [nyt][nyh][yw]
+  FastDiv xw_d, yw_d, xplane_d, yplane_d, hs_d, st_d, sh_d, sw_d;
 };
+
+// The outputs [o0, o1) whose window covers one of the inputs [a0, a1) of one
+// axis, and the inputs [x0, x1) those windows read (ops/maxpool.py:axis_cover).
+struct Cover {
+  int o0, o1, x0, x1;
+};
+__device__ __forceinline__ Cover axis_cover(int a0, int a1, int k, int s, int p, int n_in,
+                                            int n_out) {
+  const int n = a0 + p - k + 1;
+  Cover c;
+  c.o0 = n <= 0 ? 0 : (n + s - 1) / s;
+  c.o1 = min(n_out, (a1 - 1 + p) / s + 1);
+  if (c.o1 <= c.o0) {
+    c.o1 = c.o0;
+    c.x0 = c.x1 = 0;
+  } else {
+    c.x0 = max(0, c.o0 * s - p);
+    c.x1 = min(n_in, (c.o1 - 1) * s - p + k);
+  }
+  return c;
+}
 
 // One channel vector from device to shared memory; 16-byte vectors go
 // through cp.async (completed by stage_wait).
@@ -258,54 +291,95 @@ __device__ __forceinline__ int axis_taps(int j, int k, int s, int p, int n_out,
   return mask;
 }
 
-// Block i owns slab i / groups and channels [c0, c0 + group) with
-// c0 = (i % groups) * group, masked at C.  Thread t works on channel vector
-// t % nv (nv = group / VEC = 1 << nv_shift) of positions t / nv, t / nv +
-// blockDim / nv, ...  Shared memory: x, then dy, as [position][group] of T
-// (max(slab inputs, slab outputs) positions), then the taps as
-// [output][group] bytes.
-template <typename T, int VEC>
+// Block i owns channels [c0, c0 + group) with c0 = (i % groups) * group,
+// masked at C, then (fastest first) H strip, T strip and slab.  Thread t
+// works on channel vector t % nv (nv = group / VEC = 1 << nv_shift) of
+// positions t / nv, t / nv + blockDim / nv, ...  Shared memory: x, then
+// dy, as [position][group] of T in the plan's layout (x [nxt][nxh][W], y
+// [nyt][nyh][Wo], the larger of the two), then the taps as [output][group]
+// bytes.  STRIPS is false where every slab is one block (the layout is
+// then the slab's, every staged range starts at 0, and the index
+// arithmetic folds to a slab's): those plans keep the code they had before
+// strips existed.
+template <typename T, int VEC, bool STRIPS>
 __global__ void __launch_bounds__(kMaxThreads)
 maxpool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                    const T* __restrict__ dy, T* __restrict__ dx, PoolGeom g,
                    int group, int groups, int nv_shift) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nin = g.xt * g.xh * g.xw;
-  const int nout = g.yt * g.yh * g.yw;
+  const int nxh = STRIPS ? g.nxh : g.xh, nyh = STRIPS ? g.nyh : g.yh;
+  const int x_plane = nxh * g.xw, y_plane = nyh * g.yw;
+  const int nin = g.xt * g.xh * g.xw, nout = g.yt * g.yh * g.yw;
   T* sv = reinterpret_cast<T*>(smem);
-  unsigned char* stap = smem + (size_t)max(nin, nout) * group * sizeof(T);
-  const long long slab = blockIdx.x / groups;
-  const int c0 = (int)(blockIdx.x % groups) * group;
+  unsigned char* stap =
+      smem + (size_t)(STRIPS ? max(g.nxt * x_plane, g.nyt * y_plane) : max(nin, nout)) *
+                 group * sizeof(T);
+  long long slab;
+  int c0, own_t0 = 0, own_t1 = g.xt, own_h0 = 0, own_h1 = g.xh;
+  Cover ct{0, g.yt, 0, g.xt}, ch{0, g.yh, 0, g.xh};
+  if constexpr (STRIPS) {
+    int rest = blockIdx.x / groups;
+    c0 = (int)(blockIdx.x - rest * groups) * group;
+    const int hi = rest % g.h_strips;
+    rest /= g.h_strips;
+    const int ti = rest % g.t_strips;
+    slab = rest / g.t_strips;
+    own_t0 = ti * g.ts, own_t1 = min(g.xt, own_t0 + g.ts);
+    own_h0 = hi * g.hs, own_h1 = min(g.xh, own_h0 + g.hs);
+    ct = axis_cover(own_t0, own_t1, g.kt, g.st, g.pt, g.xt, g.yt);
+    ch = axis_cover(own_h0, own_h1, g.kh, g.sh, g.ph, g.xh, g.yh);
+    // the plan's layout holds every strip (a wrong plan stops here)
+    if (ct.x1 - ct.x0 > g.nxt || ch.x1 - ch.x0 > g.nxh || ct.o1 - ct.o0 > g.nyt ||
+        ch.o1 - ch.o0 > g.nyh)
+      __trap();
+  } else {
+    slab = blockIdx.x / groups;
+    c0 = (int)(blockIdx.x % groups) * group;
+  }
   const int v = threadIdx.x & ((1 << nv_shift) - 1);
   const int first = threadIdx.x >> nv_shift, step = blockDim.x >> nv_shift;
   const int cv = v * VEC;
   // a masked vector of the last group (C % VEC == 0) idles but keeps to the
   // barriers
   const bool live = c0 + cv < g.nc;
-  const int n_in = live ? nin : 0, n_out = live ? nout : 0;
+  const int n_x = live ? (STRIPS ? (ct.x1 - ct.x0) * x_plane : nin) : 0;
+  const int n_y = live ? (STRIPS ? (ct.o1 - ct.o0) * y_plane : nout) : 0;
+  const int x_row = (ch.x1 - ch.x0) * g.xw, y_row = (ch.o1 - ch.o0) * g.yw;
   const T* xs = x + slab * nin * g.nc + c0 + cv;
   const T* ys = y + slab * nout * g.nc + c0 + cv;
   const T* dys = dy + slab * nout * g.nc + c0 + cv;
   T* dxs = dx + slab * nin * g.nc + c0 + cv;
 
-  for (int j = first; j < n_in; j += step)
-    stage<T, VEC>(sv + j * group + cv, xs + (long long)j * g.nc);
+  // x of the staged frames and rows; position j = (lt * nxh + lh) * W + w
+  for (int j = first; j < n_x; j += step) {
+    if constexpr (STRIPS) {
+      const int lt = g.xplane_d.div(j), r = j - lt * x_plane;
+      if (r < x_row)
+        stage<T, VEC>(sv + j * group + cv,
+                      xs + ((long long)(ct.x0 + lt) * g.xh + ch.x0) * g.xw * g.nc +
+                          (long long)r * g.nc);
+    } else {
+      stage<T, VEC>(sv + j * group + cv, xs + (long long)j * g.nc);
+    }
+  }
   stage_wait();
   __syncthreads();
 
-  // phase A: the first maximal tap of every output, by output column
-  // (ho, wo) walked along t.  Where y is NaN the window held a NaN and no
-  // tap is chosen (255), as in the plain version, where no tap equals NaN.
-  const int ncol = n_out == 0 ? 0 : g.yh * g.yw;
+  // phase A: the first maximal tap of every staged output, by output
+  // column (ho, wo) walked along t.  Where y is NaN the window held a NaN
+  // and no tap is chosen (255), as in the plain version, where no tap
+  // equals NaN.
+  const int ncol = n_y == 0 ? 0 : y_row;
   for (int col = first; col < ncol; col += step) {
-    const int ho = g.yw_d.div(col), wo = col - ho * g.yw;
+    const int lho = g.yw_d.div(col), wo = col - lho * g.yw;
+    const int ho = ch.o0 + lho;
     const int h0 = ho * g.sh - g.ph, w0 = wo * g.sw - g.pw;
     const int b_lo = max(0, -h0), b_hi = min(g.kh, g.xh - h0);
     const int c_lo = max(0, -w0), c_hi = min(g.kw, g.xw - w0);
     const int tap_hw = g.kh * g.kw;
     Best<T, VEC> fb[kMaxWindow];   // fb[a]: frame have + a
     int have = -(1 << 30);
-    for (int to = 0; to < g.yt; ++to) {
+    for (int to = ct.o0; to < ct.o1; ++to) {
       const int t0 = to * g.st - g.pt;
       const int a_lo = max(0, -t0), a_hi = min(g.kt, g.xt - t0);
       // frame t0 + a is the previous output's frame a + d (d = 1 or 2 at
@@ -320,8 +394,9 @@ maxpool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
         else if (a + 2 < kMaxWindow && d == 2 && a + 2 < g.kt)
           fb[a] = fb[a + 2 < kMaxWindow ? a + 2 : a];
         else
-          fb[a] = frame_best<T, VEC>(sv + (((t0 + a) * g.xh + h0) * g.xw + w0) * group + cv,
-                                         g, group, b_lo, b_hi, c_lo, c_hi);
+          fb[a] = frame_best<T, VEC>(
+              sv + (((t0 + a - ct.x0) * nxh + h0 - ch.x0) * g.xw + w0) * group + cv, g, group,
+              b_lo, b_hi, c_lo, c_hi);
       }
       have = t0;
       Best<T, VEC> best;
@@ -333,26 +408,41 @@ maxpool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
         else best.take(fb[a], a * tap_hw);
         first_frame = false;
       }
-      const int o = to * g.yh * g.yw + col;
+      const int o = (to * g.yh + ho) * g.yw + wo;
+      const int lo = STRIPS ? ((to - ct.o0) * nyh + lho) * g.yw + wo : o;
       const Pack<T, VEC> yv = *reinterpret_cast<const Pack<T, VEC>*>(ys + (long long)o * g.nc);
       Pack<unsigned char, VEC> out;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) out.v[e] = is_nan(yv, e) ? 255 : best.get(e);
-      *reinterpret_cast<Pack<unsigned char, VEC>*>(stap + o * group + cv) = out;
+      *reinterpret_cast<Pack<unsigned char, VEC>*>(stap + lo * group + cv) = out;
     }
   }
   __syncthreads();
 
-  for (int o = first; o < n_out; o += step)
-    stage<T, VEC>(sv + o * group + cv, dys + (long long)o * g.nc);
+  // dy of the staged outputs, over x's space; position (lt * nyh + lh) * Wo + wo
+  for (int j = first; j < n_y; j += step) {
+    if constexpr (STRIPS) {
+      const int lt = g.yplane_d.div(j), r = j - lt * y_plane;
+      if (r < y_row)
+        stage<T, VEC>(sv + j * group + cv,
+                      dys + ((long long)(ct.o0 + lt) * g.yh + ch.o0) * g.yw * g.nc +
+                          (long long)r * g.nc);
+    } else {
+      stage<T, VEC>(sv + j * group + cv, dys + (long long)j * g.nc);
+    }
+  }
   stage_wait();
   __syncthreads();
 
-  // phase B: gather dy over the outputs that chose each input, in
-  // increasing output order (m descending on every axis)
-  for (int j = first; j < n_in; j += step) {
+  // phase B: for every owned input, gather dy over the outputs that chose
+  // it, in increasing output order (m descending on every axis); all of
+  // them are staged
+  const int n_own = live ? (STRIPS ? (own_t1 - own_t0) * g.hs * g.xw : nin) : 0;
+  for (int j = first; j < n_own; j += step) {
     const int th = g.xw_d.div(j), w = j - th * g.xw;
-    const int t = g.xh_d.div(th), h = th - t * g.xh;
+    const int lt = g.hs_d.div(th), lh = th - lt * g.hs;   // hs = H without strips
+    const int t = own_t0 + lt, h = own_h0 + lh;
+    if (STRIPS && h >= own_h1) continue;
     int qt, rt, qh, rh, qw, rw;
     const int mt = axis_taps(t, g.kt, g.st, g.pt, g.yt, g.st_d, qt, rt);
     const int mh = axis_taps(h, g.kh, g.sh, g.ph, g.yh, g.sh_d, qh, rh);
@@ -363,20 +453,20 @@ maxpool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
 #pragma unroll
     for (int it = kMaxWindow - 1; it >= 0; --it) {
       if (!((mt >> it) & 1)) continue;
-      const int a = rt + it * g.st, ot = qt - it;
+      const int a = rt + it * g.st, ot = qt - it - ct.o0;
 #pragma unroll
       for (int ih = kMaxWindow - 1; ih >= 0; --ih) {
         if (!((mh >> ih) & 1)) continue;
-        const int bb = rh + ih * g.sh, oh = qh - ih;
-        const int row = (ot * g.yh + oh) * g.yw;
+        const int bb = rh + ih * g.sh, oh = qh - ih - ch.o0;
+        const int row = (ot * nyh + oh) * g.yw;
         const int tab = (a * g.kh + bb) * g.kw;
 #pragma unroll
         for (int iw = kMaxWindow - 1; iw >= 0; --iw) {
           if (!((mw >> iw) & 1)) continue;
-          const unsigned char ti = (unsigned char)(tab + rw + iw * g.sw);
+          const unsigned char tix = (unsigned char)(tab + rw + iw * g.sw);
           const int off = (row + qw - iw) * group + cv;
-          // bytes of tw ^ ti are 0 where the output chose this input
-          const TapWords<VEC> tw(stap + off, ti);
+          // bytes of tw ^ tix are 0 where the output chose this input
+          const TapWords<VEC> tw(stap + off, tix);
           const Pack<T, VEC> dv = *reinterpret_cast<const Pack<T, VEC>*>(sv + off);
 #pragma unroll
           for (int e = 0; e < VEC; ++e)
@@ -387,39 +477,48 @@ maxpool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
     Pack<T, VEC> out;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) out.v[e] = from_f<T>(acc[e]);
-    *reinterpret_cast<Pack<T, VEC>*>(dxs + (long long)j * g.nc) = out;
+    const long long pos = STRIPS ? ((long long)t * g.xh + h) * g.xw + w : j;
+    *reinterpret_cast<Pack<T, VEC>*>(dxs + pos * g.nc) = out;
   }
 }
 
 template <typename T, int VEC>
 int launch(const void* x, const void* y, const void* dy, void* dx, int slabs,
            PoolGeom g, int group, int threads, cudaStream_t stream) {
-  const int nin = g.xt * g.xh * g.xw, nout = g.yt * g.yh * g.yw;
-  const long long smem =
-      (long long)(nin > nout ? nin : nout) * group * sizeof(T) + (long long)nout * group;
+  const long long n_x = (long long)g.nxt * g.nxh * g.xw, n_y = (long long)g.nyt * g.nyh * g.yw;
+  const long long smem = (n_x > n_y ? n_x : n_y) * group * sizeof(T) + n_y * group;
   const long long groups = (g.nc + group - 1) / group;
-  const long long blocks = slabs * groups;
+  if (g.ts <= 0 || g.hs <= 0) return (int)cudaErrorInvalidValue;
+  g.t_strips = (g.xt + g.ts - 1) / g.ts;
+  g.h_strips = (g.xh + g.hs - 1) / g.hs;
+  const long long blocks = (long long)slabs * g.t_strips * g.h_strips * groups;
   const int nv = group / VEC;
   int nv_shift = 0;
   while ((1 << nv_shift) < nv) ++nv_shift;
   if (group <= 0 || group % VEC || nv != (1 << nv_shift) || threads <= 0 ||
       threads > kMaxThreads || threads % nv || smem > kMaxSmem || blocks > 0x7fffffffLL ||
-      g.kt > kMaxWindow || g.kh > kMaxWindow || g.kw > kMaxWindow)
+      g.kt > kMaxWindow || g.kh > kMaxWindow || g.kw > kMaxWindow || g.nxt > g.xt ||
+      g.nxh > g.xh || g.nyt > g.yt || g.nyh > g.yh ||
+      (g.t_strips == 1 && g.h_strips == 1 &&
+       (g.nxt != g.xt || g.nxh != g.xh || g.nyt != g.yt || g.nyh != g.yh || g.hs != g.xh)))
     return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
+  const bool strips = g.t_strips > 1 || g.h_strips > 1;
+  auto kern = strips ? maxpool_bwd_kernel<T, VEC, true> : maxpool_bwd_kernel<T, VEC, false>;
   if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        maxpool_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  g.xh_d = make_div(g.xh);
   g.xw_d = make_div(g.xw);
-  g.yh_d = make_div(g.yh);
   g.yw_d = make_div(g.yw);
+  g.xplane_d = make_div(g.nxh * g.xw);
+  g.yplane_d = make_div(g.nyh * g.yw);
+  g.hs_d = make_div(g.hs);
   g.st_d = make_div(g.st);
   g.sh_d = make_div(g.sh);
   g.sw_d = make_div(g.sw);
-  maxpool_bwd_kernel<T, VEC><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
+  kern<<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(dy),
       static_cast<T*>(dx), g, group, (int)groups, nv_shift);
   return (int)cudaGetLastError();
@@ -431,16 +530,23 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 // x, dx (slabs, T, H, W, C); y, dy (slabs, To, Ho, Wo, C); all contiguous in
 // that order (channels-last), of one dtype.  A slab is a clip, or a frame
-// (T = To = 1) for windows of 1 in t.  group (channels per block) and threads
-// come from the wrapper's plan (ops/maxpool.py:bwd_plan).
+// (T = To = 1) for windows of 1 in t.  group (channels per block), threads,
+// the strips (ts frames, hs rows of dx per block) and the shared layout
+// (nxt x nxh rows of x, nyt x nyh rows of y) come from the wrapper's plan
+// (ops/maxpool.py:bwd_plan).
 extern "C" int vgs_maxpool3d_bwd(const void* x, const void* y, const void* dy,
                                  void* dx, int slabs, int T, int H, int W,
                                  int C, int To, int Ho, int Wo, int kt, int kh,
                                  int kw, int st, int sh, int sw, int pt, int ph,
-                                 int pw, int group, int threads, int is_bf16,
+                                 int pw, int group, int threads, int ts, int hs,
+                                 int nxt, int nxh, int nyt, int nyh, int is_bf16,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PoolGeom g{T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw, pt, ph, pw, {}, {}, {}, {}, {}, {}, {}};
+  PoolGeom g{};
+  g.xt = T, g.xh = H, g.xw = W, g.nc = C, g.yt = To, g.yh = Ho, g.yw = Wo;
+  g.kt = kt, g.kh = kh, g.kw = kw, g.st = st, g.sh = sh, g.sw = sw;
+  g.pt = pt, g.ph = ph, g.pw = pw, g.ts = ts, g.hs = hs;
+  g.nxt = nxt, g.nxh = nxh, g.nyt = nyt, g.nyh = nyh;
   const bool vec_ok = aligned16(x) && aligned16(y) && aligned16(dy) && aligned16(dx);
   if (is_bf16) {
     if (vec_ok && C % 8 == 0)

@@ -40,15 +40,16 @@ _F = ctypes.c_float
 
 # C entry point -> argument types (every function returns an int error code)
 SIGNATURES = {
-    # adj, x, out, B, T, F, transpose, is_bf16, stream
-    "vgs_gcn_propagate": (_P, _P, _P, _I, _I, _L, _I, _I, _P),
-    # q, k, theta, u_in, adj, s, p, u_out, B, T, D, is_bf16,
-    # seed, temperature, sample, nei_size, stream
-    "vgs_graph_adjacency": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I,
-                            ctypes.c_ulonglong, _F, _I, _I, _P),
+    # adj, x, out, B, T, F, transpose, is_bf16, adj_f32, route, kpad,
+    # blocks, per_warp, vec, stream
+    "vgs_gcn_propagate": (_P, _P, _P, _I, _I, _L) + (_I,) * 8 + (_P,),
+    # q, k, theta, u_in, adj, s, p, u_out, part, B, T, D, is_bf16,
+    # seed, temperature, sample, nei_size, vec, tile, splits, per_split, stream
+    "vgs_graph_adjacency": (_P,) * 9 + (_I, _I, _L, _I, ctypes.c_ulonglong, _F)
+                           + (_I,) * 6 + (_P,),
     # x, y, dy, dx, slabs, T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw,
-    # pt, ph, pw, group, threads, is_bf16, stream
-    "vgs_maxpool3d_bwd": (_P, _P, _P, _P) + (_I,) * 20 + (_P,),
+    # pt, ph, pw, group, threads, ts, hs, nxt, nxh, nyt, nyh, is_bf16, stream
+    "vgs_maxpool3d_bwd": (_P, _P, _P, _P) + (_I,) * 26 + (_P,),
     # x, g, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, f32 buffer,
     # compute-dtype buffer, dx, plan (int64 array), g's five strides,
     # g_vec, eps, stream

@@ -8,10 +8,17 @@ PyTorch version that the tests and ``chip_smoke.py`` hold the kernel to.
 There is no fallback from the kernel to the plain version.
 
 Contract (the JAX GCN's): the adjacency is cast to ``x.dtype``, products
-accumulate in fp32, the result is cast back to ``x.dtype``.
+accumulate in fp32, the result is cast back to ``x.dtype``.  The kernel
+takes adj in fp32 or in x's dtype and rounds it to x's dtype as it loads
+it.  :func:`propagate_plan` is its launch plan, a pure function: the
+tensor-core route for bf16 x with F a multiple of 8, the CUDA-core route
+otherwise.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +29,45 @@ from .matmul import bmm_f32
 launches = 0
 
 MAX_T = 32
+TC_WARPS, TC_COLS, TC_STAGES = 4, 64, 4     # csrc/gcn_propagate.cu
+TC_ROW = TC_COLS + 8          # elements per staged row (padded)
+# items of a warp's run: the ring's length, so a run's loads are all in
+# flight at once; longer runs (fewer warps) measured slower at every step
+# shape on the H100, a single item slower too
+TC_RUN = 4
+SIMT_THREADS = 256
+
+
+class PropagatePlan(NamedTuple):
+    """One K2 launch (``csrc/gcn_propagate.cu``)."""
+    route: str        # "tc" (bf16 tensor cores) or "simt" (CUDA cores)
+    kpad: int         # tc: T padded to the MMA tile (16 or 32)
+    items: int        # tc: (clip, 64-column slice) pairs; simt: (clip, vector)
+    per_warp: int     # tc: a warp's run of consecutive items
+    blocks: int
+    threads: int
+    smem_bytes: int   # tc: per warp a zero row and TC_STAGES slices of T rows x 72 bf16
+    vec: int          # elements per thread: simt 4 (fp32, 16 bytes) or 1; tc 8
+
+
+def propagate_plan(b: int, t: int, f: int, dtype: torch.dtype,
+                   aligned: bool = True) -> PropagatePlan:
+    """tc for bf16 with F a multiple of 8 (16-byte aligned): a warp per
+    run of TC_RUN consecutive (clip, 64-column slice) items; simt
+    otherwise, a thread per vector of columns."""
+    if dtype == torch.bfloat16 and f % 8 == 0 and aligned:
+        items = b * -(-f // TC_COLS)
+        smem = TC_WARPS * (1 + TC_STAGES * t) * TC_ROW * 2
+        return PropagatePlan("tc", 16 if t <= 16 else 32, items, TC_RUN,
+                             -(-items // (TC_RUN * TC_WARPS)), TC_WARPS * 32, smem, 8)
+    vec = 4 if dtype == torch.float32 and aligned and f % 4 == 0 else 1
+    items = b * (f // vec)
+    return PropagatePlan("simt", 0, items, 0, -(-items // SIMT_THREADS), SIMT_THREADS, 0, vec)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(b, t, f, dtype, aligned) -> PropagatePlan:
+    return propagate_plan(b, t, f, dtype, aligned)
 
 
 def propagate_plain(adj: torch.Tensor, x: torch.Tensor,
@@ -54,17 +100,21 @@ def _check(adj: torch.Tensor, x: torch.Tensor) -> None:
 
 
 def _launch(adj: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor:
-    """One kernel launch; adj is cast to x.dtype, both made contiguous."""
+    """One kernel launch.  adj is read in fp32 or x's dtype (other dtypes
+    are cast to fp32 first) and rounded to x's dtype in the kernel."""
     global launches
     _check(adj, x)
-    adj = adj.to(x.dtype).contiguous()
-    x = x.contiguous()
+    if adj.dtype not in (torch.float32, x.dtype):
+        adj = adj.float()
+    adj, x = adj.contiguous(), x.contiguous()
     out = torch.empty_like(x)
     b, t = x.shape[:2]
-    lib = _build.library()
-    code = lib.vgs_gcn_propagate(
-        adj.data_ptr(), x.data_ptr(), out.data_ptr(), b, t,
-        x.numel() // (b * t), int(transpose), int(x.dtype == torch.bfloat16),
+    f = x.numel() // (b * t)
+    plan = _cached_plan(b, t, f, x.dtype, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    code = _build.library().vgs_gcn_propagate(
+        adj.data_ptr(), x.data_ptr(), out.data_ptr(), b, t, f, int(transpose),
+        int(x.dtype == torch.bfloat16), int(adj.dtype == torch.float32),
+        int(plan.route == "tc"), plan.kpad, plan.blocks, plan.per_warp, plan.vec,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "vgs_gcn_propagate")
     launches += 1

@@ -8,8 +8,10 @@ Counterpart of ``video_graph_ssl_tpu/ops/pallas/graph_kernel.py``::
     p   = S * theta
     adj = sigmoid((logit(clip(p)) + logit(u)) / tau)   if sample, else p
 
-On a CUDA tensor :func:`graph_adjacency` launches the hand-written kernel
-in ``csrc/graph_adjacency.cu``; on a CPU tensor it runs
+On a CUDA tensor :func:`graph_adjacency` launches the hand-written kernels
+in ``csrc/graph_adjacency.cu`` (partial similarities over splits of D,
+then a per-row epilogue; :func:`adjacency_plan` is their launch plan, a
+pure function); on a CPU tensor it runs
 :func:`graph_adjacency_plain`, the plain PyTorch version (autograd through
 torch ops) that the tests and ``chip_smoke.py`` hold the kernel to.
 
@@ -26,7 +28,8 @@ are ``torch.bmm``.  ``u`` is a constant of the draw, as in
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,6 +38,11 @@ from .matmul import bmm_f32
 
 EPS = 1e-6
 MAX_T = 32
+NUM_SMS = 132          # H100 SXM
+THREADS = 128          # sim_partial_kernel's block
+# blocks of the similarity launch to aim for: four per SM, so that each SM
+# keeps tens of KB of loads in flight
+TARGET_BLOCKS = 4 * NUM_SMS
 
 # Kernel launches since the last reset (one per forward).
 launches = 0
@@ -110,33 +118,74 @@ def _check(q, k, theta, u) -> None:
         raise ValueError(f"graph_adjacency: u {tuple(u.shape)} != ({b}, {t}, {t})")
 
 
+class AdjacencyPlan(NamedTuple):
+    """The two launches of one K1 call (``csrc/graph_adjacency.cu``)."""
+    vec: int            # elements per load: 16 bytes, or 1 where D is ragged
+    tile: int           # a thread's pairs: tile x tile (2, 4 or 8)
+    tiles: int          # tiles per clip, ceil(T / tile)^2
+    lanes: int          # threads per tile in a block: THREADS / tiles
+    vectors: int        # loads per row of q or k: D / vec
+    splits: int         # blocks per clip, each over per_split vectors
+    per_split: int
+    blocks: int         # sim_partial_kernel: B * splits
+    epilogue_blocks: int  # adjacency_epilogue_kernel: a warp per row, 8 a block
+    scratch: int        # fp32 partial sims: splits * B * T * T
+
+
+def adjacency_plan(b: int, t: int, d: int, dtype: torch.dtype,
+                   aligned: bool = True) -> AdjacencyPlan:
+    """Split D so that B * splits reaches ``TARGET_BLOCKS``, but into no
+    more splits than leave each about one vector per lane of its tile."""
+    esize = dtype.itemsize
+    vec = 16 // esize if aligned and (d * esize) % 16 == 0 else 1
+    tile = 2 if t <= 2 else 4 if t <= 4 else 8
+    tiles = (-(-t // tile)) ** 2
+    lanes = THREADS // tiles
+    vectors = d // vec
+    splits = max(1, min(-(-TARGET_BLOCKS // b), -(-vectors // lanes)))
+    per_split = -(-vectors // splits)
+    splits = -(-vectors // per_split)     # no empty split
+    return AdjacencyPlan(vec, tile, tiles, lanes, vectors, splits, per_split,
+                         b * splits, -(-b * t // 8), b * splits * t * t)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(b, t, d, dtype, aligned) -> AdjacencyPlan:
+    return adjacency_plan(b, t, d, dtype, aligned)
+
+
 def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
                          u_out: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, ...]:
-    """One kernel launch -> (adj, S, p), fp32.  ``u_out`` (B,T,T fp32), when
-    given, receives the noise the kernel drew."""
+    """One call (two launches) -> (adj, S, p), fp32: views of one
+    (3 + splits, B, T, T) buffer whose last planes take the partial
+    similarities.  ``u_out`` (B,T,T fp32), when given, receives the noise
+    the kernel drew."""
     global launches
     _check(q, k, theta, u)
     q, k = q.contiguous(), k.contiguous()
-    theta = theta.float().contiguous()
-    u = u.float().contiguous() if u is not None else None
+    if theta.dtype != torch.float32 or not theta.is_contiguous():
+        theta = theta.float().contiguous()
+    if u is not None and (u.dtype != torch.float32 or not u.is_contiguous()):
+        u = u.float().contiguous()
     b, t, d = q.shape
-    adj = torch.empty((b, t, t), device=q.device, dtype=torch.float32)
-    s = torch.empty_like(adj)
-    p = torch.empty_like(adj)
-    if u_out is not None and (u_out.shape != adj.shape or u_out.dtype != torch.float32
+    if u_out is not None and (u_out.shape != (b, t, t) or u_out.dtype != torch.float32
                               or not u_out.is_contiguous() or u_out.device != q.device):
         raise ValueError("graph_adjacency: u_out must be a contiguous fp32 "
                          f"(B, T, T) tensor on {q.device}")
-    lib = _build.library()
-    code = lib.vgs_graph_adjacency(
+    plan = _cached_plan(b, t, d, q.dtype,
+                        q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0)
+    buf = torch.empty((3 + plan.splits, b, t, t), device=q.device, dtype=torch.float32)
+    adj, s, p = buf[:3].unbind(0)
+    code = _build.library().vgs_graph_adjacency(
         q.data_ptr(), k.data_ptr(), theta.data_ptr(),
         u.data_ptr() if u is not None else None,
         adj.data_ptr(), s.data_ptr(), p.data_ptr(),
-        u_out.data_ptr() if u_out is not None else None,
+        u_out.data_ptr() if u_out is not None else None, buf.data_ptr() + 12 * b * t * t,
         b, t, d, int(q.dtype == torch.bfloat16),
         int(seed) & 0xFFFF_FFFF_FFFF_FFFF, float(temperature), int(sample),
-        int(nei_size), torch.cuda.current_stream(q.device).cuda_stream)
+        int(nei_size), plan.vec, plan.tile, plan.splits, plan.per_split,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "vgs_graph_adjacency")
     launches += 1
     return adj, s, p

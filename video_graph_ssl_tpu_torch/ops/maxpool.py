@@ -8,10 +8,22 @@ slab (a whole clip, or one frame when the window and stride are 1 in t) and
 channel group stages the slab's x in shared memory, finds each output's
 first maximal tap there, then stages dy in the same space and gathers dx;
 device memory sees x, y and dy read once and dx written once, and no
-scratch.  :func:`bwd_plan` is that launch's plan, a pure function.  On a
-CPU tensor the backward runs :func:`max_pool3d_bwd_plain`, the plain
-PyTorch version that the tests and ``chip_smoke.py`` hold the kernel to.
-There is no fallback from the kernel to the plain version.
+scratch.  A slab above the 227 KB one block may take (stage 1's pool and
+Mixed_3b/3c's at 224x224) is cut into strips of dx rows, along H and where
+needed along T; each block stages, with a halo, the outputs whose windows
+cover its rows and the x those windows read, and writes its own dx rows
+only, so the halo rows' x, y and dy are read by two blocks.
+:func:`bwd_plan` is that launch's plan, a pure function.  On a CPU tensor
+the backward runs :func:`max_pool3d_bwd_plain`, the plain PyTorch version
+that the tests and ``chip_smoke.py`` hold the kernel to.  There is no
+fallback from the kernel to the plain version.
+
+The one limit left is W: a strip of one input row of one frame, with its
+halo, must fit one block.  The widest W that plans (32-byte channel
+groups; bf16 / fp32): 1,320 / 1,383 for the (1,3,3)/(1,2,2) pools, 279 /
+284 for (3,3,3)/(2,2,2), 1,709 / 1,761 for (2,2,2)/(2,2,2) and 246 / 266
+for the stride-1 (3,3,3) pools: at least 8x the W of the S3D pools of
+each geometry at 224x224 (112 and 56, 28, 14, and 28 at Mixed_3b/3c).
 
 Ties go to the first maximal tap in t, h, w scan order, PyTorch's rule.
 Both versions add the contributions to one input in increasing output
@@ -60,6 +72,49 @@ def _triple(v) -> Tuple[int, int, int]:
     return (int(v),) * 3
 
 
+class Block(NamedTuple):
+    """What one block of a backward launch works on (global coordinates of
+    its slab's clip; ranges are half-open).  It writes dx at ``own_t`` x
+    ``own_h`` (all W) alone; it stages y, dy and the taps of the outputs
+    ``out_t`` x ``out_h`` (all Wo): every output whose window covers an
+    owned input; and it stages x at ``x_t`` x ``x_h`` (all W): every input
+    those outputs' windows read."""
+    b: int
+    chans: Tuple[int, int]
+    own_t: Tuple[int, int]
+    own_h: Tuple[int, int]
+    out_t: Tuple[int, int]
+    out_h: Tuple[int, int]
+    x_t: Tuple[int, int]
+    x_h: Tuple[int, int]
+
+
+def axis_cover(a0: int, a1: int, k: int, s: int, p: int, n_in: int,
+               n_out: int) -> Tuple[int, int, int, int]:
+    """For owned inputs [a0, a1) of one axis: the outputs [o0, o1) whose
+    window covers one of them, and the inputs [x0, x1) those windows read
+    (padding excluded).  ``csrc/maxpool_bwd.cu:axis_cover`` is the same
+    arithmetic."""
+    n = a0 + p - k + 1
+    o0 = 0 if n <= 0 else -(-n // s)
+    o1 = min(n_out, (a1 - 1 + p) // s + 1)
+    if o1 <= o0:
+        return o0, o0, 0, 0
+    return o0, o1, max(0, o0 * s - p), min(n_in, (o1 - 1) * s - p + k)
+
+
+def _axis_layout(n_in: int, n_out: int, strip: int, k: int, s: int, p: int):
+    """(strips, most inputs a strip stages, most outputs it stages) along
+    one axis; one strip stages the whole axis."""
+    strips = -(-n_in // strip)
+    if strips == 1:
+        return 1, n_in, n_out
+    covers = [axis_cover(a, min(n_in, a + strip), k, s, p, n_in, n_out)
+              for a in range(0, n_in, strip)]
+    return (strips, max(x1 - x0 for _, _, x0, x1 in covers),
+            max(o1 - o0 for o0, o1, _, _ in covers))
+
+
 class BwdPlan(NamedTuple):
     """How one backward call is cut into blocks (``csrc/maxpool_bwd.cu``)."""
     slab: str         # "clip" (T, H, W) or "frame" (H, W)
@@ -73,19 +128,45 @@ class BwdPlan(NamedTuple):
     threads: int
     blocks: int
     smem_bytes: int   # x (then dy) as [position][group], taps as [output][group] bytes
-    channels: int     # the call's C and T
+    channels: int     # the call's C, T and H
     frames: int
+    rows: int
+    # strips: each block owns t_strip frames and h_strip rows of its slab's
+    # dx (one strip of each = the whole slab, the plan of slabs that fit)
+    t_strip: int
+    h_strip: int
+    t_strips: int
+    h_strips: int
+    # the shared-memory layout, the most any block stages: x as
+    # [x_frames][x_rows][W], y, dy and taps as [y_frames][y_rows][Wo]
+    x_frames: int
+    x_rows: int
+    y_frames: int
+    y_rows: int
+    geometry: Tuple[Tuple[int, int, int], ...]   # window, stride, padding
 
-    def extent(self, block: int):
-        """What block ``block`` owns, in the kernel's order: (b, x's frames
-        [t0, t1), y's frames [to0, to1), channels [c0, c1))."""
-        slab, g = divmod(block, self.groups)
+    def block(self, i: int) -> Block:
+        """Block ``i``, in the kernel's order: the channel group fastest,
+        then the H strip, the T strip, the slab."""
+        rest, g = divmod(i, self.groups)
+        rest, hi = divmod(rest, self.h_strips)
+        slab, ti = divmod(rest, self.t_strips)
         c0 = g * self.group
         chans = (c0, min(c0 + self.group, self.channels))
+        (kt, kh, _), (st, sh, _), (pt, ph, _) = self.geometry
+        ho = (self.rows + 2 * ph - kh) // sh + 1
+        h0 = hi * self.h_strip
+        h1 = min(self.rows, h0 + self.h_strip)
+        oh0, oh1, xh0, xh1 = axis_cover(h0, h1, kh, sh, ph, self.rows, ho)
         if self.slab == "frame":
             b, t = divmod(slab, self.frames)
-            return b, (t, t + 1), (t, t + 1), chans
-        return slab, (0, self.t_in), (0, self.t_out), chans
+            return Block(b, chans, (t, t + 1), (h0, h1), (t, t + 1), (oh0, oh1),
+                         (t, t + 1), (xh0, xh1))
+        t0 = ti * self.t_strip
+        t1 = min(self.t_in, t0 + self.t_strip)
+        ot0, ot1, xt0, xt1 = axis_cover(t0, t1, kt, st, pt, self.t_in, self.t_out)
+        return Block(slab, chans, (t0, t1), (h0, h1), (ot0, ot1), (oh0, oh1),
+                     (xt0, xt1), (xh0, xh1))
 
 
 @functools.lru_cache(maxsize=256)
@@ -95,12 +176,18 @@ def _cached_plan(x_shape, k, s, p, dtype) -> BwdPlan:
 
 def bwd_plan(x_shape, kernel_size, stride, padding, dtype,
              group_bytes: int | None = None) -> BwdPlan:
-    """The launch of one backward call for x of ``x_shape`` (B, C, T, H, W):
-    one block per (slab, channel group).  The group is the widest of
-    ``GROUP_BYTES`` that C fills and that leaves room for two blocks per SM
-    (the narrowest where none does), unless ``group_bytes`` is given.
-    Raises ``ValueError`` when a slab's shared memory exceeds what one block
-    may take."""
+    """The launch of one backward call for x of ``x_shape`` (B, C, T, H, W).
+
+    Where a whole slab fits one block (227 KB of shared memory at the
+    narrowest group), one block per (slab, channel group); the group is the
+    widest of ``GROUP_BYTES`` that C fills and that leaves room for two
+    blocks per SM (the narrowest where none does), unless ``group_bytes`` is
+    given.  Otherwise the slab is cut into strips of dx rows (frame slabs
+    along H; clip slabs along H, and along T where one row of every frame
+    does not fit), 32-byte groups unless given: the tallest strip (of the
+    most frames) that fits two blocks per SM, else one.  Raises
+    ``ValueError`` where even a strip of one input row of one frame, with
+    its halo, exceeds what one block may take."""
     k, s, p = _triple(kernel_size), _triple(stride), _triple(padding)
     b, c, t, h, w = (int(v) for v in x_shape)
     to, ho, wo = ((n + 2 * pi - ki) // si + 1
@@ -109,27 +196,56 @@ def bwd_plan(x_shape, kernel_size, stride, padding, dtype,
     frame = k[0] == 1 and s[0] == 1 and p[0] == 0
     slabs, t_in, t_out = (b * t, 1, 1) if frame else (b, t, to)
     vec = 16 // esize if c % (16 // esize) == 0 else 1
-    n_in, n_out = t_in * h * w, t_out * ho * wo
 
-    def smem_of(nbytes):
-        return max(n_in, n_out) * nbytes + n_out * (nbytes // esize)
+    def layout(ts, hs):
+        nts, nxt, nyt = _axis_layout(t_in, t_out, ts, k[0], s[0], p[0])
+        nhs, nxh, nyh = _axis_layout(h, ho, hs, k[1], s[1], p[1])
+        return (nts, nhs), (nxt, nxh, nyt, nyh)
 
-    if group_bytes is None:
+    def smem_of(nbytes, lay):
+        nxt, nxh, nyt, nyh = lay
+        n_x, n_y = nxt * nxh * w, nyt * nyh * wo
+        return max(n_x, n_y) * nbytes + n_y * (nbytes // esize)
+
+    whole = layout(t_in, h)[1]
+    fixed = group_bytes is not None
+    if not fixed:
         fits = [gb for gb in GROUP_BYTES if gb == GROUP_BYTES[0]
-                or (gb // esize <= c and smem_of(gb) <= TWO_BLOCKS_SMEM)]
+                or (gb // esize <= c and smem_of(gb, whole) <= TWO_BLOCKS_SMEM)]
         group_bytes = fits[-1]
-    smem, group = smem_of(group_bytes), group_bytes // esize
+    strip = (t_in, h)
+    if smem_of(group_bytes, whole) > MAX_SMEM_BYTES:
+        group_bytes = group_bytes if fixed else GROUP_BYTES[0]
+        strip = _strip(t_in, h, lambda ts, hs: smem_of(group_bytes, layout(ts, hs)[1]))
+        if strip is None:
+            raise ValueError(
+                f"max_pool3d backward: x {tuple(x_shape)}, window {k}, stride {s}: "
+                f"a strip of one input row of one frame with its halo needs "
+                f"{smem_of(group_bytes, layout(1, 1)[1])} bytes of shared memory "
+                f"per block, above the {MAX_SMEM_BYTES} one block may take "
+                f"(see the module docstring for the widest W that fits)")
+    (nts, nhs), lay = layout(*strip)
+    smem, group = smem_of(group_bytes, lay), group_bytes // esize
     groups = -(-c // group)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"max_pool3d backward: a {'frame' if frame else 'clip'} slab of x "
-            f"{tuple(x_shape)} needs {smem} bytes of shared memory per block, "
-            f"above the {MAX_SMEM_BYTES} one block may take")
+    n_pos = max(lay[0] * lay[1] * w, lay[2] * lay[3] * wo)
     # whole warps, and a whole number of positions (group // vec threads each)
     unit = max(32, group // vec)
-    threads = min(MAX_THREADS, -(-max(n_in, n_out) * (group // vec) // unit) * unit)
+    threads = min(MAX_THREADS, -(-n_pos * (group // vec) // unit) * unit)
     return BwdPlan("frame" if frame else "clip", slabs, t_in, t_out, group, groups,
-                   esize, vec, threads, slabs * groups, smem, c, t)
+                   esize, vec, threads, slabs * nts * nhs * groups, smem, c, t, h,
+                   strip[0], strip[1], nts, nhs, *lay, (k, s, p))
+
+
+def _strip(t_in: int, h: int, smem_of):
+    """(frames, rows) of the strips: for the first budget (two blocks per
+    SM, then one) and the most frames (all first) where some strip fits,
+    the most rows that fit; None where no strip of one row fits."""
+    for budget in (TWO_BLOCKS_SMEM, MAX_SMEM_BYTES):
+        for ts in range(t_in, 0, -1):
+            hs = next((r for r in range(h, 0, -1) if smem_of(ts, r) <= budget), 0)
+            if hs:
+                return ts, hs
+    return None
 
 
 def _window_slices(k, s, out_shape):
@@ -200,7 +316,8 @@ def _launch(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     code = lib.vgs_maxpool3d_bwd(
         x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), plan.slabs,
         plan.t_in, h, w, c, plan.t_out, ho, wo, *k, *s, *p, plan.group,
-        plan.threads, int(x.dtype == torch.bfloat16),
+        plan.threads, plan.t_strip, plan.h_strip, plan.x_frames, plan.x_rows,
+        plan.y_frames, plan.y_rows, int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "vgs_maxpool3d_bwd")
     if s == (1, 1, 1):

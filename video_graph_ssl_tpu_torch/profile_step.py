@@ -32,8 +32,8 @@ from .train_video_contrast_dis import Trainer, load_config
 
 # kernel-name pattern -> class, first match wins
 CLASSES = (
-    ("K1 graph_adjacency", r"adjacency_kernel"),
-    ("K2 gcn_propagate", r"propagate_kernel"),
+    ("K1 adjacency", r"sim_partial_kernel|adjacency_epilogue_kernel"),
+    ("K2 propagate", r"propagate_tc_kernel|propagate_simt_kernel"),
     ("K3/K4 max-pool backward", r"maxpool_bwd_kernel"),
     ("K5 sepconv backward", r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|"
                             r"bn_bwd_kernel|bn_bwd_vec_kernel|split_sum_kernel|"
