@@ -44,7 +44,23 @@ Phases (each raises on failure; the script then exits non-zero):
    those steps; then the same with ``TPU.SEPCONV_FUSED True`` (small step
    card vs CPU, then the full-width trainer); then the default step at
    16x224x224 (``INPUT.BASE_SIZE [224, 224]``, ``SCALE_SIZE [256, 256]``)
-   at bs 32, whose stem and Mixed_3b/3c pools run K3/K4 in strips.
+   at bs 32, whose stem and Mixed_3b/3c pools run K3/K4 in strips.  The
+   trainers draw their synthetic batches through the port's ``Loader``.
+7. the trainer from an on-disk shard store: the port's
+   ``write_shard_store`` writes 384 videos of 64 seeded frames at the
+   128x128 canvas (1.1 GiB, three batches of 128 per epoch) into a
+   temporary directory; a ``Trainer`` (``DATASET.SOURCE frames``,
+   ``INPUT.PRE_LOAD shard``, the full-width geometry of phase 6a) runs
+   epoch 0 (3 steps), saves through its ``Saver``, and a second ``Trainer``
+   resumes from that checkpoint (``CHECKPOINT.RESUME``): its state must
+   equal the saved one bit for bit.  Both then run epoch 1's 2 steps with
+   ``cudnn.deterministic`` and must agree bit for bit, state and losses
+   (else the differing entries are named and the run fails).  Per step: the
+   host time, the data wait on the loader, the pin and copy to the card,
+   the loss; the launch counts of
+   the 5 straight steps (K1 30, K2 45, K3 45, K4 20), finite losses, the
+   queue pointer and EMA != params; the mean of steps 2-3 beside phase
+   6a's synthetic step time.
 
 Times are CUDA events around one call, the median of 20 calls (10 for K5;
 ``kernel_times.event_ms``).  ``bound``
@@ -64,13 +80,16 @@ summed over the shapes of one encoder pass in bf16.  The last line is
 
 from __future__ import annotations
 
+import atexit
 import gc
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -83,6 +102,9 @@ from video_graph_ssl_tpu_torch.kernel_times import (K1_SHAPES, K2_SHAPES, PATTER
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "visual_moco.yaml")
+# the trainers' experiment directories (checkpoints, metrics.jsonl), removed
+# at exit
+RUN_DIR = None
 
 # K1 edges: T = 32 at the first aug point's D (many splits), ragged D
 # (scalar loads), D below one split
@@ -709,8 +731,8 @@ def read_counts() -> dict:
 def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> dict:
     """5 trainer steps at full S3D width (2 warm-up, 3 timed), bs ``bsz``,
     16 x size x size (224: INPUT.BASE_SIZE [224, 224], SCALE_SIZE [256,
-    256]); returns the launch counts of exactly those steps."""
-    from video_graph_ssl_tpu_torch.data.synthetic import iterate_batches
+    256]) from synthetic clips through the Loader; returns the launch
+    counts of exactly those steps and the mean ms of the timed steps."""
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
     _, _, mp, sb = _counters()
@@ -725,10 +747,11 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> 
     if int(c.CONTRAST.NCE_K) != 16384 or c.TPU.COMPUTE_DTYPE != "bfloat16":
         raise RuntimeError("configs/visual_moco.yaml no longer gives NCE_K 16384 "
                            "with bf16 compute")
-    trainer = Trainer(c, max_steps=5, device="cuda")
+    trainer = Trainer(c, max_steps=5, device="cuda", run_dir=RUN_DIR)
     t0 = time.perf_counter()
-    batches = [trainer.to_device(bt) for bt, _ in
-               zip(iterate_batches(trainer.dataset, bsz, 0, 1), range(5))]
+    epoch = trainer.train_loader.epoch(0)
+    batches = [trainer.to_device(bt) for bt in itertools.islice(epoch, 5)]
+    epoch.close()
     print(f"  5 synthetic batches made in {time.perf_counter() - t0:.1f} s")
     lr = trainer.lr_fn(0)
     state = trainer.state
@@ -808,7 +831,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> 
     del trainer, state, batches, metrics
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, mean_ms
 
 
 def phase_slice(dev, gpu: str) -> dict:
@@ -817,17 +840,176 @@ def phase_slice(dev, gpu: str) -> dict:
     run of the path that uses it."""
     print("phase 6a: the GCA step")
     small_step_parity(dev, fused=False)
-    counts = run_trainer(dev, gpu, fused=False)
+    counts, synthetic_ms = run_trainer(dev, gpu, fused=False)
     print("phase 6b: the GCA step with TPU.SEPCONV_FUSED True")
     small_step_parity(dev, fused=True)
-    fused_counts = run_trainer(dev, gpu, fused=True)
+    fused_counts, _ = run_trainer(dev, gpu, fused=True)
     counts["sepconv_bwd"] = fused_counts["sepconv_bwd"]
     print("phase 6c: the GCA step at 16x224x224, bs 32 (K3/K4 in strips)")
-    big = run_trainer(dev, gpu, fused=False, bsz=32, size=224)
+    big, _ = run_trainer(dev, gpu, fused=False, bsz=32, size=224)
     if not all(big[n] > 0 for n in ("graph_adjacency", "gcn_propagate", "maxpool_bwd_s1",
                                     "maxpool_bwd_strided")):
         raise RuntimeError(f"224x224 step: a kernel was not launched: {big}")
-    return counts
+    return counts, synthetic_ms
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: a shard store of STORE_VIDEOS videos of STORE_FRAMES frames at the
+# 128x128 canvas (1.2 GB): dense sampling at SAMPLE_RATE 4 takes 64 frames,
+# and three batches of 128 make an epoch, so step 3 ends one
+STORE_VIDEOS, STORE_FRAMES, CANVAS = 384, 64, 128
+
+
+def write_store(root: str):
+    """A shard store written by the port from a seeded frame source, and
+    its split file; returns (store dir, split file)."""
+    import numpy as np
+
+    from video_graph_ssl_tpu_torch.data.shards import write_shard_store
+
+    split = os.path.join(root, "train_split.txt")
+    with open(split, "w") as f:
+        for v in range(STORE_VIDEOS):
+            f.write(f"video_{v:04d} {STORE_FRAMES} {v % 400}\n")
+
+    def frame_source(directory, idx):
+        v = int(os.path.basename(directory).split("_")[1])
+        return np.random.default_rng((7, v, idx)).integers(
+            0, 256, (CANVAS, CANVAS, 3), dtype=np.uint8)
+
+    store = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    meta = write_shard_store(os.path.join(root, "frames"), [split], store,
+                             (CANVAS, CANVAS), frame_source=frame_source)
+    size = sum(os.path.getsize(os.path.join(store, n)) for n in os.listdir(store))
+    print(f"  shard store: {len(meta['videos'])} videos x {STORE_FRAMES} frames at "
+          f"{CANVAS}x{CANVAS}, {meta['num_shards']} shards, {size / 2 ** 30:.2f} GiB, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    return store, split
+
+
+def _step_lines(trainer, first: int) -> None:
+    """One line per step of ``trainer.history``, numbered from ``first``."""
+    for n, h in enumerate(trainer.history, start=first):
+        compute = h["step"] - h["data"] - h["feed"]
+        print(f"  step {n} (epoch {h['epoch']}, batch {h['i']}): {h['step'] * 1e3:.1f} ms, "
+              f"data wait {h['data'] * 1e3:.1f} ms, pin + copy {h['feed'] * 1e3:.1f} ms, "
+              f"rest {compute * 1e3:.1f} ms, loss {h['loss']:.4f}")
+
+
+def phase_store(dev, gpu: str, synthetic_ms: float) -> None:
+    """The trainer from an on-disk shard store at full S3D width: 3 steps
+    (epoch 0), a checkpoint through the Saver, a second Trainer resumed from
+    it (loaded state bit for bit the saved one), then 2 more steps on each
+    (epoch 1), bit for bit with cudnn.deterministic."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+    from video_graph_ssl_tpu_torch.utils.checkpoint import checkpoint_payload, mismatches
+
+    print("phase 7: the GCA step trained from an on-disk shard store, checkpoint, resume")
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        store, split = write_store(root)
+        opts = ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "frames",
+                "INPUT.PRE_LOAD", "shard", "DATASET.VISUAL_ROOT_DIR", store,
+                "DATASET.TRAIN_SPLIT", split, "DATALOADER.BATCH_SIZE", "128",
+                "CHECKPOINT.PRINT_FREQ", "1"]
+        c = load_config(CONFIG, opts)
+        if list(c.INPUT.SCALE_SIZE) != [CANVAS, CANVAS] or int(c.CONTRAST.NCE_K) != 16384:
+            raise RuntimeError("configs/visual_moco.yaml no longer gives a 128x128 "
+                               "canvas with NCE_K 16384")
+        print(f"  loader: {c.DATALOADER.NUM_WORKERS} threads, prefetch {c.TPU.PREFETCH}, "
+              f"sample {c.INPUT.SAMPLE_TYPE} at rate {c.INPUT.SAMPLE_RATE}, "
+              f"temporal jitter {c.INPUT.TEMPORAL_JITTER}")
+        run_dir = os.path.join(root, "run")
+        straight = Trainer(c, max_steps=5, device="cuda", run_dir=run_dir)
+        if len(straight.train_loader) != 3:
+            raise RuntimeError(f"{len(straight.train_loader)} batches per epoch, want 3")
+        state = straight.state
+        ptr0 = state.contrast.ptr
+        torch.cuda.synchronize()
+        reset_counts()
+        straight.train(0)
+        if state.step != 3 or state.contrast.ptr != (ptr0 + 3 * 128) % 16384:
+            raise RuntimeError(f"after epoch 0: step {state.step}, ptr {state.contrast.ptr}")
+        ckpt = straight.saver.save_checkpoint(state, 1, filename="checkpoint_step3.pth.tar")
+        saved = torch.load(ckpt, map_location=dev, weights_only=True)
+        print(f"  checkpoint after step 3: {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB")
+
+        resumed = Trainer(load_config(CONFIG, opts + ["CHECKPOINT.RESUME", ckpt]),
+                          max_steps=5, device="cuda", run_dir=run_dir)
+        bad = mismatches(checkpoint_payload(resumed.state, 1), {
+            k: v for k, v in saved.items() if k != "meta"})
+        n_tensors = (len(saved["state_dict"]) + len(saved["model_ema"])
+                     + len(saved["optimizer"]["state"]) + 1)
+        print(f"  round trip: {n_tensors} tensors (params, buffers, EMA, momentum "
+              f"buffers, queue), ptr, step, seed; {len(bad)} differ (want 0, bit for bit)")
+        if bad or resumed.start_epoch != 1:
+            raise RuntimeError(f"round trip: start epoch {resumed.start_epoch}, "
+                               f"differs at {bad[:10]}")
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            straight.train(1)
+            counts = read_counts()
+            resumed.run()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        _step_lines(straight, 1)
+        print("  resumed run:")
+        _step_lines(resumed, 4)
+        check_steps(straight, 5, counts)
+        steps = straight.history
+        timed = steps[1:3]
+        mean_ms = sum(h["step"] for h in timed) / len(timed) * 1e3
+        wait_ms = sum(h["data"] for h in timed) / len(timed) * 1e3
+        feed_ms = sum(h["feed"] for h in timed) / len(timed) * 1e3
+        print(f"slice from the shard store: {mean_ms:.1f} ms/step (steps 2-3, host "
+              f"clock, data wait {wait_ms:.1f} ms/step, pin + copy {feed_ms:.1f} "
+              f"ms/step) against {synthetic_ms:.1f} ms/step from device-resident "
+              f"synthetic batches (phase 6a) on {gpu}")
+        compare_resumed(straight, resumed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_steps(trainer, n: int, counts: dict) -> None:
+    """Launch counts of n steps of the default step, finite losses, the
+    queue pointer, EMA != params."""
+    state = trainer.state
+    losses = [h["loss"] for h in trainer.history]
+    if len(losses) != n or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"losses {losses}, want {n} finite")
+    if state.step != n or state.contrast.ptr != (n * 128) % 16384:
+        raise RuntimeError(f"step {state.step}, queue ptr {state.contrast.ptr}")
+    diff = max(float((e - p).detach().abs().max()) for e, p in zip(
+        state.ema_model.parameters(), state.model.parameters()))
+    if not diff > 0.0:
+        raise RuntimeError("EMA params equal the params")
+    want = {"graph_adjacency": 6 * n, "gcn_propagate": 9 * n, "maxpool_bwd_s1": 9 * n,
+            "maxpool_bwd_strided": 4 * n, "sepconv_bwd": 0}
+    print(f"  kernel calls in the {n} steps: {counts} (want {want}); EMA vs params "
+          f"max |diff| {diff:.3e}; queue ptr {state.contrast.ptr}")
+    if counts != want:
+        raise RuntimeError(f"kernel call counts {counts} != {want}")
+
+
+def compare_resumed(straight, resumed) -> None:
+    """Steps 4-5 of the straight run against the resumed run: bit for bit
+    on the whole state (params, buffers, EMA, momentum buffers, queue, ptr,
+    step, seed) and on the losses; raises naming the entries that differ."""
+    from video_graph_ssl_tpu_torch.utils.checkpoint import checkpoint_payload, mismatches
+
+    a, b = (checkpoint_payload(t.state, 2) for t in (straight, resumed))
+    la = [h["loss"] for h in straight.history[3:]]
+    lb = [h["loss"] for h in resumed.history]
+    bad = mismatches(a, b)
+    print(f"  resumed vs straight, steps 4-5 (cudnn.deterministic): losses {lb} vs {la}; "
+          f"{len(bad)} state entries differ (want 0, bit for bit)")
+    if bad or la != lb:
+        raise RuntimeError(f"resumed run differs from the straight run: losses {lb} vs "
+                           f"{la}, state entries {bad}")
 
 
 def main() -> int:
@@ -841,6 +1023,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
+    global RUN_DIR
+    RUN_DIR = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    atexit.register(shutil.rmtree, RUN_DIR, True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -849,7 +1034,8 @@ def main() -> int:
           f"(nvcc {_build.last_build_seconds:.1f} s) -> {_build.library_path().name}")
 
     kernels = [phase_k1(dev), phase_k2(dev), *phase_pools(dev), phase_k5(dev)]
-    counts = phase_slice(dev, gpu)
+    counts, synthetic_ms = phase_slice(dev, gpu)
+    phase_store(dev, gpu, synthetic_ms)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

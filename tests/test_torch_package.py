@@ -1,7 +1,8 @@
 """Package-level properties of the PyTorch port.
 
-* Importing the port and building its S3D model never imports JAX, nor
-  the JAX package; the port's copy of the config schema equals the JAX
+* Importing the port (every module, the shard builder and the native
+  JPEG pool's loader included), building its S3D model and drawing a
+  batch from its loader never imports JAX, nor the JAX package; the port's copy of the config schema equals the JAX
   package's.
 * The kernel wrappers take their plain versions only for CPU tensors; on
   CUDA tensors they launch the kernel or raise (``cuda`` marker: skipped
@@ -109,12 +110,25 @@ def test_port_never_imports_jax():
         import video_graph_ssl_tpu_torch.ops.sepconv_bwd
         import video_graph_ssl_tpu_torch.profile_step
         import video_graph_ssl_tpu_torch.kernel_times
+        import video_graph_ssl_tpu_torch.build_shards
+        import video_graph_ssl_tpu_torch.data
+        from video_graph_ssl_tpu_torch.data import (build, datasets, decode, pipeline,
+                                                    records, samplers, shards, synthetic)
+        from video_graph_ssl_tpu_torch.data.native import native_jpeg_available
+        from video_graph_ssl_tpu_torch.utils import checkpoint, meters, saver, summary
+        native_jpeg_available()      # the native pool's build-and-load path
         cfg_file = {os.path.join(REPO, 'configs', 'visual_moco.yaml')!r}
         create_visual_model(load_config(cfg_file, ['TPU.SEPCONV_FUSED', 'True']))
         c = load_config(cfg_file, ['MODEL.AUG_FLAG', 'True', 'CONTRAST.NCE_K', '256'])
         model, dim = create_visual_model(c)
         state = create_pretrain_state(c, model, 'cpu')
         make_fused_pretrain_step(c)
+        loader, _ = build.build_video_contrastive_loader(load_config(cfg_file, [
+            'DATASET.SOURCE', 'synthetic', 'DATASET.NUM_CLASS', '2',
+            'DATALOADER.BATCH_SIZE', '2', 'INPUT.SCALE_SIZE', '[8, 8]']))
+        batches = loader.epoch(0)
+        assert next(batches)['clips'].shape == (2, 2, 16, 8, 8, 3)
+        batches.close()
         assert dim == 1024 and len(model.model.encoder.base_model.aug_points) == 3
         bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))
         assert not bad, bad

@@ -1,11 +1,13 @@
-"""Synthetic two-view clips (copy of the numpy-only
-``video_graph_ssl_tpu/data/synthetic.py:SyntheticContrastiveDataset``),
-plus the batch iterator the port's trainer feeds from it."""
+"""Synthetic clip sources (copies of the numpy-only
+``video_graph_ssl_tpu/data/synthetic.py:SyntheticContrastiveDataset`` and
+``SyntheticFrameDataset``): deterministic uint8 clips, no disk, no decode.
+They go through :class:`~video_graph_ssl_tpu_torch.data.pipeline.Loader`
+like any dataset (``data/build.py``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -33,11 +35,26 @@ class SyntheticContrastiveDataset:
         return {"clips": clips, "label": label, "index": np.int32(index)}
 
 
-def iterate_batches(ds: SyntheticContrastiveDataset, batch_size: int,
-                    epoch: int, seed: int = 0) -> Iterator[dict]:
-    """Shuffled full batches of one epoch (the last partial batch is
-    dropped), as stacked numpy arrays."""
-    order = np.random.default_rng(seed * 7919 + epoch).permutation(len(ds))
-    for s in range(0, len(order) - batch_size + 1, batch_size):
-        items = [ds[int(i)] for i in order[s:s + batch_size]]
-        yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+@dataclass
+class SyntheticFrameDataset:
+    n_data: int = 256
+    video_length: int = 16
+    canvas_hw: Tuple[int, int] = (128, 128)
+    num_classes: int = 101
+    test_mode: bool = False
+    num_clips: int = 10
+    seed: int = 0
+
+    def __len__(self) -> int:
+        return self.n_data
+
+    def __getitem__(self, index: int,
+                    rng: Optional[np.random.Generator] = None):
+        g = np.random.default_rng(self.seed * 1_000_003 + index)
+        if self.test_mode and self.num_clips > 0:
+            shape = (self.num_clips, self.video_length, *self.canvas_hw, 3)
+        else:
+            shape = (self.video_length, *self.canvas_hw, 3)
+        clips = g.integers(0, 256, shape, dtype=np.uint8)
+        label = np.int32(index % self.num_classes)
+        return {"clips": clips, "label": label, "index": np.int32(index)}

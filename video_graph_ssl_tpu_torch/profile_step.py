@@ -16,13 +16,16 @@ measures on the CPU.
 from __future__ import annotations
 
 import argparse
+import atexit
+import itertools
 import re
+import shutil
+import tempfile
 import time
 from collections import defaultdict
 
 import torch
 
-from .data.synthetic import iterate_batches
 from .ops import gcn_propagate as gp
 from .ops import graph_kernel as gk
 from .ops import maxpool as mp
@@ -102,11 +105,15 @@ def main(argv=None) -> None:
         raise RuntimeError("profile_step needs a CUDA device")
 
     cfg = load_config(args.config_file, args.opts)
-    trainer = Trainer(cfg, device="cuda")
+    # the trainer's saver makes an experiment directory; this tool saves nothing
+    run_dir = tempfile.mkdtemp(prefix="profile_step_run_")
+    atexit.register(shutil.rmtree, run_dir, True)
+    trainer = Trainer(cfg, device="cuda", run_dir=run_dir)
     bsz = trainer.batch_size
     n = args.warmup + 2 * args.steps
-    batches = [trainer.to_device(b) for b, _ in
-               zip(iterate_batches(trainer.dataset, bsz, 0, 1), range(n))]
+    epoch = trainer.train_loader.epoch(0)
+    batches = [trainer.to_device(b) for b in itertools.islice(epoch, n)]
+    epoch.close()
     batches = (batches * n)[:n]   # an epoch may hold fewer batches than n
     lr = trainer.lr_fn(0)
     for clips in batches[:args.warmup]:

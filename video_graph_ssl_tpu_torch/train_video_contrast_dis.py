@@ -4,29 +4,50 @@ Counterpart of ``tools/train_video_contrast_dis.py``, same CLI and YAML::
 
     python -m video_graph_ssl_tpu_torch.train_video_contrast_dis \\
         --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
-        DATASET.SOURCE synthetic --max_steps 5
+        DATASET.SOURCE frames INPUT.PRE_LOAD shard \\
+        DATASET.VISUAL_ROOT_DIR <store> DATASET.TRAIN_SPLIT <list> --max_steps 5
+
+Data comes from ``build_video_contrastive_loader`` (synthetic clips, JPEG
+frame folders or a shard store, ``python -m
+video_graph_ssl_tpu_torch.build_shards``).  Runs live under
+``run/<dataset>/<checkname>/experiment_NN`` (``utils/saver.py``), with a
+checkpoint every ``CHECKPOINT.CHECKPOINT_INTERVAL`` epochs and at the last
+one; ``CHECKPOINT.RESUME`` continues a run (``CHECKPOINT.FINETUNE`` takes
+the state but restarts the epoch count), ``MODEL.PRETRAIN_PATH`` (with
+``MODEL.PRETRAINED True``) warm-starts the backbone from a reference-named
+``state_dict``, and SIGTERM finishes the step, writes
+``checkpoint_preempt.pth.tar`` and exits 0.
 
 ``--device`` defaults to ``cuda``; when that is asked for and no GPU is
-present the trainer raises, it never moves to the CPU by itself.  Ported so
-far: the visual MoCo regime on synthetic data, one device; checkpoints,
-resume, the frame-folder loader and multi-GPU come later.
+present the trainer raises, it never moves to the CPU by itself.  One
+device; the reference's distributed flags are accepted and ignored, as the
+JAX tool does.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import signal
+import threading
 import time
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from .config import cfg as default_cfg
-from .data.synthetic import SyntheticContrastiveDataset, iterate_batches
+from .data.build import build_video_contrastive_loader
+from .data.pipeline import to_device
 from .engine.build import create_pretrain_state
 from .engine.pretrain import make_fused_pretrain_step
 from .models.build import create_visual_model
 from .solver.build import make_lr_scheduler
+from .utils.checkpoint import load_checkpoint_state
+from .utils.meters import AverageMeter
+from .utils.summary import creat_saver
+
+# --profile_dir traces steps 5 to 10 (both included) of the first epoch
+PROFILE_STEPS = (5, 10)
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -34,8 +55,17 @@ def get_parser() -> argparse.ArgumentParser:
         description="Video contrastive pretraining on a GPU (PyTorch port)")
     parser.add_argument("--config_file", default="", type=str,
                         help="path to YAML config")
+    # the reference's DDP flags, accepted and ignored (one device)
+    parser.add_argument("--rank", default=0, type=int, help="(ignored)")
+    parser.add_argument("--world_size", default=1, type=int, help="(ignored)")
+    parser.add_argument("--dist-url", default="", type=str, help="(ignored)")
+    parser.add_argument("--multiprocessing-distributed", action="store_true",
+                        help="(ignored)")
     parser.add_argument("--max_steps", default=0, type=int,
-                        help="cap total steps (0 = unlimited)")
+                        help="cap total steps, counted across epochs (0 = unlimited)")
+    parser.add_argument("--profile_dir", default="", type=str,
+                        help="write a torch.profiler trace of steps 5-10 of the "
+                             "first epoch into this directory")
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to train on (default: cuda)")
     parser.add_argument("opts", nargs="*",
@@ -51,99 +81,198 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-class AverageMeter:
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.val = self.avg = self.sum = 0.0
-        self.count = 0
-
-    def update(self, val: float, n: int = 1):
-        self.val = val
-        self.sum += val * n
-        self.count += n
-        self.avg = self.sum / self.count
+def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-named backbone ``state_dict`` from a torch file, by the
+    JAX package's rule (``utils/ckpt_convert.py:load_backbone_init``): the
+    ``state_dict`` envelope goes, the wrapper prefixes ``module.`` /
+    ``encoder.`` / ``base_model.`` / ``model.`` are stripped while every key
+    has one, then the subtree under ``encoder.base_model.`` or
+    ``base_model.`` is kept where any key has it.  So a bare backbone, a
+    DDP-wrapped one and a whole pretrain checkpoint (heads included, as
+    the port's ``Saver`` writes it) all give the backbone's own names
+    (``base.N...``)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = obj["state_dict"] if isinstance(obj, dict) and "state_dict" in obj else obj
+    changed = True
+    while changed:
+        changed = False
+        for prefix in ("module.", "encoder.", "base_model.", "model."):
+            if sd and all(k.startswith(prefix) for k in sd):
+                sd = {k[len(prefix):]: v for k, v in sd.items()}
+                changed = True
+    for prefix in ("encoder.base_model.", "base_model."):
+        if any(k.startswith(prefix) for k in sd):
+            return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return sd
 
 
 class Trainer:
-    """Builds the model, state, fused step and LR schedule, then runs
-    epochs of synthetic batches."""
+    """Counterpart of the JAX tool's Trainer: builds the loader, model,
+    state, fused step, LR schedule and saver, then runs epochs."""
 
-    def __init__(self, config, max_steps: int = 0, device: str = "cuda"):
+    def __init__(self, config, max_steps: int = 0, device: str = "cuda",
+                 profile_dir: str = "", run_dir: str = "run"):
         self.cfg = config
         self.max_steps = int(max_steps)
+        self.profile_dir = profile_dir
         self.device = resolve_device(device)
-        if config.DATASET.SOURCE != "synthetic":
-            raise NotImplementedError(
-                "only DATASET.SOURCE synthetic is ported; the frame-folder "
-                "loader comes later")
+        self.saver, self.writer = creat_saver(config, base_dir=run_dir)
         self.model, self.feat_dim = create_visual_model(config)
+        self.train_loader, self.n_data = build_video_contrastive_loader(config)
         self.state = create_pretrain_state(config, self.model, self.device)
+        self._load_pretrain_backbone()
         self.step_fn = make_fused_pretrain_step(config)
         self.lr_fn = make_lr_scheduler(config)
-        self.dataset = SyntheticContrastiveDataset(
-            n_data=int(config.DATASET.NUM_CLASS) * 4,
-            video_length=int(config.INPUT.VIDEO_LENGTH),
-            canvas_hw=(int(config.INPUT.SCALE_SIZE[0]),
-                       int(config.INPUT.SCALE_SIZE[1])),
-            num_classes=int(config.DATASET.NUM_CLASS),
-            seed=int(config.MODEL.SEED))
         self.batch_size = int(config.DATALOADER.BATCH_SIZE)
         self.start_epoch = int(config.SOLVER.START_EPOCH)
-        self.meters = {k: AverageMeter() for k in
-                       ("batch_time", "data_time", "loss", "top1", "top5")}
+        self.best_pred = 0.0
+        self._resume()
+        self.batch_time = AverageMeter()
+        self.data_time = AverageMeter()
+        self.losses = AverageMeter()
+        self.top1 = AverageMeter()
+        self.top5 = AverageMeter()
+        # one record per printed (synchronised) step: epoch, i, data (the
+        # wait on the loader), feed (pin and copy), step, loss; seconds
+        self.history = []
+        self._preempted = False
+
+    def _on_sigterm(self, signum, frame):
+        print("=> SIGTERM: checkpointing after the current step...", flush=True)
+        self._preempted = True
+
+    def _load_pretrain_backbone(self) -> None:
+        """MODEL.PRETRAIN_PATH: a reference-named backbone state_dict, loaded
+        strictly into the encoder's backbone and then into the EMA encoder's,
+        which starts as a copy (reference: visual_wrappers.py:137-146)."""
+        path = str(self.cfg.MODEL.PRETRAIN_PATH)
+        if not self.cfg.MODEL.PRETRAINED or path in ("", "none", "/"):
+            return
+        if not os.path.exists(path):
+            raise RuntimeError(f"=> no pretrain backbone found at '{path}'")
+        sd = load_backbone_state_dict(path)
+        for model in (self.state.model, self.state.ema_model):
+            model.model.encoder.base_model.load_state_dict(sd, strict=True)
+        print(f"=> initialized backbone from '{path}' (MODEL.PRETRAIN_PATH)")
+
+    def _resume(self) -> None:
+        path = self.cfg.CHECKPOINT.RESUME
+        if path and path != "none":
+            if not os.path.exists(path):
+                raise RuntimeError(f"=> no checkpoint found at '{path}'")
+            meta = load_checkpoint_state(path, self.state)
+            if not self.cfg.CHECKPOINT.FINETUNE:
+                self.start_epoch = int(meta.get("epoch", 0))
+                self.best_pred = float(meta.get("best_pred", 0.0))
+            print(f"=> loaded checkpoint '{path}' (epoch {meta.get('epoch')})")
 
     def to_device(self, batch: dict) -> torch.Tensor:
-        clips = torch.from_numpy(batch["clips"])
-        if self.device.type == "cuda":
-            clips = clips.pin_memory()
-        return clips.to(self.device, non_blocking=True)
+        return to_device(batch["clips"], self.device)
 
     def train_step(self, raw_clips: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
         """One fused step on a raw uint8 (B, 2, T, H, W, 3) device batch."""
         return self.step_fn(self.state, raw_clips, lr)
 
-    def steps_per_epoch(self) -> int:
-        return len(self.dataset) // self.batch_size
+    def _at_max_steps(self, steps_done: int) -> bool:
+        return bool(self.max_steps) and steps_done >= self.max_steps
 
     def train(self, epoch: int) -> None:
-        for m in self.meters.values():
+        for m in (self.batch_time, self.data_time, self.losses, self.top1, self.top5):
             m.reset()
         lr = self.lr_fn(epoch)
-        n_iter = self.steps_per_epoch()
+        n_iter = len(self.train_loader)
         print_freq = int(self.cfg.CHECKPOINT.PRINT_FREQ)
         bsz = self.batch_size
-        mt = self.meters
+        profiling = bool(self.profile_dir) and epoch == self.start_epoch
+        prof = None
+        batches = self.train_loader.epoch(epoch)
         end = time.time()
-        for i, batch in enumerate(iterate_batches(self.dataset, bsz, epoch,
-                                                  int(self.cfg.MODEL.SEED))):
-            clips = self.to_device(batch)
-            mt["data_time"].update(time.time() - end)
-            metrics = self.train_step(clips, lr)
-            if i % print_freq == 0 or i == n_iter - 1:
-                m = {k: float(v) for k, v in metrics.items()}   # device sync
-                mt["loss"].update(m["loss"], bsz)
-                mt["top1"].update(m["top1"], bsz)
-                mt["top5"].update(m["top5"], bsz)
-                mt["batch_time"].update(time.time() - end)
-                print(
-                    f"Epoch: [{epoch}][{i}/{n_iter}], lr: {lr:.5f}\t"
-                    f"Time {mt['batch_time'].val:.3f} ({mt['batch_time'].avg:.3f})\t"
-                    f"Data {mt['data_time'].val:.3f} ({mt['data_time'].avg:.3f})\t"
-                    f"Loss {mt['loss'].val:.4f} ({mt['loss'].avg:.4f})\t"
-                    f"Prec@1 {mt['top1'].val:.3f} ({mt['top1'].avg:.3f})\t"
-                    f"Prec@5 {mt['top5'].val:.3f} ({mt['top5'].avg:.3f})",
-                    flush=True)
-            end = time.time()
-            if self.max_steps and self.state.step >= self.max_steps:
-                break
+        try:
+            for i, batch in enumerate(batches):
+                data_s = time.time() - end
+                self.data_time.update(data_s)
+                if profiling and i == PROFILE_STEPS[0]:
+                    prof = torch.profiler.profile(activities=self._activities())
+                    prof.start()
+                t_feed = time.time()
+                clips = self.to_device(batch)
+                feed_s = time.time() - t_feed
+                metrics = self.train_step(clips, lr)
+                if prof is not None and i == PROFILE_STEPS[1]:
+                    self._stop_profile(prof)
+                    prof = None
+                if i % print_freq == 0 or i == n_iter - 1:
+                    m = {k: float(v) for k, v in metrics.items()}   # device sync
+                    self.losses.update(m["loss"], bsz)
+                    self.top1.update(m["top1"], bsz)
+                    self.top5.update(m["top5"], bsz)
+                    self.batch_time.update(time.time() - end)
+                    self.history.append(dict(epoch=epoch, i=i, data=data_s, feed=feed_s,
+                                             step=self.batch_time.val, loss=m["loss"]))
+                    self.writer.add_scalar("train/total_loss_iter", m["loss"],
+                                           i + n_iter * epoch)
+                    print(
+                        f"Epoch: [{epoch}][{i}/{n_iter}], lr: {lr:.5f}\t"
+                        f"Time {self.batch_time.val:.3f} ({self.batch_time.avg:.3f})\t"
+                        f"Data {self.data_time.val:.3f} ({self.data_time.avg:.3f})\t"
+                        f"Loss {self.losses.val:.4f} ({self.losses.avg:.4f})\t"
+                        f"Prec@1 {self.top1.val:.3f} ({self.top1.avg:.3f})\t"
+                        f"Prec@5 {self.top5.val:.3f} ({self.top5.avg:.3f})",
+                        flush=True)
+                end = time.time()
+                if self._preempted:
+                    print("======>Preemption Checkpoint...", flush=True)
+                    self.saver.save_checkpoint(self.state, epoch, self.best_pred,
+                                               filename="checkpoint_preempt.pth.tar")
+                    return
+                if self._at_max_steps(i + 1 + n_iter * epoch):
+                    break
+        finally:
+            batches.close()       # stops the loader's threads on an early break
+            if prof is not None:  # the epoch ended inside the traced steps
+                self._stop_profile(prof)
+
+        self.writer.add_scalar("train/loss", self.losses.avg, epoch)
+        self.writer.add_scalar("train/top1_acc", self.top1.avg, epoch)
+        self.writer.add_scalar("train/top5_acc", self.top5.avg, epoch)
+        self.writer.add_scalar("lr", lr, epoch)
+
+        interval = int(self.cfg.CHECKPOINT.CHECKPOINT_INTERVAL)
+        last = int(self.cfg.SOLVER.MAX_EPOCHS) - 1
+        if (epoch + 1) % interval == 0 or epoch == last:
+            print("======>Saving Checkpoint...", flush=True)
+            self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
+                                       filename=f"checkpoint_{epoch + 1}.pth.tar")
+
+    def _activities(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        return acts
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # the traced steps' work is done
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}", flush=True)
 
     def run(self) -> None:
-        for epoch in range(self.start_epoch, int(self.cfg.SOLVER.MAX_EPOCHS)):
-            self.train(epoch)
-            if self.max_steps and self.state.step >= self.max_steps:
-                break
+        # SIGTERM is caught only around the epochs, in the main thread
+        main = threading.current_thread() is threading.main_thread()
+        previous = signal.signal(signal.SIGTERM, self._on_sigterm) if main else None
+        try:
+            n_iter = len(self.train_loader)
+            for epoch in range(self.start_epoch, int(self.cfg.SOLVER.MAX_EPOCHS)):
+                self.train(epoch)
+                if self._preempted or self._at_max_steps((epoch + 1) * n_iter):
+                    break
+        finally:
+            if main:
+                signal.signal(signal.SIGTERM, previous)
+            self.writer.close()
 
 
 def load_config(config_file: str = "", opts=()):
@@ -160,7 +289,8 @@ def main(argv: Optional[list] = None) -> None:
     args = get_parser().parse_intermixed_args(argv)
     config = load_config(args.config_file, args.opts)
     print(f"Running with config:\n{config}")
-    trainer = Trainer(config, max_steps=args.max_steps, device=args.device)
+    trainer = Trainer(config, max_steps=args.max_steps, device=args.device,
+                      profile_dir=args.profile_dir)
     trainer.run()
 
 

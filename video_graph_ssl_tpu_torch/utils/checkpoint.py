@@ -1,0 +1,88 @@
+"""Checkpoints of the pretrain state (counterpart of the msgpack path of
+``video_graph_ssl_tpu/utils/checkpoint.py``: ``save_checkpoint_state`` and
+``load_checkpoint_state``).
+
+A checkpoint is one ``torch.save`` file holding a dict in the reference's
+layout (lib/utils/saver.py:20-43, tools/train_video_contrast_dis.py:271-287):
+``epoch``, ``state_dict`` (parameters and BN statistics, reference names),
+``optimizer`` (the SGD momentum buffers), ``contrast`` (queue and ptr),
+``model_ema`` and ``best_pred``; plus ``step`` and ``seed``, from which
+:meth:`PretrainState.step_seed` derives each step's graph and augmentation
+seeds, so a resumed run continues the same random streams.  The metadata
+(``epoch``, ``best_pred``, ``step`` and any extra keys) is also written to
+``<path>.meta.json``, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Optional
+
+import torch
+
+META_KEYS = ("epoch", "best_pred", "step")
+
+
+def checkpoint_payload(state, epoch: int, best_pred: float = 0.0) -> Dict[str, Any]:
+    """The live state as the checkpoint dict (tensors are the state's own,
+    on its device)."""
+    return {
+        "epoch": int(epoch),
+        "state_dict": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "contrast": {"queue": state.contrast.queue, "ptr": int(state.contrast.ptr)},
+        "model_ema": state.ema_model.state_dict(),
+        "best_pred": float(best_pred),
+        "step": int(state.step),
+        "seed": int(state.seed),
+    }
+
+
+def save_checkpoint_state(path: str, state, epoch: int, best_pred: float = 0.0,
+                          extra: Optional[Dict[str, Any]] = None) -> None:
+    """Write the checkpoint to ``path`` (through a temporary file and a
+    rename, so a preempted write never leaves a torn file) and its
+    ``.meta.json``."""
+    payload = checkpoint_payload(state, epoch, best_pred)
+    payload["meta"] = {**{k: payload[k] for k in META_KEYS}, **(extra or {})}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    with open(path + ".meta.json", "w") as f:
+        json.dump(payload["meta"], f)
+
+
+def load_checkpoint_state(path: str, state) -> Dict[str, Any]:
+    """Restore a checkpoint into the live ``PretrainState`` on its device
+    (strict names); returns the metadata."""
+    device = state.contrast.queue.device
+    payload = torch.load(path, map_location=device, weights_only=True)
+    state.model.load_state_dict(payload["state_dict"], strict=True)
+    state.ema_model.load_state_dict(payload["model_ema"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.contrast.queue.copy_(payload["contrast"]["queue"])
+    state.contrast.ptr = int(payload["contrast"]["ptr"])
+    state.step = int(payload["step"])
+    state.seed = int(payload["seed"])
+    return payload["meta"]
+
+
+def mismatches(a: Any, b: Any, prefix: str = "") -> List[str]:
+    """Paths at which two checkpoint dicts differ: tensors by value, dtype
+    and shape (bit for bit), everything else by ``==``."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{prefix or '.'}: keys {sorted(set(a) ^ set(b), key=str)}"]
+        return [m for k in a for m in mismatches(a[k], b[k], f"{prefix}.{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{prefix}: lengths {len(a)} != {len(b)}"]
+        return [m for i, (x, y) in enumerate(zip(a, b))
+                for m in mismatches(x, y, f"{prefix}[{i}]")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b.to(a.device)))
+        return [] if same else [prefix]
+    return [] if a == b else [prefix]

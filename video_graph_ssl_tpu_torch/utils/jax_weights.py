@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's ``GraphWrapper`` variables -> the port's
-``state_dict``.
+``state_dict``, and a whole JAX ``TrainState`` -> the port's live
+``PretrainState`` (:func:`pretrain_state_from_jax`).
 
 Numpy only (no JAX import): ``params`` and ``batch_stats`` are the JAX
 model's nested dicts with numpy leaves.  Names are the reference's, the
@@ -159,3 +160,67 @@ def load_pretrain_weights(model: nn.Module, params: dict, batch_stats: dict,
                              graph_sub_sample)
     model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                            for k, v in sd.items()}, strict=True)
+
+
+def _find_key(tree, key: str):
+    """The first value under ``key`` in a nested dict, depth first."""
+    if not isinstance(tree, dict):
+        return None
+    if key in tree:
+        return tree[key]
+    for v in tree.values():
+        found = _find_key(v, key)
+        if found is not None:
+            return found
+    return None
+
+
+def pretrain_state_from_jax(tree: dict, state) -> None:
+    """Load a JAX ``TrainState`` (the state dict of a ``.msgpack``
+    checkpoint's ``state``, numpy leaves) into the port's live
+    ``PretrainState``: params and BN statistics, the EMA params and EMA BN
+    statistics, the SGD momentum traces as ``momentum_buffer``s, the queue,
+    its pointer and the step.  The backbone, head and graph naming are read
+    off the two states.
+
+    The JAX optimizer scales a bias gradient by ``SOLVER.BIAS_LR_FACTOR``
+    *before* ``optax.trace`` (JAX ``solver/build.py:163-168``); the port
+    puts the factor in the bias group's lr instead (``solver/build.py``), so
+    a JAX trace is the group's ``lr_factor`` times the port's buffer and is
+    divided by it here."""
+    enc = tree["params"]["model"]["encoder"]["base_model"]
+    backbone = "S3D" if "mixed_3b" in enc else "tiny3d"
+    head = "linear" if "fc" in tree["params"]["model"]["proj_head"] else "mlp"
+    want = set(state.model.state_dict())
+    for sub_sample in (True, False):
+        names = dict(backbone=backbone, head_type=head, graph_sub_sample=sub_sample)
+        sd = pretrain_state_dict(tree["params"], tree["batch_stats"], **names)
+        if set(sd) == want:
+            break
+    else:
+        raise KeyError(f"the JAX {backbone} state does not name the port's "
+                       f"parameters: {sorted(want ^ set(sd))[:8]}")
+
+    def load(module, params, stats):
+        module.load_state_dict(
+            {k: torch.from_numpy(np.array(v, np.float32))
+             for k, v in pretrain_state_dict(params, stats, **names).items()},
+            strict=True)
+
+    load(state.model, tree["params"], tree["batch_stats"])
+    load(state.ema_model, tree["ema_params"], tree["ema_batch_stats"])
+
+    trace = _find_key(tree["opt_state"], "trace")
+    if trace is None:
+        raise KeyError("no optax trace (SGD momentum) in the JAX opt_state")
+    traces = pretrain_state_dict(trace, tree["batch_stats"], **names)
+    opt = state.optimizer
+    factor = {id(p): g["lr_factor"] for g in opt.param_groups for p in g["params"]}
+    for name, p in state.model.named_parameters():
+        buf = torch.from_numpy(np.array(traces[name], np.float32) / factor[id(p)])
+        opt.state[p]["momentum_buffer"] = buf.to(p.device).contiguous(
+            memory_format=torch.channels_last_3d if p.dim() == 5
+            else torch.contiguous_format)
+    state.contrast.queue.copy_(torch.from_numpy(np.array(tree["contrast"]["queue"])))
+    state.contrast.ptr = int(tree["contrast"]["ptr"])
+    state.step = int(tree["step"])
