@@ -14,7 +14,9 @@ Phases (each raises on failure; the script then exits non-zero):
    unsampled, sampled with given noise, the in-kernel Philox draw, and the
    closed-form backward against autograd of the plain version; then T = 32
    at the first aug point's D, a ragged D and a D below one split, two
-   calls bit-equal; kernel and plain times, and in bf16 the kernels'
+   calls bit-equal; a rank's rows (``rows=(clip0, B)``, clip0 = r * B / W
+   for W = 2 and 4): the in-kernel draw equals the full batch's rows bit
+   for bit; kernel and plain times, and in bf16 the kernels'
    device-only time (``torch.profiler``) and the wrapper's host time per
    call (``video_graph_ssl_tpu_torch/kernel_times.py``).
 3. K2 (GCN propagation) likewise: forward, transpose mode (each twice,
@@ -61,6 +63,24 @@ Phases (each raises on failure; the script then exits non-zero):
    the 5 straight steps (K1 30, K2 45, K3 45, K4 20), finite losses, the
    queue pointer and EMA != params; the mean of steps 2-3 beside phase
    6a's synthetic step time.
+8. the step across ranks (3 steps each, full S3D width, 16x112x112):
+   (a) one rank in an NCCL group against the trainer without a group
+   (bs 128, bf16, ``cudnn.deterministic``): losses and the whole state bit
+   for bit, the same kernel counts; (b) under ``cudnn.deterministic``, two
+   rank processes sharing the card over gloo (16 or 64 rows each) against
+   one process on the same global batches, in fp32 at global bs 32 (TF32
+   off) and in bf16 at bs 128: the one process takes its BN statistics
+   through the ranks' own function (``sync_bn.sum_form_bn``) and must
+   repeat itself bit for bit; the two ranks' states bit-equal, each rank's
+   K1-K4 counts, step host times and peak memory; the keys each step put
+   in the queue, each step's loss, the parameter update after steps 1 and
+   3 and the EMA encoder's BN statistics within ``TOL_RANKS`` of the one
+   process's; then a control, the same ranks with BN per rank, must exceed
+   at least one of those bounds; where the host has two or more cards,
+   bf16 (b) again with one rank per card over NCCL; (c) the same two ranks
+   with ``TPU.SHUFFLE_BN True``: finite losses, bit-equal ranks; (d) then a
+   ``Trainer`` with ``TPU.SEPCONV_FUSED True`` on those ranks must raise
+   ``NotImplementedError``.
 
 Times are CUDA events around one call, the median of 20 calls (10 for K5;
 ``kernel_times.event_ms``).  ``bound``
@@ -81,6 +101,7 @@ summed over the shapes of one encoder pass in bf16.  The last line is
 from __future__ import annotations
 
 import atexit
+import contextlib
 import gc
 import itertools
 import json
@@ -96,9 +117,11 @@ import torch
 
 # kernel timing shared with the script that times older trees; K1_SHAPES
 # (B, T, D) of K1's q/k and K2_SHAPES (B, T, H, W, C) of K2's input at S3D
-# aug points 5, 9 and 14 of the bs-128, 16x112x112 step
-from video_graph_ssl_tpu_torch.kernel_times import (K1_SHAPES, K2_SHAPES, PATTERNS, device_us,
-                                                    event_ms, host_us)
+# aug points 5, 9 and 14 of the bs-128, 16x112x112 step; POOLS every max
+# pool and SEPCONVS every fused SepConv pair of one S3D pass there
+from video_graph_ssl_tpu_torch.kernel_times import (K1_SHAPES, K2_SHAPES, PATTERNS, POOLS,
+                                                    SEPCONVS, device_us, event_ms, host_us,
+                                                    sepconv_inputs)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "visual_moco.yaml")
@@ -123,36 +146,12 @@ CL = torch.channels_last_3d
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 
-# (name, kernel, x (B, T, H, W, C), window, stride, padding) of every max
-# pool of one S3D pass at bs 128, 16x112x112
-POOLS = [("pool_1", "K4", (128, 8, 56, 56, 64), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
-         ("pool_4", "K4", (128, 8, 28, 28, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
-         ("pool_7", "K4", (128, 8, 14, 14, 480), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
-         ("pool_13", "K4", (128, 4, 7, 7, 832), (2, 2, 2), (2, 2, 2), (0, 0, 0))] + [
-    (f"mixed_{blk} pool", "K3", shape, (3, 3, 3), (1, 1, 1), (1, 1, 1))
-    for blk, shape in (("3b", (128, 8, 14, 14, 192)), ("3c", (128, 8, 14, 14, 256)),
-                       ("4b", (128, 4, 7, 7, 480)), ("4c", (128, 4, 7, 7, 512)),
-                       ("4d", (128, 4, 7, 7, 512)), ("4e", (128, 4, 7, 7, 512)),
-                       ("4f", (128, 4, 7, 7, 528)), ("5b", (128, 2, 3, 3, 832)),
-                       ("5c", (128, 2, 3, 3, 832)))]
 # the same pools in the 16x224x224 step at bs 32 (activations of the size
 # of the bs-128 112x112 step's): frame sizes 56, 28, 14, 7, 3 at 112x112
 # are 112, 56, 28, 14, 7 at 224x224 (pool_13 rounds 7 down to 3, not 14 to 6)
 HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 3: 7}
 POOLS_224 = [(name, kn, (32, t, HW_224[h], HW_224[w], c), k, s, p)
              for name, kn, (_, t, h, w, c), k, s, p in POOLS]
-# (name, (B, T, H, W), C, F) of the 18 fused SepConvs of one S3D pass
-_MIXED = {"3b": ((128, 8, 14, 14), (96, 128), (16, 32)),
-          "3c": ((128, 8, 14, 14), (128, 192), (32, 96)),
-          "4b": ((128, 4, 7, 7), (96, 208), (16, 48)),
-          "4c": ((128, 4, 7, 7), (112, 224), (24, 64)),
-          "4d": ((128, 4, 7, 7), (128, 256), (24, 64)),
-          "4e": ((128, 4, 7, 7), (144, 288), (32, 64)),
-          "4f": ((128, 4, 7, 7), (160, 320), (32, 128)),
-          "5b": ((128, 2, 3, 3), (160, 320), (32, 128)),
-          "5c": ((128, 2, 3, 3), (192, 384), (48, 128))}
-SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
-            for br, (c, f) in zip(("b1", "b2"), brs)]
 # K5 checks: four branch-1 shapes, one narrow branch-2 shape, a small
 # ragged one (C, F not multiples of 8: the simt route in both dtypes; 64-row
 # tiles straddle clip edges) and a small aligned one (the tensor-core route
@@ -310,6 +309,28 @@ def phase_k1(dev) -> dict:
     if not (0.99e-6 <= u_min and u_max <= 1.0 - 0.99e-6):
         raise RuntimeError(f"K1 Philox u range [{u_min!r}, {u_max!r}] "
                            "outside [1e-6, 1 - 1e-6]")
+    # a rank's rows: clip0 = r * B / W places the local clips in the global
+    # batch, and the draw on them is the global draw's rows, bit for bit
+    for b, t, d in K1_SHAPES:
+        theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
+        q = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(torch.bfloat16)
+        k = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(torch.bfloat16)
+        u_full = torch.empty(b, t, t, device=dev)
+        a_full = gk.adjacency_fwd_kernel(q, k, theta, None, 31, 1.0, True, 0, u_out=u_full)[0]
+        for w in (2, 4):
+            for r in range(w):
+                lo, hi = r * b // w, (r + 1) * b // w
+                u_r = torch.empty(hi - lo, t, t, device=dev)
+                a_r = gk.adjacency_fwd_kernel(q[lo:hi], k[lo:hi], theta, None, 31, 1.0, True,
+                                              0, u_out=u_r, rows=(lo, b))[0]
+                if not torch.equal(u_r, u_full[lo:hi]):
+                    raise RuntimeError(f"K1 ({b},{t},{d}) rows [{lo}, {hi}) of {w} ranks: "
+                                       "the draw differs from the full batch's rows")
+                # the similarity's splits of D depend on the clip count
+                check(f"K1 ({b},{t},{d}) bf16 rank {r} of {w}: adj vs full rows",
+                      rel_err(a_r, a_full[lo:hi]), TOL_SAMPLED)
+        print(f"  K1 ({b},{t},{d}) in-kernel draw with clip0 = r*B/W, W = 2 and 4: "
+              "equal to the full batch's rows, bit for bit")
     # T = 32 at a step-sized D, ragged D (scalar loads), D below one split
     for b, t, d in K1_EDGE:
         theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
@@ -528,23 +549,6 @@ def phase_pools(dev) -> list:
              "max_abs_err": worst["K4"], "bound_by": "bytes", **sums["K4"]}]
 
 
-def _sep_inputs(bthwc, dev, dt, g):
-    """x, the pair's parameters, its forward statistics and a cotangent:
-    the argument tuple of sepconv_bwd / bwd_reference."""
-    from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
-
-    b, t, h, w, c, f = bthwc
-    x = _ncdhw((b, t, h, w, c), dev, dt, g)
-    ws = torch.randn(f, c, 1, 3, 3, device=dev, generator=g) / (9 * c) ** 0.5
-    wt = torch.randn(f, f, 3, 1, 1, device=dev, generator=g) / (3 * f) ** 0.5
-    bn = [1 + 0.1 * torch.randn(f, device=dev, generator=g) if i % 2 == 0
-          else 0.1 * torch.randn(f, device=dev, generator=g) for i in range(4)]
-    out, stats = fs.sepconv_fwd_core(x, ws, wt, *bn, dt)
-    gy = torch.randn(out.shape, device=dev, generator=g).to(dt).contiguous(
-        memory_format=CL)
-    return (x, ws, wt, *bn, *stats, gy, dt)
-
-
 def _sep_bound(bthwc, dn):
     """Six conv-sized products (y1, y2, da, dx, dWt, dWs) against reading x
     and g and writing dx."""
@@ -598,7 +602,7 @@ def phase_k5(dev) -> dict:
     for name in K5_CHECKS + [K5_SMALL[0], K5_ALIGNED[0]]:
         bthw, c, f = by_name[name]
         for dn, dt in DTYPES.items():
-            args = _sep_inputs((*bthw, c, f), dev, dt, g)
+            args = sepconv_inputs((*bthw, c, f), dev, dt, g)
             route = sb.plan(*bthw, c, f, dt).route
             got = sb.sepconv_bwd(*args)
             want = fs.bwd_reference(*args)
@@ -615,7 +619,7 @@ def phase_k5(dev) -> dict:
     for name in K5_DETERMINISM:
         bthw, c, f = by_name[name]
         for dn, dt in DTYPES.items():
-            args = _sep_inputs((*bthw, c, f), dev, dt, g)
+            args = sepconv_inputs((*bthw, c, f), dev, dt, g)
             first, second = sb.sepconv_bwd(*args), sb.sepconv_bwd(*args)
             same = all(torch.equal(a, b) for a, b in zip(first, second))
             route = sb.plan(*bthw, c, f, dt).route
@@ -625,7 +629,7 @@ def phase_k5(dev) -> dict:
             del args, first, second
     rows, sums, bys = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, unfused_ms=0.0), set()
     for name, bthw, c, f in SEPCONVS:
-        args = _sep_inputs((*bthw, c, f), dev, torch.bfloat16, g)
+        args = sepconv_inputs((*bthw, c, f), dev, torch.bfloat16, g)
         unfused = _unfused_bwd(args, dev)
         tk = event_ms(lambda: sb.sepconv_bwd(*args), iters=10)
         tp = event_ms(lambda: fs.bwd_reference(*args), iters=10)
@@ -646,7 +650,7 @@ def phase_k5(dev) -> dict:
           f"bound {sums['bound_ms']:.3f} ms")
     # the wrapper's host time: 100 calls at 5b b2 without a sync
     name, bthw, c, f = next(r for r in SEPCONVS if r[0] == "5b b2")
-    args = _sep_inputs((*bthw, c, f), dev, torch.bfloat16, g)
+    args = sepconv_inputs((*bthw, c, f), dev, torch.bfloat16, g)
     for _ in range(3):
         sb.sepconv_bwd(*args)
     torch.cuda.synchronize()
@@ -1012,6 +1016,359 @@ def compare_resumed(straight, resumed) -> None:
                            f"{la}, state entries {bad}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: the GCA step across ranks.  Two ranks share the one card over
+# gloo (NCCL refuses two ranks on one device); NCCL runs at world size 1.
+RANK_STEPS = 3
+# Two ranks against one process on the same global batches, under
+# cudnn.deterministic.  The one process takes its BN statistics through the
+# ranks' own function (``sync_bn.sum_form_bn``, flax's E[x^2] - E[x]^2), so
+# the two differ only in the order of their sums: BN's over two halves, the
+# gradient as the mean of two halves', cuDNN at half the batch.  Run twice,
+# the one process must repeat bit for bit, so the floor of every error is 0,
+# and the ranks repeat bit for bit too.  Every error is gated, and a control
+# (the same ranks with BN per rank, ``sync_bn.per_rank_bn``) must exceed at
+# least one bound.  The errors (``rank_errors``): rel-L2 of the keys step i
+# put in the queue (keys_i), the relative error of step i's loss (loss_i),
+# rel-L2 of the parameter update after step 1 and after step 3 and the
+# relative error of its norm (update_i, update_i_norm; a gradient summed
+# where it should be averaged gives update_1_norm 1), and the EMA encoder's
+# BN statistics (ema_bn).
+# At initialisation the step amplifies rounding: the clips' features nearly
+# coincide, and train-mode BN and the L2 normalisation blow up their small
+# differences.  In fp32 the sums' order alone moves step 1's keys by 8.9e-5
+# and its update by 2.7e-2, while per-rank BN moves them by 0.56 and 1.15;
+# the bounds sit about 10x above the ranks' readings at step 1 and 3-4x at
+# step 3.  In bf16 a difference in the last fp32 bit flips a bf16 rounding
+# now and then, each flip 2^16 times larger than its cause, and within a few
+# layers the two runs differ by bf16 rounding noise: step 1's keys by 0.165
+# against per-rank BN's 0.486.  So in bf16 the keys and ema_bn bounds sit
+# between the two (the control exceeds keys_1..3 and ema_bn), and the
+# losses and updates, which rounding alone moves as far as per-rank BN does,
+# are held only against a blow-up.  Readings on an H100 80GB HBM3 (700 W),
+# ranks / control:
+#   fp32 keys 8.9e-5, 4.8e-3, 8.6e-2 / 0.56, 0.55, 0.56; losses 1.6e-5,
+#   2.2e-2, 4.3e-2 / 4.6e-2, 1.8e-2, 3.0e-2; update_1 2.7e-2 / 1.15,
+#   update_1_norm 7.8e-3 / 0.49, update_3 0.97 / 1.27, update_3_norm 5.8e-2
+#   / 0.30; ema_bn 1.3e-2 / 0.16;
+#   bf16 keys 0.165, 0.265, 0.294 / 0.486, 0.518, 0.484; losses 3.3e-2,
+#   1.5e-2, 9.1e-3 / 4.1e-2, 2.0e-4, 8.3e-3; update_1 1.17 / 1.10,
+#   update_1_norm 0.25 / 0.40, update_3 1.23 / 1.23, update_3_norm 0.16 /
+#   0.24; ema_bn 9.9e-3 / 5.4e-2.
+TOL_RANKS = {
+    "float32": {"keys_1": 1e-3, "keys_2": 5e-2, "keys_3": 0.3, "loss_1": 2e-4,
+                "loss_2": 0.1, "loss_3": 0.15, "update_1": 0.2, "update_1_norm": 5e-2,
+                "update_3": 1.5, "update_3_norm": 0.2, "ema_bn": 5e-2},
+    "bfloat16": {"keys_1": 0.3, "keys_2": 0.4, "keys_3": 0.4, "loss_1": 5e-2,
+                 "loss_2": 5e-2, "loss_3": 5e-2, "update_1": 2.0, "update_1_norm": 0.5,
+                 "update_3": 2.0, "update_3_norm": 0.5, "ema_bn": 2.5e-2}}
+
+SHARED = "two ranks sharing one card, gloo"
+
+
+def rank_opts(bsz: int, dtype: str, shuffle: bool = False) -> list:
+    return ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic",
+            "DATALOADER.BATCH_SIZE", str(bsz), "TPU.COMPUTE_DTYPE", dtype,
+            "TPU.SHUFFLE_BN", str(shuffle)]
+
+
+def _cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
+    """n steps of ``trainer`` on its first n batches (its rows of them under
+    a group), the kernel counts read around exactly those steps; the
+    parameters before the steps and after the first, and the state after
+    them, on the CPU.  ``bn_mode`` (``sync_bn.sum_form_bn`` or
+    ``per_rank_bn``) is entered on the query and EMA models for the steps."""
+    from video_graph_ssl_tpu_torch.utils.checkpoint import checkpoint_payload
+
+    epoch = trainer.train_loader.epoch(0)
+    batches = [trainer.to_device(b) for b in itertools.islice(epoch, n)]
+    epoch.close()
+    init = _cpu(trainer.state.model.state_dict())
+    lr = trainer.lr_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses, after_1 = [], [], None
+    with contextlib.ExitStack() as modes:
+        if bn_mode is not None:
+            for m in (trainer.state.model, trainer.state.ema_model):
+                modes.enter_context(bn_mode(m))
+        for clips in batches:
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(clips, lr)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            if after_1 is None:
+                after_1 = _cpu(trainer.state.model.state_dict())
+    counts = read_counts()
+    return {"losses": losses, "ms": ms, "counts": counts, "init": init, "after_1": after_1,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "state": _cpu(checkpoint_payload(trainer.state, 0))}
+
+
+def _want_counts(n: int = RANK_STEPS) -> dict:
+    return {"graph_adjacency": 6 * n, "gcn_propagate": 9 * n, "maxpool_bwd_s1": 9 * n,
+            "maxpool_bwd_strided": 4 * n, "sepconv_bwd": 0}
+
+
+def _rank_main(rank: int, world: int, backend: str, init: str, out: str, opts: list,
+               run_dir: str, try_fused: bool, per_rank: bool) -> None:
+    """One rank of phase 8 (b)/(c)/(d), in its own process: on cuda:0 over
+    gloo, on cuda:rank over NCCL; ``per_rank``: the control, BN per rank."""
+    from video_graph_ssl_tpu_torch.parallel import dist, sync_bn
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = f"cuda:{rank if backend == 'nccl' else 0}"
+    torch.cuda.set_device(device)
+    dist.init_distributed(backend, init, world, rank)
+    try:
+        trainer = Trainer(load_config(CONFIG, opts), max_steps=RANK_STEPS, device=device,
+                          run_dir=run_dir)
+        res = drive_steps(trainer, bn_mode=sync_bn.per_rank_bn if per_rank else None)
+        res["rows"] = trainer.batch_slice
+        res["ddp"] = trainer.state.ddp is not None
+        del trainer
+        if try_fused:   # (d): the fused step at world size 2
+            res["fused_error"] = None
+            try:
+                Trainer(load_config(CONFIG, opts + ["TPU.SEPCONV_FUSED", "True"]),
+                        device=device, run_dir=run_dir)
+            except NotImplementedError as e:
+                res["fused_error"] = str(e)
+        torch.save(res, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(opts: list, world: int = 2, backend: str = "gloo",
+                try_fused: bool = False, per_rank: bool = False) -> list:
+    """``world`` rank processes (gloo: all on cuda:0; NCCL: one per card);
+    their results."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="ranks_", dir=RUN_DIR)
+    init = "file://" + os.path.join(work, "rendezvous")
+    outs = [os.path.join(work, f"rank{r}.pt") for r in range(world)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, backend, init, outs[r], opts,
+                                                  RUN_DIR, try_fused, per_rank))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"rank processes exited with {codes}")
+    print(f"  {world} rank processes ({backend}): {time.perf_counter() - t0:.1f} s from "
+          "spawn to exit")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _update(res, after: str = "state") -> torch.Tensor:
+    sd = res["after_1"] if after == "after_1" else res["state"]["state_dict"]
+    return torch.cat([(sd[k].double() - v.double()).flatten() for k, v in res["init"].items()
+                      if v.is_floating_point() and "running" not in k])
+
+
+def hold_ranks(tag: str, ranks: list, gpu: str, layout: str) -> None:
+    """All ranks: bit-equal states and losses, K1-K4 launched at the step's
+    counts; their step host times and peak memory."""
+    from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
+
+    for r in range(1, len(ranks)):
+        bad = mismatches(ranks[0]["state"], ranks[r]["state"])
+        print(f"  {tag}: rank 0 vs rank {r} state: {len(bad)} entries differ (want 0, bit "
+              f"for bit); losses {ranks[0]['losses']} / {ranks[r]['losses']}")
+        if bad or ranks[0]["losses"] != ranks[r]["losses"]:
+            raise RuntimeError(f"{tag}: ranks 0 and {r} differ at {bad[:10]}")
+    for r, res in enumerate(ranks):
+        print(f"  {tag}: rank {r} rows {res['rows']}, DDP {res['ddp']}: kernel calls "
+              f"{res['counts']}; step host ms {[round(x, 1) for x in res['ms']]} ({layout}); "
+              f"max_memory_allocated {res['peak_gib']:.2f} GiB on {gpu}")
+        if res["counts"] != _want_counts():
+            raise RuntimeError(f"{tag}: rank {r} kernel calls {res['counts']} != {_want_counts()}")
+        if not all(math.isfinite(x) for x in res["losses"]):
+            raise RuntimeError(f"{tag}: non-finite loss {res['losses']}")
+
+
+def rank_errors(got: dict, ref: dict, bsz: int) -> dict:
+    """Errors of ``got`` against ``ref``, one process's run on the same
+    global batches: rel-L2 of the keys each step put in the queue, the
+    relative error of each step's loss, rel-L2 of the parameter update after
+    step 1 and after the last step and the relative error of its norm, and
+    the largest rel-L2 of the EMA encoder's BN statistics."""
+    def keys(res, i):
+        return res["state"]["contrast"]["queue"][i * bsz:(i + 1) * bsz]
+
+    errs = {f"keys_{i + 1}": rel_l2(keys(got, i), keys(ref, i)) for i in range(RANK_STEPS)}
+    errs.update({f"loss_{i + 1}": abs(a - b) / abs(b)
+                 for i, (a, b) in enumerate(zip(got["losses"], ref["losses"]))})
+    for step, after in ((1, "after_1"), (RANK_STEPS, "state")):
+        u, v = _update(got, after), _update(ref, after)
+        errs[f"update_{step}"] = rel_l2(u, v)
+        errs[f"update_{step}_norm"] = abs(float(u.norm() / v.norm()) - 1.0)
+    errs["ema_bn"] = max(rel_l2(v, ref["state"]["model_ema"][k])
+                         for k, v in got["state"]["model_ema"].items() if "running_" in k)
+    return errs
+
+
+def _over(tag: str, errs: dict, tol: dict) -> list:
+    """Prints each error beside its bound; the keys above their bounds."""
+    over = [k for k, err in errs.items() if not err <= tol[k]]
+    for k, err in errs.items():
+        print(f"  {tag}: {k:<14s} err {err:.3e}  tol {tol[k]:.2g}  "
+              f"{'above' if k in over else 'within'}")
+    return over
+
+
+def hold_to_one_process(tag: str, ranks: list, one: dict, bsz: int, tol: dict) -> dict:
+    """The ranks against one process on the same global batches: every
+    error within ``tol``."""
+    errs = rank_errors(ranks[0], one, bsz)
+    print(f"  {tag} vs one process: losses {ranks[0]['losses']} vs {one['losses']}")
+    over = _over(f"{tag} vs one process", errs, tol)
+    if over:
+        raise RuntimeError(f"{tag}: {over} above their bounds against one process")
+    ptr = (ranks[0]["state"]["contrast"]["ptr"], one["state"]["contrast"]["ptr"])
+    if ptr[0] != ptr[1] or ranks[0]["state"]["step"] != one["state"]["step"]:
+        raise RuntimeError(f"{tag}: queue pointer {ptr}, step {ranks[0]['state']['step']} "
+                           f"vs {one['state']['step']}")
+    return errs
+
+
+def control_fails(tag: str, control: list, one: dict, bsz: int, tol: dict) -> dict:
+    """The control (the same ranks with BN per rank) against one process: it
+    must exceed at least one of the bounds that the ranks' step meets."""
+    errs = rank_errors(control[0], one, bsz)
+    over = _over(f"{tag}, control with BN per rank, vs one process", errs, tol)
+    if not over:
+        raise RuntimeError(f"{tag}: per-rank BN meets every bound; the bounds catch nothing")
+    return errs
+
+
+def one_process_twice(opts: list, tag: str, gpu: str) -> dict:
+    """The one-process trainer's run of phase 8 with the ranks' BN function,
+    twice: the second run must repeat the first bit for bit."""
+    from video_graph_ssl_tpu_torch.parallel import sync_bn
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+    from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
+
+    one, again = (drive_steps(Trainer(load_config(CONFIG, opts), max_steps=RANK_STEPS,
+                                      device="cuda", run_dir=RUN_DIR),
+                              bn_mode=sync_bn.sum_form_bn) for _ in range(2))
+    bad = mismatches(one["state"], again["state"])
+    print(f"  {tag}: one process (sum-form BN): step host ms "
+          f"{[round(x, 1) for x in one['ms']]}, max_memory_allocated {one['peak_gib']:.2f} GiB "
+          f"on {gpu}; run again: {len(bad)} state entries differ (want 0, bit for bit)")
+    if bad or one["losses"] != again["losses"]:
+        raise RuntimeError(f"{tag}: the one-process reference does not repeat: losses "
+                           f"{one['losses']} vs {again['losses']}, {bad[:10]}")
+    return one
+
+
+def nccl_ranks(gpu: str, opts: list, one: dict) -> dict:
+    """Phase 8 (b) in bf16 at bs 128 with one rank per visible card over
+    NCCL, against one process (``one``)."""
+    cards = torch.cuda.device_count()
+    tag = f"(b) {cards} ranks, bfloat16, global bs 128, NCCL"
+    print(f"  {tag}: {128 // cards} rows per rank, one card each")
+    ranks = spawn_ranks(opts, cards, "nccl")
+    hold_ranks(tag, ranks, gpu, f"{cards} ranks, one card each, NCCL")
+    return hold_to_one_process(tag, ranks, one, 128, TOL_RANKS["bfloat16"])
+
+
+def phase_ranks(dev, gpu: str) -> None:
+    from video_graph_ssl_tpu_torch.parallel import dist
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import (Trainer, _free_port,
+                                                                    load_config)
+    from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
+
+    print("phase 8: the GCA step across ranks")
+    # (a) one rank in an NCCL group against no group, bit for bit
+    print("  (a) NCCL at world size 1 against no group: bs 128, 16x112x112, bf16, "
+          f"{RANK_STEPS} steps, cudnn.deterministic")
+    c = load_config(CONFIG, rank_opts(128, "bfloat16"))
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = drive_steps(Trainer(c, max_steps=RANK_STEPS, device="cuda", run_dir=RUN_DIR))
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.init_distributed("nccl", f"tcp://localhost:{_free_port()}", 1, 0)
+        try:
+            trainer = Trainer(c, max_steps=RANK_STEPS, device="cuda:0", run_dir=RUN_DIR)
+            if trainer.state.ddp is None or torch.distributed.get_backend() != "nccl":
+                raise RuntimeError("the one-rank trainer is not in an NCCL DDP group")
+            grouped = drive_steps(trainer)
+            del trainer
+        finally:
+            torch.distributed.destroy_process_group()
+        bad = mismatches(alone["state"], grouped["state"])
+        print(f"  (a) losses {grouped['losses']} vs {alone['losses']}; {len(bad)} state "
+              f"entries differ (want 0, bit for bit); kernel calls {grouped['counts']} vs "
+              f"{alone['counts']}")
+        if bad or grouped["losses"] != alone["losses"]:
+            raise RuntimeError(f"NCCL world size 1 differs from no group: {bad[:10]}")
+        if grouped["counts"] != alone["counts"] or alone["counts"] != _want_counts():
+            raise RuntimeError(f"kernel calls {grouped['counts']} / {alone['counts']} != "
+                               f"{_want_counts()}")
+        del alone, grouped
+        # (b) two ranks on one card against one process: fp32 at bs 32, bf16
+        # at bs 128, then the bf16 control with BN per rank
+        errors = {}
+        for dtype, bsz in (("float32", 32), ("bfloat16", 128)):
+            tag = f"(b) two ranks, {dtype}, global bs {bsz}"
+            print(f"  {tag}: {bsz // 2} rows per rank, 16x112x112, {RANK_STEPS} steps, "
+                  "TF32 off, cudnn.deterministic")
+            opts = rank_opts(bsz, dtype)
+            one = one_process_twice(opts, tag, gpu)
+            ranks = spawn_ranks(opts)
+            hold_ranks(tag, ranks, gpu, SHARED)
+            errors[dtype] = hold_to_one_process(tag, ranks, one, bsz, TOL_RANKS[dtype])
+            del ranks
+            errors[f"{dtype} control"] = control_fails(
+                tag, spawn_ranks(opts, per_rank=True), one, bsz, TOL_RANKS[dtype])
+        # (b) again where the host has several cards: one rank per card, NCCL
+        if torch.cuda.device_count() >= 2:
+            errors["bfloat16 nccl"] = nccl_ranks(gpu, opts, one)
+        del one
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # (c) ShuffleBN, and (d) the fused step at world size 2 must raise
+    tag = "(c) two ranks, ShuffleBN, bfloat16, global bs 128"
+    print(f"  {tag}: 64 rows per rank, {RANK_STEPS} steps")
+    ranks = spawn_ranks(rank_opts(128, "bfloat16", shuffle=True), try_fused=True)
+    hold_ranks(tag, ranks, gpu, SHARED)
+    for r, res in enumerate(ranks):
+        msg = res["fused_error"]
+        print(f"  (d) rank {r}: TPU.SEPCONV_FUSED True at world size 2 raised "
+              f"NotImplementedError: {msg}")
+        if msg is None or "ROADMAP" not in msg:
+            raise RuntimeError("TPU.SEPCONV_FUSED True at world size 2 did not raise")
+    print("phase 8 errors against one process: " + json.dumps(errors))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1036,6 +1393,7 @@ def main() -> int:
     kernels = [phase_k1(dev), phase_k2(dev), *phase_pools(dev), phase_k5(dev)]
     counts, synthetic_ms = phase_slice(dev, gpu)
     phase_store(dev, gpu, synthetic_ms)
+    phase_ranks(dev, gpu)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

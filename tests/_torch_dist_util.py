@@ -1,0 +1,186 @@
+"""Ranks for the PyTorch port's multi-process tests (tests/test_torch_parallel.py,
+tests/test_torch_ddp_step.py).
+
+:func:`run_ranks` starts ``world`` processes (``spawn``), each joining a gloo
+group at a ``file://`` rendezvous in the test's directory, runs one of the
+worker functions below as that rank, and returns each rank's result.  A
+rank that fails writes its traceback beside the results; every process has
+a timeout.  This module imports torch and the port only (no JAX), so the
+ranks start quickly.
+"""
+
+import os
+import traceback
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 240
+
+
+def run_ranks(fn, world: int, directory, *args, timeout: float = TIMEOUT_S):
+    """[fn(rank, world, *args) for each rank], each in its own process."""
+    directory = str(directory)
+    init = "file://" + os.path.join(directory, f"rendezvous_{fn.__name__}")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, init, directory, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(10)
+    errors = []
+    for r in range(world):
+        path = os.path.join(directory, f"{fn.__name__}_error_{r}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+    assert not alive, f"{len(alive)} ranks still running after {timeout} s\n" + "\n".join(errors)
+    assert all(p.exitcode == 0 for p in procs), (
+        f"exit codes {[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    return [torch.load(os.path.join(directory, f"{fn.__name__}_out_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _entry(fn, rank, world, init, directory, args):
+    torch.set_num_threads(1)
+    try:
+        tdist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                                 timeout=timedelta(seconds=TIMEOUT_S))
+        try:
+            out = fn(rank, world, *args)
+        finally:
+            tdist.destroy_process_group()
+        torch.save(out, os.path.join(directory, f"{fn.__name__}_out_{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(directory, f"{fn.__name__}_error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def rows(rank, world, n):
+    per = n // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def port_cfg(opts=()):
+    """The tiny3d configuration of tests/conftest.py:tiny_cfg in the port's
+    schema (MoCo, fp32), plus ``opts``."""
+    from video_graph_ssl_tpu_torch.config import cfg
+
+    c = cfg.clone()
+    c.merge_from_list([
+        "MODEL.BACKBONE", "tiny3d", "MODEL.BACKBONE_TYPE", "3D", "MODEL.AUG_FLAG", True,
+        "MODEL.DROPOUT", 0.0, "INPUT.BASE_SIZE", [16, 16], "INPUT.CROP_SIZE", [16, 16],
+        "INPUT.SCALE_SIZE", [20, 20], "INPUT.VIDEO_LENGTH", 4, "DATASET.NUM_CLASS", 8,
+        "DATASET.SOURCE", "synthetic", "DATALOADER.BATCH_SIZE", 4, "TEST.BATCH_SIZE", 4,
+        "DATALOADER.NUM_WORKERS", 2, "CONTRAST.NCE_K", 16, "CROSS.FEAT_DIM", 32,
+        "TPU.COMPUTE_DTYPE", "float32", "CONTRAST.MEM_TYPE", "moco", *opts])
+    return c
+
+
+def state_arrays(state) -> dict:
+    """The pretrain state as numpy arrays: params and buffers, EMA, queue,
+    pointer, step."""
+    out = {f"model.{k}": v.detach().cpu().numpy().copy()
+           for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v.detach().cpu().numpy().copy()
+                for k, v in state.ema_model.state_dict().items()})
+    out["queue"] = state.contrast.queue.cpu().numpy().copy()
+    out["ptr"] = np.asarray(state.contrast.ptr)
+    out["step"] = np.asarray(state.step)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# workers: fn(rank, world, *args) -> a picklable result
+# --------------------------------------------------------------------------- #
+def bn_worker(rank, world, x, g, channel_dim, weight, bias):
+    """One rank's train-mode BN forward and backward on its rows of ``x``
+    (float64), cotangent ``g``."""
+    from video_graph_ssl_tpu_torch.models.layers import BatchNorm
+
+    bn = BatchNorm(x.shape[channel_dim], momentum=0.9, eps=1e-3)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(weight))
+        bn.bias.copy_(torch.from_numpy(bias))
+    r = rows(rank, world, x.shape[0])
+    xr = torch.from_numpy(x[r]).requires_grad_()
+    y = bn(xr, channel_dim=channel_dim)
+    (y * torch.from_numpy(g[r])).sum().backward()
+    return {"y": y.detach().numpy(), "dx": xr.grad.numpy(),
+            "dw": bn.weight.grad.numpy(), "db": bn.bias.grad.numpy(),
+            "mean": bn.running_mean.numpy(), "var": bn.running_var.numpy()}
+
+
+def _model(opts, state_dict):
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+
+    model, _ = create_visual_model(port_cfg(opts))
+    if state_dict is not None:
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    return model
+
+
+def shuffle_worker(rank, world, opts, state_dict, x, perm, seed):
+    """ShuffleBN's key pass on this rank's rows of ``x`` with ``perm``."""
+    from video_graph_ssl_tpu_torch.parallel.shuffle_bn import shuffle_bn_keys
+
+    model = _model(opts, state_dict).train()
+    r = rows(rank, world, x.shape[0])
+    keys = shuffle_bn_keys(model, torch.from_numpy(x[r]), seed, torch.from_numpy(perm))
+    return {"keys": keys.numpy(), "state": {k: v.numpy().copy()
+                                            for k, v in model.state_dict().items()}}
+
+
+def step_worker(rank, world, opts, state_dict, queue, clips, lrs, fused, perm=None):
+    """``len(lrs)`` pretrain steps of this rank on its rows of ``clips``:
+    ``make_fused_pretrain_step`` on raw uint8 clips when ``fused``, else
+    ``make_moco_step`` on pre-augmented ones (ShuffleBN with ``perm`` when
+    given).  Returns the metrics of each step and the final state."""
+    from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+    from video_graph_ssl_tpu_torch.engine.pretrain import (make_fused_pretrain_step,
+                                                           make_moco_step)
+
+    c = port_cfg(opts)
+    state = create_pretrain_state(c, _model(opts, state_dict), "cpu")
+    if queue is not None:
+        state.contrast.queue.copy_(torch.from_numpy(queue))
+    if fused:
+        step = make_fused_pretrain_step(c)
+    else:
+        step = make_moco_step(float(c.CONTRAST.NCE_T), float(c.CONTRAST.ALPHA),
+                              shuffle_bn=perm is not None,
+                              permutation=lambda s, n: torch.from_numpy(perm))
+    local = torch.from_numpy(clips[rows(rank, world, clips.shape[0])])
+    metrics = [{k: float(v) for k, v in step(state, local, lr).items()} for lr in lrs]
+    return {"metrics": metrics, "state": state_arrays(state)}
+
+
+def fused_guard_worker(rank, world):
+    """TPU.SEPCONV_FUSED at this world size: the step builder's and the
+    fused SepConv's errors (None where nothing raised)."""
+    from video_graph_ssl_tpu_torch.engine.pretrain import make_fused_pretrain_step
+    from video_graph_ssl_tpu_torch.models.layers import SepConv3d
+
+    out = {}
+    try:
+        make_fused_pretrain_step(port_cfg(["TPU.SEPCONV_FUSED", True]))
+        out["builder"] = None
+    except NotImplementedError as e:
+        out["builder"] = str(e)
+    layer = SepConv3d(8, 8, 3, 1, 1, dtype=torch.float32, fused_bwd=True).train()
+    try:
+        layer(torch.randn(2, 8, 4, 6, 6))
+        out["layer"] = None
+    except NotImplementedError as e:
+        out["layer"] = str(e)
+    out["running_mean"] = layer.bn_s.running_mean.numpy().copy()
+    return out

@@ -116,6 +116,7 @@ def test_port_never_imports_jax():
                                                     records, samplers, shards, synthetic)
         from video_graph_ssl_tpu_torch.data.native import native_jpeg_available
         from video_graph_ssl_tpu_torch.utils import checkpoint, meters, saver, summary
+        from video_graph_ssl_tpu_torch.parallel import dist, shuffle_bn, sync_bn
         native_jpeg_available()      # the native pool's build-and-load path
         cfg_file = {os.path.join(REPO, 'configs', 'visual_moco.yaml')!r}
         create_visual_model(load_config(cfg_file, ['TPU.SEPCONV_FUSED', 'True']))

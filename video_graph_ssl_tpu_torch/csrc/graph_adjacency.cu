@@ -7,7 +7,9 @@
 //
 // with p_c = clip(p, eps, 1 - eps) and u ~ U(eps, 1 - eps) either given
 // (u_in) or drawn in the kernel by Philox4x32-10 keyed by the 64-bit seed
-// with counter (element, b).  adj, S and p are fp32, as in the JAX package;
+// with counter (element, clip0 + b), clip0 the offset of the call's first
+// clip in the global batch (0 on one rank).  adj, S and p are fp32, as in
+// the JAX package;
 // the drawn u can be written to u_out for checking.
 //
 // Replaces the TPU kernel video_graph_ssl_tpu/ops/pallas/graph_kernel.py
@@ -193,8 +195,8 @@ adjacency_epilogue_kernel(const float* __restrict__ part, const float* __restric
                           const float* __restrict__ u_in, float* __restrict__ adj,
                           float* __restrict__ s_out, float* __restrict__ p_out,
                           float* __restrict__ u_out, int B, int nt, int splits,
-                          unsigned long long seed, float temperature, int sample,
-                          int nei_size) {
+                          unsigned long long seed, int clip0, float temperature,
+                          int sample, int nei_size) {
   const int row = blockIdx.x * (kEpiThreads / 32) + threadIdx.x / 32;
   if (row >= B * nt) return;
   const int b = row / nt, i = row - b * nt, j = threadIdx.x & 31;
@@ -228,7 +230,9 @@ adjacency_epilogue_kernel(const float* __restrict__ part, const float* __restric
   if (u_in != nullptr) {
     u = u_in[idx];
   } else {
-    const uint32_t bits = philox_u32((uint32_t)(i * nt + j), (uint32_t)b, (uint32_t)seed,
+    // counter (element, clip of the global batch): a rank holding clips
+    // [clip0, clip0 + B) draws the one-process batch's noise of those clips
+    const uint32_t bits = philox_u32((uint32_t)(i * nt + j), (uint32_t)(b + clip0), (uint32_t)seed,
                                      (uint32_t)(seed >> 32));
     u = (float)(bits >> 8) * 5.9604644775390625e-08f + 2.98023223876953125e-08f;
     u = fminf(fmaxf(u, kEps), 1.f - kEps);
@@ -278,11 +282,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 extern "C" int vgs_graph_adjacency(const void* q, const void* k, const void* theta,
                                    const void* u_in, void* adj, void* s, void* p,
                                    void* u_out, void* part, int B, int T, long long D,
-                                   int is_bf16, unsigned long long seed, float temperature,
-                                   int sample, int nei_size, int vec, int tile, int splits,
-                                   int per_split, void* stream) {
+                                   int is_bf16, unsigned long long seed, int clip0,
+                                   float temperature, int sample, int nei_size, int vec,
+                                   int tile, int splits, int per_split, void* stream) {
   const int esize = is_bf16 ? 2 : 4;
-  if (T < 1 || T > kMaxT || B < 1 || D < 1 || splits < 1 || per_split < 1 ||
+  if (T < 1 || T > kMaxT || B < 1 || D < 1 || splits < 1 || per_split < 1 || clip0 < 0 ||
       (vec != 1 && (vec * esize != 16 || D % vec || !aligned16(q) || !aligned16(k))) ||
       (long long)splits * per_split < D / vec || (long long)B * splits > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -301,7 +305,7 @@ extern "C" int vgs_graph_adjacency(const void* q, const void* k, const void* the
                               st>>>(pt, static_cast<const float*>(theta),
                                     static_cast<const float*>(u_in), static_cast<float*>(adj),
                                     static_cast<float*>(s), static_cast<float*>(p),
-                                    static_cast<float*>(u_out), B, T, splits, seed, temperature,
-                                    sample, nei_size);
+                                    static_cast<float*>(u_out), B, T, splits, seed, clip0,
+                                    temperature, sample, nei_size);
   return (int)cudaGetLastError();
 }

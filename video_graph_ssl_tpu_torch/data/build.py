@@ -5,6 +5,9 @@ train/val — fixing the reference's nonexistent ``cfg.DATASET.ROOT_DIR``
 latent bug by using VISUAL_ROOT_DIR) and ``build_video_contrastive_loader``
 (:35-54).  Batch sizes are GLOBAL, as in the JAX package.
 
+``batch_slice`` (``parallel.dist.process_batch_slice``) gives a rank its
+rows of every global batch of the pretrain loader.
+
 ``cfg.DATASET.SOURCE = 'synthetic'`` swaps in the deterministic synthetic
 sources so every entry point runs without a frames-on-disk dataset.
 """
@@ -38,9 +41,10 @@ def resolve_new_length(cfg) -> int:
     return nl
 
 
-def build_video_contrastive_loader(cfg) -> Tuple[Loader, int]:
+def build_video_contrastive_loader(cfg, batch_slice=None) -> Tuple[Loader, int]:
     """SSL pretrain loader; returns (loader, n_data)
-    (reference: lib/data/build.py:35-54)."""
+    (reference: lib/data/build.py:35-54).  ``batch_slice``: this rank's
+    rows of each global batch -- the DistributedSampler role."""
     if cfg.DATASET.SOURCE == "synthetic":
         ds = SyntheticContrastiveDataset(
             n_data=int(cfg.DATASET.NUM_CLASS) * 4,
@@ -71,6 +75,7 @@ def build_video_contrastive_loader(cfg) -> Tuple[Loader, int]:
         num_workers=int(cfg.DATALOADER.NUM_WORKERS),
         seed=int(cfg.MODEL.SEED),
         prefetch=int(cfg.TPU.PREFETCH),
+        batch_slice=batch_slice,
     )
     return loader, len(ds)
 

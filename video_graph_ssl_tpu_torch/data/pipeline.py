@@ -4,8 +4,12 @@ Counterpart of ``video_graph_ssl_tpu/data/pipeline.py:Loader``: the same
 epoch order, the same per-item rngs, so both packages draw the same batches
 from the same dataset and seed.  ONE global batch per step, a thread pool
 for the IO-bound item fetch, and a bounded prefetch queue that overlaps the
-host fetch with device compute.  (The JAX loader's multi-host
-``batch_slice`` comes with multi-GPU training.)
+host fetch with device compute.  Under several ranks,
+``batch_slice=(lo, hi)`` (``parallel.dist.process_batch_slice``) restricts
+each rank to its rows of every global batch -- the ``DistributedSampler``
+role -- while the epoch shuffle and the per-item rngs stay keyed on global
+indices, so the ranks' rows together are the one-process batch stream, bit
+for bit.
 
 Determinism: per-epoch, per-item numpy Generators seeded as
 ``(seed, epoch, index)``; the epoch shuffle is ``default_rng((seed,
@@ -52,6 +56,7 @@ class Loader:
         num_workers: int = 4,
         seed: int = 0,
         prefetch: int = 2,
+        batch_slice=None,
     ):
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -60,6 +65,16 @@ class Loader:
         self.num_workers = max(int(num_workers), 1)
         self.seed = int(seed)
         self.prefetch = max(int(prefetch), 1)
+        if batch_slice is not None:
+            lo, hi = int(batch_slice[0]), int(batch_slice[1])
+            if not (0 <= lo < hi <= self.batch_size):
+                raise ValueError(
+                    f"batch_slice {batch_slice} outside batch {batch_size}")
+            if not self.drop_last:
+                # a ragged tail batch has no well-defined per-rank rows
+                raise ValueError("batch_slice requires drop_last=True")
+            batch_slice = (lo, hi)
+        self.batch_slice = batch_slice
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -107,6 +122,8 @@ class Loader:
                         if stop.is_set():
                             break
                         idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                        if self.batch_slice is not None:
+                            idxs = idxs[self.batch_slice[0]:self.batch_slice[1]]
                         if not put(_stack_batch(list(pool.map(fetch_item, idxs)))):
                             break
                 put(None)

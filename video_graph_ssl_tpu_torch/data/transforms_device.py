@@ -4,7 +4,11 @@
 
 The random parameters are drawn apart from their application
 (:func:`draw_ssl_params` / :func:`apply_ssl_augment`), so a test can feed
-both packages the same crop boxes, factors, flags and jitter orders.
+both packages the same crop boxes, factors, flags and jitter orders.  A
+rank that holds rows of a global batch draws the parameters of the whole
+global batch, as one process would, and applies its rows
+(:meth:`SSLParams.rows`): the jitter order of a clip-view is that of its
+group in the global batch.
 
 Chain per clip-view, on (T, C, H, W) pixels in [0, 255]: RandomResizedCrop
 (bilinear, no antialias, the weights of ``jax.image.scale_and_translate``),
@@ -18,7 +22,7 @@ from __future__ import annotations
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,7 +33,12 @@ _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 @dataclass
 class SSLParams:
-    """Per clip-view (N = B * V) draws, plus one jitter order per group."""
+    """Per clip-view (N = B * V) draws, plus one jitter order per group.
+
+    ``row0`` and ``group_rows`` place the N clip-views in a larger draw:
+    they are its rows ``[row0, row0 + N)``, and its jitter groups hold
+    ``group_rows`` rows each (0: the N rows form the ``len(perm_ids)``
+    groups themselves)."""
 
     box: torch.Tensor       # (N, 4) int64: crop top, left, height, width
     fb: torch.Tensor        # (N,) brightness factor
@@ -42,6 +51,18 @@ class SSLParams:
     blur: torch.Tensor      # (N,) bool
     flip: torch.Tensor      # (N,) bool
     perm_ids: torch.Tensor  # (G,) int64 index into JITTER_PERMS
+    row0: int = 0
+    group_rows: int = 0
+
+    def rows(self, lo: int, hi: int) -> "SSLParams":
+        """The draws of clip-views ``[lo, hi)``, with every group's order."""
+        n = self.box.shape[0]
+        if not 0 <= lo < hi <= n:
+            raise ValueError(f"rows [{lo}, {hi}) outside {n} clip-views")
+        per = {f: getattr(self, f)[lo:hi] for f in
+               ("box", "fb", "fc", "fs", "fh", "jitter", "gray", "sigma", "blur", "flip")}
+        return SSLParams(**per, perm_ids=self.perm_ids, row0=self.row0 + lo,
+                         group_rows=self.group_rows or n // len(self.perm_ids))
 
 
 def n_jitter_groups(n: int) -> int:
@@ -227,11 +248,13 @@ def apply_ssl_augment(clips: torch.Tensor, p: SSLParams, out_hw: Tuple[int, int]
     x = torch.einsum("nxw,ntcyw->ntcyx", wx, x)
 
     groups = p.perm_ids.tolist()
-    per = n // len(groups)
+    per = p.group_rows or n // len(groups)
+    spans = [(max(g * per - p.row0, 0), min((g + 1) * per - p.row0, n), pid)
+             for g, pid in enumerate(groups)]
     jittered = torch.cat([
-        _jitter_chain(JITTER_PERMS[pid], x[g * per:(g + 1) * per],
-                      *(_bc(f[g * per:(g + 1) * per]) for f in (p.fb, p.fc, p.fs, p.fh)))
-        for g, pid in enumerate(groups)])
+        _jitter_chain(JITTER_PERMS[pid], x[lo:hi],
+                      *(_bc(f[lo:hi]) for f in (p.fb, p.fc, p.fs, p.fh)))
+        for lo, hi, pid in spans if lo < hi])
     x = torch.where(_bc(p.jitter), jittered, x)
     x = torch.where(_bc(p.gray), _gray(x), x)
     x = torch.where(_bc(p.blur), _blur(x, p.sigma), x)
@@ -243,8 +266,10 @@ def apply_ssl_augment(clips: torch.Tensor, p: SSLParams, out_hw: Tuple[int, int]
 
 
 def make_batch_augment_fn(cfg, kind: str) -> Callable:
-    """kind='ssl': fn(generator, clips (B, V, T, H, W, C) uint8) -> the
-    augmented, normalised clips in ``TPU.COMPUTE_DTYPE``."""
+    """kind='ssl': fn(generator, clips (B, V, T, H, W, C) uint8, rows=None)
+    -> the augmented, normalised clips in ``TPU.COMPUTE_DTYPE``.  ``rows``
+    (row0, global B): the clips are rows ``[row0, row0 + B)`` of a global
+    batch, and take those rows of the global batch's draws."""
     if kind != "ssl":
         raise NotImplementedError(f"augment kind {kind!r} is not ported yet")
     from ..models.build import compute_dtype
@@ -254,10 +279,14 @@ def make_batch_augment_fn(cfg, kind: str) -> Callable:
     flip_p = 0.5 if cfg.INPUT.FLIP else 0.0
     dtype = compute_dtype(cfg)
 
-    def fn(generator: torch.Generator, clips: torch.Tensor) -> torch.Tensor:
+    def fn(generator: torch.Generator, clips: torch.Tensor,
+           rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         b, v, _, h, w = clips.shape[:5]
-        params = draw_ssl_params(b * v, (h, w), generator, clips.device,
+        row0, total = rows if rows is not None else (0, b)
+        params = draw_ssl_params(total * v, (h, w), generator, clips.device,
                                  flip_p=flip_p)
+        if total != b:
+            params = params.rows(row0 * v, (row0 + b) * v)
         return apply_ssl_augment(clips, params, out_hw, mean, std, dtype)
 
     return fn

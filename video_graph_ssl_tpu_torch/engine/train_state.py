@@ -2,12 +2,16 @@
 
 The JAX package keeps params, BN stats, optimizer buffers, the EMA encoder
 and the queue in one functional pytree.  Here they are the query model,
-its EMA copy, the optimizer and the MoCo queue, updated in place.
+its EMA copy, the optimizer and the MoCo queue, updated in place.  Under a
+process group every rank holds the same state; ``ddp`` is then the query
+model inside ``DistributedDataParallel``, which the step's query pass
+runs through so that the gradients are averaged over ranks.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -23,10 +27,17 @@ class PretrainState:
     contrast: MocoState
     seed: int                        # base of the per-step graph/augment seeds
     step: int = 0
+    ddp: Optional[nn.Module] = None  # the query model in DistributedDataParallel
+
+    @property
+    def query(self) -> nn.Module:
+        """The module the query pass runs: ``ddp`` under a process group."""
+        return self.ddp if self.ddp is not None else self.model
 
     def step_seed(self, stream: int) -> int:
-        """Per-step seed of one random stream (1: graph noise, 2: augment),
-        the same for every pass of a step."""
+        """Per-step seed of one random stream (1: graph noise, 2: augment,
+        3: ShuffleBN's permutation), the same for every pass of a step and
+        on every rank."""
         return ((self.seed * 1_000_003 + self.step) * 31 + stream) \
             & 0x7FFF_FFFF_FFFF_FFFF
 

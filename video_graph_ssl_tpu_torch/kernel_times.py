@@ -1,5 +1,6 @@
-"""Device and host time of the graph kernels (K1, K2) and the max-pool
-backward (K3/K4) at the shapes of the bs-128 16x112x112 GCA step.
+"""Device and host time of the graph kernels (K1, K2), the max-pool
+backward (K3/K4) and the SepConv pair backward (K5) at the shapes of the
+bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED True`` step).
 
     python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME]
 
@@ -7,8 +8,8 @@ Run as a file so that ``--root`` (default: the checkout holding this file)
 decides which checkout's ``video_graph_ssl_tpu_torch`` is imported and
 built: the same script then times an older tree's wrappers, whose call
 signatures it shares (``graph_kernel.adjacency_fwd_kernel``,
-``gcn_propagate._launch``, ``maxpool._launch``).  For each shape in bf16 it
-prints one JSON line with three times:
+``gcn_propagate._launch``, ``maxpool._launch``, ``sepconv_bwd.sepconv_bwd``).
+For each shape in bf16 it prints one JSON line with three times:
 
 * ``device_us``: the kernels' own time per call, from ``torch.profiler``
   (the sum of the device time of every kernel the call launches, over 50
@@ -17,6 +18,10 @@ prints one JSON line with three times:
   synchronise, host clock);
 * ``event_ms``: CUDA events around one call, wrapper included, the median
   of 20 (what ``chip_smoke.py`` records per launch).
+
+Then one line per kernel of K3, K4 and K5 with ``pass_device_ms``: the sum
+of ``device_us`` over the calls of one encoder pass (13 pools, 18 SepConv
+pairs).
 
 Needs a CUDA device; it never measures on the CPU.
 """
@@ -36,15 +41,33 @@ import time
 # K2_SHAPES)
 K1_SHAPES = [(128, 8, 7 * 7 * 96), (128, 4, 3 * 3 * 256), (128, 2, 1 * 1 * 416)]
 K2_SHAPES = [(128, 8, 14, 14, 192), (128, 4, 7, 7, 512), (128, 2, 3, 3, 832)]
-# the step's max pools: (name, x (B, T, H, W, C), window, stride, padding)
-POOLS = [("pool_1", (128, 8, 56, 56, 64), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
-         ("pool_4", (128, 8, 28, 28, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
-         ("pool_7", (128, 8, 14, 14, 480), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
-         ("pool_13", (128, 4, 7, 7, 832), (2, 2, 2), (2, 2, 2), (0, 0, 0)),
-         ("mixed_3b", (128, 8, 14, 14, 192), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
-         ("mixed_4b", (128, 4, 7, 7, 480), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
-         ("mixed_5b", (128, 2, 3, 3, 832), (3, 3, 3), (1, 1, 1), (1, 1, 1))]
-PATTERNS = {"K1": r"adjacency|sim_partial", "K2": r"propagate", "K3/K4": r"maxpool_bwd"}
+# (name, kernel, x (B, T, H, W, C), window, stride, padding) of every max
+# pool of one S3D pass at bs 128, 16x112x112
+POOLS = [("pool_1", "K4", (128, 8, 56, 56, 64), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+         ("pool_4", "K4", (128, 8, 28, 28, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+         ("pool_7", "K4", (128, 8, 14, 14, 480), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+         ("pool_13", "K4", (128, 4, 7, 7, 832), (2, 2, 2), (2, 2, 2), (0, 0, 0))] + [
+    (f"mixed_{blk} pool", "K3", shape, (3, 3, 3), (1, 1, 1), (1, 1, 1))
+    for blk, shape in (("3b", (128, 8, 14, 14, 192)), ("3c", (128, 8, 14, 14, 256)),
+                       ("4b", (128, 4, 7, 7, 480)), ("4c", (128, 4, 7, 7, 512)),
+                       ("4d", (128, 4, 7, 7, 512)), ("4e", (128, 4, 7, 7, 512)),
+                       ("4f", (128, 4, 7, 7, 528)), ("5b", (128, 2, 3, 3, 832)),
+                       ("5c", (128, 2, 3, 3, 832)))]
+# (name, (B, T, H, W), C, F) of the 18 fused SepConvs of one S3D pass
+_MIXED = {"3b": ((128, 8, 14, 14), (96, 128), (16, 32)),
+          "3c": ((128, 8, 14, 14), (128, 192), (32, 96)),
+          "4b": ((128, 4, 7, 7), (96, 208), (16, 48)),
+          "4c": ((128, 4, 7, 7), (112, 224), (24, 64)),
+          "4d": ((128, 4, 7, 7), (128, 256), (24, 64)),
+          "4e": ((128, 4, 7, 7), (144, 288), (32, 64)),
+          "4f": ((128, 4, 7, 7), (160, 320), (32, 128)),
+          "5b": ((128, 2, 3, 3), (160, 320), (32, 128)),
+          "5c": ((128, 2, 3, 3), (192, 384), (48, 128))}
+SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
+            for br, (c, f) in zip(("b1", "b2"), brs)]
+PATTERNS = {"K1": r"adjacency|sim_partial", "K2": r"propagate", "K3/K4": r"maxpool_bwd",
+            "K5": r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|bn_bwd_kernel|"
+                  r"bn_bwd_vec_kernel|split_sum_kernel|sep_prep_kernel|sep_tc_p[1-6]_"}
 
 
 def device_us(fn, pattern: str, iters: int = 50) -> float:
@@ -97,6 +120,24 @@ def event_ms(fn, iters: int = 20) -> float:
     return times[len(times) // 2]
 
 
+def sepconv_inputs(bthwc, dev, dt, g):
+    """x, the SepConv pair's parameters, its forward statistics and a
+    cotangent: the argument tuple of ``sepconv_bwd`` / ``bwd_reference``."""
+    import torch
+    from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
+
+    cl = torch.channels_last_3d
+    b, t, h, w, c, f = bthwc
+    x = torch.randn(b, c, t, h, w, device=dev, generator=g).to(dt).contiguous(memory_format=cl)
+    ws = torch.randn(f, c, 1, 3, 3, device=dev, generator=g) / (9 * c) ** 0.5
+    wt = torch.randn(f, f, 3, 1, 1, device=dev, generator=g) / (3 * f) ** 0.5
+    bn = [1 + 0.1 * torch.randn(f, device=dev, generator=g) if i % 2 == 0
+          else 0.1 * torch.randn(f, device=dev, generator=g) for i in range(4)]
+    out, stats = fs.sepconv_fwd_core(x, ws, wt, *bn, dt)
+    gy = torch.randn(out.shape, device=dev, generator=g).to(dt).contiguous(memory_format=cl)
+    return (x, ws, wt, *bn, *stats, gy, dt)
+
+
 def times(fn, pattern: str) -> dict:
     return {"device_us": device_us(fn, pattern), "host_us": host_us(fn),
             "event_ms": event_ms(fn)}
@@ -117,6 +158,7 @@ def main(argv=None) -> int:
     from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
     from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
     from video_graph_ssl_tpu_torch.ops import maxpool as mp
+    from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -127,8 +169,10 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
 
+    tag = args.tag
+
     def emit(kernel, shape, t):
-        print(json.dumps({"tag": args.tag, "kernel": kernel, "shape": list(shape),
+        print(json.dumps({"tag": tag, "kernel": kernel, "shape": list(shape),
                           "dtype": "bf16", "gpu": gpu, **t}))
 
     for b, t, d in K1_SHAPES:
@@ -145,13 +189,25 @@ def main(argv=None) -> int:
             emit("K2" + (" transpose" if tr else ""), shape, times(
                 lambda: gp._launch(adj, x, transpose=tr), PATTERNS["K2"]))
     cl = torch.channels_last_3d
-    for name, (b, t, h, w, c), k, s, p in POOLS:
+    pass_us = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    for name, kn, (b, t, h, w, c), k, s, p in POOLS:
         x = torch.randn(b, c, t, h, w, device=dev, generator=g).to(bf).contiguous(
             memory_format=cl)
         y = F.max_pool3d(x, k, s, p).contiguous(memory_format=cl)
         dy = torch.randn(y.shape, device=dev, generator=g).to(bf).contiguous(memory_format=cl)
-        emit(f"K3/K4 {name}", (b, t, h, w, c), times(
-            lambda: mp._launch(x, y, dy, k, s, p), PATTERNS["K3/K4"]))
+        t_ = times(lambda: mp._launch(x, y, dy, k, s, p), PATTERNS["K3/K4"])
+        pass_us[kn] += t_["device_us"]
+        emit(f"{kn} {name}", (b, t, h, w, c), t_)
+    for name, (b, t, h, w), c, f in SEPCONVS:
+        sep = sepconv_inputs((b, t, h, w, c, f), dev, bf, g)
+        t_ = times(lambda: sb.sepconv_bwd(*sep), PATTERNS["K5"])
+        pass_us["K5"] += t_["device_us"]
+        emit(f"K5 {name}", (b, t, h, w, c, f), t_)
+        del sep
+    for kn, us in pass_us.items():
+        calls = len(SEPCONVS) if kn == "K5" else sum(r[1] == kn for r in POOLS)
+        print(json.dumps({"tag": tag, "kernel": kn, "calls_per_pass": calls,
+                          "pass_device_ms": us / 1e3, "dtype": "bf16", "gpu": gpu}))
     return 0
 
 

@@ -24,6 +24,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_sepconv, maxpool
+from ..parallel import dist, sync_bn
+
+
+# K5's batch statistics and BN sums are reduced within one call of all three
+# sweeps, so they cannot span ranks yet
+FUSED_ACROSS_RANKS = ("TPU.SEPCONV_FUSED True is not ported across ranks (K5 would need "
+                      "its BN sums all-reduced between its sweeps): ROADMAP.md, Queue 1, "
+                      "item 3b, K5 across ranks")
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -60,6 +68,12 @@ class BatchNorm(nn.Module):
     variance, which torch's own running-stat update does not use.  The
     normalisation runs in fp32; the output is cast to ``dtype`` (or stays in
     the input dtype when ``dtype`` is None).
+
+    Under a process group of more than one rank, train mode normalises with
+    the statistics of the global batch (``parallel/sync_bn.py``), as the
+    JAX package's sharded step does, and every rank's running statistics
+    take the same global update; ``per_rank`` (set only by
+    ``sync_bn.per_rank_bn``, for ShuffleBN's key pass) keeps them local.
     """
 
     def __init__(self, num_features: int, momentum: float, eps: float,
@@ -72,6 +86,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.per_rank = False
+        self.sum_form = False
 
     def forward(self, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
@@ -84,7 +100,13 @@ class BatchNorm(nn.Module):
         # parity tests) gets float64 parameters
         pd = torch.float64 if x.dtype == torch.float64 else torch.float32
         w, b = self.weight.to(pd), self.bias.to(pd)
-        if self.training:
+        if self.training and not self.per_rank and (self.sum_form or dist.world_size() > 1):
+            y, mean, var = sync_bn.SyncBatchNormFn.apply(x, w, b, self.eps, None)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.float(), alpha=1.0 - m)
+        elif self.training:
             y, mean, invstd = torch.native_batch_norm(
                 x, w, b, None, None, True, 0.0, self.eps)
             with torch.no_grad():
@@ -158,6 +180,8 @@ class SepConv3d(nn.Module):
         return x
 
     def _fused_train(self, x: torch.Tensor) -> torch.Tensor:
+        if dist.world_size() > 1:
+            raise NotImplementedError(FUSED_ACROSS_RANKS)
         bs, bt = self.bn_s, self.bn_t
         out, (mu1, var1, mu2, var2) = fused_sepconv.fused_sepconv_train(
             x, self.conv_s.weight, self.conv_t.weight, bs.weight, bs.bias,

@@ -54,13 +54,15 @@ def to_bthwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def run_stages(base: nn.Sequential, x: torch.Tensor, aug_points,
-               seed: int) -> torch.Tensor:
+               seed: int, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Run a backbone's stage Sequential on an NCDHW tensor; aug-wrapped
-    stages run their graph block on the (B, T, H, W, C) view first."""
+    stages run their graph block on the (B, T, H, W, C) view first, with
+    ``rows`` (row0, global B) placing the batch in a global one for the
+    graph noise."""
     for idx, stage in enumerate(base):
         if idx in aug_points:
             graph, stage = stage[0], stage[1]
-            x = to_ncdhw(graph(to_bthwc(x), seed=stage_seed(seed, idx)))
+            x = to_ncdhw(graph(to_bthwc(x), seed=stage_seed(seed, idx), rows=rows))
         x = stage(x)
     return x
 
@@ -118,7 +120,8 @@ class S3D(nn.Module):
     def feature_dim(self) -> int:
         return S3D_FEATURE_DIM
 
-    def forward(self, x: torch.Tensor, graph_seed: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, graph_seed: int = 0,
+                graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         x = to_ncdhw(x).to(self.dtype)
-        x = run_stages(self.base, x, self.aug_points, graph_seed)
+        x = run_stages(self.base, x, self.aug_points, graph_seed, graph_rows)
         return head_pool(x)

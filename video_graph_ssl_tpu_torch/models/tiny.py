@@ -34,11 +34,12 @@ class Tiny3D(nn.Module):
     def feature_dim(self) -> int:
         return TINY3D_FEATURE_DIM
 
-    def forward(self, x: torch.Tensor, graph_seed: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, graph_seed: int = 0,
+                graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         x = self.stage0(to_ncdhw(x).to(self.dtype))
         if 1 in self.aug_points:
-            x = to_ncdhw(self.graph_aug_1(to_bthwc(x),
-                                          seed=stage_seed(graph_seed, 1)))
+            x = to_ncdhw(self.graph_aug_1(to_bthwc(x), seed=stage_seed(graph_seed, 1),
+                                          rows=graph_rows))
         x = self.stage1(x)
         x = max_pool_3d(x, (1, 2, 2), (1, 2, 2))
         x = self.stage2(x)

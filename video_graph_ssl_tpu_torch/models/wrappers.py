@@ -3,15 +3,21 @@ encoder -> projection head, under the reference's ``GraphWrapper`` names
 (``model.encoder.base_model.*``, ``model.proj_head.head.*``).
 
 Clips arrive as ``(B, T, H, W, C)``; ``graph_seed`` keys the graph-block
-noise of one pass.
+noise of one pass, and ``graph_rows`` (row0, global B), on a rank holding
+rows ``[row0, row0 + B)`` of a global batch, makes that noise those rows of
+the global batch's draw.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from .heads import ProjectHead
+
+Rows = Optional[Tuple[int, int]]
 
 
 class VisualEncoder(nn.Module):
@@ -22,8 +28,9 @@ class VisualEncoder(nn.Module):
         self.base_model = backbone
         self.dropout = nn.Dropout(dropout) if dropout > 0 else None
 
-    def forward(self, x: torch.Tensor, graph_seed: int = 0) -> torch.Tensor:
-        feat = self.base_model(x, graph_seed=graph_seed)
+    def forward(self, x: torch.Tensor, graph_seed: int = 0,
+                graph_rows: Rows = None) -> torch.Tensor:
+        feat = self.base_model(x, graph_seed=graph_seed, graph_rows=graph_rows)
         if self.dropout is not None:
             feat = self.dropout(feat)
         return feat
@@ -38,8 +45,9 @@ class ContrastWrapper(nn.Module):
         self.encoder = encoder
         self.proj_head = ProjectHead(feat_dim, hid_dim, head_type)
 
-    def forward(self, x: torch.Tensor, graph_seed: int = 0) -> torch.Tensor:
-        return self.proj_head(self.encoder(x, graph_seed=graph_seed))
+    def forward(self, x: torch.Tensor, graph_seed: int = 0,
+                graph_rows: Rows = None) -> torch.Tensor:
+        return self.proj_head(self.encoder(x, graph_seed=graph_seed, graph_rows=graph_rows))
 
 
 class GraphWrapper(nn.Module):
@@ -49,8 +57,10 @@ class GraphWrapper(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, x: torch.Tensor, graph_seed: int = 0) -> torch.Tensor:
-        return self.model(x, graph_seed=graph_seed)
+    def forward(self, x: torch.Tensor, graph_seed: int = 0,
+                graph_rows: Rows = None) -> torch.Tensor:
+        return self.model(x, graph_seed=graph_seed, graph_rows=graph_rows)
 
-    def encode(self, x: torch.Tensor, graph_seed: int = 0) -> torch.Tensor:
-        return self.model.encoder(x, graph_seed=graph_seed)
+    def encode(self, x: torch.Tensor, graph_seed: int = 0,
+               graph_rows: Rows = None) -> torch.Tensor:
+        return self.model.encoder(x, graph_seed=graph_seed, graph_rows=graph_rows)

@@ -43,9 +43,9 @@ SIGNATURES = {
     # adj, x, out, B, T, F, transpose, is_bf16, adj_f32, route, kpad,
     # blocks, per_warp, vec, stream
     "vgs_gcn_propagate": (_P, _P, _P, _I, _I, _L) + (_I,) * 8 + (_P,),
-    # q, k, theta, u_in, adj, s, p, u_out, part, B, T, D, is_bf16,
-    # seed, temperature, sample, nei_size, vec, tile, splits, per_split, stream
-    "vgs_graph_adjacency": (_P,) * 9 + (_I, _I, _L, _I, ctypes.c_ulonglong, _F)
+    # q, k, theta, u_in, adj, s, p, u_out, part, B, T, D, is_bf16, seed,
+    # clip0, temperature, sample, nei_size, vec, tile, splits, per_split, stream
+    "vgs_graph_adjacency": (_P,) * 9 + (_I, _I, _L, _I, ctypes.c_ulonglong, _I, _F)
                            + (_I,) * 6 + (_P,),
     # x, y, dy, dx, slabs, T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw,
     # pt, ph, pw, group, threads, ts, hs, nxt, nxh, nyt, nyh, is_bf16, stream

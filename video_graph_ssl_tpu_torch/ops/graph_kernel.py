@@ -18,7 +18,12 @@ torch ops) that the tests and ``chip_smoke.py`` hold the kernel to.
 The noise ``u`` is either passed in (tests inject a draw) or drawn from
 ``seed``: in the kernel by Philox4x32-10 keyed by the seed with counter
 (element, clip), in the plain version by a ``torch.Generator`` seeded with
-it.  The two draws share a distribution, not bits.
+it.  The two draws share a distribution, not bits.  ``rows=(clip0,
+clips)`` places the call's B clips at ``[clip0, clip0 + B)`` of a global
+batch of ``clips`` (one rank's rows under ``torch.distributed``): the
+kernel counts clips from ``clip0``, the plain version draws the global
+batch's noise and keeps those rows, so each rank draws its rows of the
+one-process draw.
 
 The backward (:func:`_adjacency_bwd`) is the closed form of the JAX
 package's custom VJP, in torch ops on the small (B, T, T) tensors; dq and dk
@@ -48,12 +53,28 @@ TARGET_BLOCKS = 4 * NUM_SMS
 launches = 0
 
 
-def draw_uniform(shape, seed: int, device) -> torch.Tensor:
-    """U(EPS, 1 - EPS) noise of the plain version, from a seeded generator."""
+Rows = Optional[Tuple[int, int]]
+
+
+def global_rows(shape, rows: Rows) -> Tuple[tuple, int]:
+    """(the global batch's shape, the first row) of a draw of ``shape``
+    whose leading dim holds rows ``[clip0, clip0 + shape[0])`` of ``clips``."""
+    if rows is None:
+        return tuple(shape), 0
+    clip0, clips = int(rows[0]), int(rows[1])
+    if not 0 <= clip0 <= clips - shape[0]:
+        raise ValueError(f"rows [{clip0}, {clip0 + shape[0]}) outside a batch of {clips}")
+    return (clips, *shape[1:]), clip0
+
+
+def draw_uniform(shape, seed: int, device, rows: Rows = None) -> torch.Tensor:
+    """U(EPS, 1 - EPS) noise of the plain version, from a seeded generator;
+    with ``rows``, those rows of the global batch's draw."""
+    full, clip0 = global_rows(shape, rows)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed) & 0x7FFF_FFFF_FFFF_FFFF)
-    u = torch.rand(shape, generator=g, device=device, dtype=torch.float32)
-    return u * (1.0 - 2.0 * EPS) + EPS
+    u = torch.rand(full, generator=g, device=device, dtype=torch.float32)
+    return (u * (1.0 - 2.0 * EPS) + EPS)[clip0:clip0 + shape[0]]
 
 
 def _band_mask(sim: torch.Tensor, nei_size: int) -> torch.Tensor:
@@ -74,8 +95,8 @@ def relaxed_bernoulli(p: torch.Tensor, u: torch.Tensor, temperature: float,
     return torch.sigmoid(logits / temperature)
 
 
-def _adjacency_fwd_plain(q, k, theta, u, seed, temperature, sample, nei_size
-                         ) -> Tuple[torch.Tensor, ...]:
+def _adjacency_fwd_plain(q, k, theta, u, seed, temperature, sample, nei_size,
+                         rows: Rows = None) -> Tuple[torch.Tensor, ...]:
     """(adj, S, p) in fp32, the same outputs as the kernel.  The similarity
     is summed in at least fp32 and rounded to fp32 (the JAX einsum's
     ``preferred_element_type``)."""
@@ -85,7 +106,7 @@ def _adjacency_fwd_plain(q, k, theta, u, seed, temperature, sample, nei_size
     if not sample:
         return p, s, p
     if u is None:
-        u = draw_uniform(p.shape, seed, p.device)
+        u = draw_uniform(p.shape, seed, p.device, rows)
     return relaxed_bernoulli(p, u, temperature), s, p
 
 
@@ -93,10 +114,10 @@ def graph_adjacency_plain(q: torch.Tensor, k: torch.Tensor,
                           theta: torch.Tensor, seed: int = 0,
                           temperature: float = 1.0, sample: bool = True,
                           u: Optional[torch.Tensor] = None,
-                          nei_size: int = 0) -> torch.Tensor:
+                          nei_size: int = 0, rows: Rows = None) -> torch.Tensor:
     """Plain PyTorch version; gradients by autograd through torch ops."""
     return _adjacency_fwd_plain(q, k, theta, u, seed, temperature, sample,
-                                nei_size)[0]
+                                nei_size, rows)[0]
 
 
 def _check(q, k, theta, u) -> None:
@@ -155,12 +176,12 @@ def _cached_plan(b, t, d, dtype, aligned) -> AdjacencyPlan:
 
 
 def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
-                         u_out: Optional[torch.Tensor] = None
+                         u_out: Optional[torch.Tensor] = None, rows: Rows = None
                          ) -> Tuple[torch.Tensor, ...]:
     """One call (two launches) -> (adj, S, p), fp32: views of one
     (3 + splits, B, T, T) buffer whose last planes take the partial
     similarities.  ``u_out`` (B,T,T fp32), when given, receives the noise
-    the kernel drew."""
+    the kernel drew; ``rows`` offsets the draw's clip counter."""
     global launches
     _check(q, k, theta, u)
     q, k = q.contiguous(), k.contiguous()
@@ -169,6 +190,7 @@ def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
     if u is not None and (u.dtype != torch.float32 or not u.is_contiguous()):
         u = u.float().contiguous()
     b, t, d = q.shape
+    clip0 = global_rows(q.shape, rows)[1]
     if u_out is not None and (u_out.shape != (b, t, t) or u_out.dtype != torch.float32
                               or not u_out.is_contiguous() or u_out.device != q.device):
         raise ValueError("graph_adjacency: u_out must be a contiguous fp32 "
@@ -183,7 +205,7 @@ def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
         adj.data_ptr(), s.data_ptr(), p.data_ptr(),
         u_out.data_ptr() if u_out is not None else None, buf.data_ptr() + 12 * b * t * t,
         b, t, d, int(q.dtype == torch.bfloat16),
-        int(seed) & 0xFFFF_FFFF_FFFF_FFFF, float(temperature), int(sample),
+        int(seed) & 0xFFFF_FFFF_FFFF_FFFF, clip0, float(temperature), int(sample),
         int(nei_size), plan.vec, plan.tile, plan.splits, plan.per_split,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "vgs_graph_adjacency")
@@ -231,11 +253,14 @@ class GraphAdjacencyFn(torch.autograd.Function):
 def graph_adjacency(q: torch.Tensor, k: torch.Tensor, theta: torch.Tensor,
                     seed: int = 0, temperature: float = 1.0,
                     sample: bool = True, u: Optional[torch.Tensor] = None,
-                    nei_size: int = 0) -> torch.Tensor:
+                    nei_size: int = 0, rows: Rows = None) -> torch.Tensor:
     """Sampled adjacency (B,T,T) fp32 from q, k (B,T,D); the CUDA kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors.  ``rows`` (clip0,
+    clips): the clips' place in a global batch, for the noise draw."""
     if q.device.type == "cpu" and k.device.type == "cpu":
         return graph_adjacency_plain(q, k, theta, seed, temperature, sample,
-                                     u, nei_size)
-    return GraphAdjacencyFn.apply(adjacency_fwd_kernel, q, k, theta, u, seed,
+                                     u, nei_size, rows)
+    fwd = adjacency_fwd_kernel if rows is None else functools.partial(
+        adjacency_fwd_kernel, rows=rows)
+    return GraphAdjacencyFn.apply(fwd, q, k, theta, u, seed,
                                   temperature, sample, nei_size)

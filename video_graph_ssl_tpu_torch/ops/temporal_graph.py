@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .gcn_propagate import gcn_propagate
-from .graph_kernel import graph_adjacency, relaxed_bernoulli
+from .graph_kernel import Rows, global_rows, graph_adjacency, relaxed_bernoulli
 
 
 # --------------------------------------------------------------------------- #
@@ -191,12 +191,15 @@ class TemporalGraphAug(nn.Module):
         return h
 
     def forward(self, x: torch.Tensor, seed: int = 0,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                noise: Optional[torch.Tensor] = None,
+                rows: Rows = None) -> torch.Tensor:
         """``x`` (B, T, H, W, C) -> same shape in the compute dtype.
 
         ``seed`` keys the graph noise; ``noise`` (B, T, T), when given,
         replaces the draw: U(eps, 1-eps) for the relaxed-Bernoulli samplers,
-        N(0, 1) for ``gaussian``."""
+        N(0, 1) for ``gaussian``.  ``rows`` (row0, global B): ``x`` holds
+        rows ``[row0, row0 + B)`` of a global batch, and the draws are
+        those rows of the global batch's."""
         b, t = x.shape[:2]
         q = self._embed_apply(self.g_q, x).reshape(b, t, -1)
         k = self._embed_apply(self.g_k, x).reshape(b, t, -1)
@@ -205,7 +208,7 @@ class TemporalGraphAug(nn.Module):
         rb = self.sampler.startswith("relaxed_bernoulli")
         kw = dict(seed=seed, temperature=self.temperature,
                   sample=sampling and rb, nei_size=self.nei_size,
-                  u=noise if (sampling and rb) else None)
+                  u=noise if (sampling and rb) else None, rows=rows)
         if sampling and self.sampler == "relaxed_bernoulli_sample":
             with torch.no_grad():   # .sample(): the draw is a constant
                 adj = graph_adjacency(q, k, theta, **kw)
@@ -213,9 +216,11 @@ class TemporalGraphAug(nn.Module):
             adj = graph_adjacency(q, k, theta, **kw)
         if sampling and self.sampler == "gaussian":
             if noise is None:
+                full, row0 = global_rows(adj.shape, rows)
                 gen = torch.Generator(device=adj.device)
                 gen.manual_seed(int(seed))
-                noise = torch.randn(adj.shape, generator=gen, device=adj.device)
+                noise = torch.randn(full, generator=gen, device=adj.device)
+                noise = noise[row0:row0 + adj.shape[0]]
             adj = gaussian_perturb_sample(adj, noise, self.alpha)
         adj = adj.to(self.dtype)
         for gcn in self.gcns:

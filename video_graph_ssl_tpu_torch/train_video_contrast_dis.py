@@ -19,9 +19,24 @@ the state but restarts the epoch count), ``MODEL.PRETRAIN_PATH`` (with
 ``checkpoint_preempt.pth.tar`` and exits 0.
 
 ``--device`` defaults to ``cuda``; when that is asked for and no GPU is
-present the trainer raises, it never moves to the CPU by itself.  One
-device; the reference's distributed flags are accepted and ignored, as the
-JAX tool does.
+present the trainer raises, it never moves to the CPU by itself.
+
+Several GPUs: one process per rank under ``torch.distributed``, each on
+``cuda:LOCAL_RANK`` with its rows of every global batch
+(``DATALOADER.BATCH_SIZE`` is global, as in the JAX package)::
+
+    torchrun --nproc_per_node 4 -m video_graph_ssl_tpu_torch.train_video_contrast_dis \
+        --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True ...
+    # or the reference's flags: one rank per visible card of each node
+    python -m video_graph_ssl_tpu_torch.train_video_contrast_dis \
+        --multiprocessing-distributed --world_size 1 --rank 0 \
+        --dist-url tcp://localhost:23456 --config_file ...
+
+``--world_size N --rank R --dist-url URL`` without
+``--multiprocessing-distributed`` runs this process as rank R of N.
+``--dist-backend`` is ``nccl`` by default (``gloo`` for CPU ranks, and for
+ranks that share one card).  Only rank 0 writes checkpoints, telemetry and
+the log; every rank reads a resumed checkpoint.
 """
 
 from __future__ import annotations
@@ -29,11 +44,13 @@ from __future__ import annotations
 import argparse
 import os
 import signal
+import socket
 import threading
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.multiprocessing
 
 from .config import cfg as default_cfg
 from .data.build import build_video_contrastive_loader
@@ -41,6 +58,7 @@ from .data.pipeline import to_device
 from .engine.build import create_pretrain_state
 from .engine.pretrain import make_fused_pretrain_step
 from .models.build import create_visual_model
+from .parallel import dist
 from .solver.build import make_lr_scheduler
 from .utils.checkpoint import load_checkpoint_state
 from .utils.meters import AverageMeter
@@ -55,12 +73,23 @@ def get_parser() -> argparse.ArgumentParser:
         description="Video contrastive pretraining on a GPU (PyTorch port)")
     parser.add_argument("--config_file", default="", type=str,
                         help="path to YAML config")
-    # the reference's DDP flags, accepted and ignored (one device)
-    parser.add_argument("--rank", default=0, type=int, help="(ignored)")
-    parser.add_argument("--world_size", default=1, type=int, help="(ignored)")
-    parser.add_argument("--dist-url", default="", type=str, help="(ignored)")
+    # the reference's DDP flags (ignored under torchrun, whose environment
+    # gives the ranks)
+    parser.add_argument("--rank", default=0, type=int,
+                        help="node rank (with --multiprocessing-distributed), "
+                             "else this process's rank")
+    parser.add_argument("--world_size", default=1, type=int,
+                        help="number of nodes (with --multiprocessing-distributed), "
+                             "else of ranks")
+    parser.add_argument("--dist-url", default="", type=str,
+                        help="rendezvous: tcp://host:port or file://path (default "
+                             "with --multiprocessing-distributed on one node: a "
+                             "free localhost port)")
     parser.add_argument("--multiprocessing-distributed", action="store_true",
-                        help="(ignored)")
+                        help="start one rank per visible card of this node")
+    parser.add_argument("--dist-backend", default="nccl", type=str,
+                        help="torch.distributed backend (nccl; gloo for CPU ranks "
+                             "or ranks that share one card)")
     parser.add_argument("--max_steps", default=0, type=int,
                         help="cap total steps, counted across epochs (0 = unlimited)")
     parser.add_argument("--profile_dir", default="", type=str,
@@ -75,9 +104,16 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def resolve_device(name: str) -> torch.device:
+    """The device to train on; under a process group a bare ``cuda`` is
+    ``cuda:LOCAL_RANK``, made the current card."""
     device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {name}: no CUDA device is available")
+        if dist.is_distributed():
+            if device.index is None:
+                device = torch.device("cuda", dist.local_rank())
+            torch.cuda.set_device(device)
     return device
 
 
@@ -108,7 +144,9 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 class Trainer:
     """Counterpart of the JAX tool's Trainer: builds the loader, model,
-    state, fused step, LR schedule and saver, then runs epochs."""
+    state, fused step, LR schedule and saver, then runs epochs.  Under a
+    process group (initialised by the caller) it is one rank: it loads its
+    rows of each global batch, and only rank 0 writes and prints."""
 
     def __init__(self, config, max_steps: int = 0, device: str = "cuda",
                  profile_dir: str = "", run_dir: str = "run"):
@@ -116,12 +154,20 @@ class Trainer:
         self.max_steps = int(max_steps)
         self.profile_dir = profile_dir
         self.device = resolve_device(device)
+        # first: it refuses what is not ported before anything is built
+        self.step_fn = make_fused_pretrain_step(config)
+        self.is_main = dist.is_main()
+        self.batch_slice = (dist.process_batch_slice(int(config.DATALOADER.BATCH_SIZE))
+                            if dist.is_distributed() else None)
+        # SIGTERM reaches each rank on its own: the ranks vote after every
+        # step, on the host, so that all of them stop at the same step
+        self.vote_group = dist.host_group()
         self.saver, self.writer = creat_saver(config, base_dir=run_dir)
         self.model, self.feat_dim = create_visual_model(config)
-        self.train_loader, self.n_data = build_video_contrastive_loader(config)
+        self.train_loader, self.n_data = build_video_contrastive_loader(
+            config, batch_slice=self.batch_slice)
         self.state = create_pretrain_state(config, self.model, self.device)
         self._load_pretrain_backbone()
-        self.step_fn = make_fused_pretrain_step(config)
         self.lr_fn = make_lr_scheduler(config)
         self.batch_size = int(config.DATALOADER.BATCH_SIZE)
         self.start_epoch = int(config.SOLVER.START_EPOCH)
@@ -153,7 +199,7 @@ class Trainer:
         sd = load_backbone_state_dict(path)
         for model in (self.state.model, self.state.ema_model):
             model.model.encoder.base_model.load_state_dict(sd, strict=True)
-        print(f"=> initialized backbone from '{path}' (MODEL.PRETRAIN_PATH)")
+        self._log(f"=> initialized backbone from '{path}' (MODEL.PRETRAIN_PATH)")
 
     def _resume(self) -> None:
         path = self.cfg.CHECKPOINT.RESUME
@@ -164,7 +210,11 @@ class Trainer:
             if not self.cfg.CHECKPOINT.FINETUNE:
                 self.start_epoch = int(meta.get("epoch", 0))
                 self.best_pred = float(meta.get("best_pred", 0.0))
-            print(f"=> loaded checkpoint '{path}' (epoch {meta.get('epoch')})")
+            self._log(f"=> loaded checkpoint '{path}' (epoch {meta.get('epoch')})")
+
+    def _log(self, line: str) -> None:
+        if self.is_main:
+            print(line, flush=True)
 
     def to_device(self, batch: dict) -> torch.Tensor:
         return to_device(batch["clips"], self.device)
@@ -211,17 +261,17 @@ class Trainer:
                                              step=self.batch_time.val, loss=m["loss"]))
                     self.writer.add_scalar("train/total_loss_iter", m["loss"],
                                            i + n_iter * epoch)
-                    print(
+                    self._log(
                         f"Epoch: [{epoch}][{i}/{n_iter}], lr: {lr:.5f}\t"
                         f"Time {self.batch_time.val:.3f} ({self.batch_time.avg:.3f})\t"
                         f"Data {self.data_time.val:.3f} ({self.data_time.avg:.3f})\t"
                         f"Loss {self.losses.val:.4f} ({self.losses.avg:.4f})\t"
                         f"Prec@1 {self.top1.val:.3f} ({self.top1.avg:.3f})\t"
-                        f"Prec@5 {self.top5.val:.3f} ({self.top5.avg:.3f})",
-                        flush=True)
+                        f"Prec@5 {self.top5.val:.3f} ({self.top5.avg:.3f})")
                 end = time.time()
-                if self._preempted:
-                    print("======>Preemption Checkpoint...", flush=True)
+                if dist.any_rank(self._preempted, self.vote_group):
+                    self._preempted = True
+                    self._log("======>Preemption Checkpoint...")
                     self.saver.save_checkpoint(self.state, epoch, self.best_pred,
                                                filename="checkpoint_preempt.pth.tar")
                     return
@@ -240,7 +290,7 @@ class Trainer:
         interval = int(self.cfg.CHECKPOINT.CHECKPOINT_INTERVAL)
         last = int(self.cfg.SOLVER.MAX_EPOCHS) - 1
         if (epoch + 1) % interval == 0 or epoch == last:
-            print("======>Saving Checkpoint...", flush=True)
+            self._log("======>Saving Checkpoint...")
             self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
                                        filename=f"checkpoint_{epoch + 1}.pth.tar")
 
@@ -255,7 +305,8 @@ class Trainer:
             torch.cuda.synchronize(self.device)   # the traced steps' work is done
         prof.stop()
         os.makedirs(self.profile_dir, exist_ok=True)
-        path = os.path.join(self.profile_dir, "trace.json")
+        path = os.path.join(self.profile_dir, f"trace_rank{dist.rank()}.json"
+                            if dist.is_distributed() else "trace.json")
         prof.export_chrome_trace(path)
         print(f"profiler trace written to {path}", flush=True)
 
@@ -285,13 +336,61 @@ def load_config(config_file: str = "", opts=()):
     return c
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_rank(args, rank: Optional[int] = None, world: Optional[int] = None,
+             device: Optional[str] = None) -> None:
+    """Train as one process: alone, as a torchrun rank, or as rank ``rank``
+    of ``world`` at ``--dist-url``; the process group ends with the run."""
+    config = load_config(args.config_file, args.opts)
+    grouped = dist.launched_by_torchrun() or world is not None
+    if dist.launched_by_torchrun():
+        dist.init_distributed(args.dist_backend)
+    elif world is not None:
+        dist.init_distributed(args.dist_backend, args.dist_url, world, rank)
+    try:
+        if dist.is_main():
+            print(f"Running with config:\n{config}")
+        trainer = Trainer(config, max_steps=args.max_steps, device=device or args.device,
+                          profile_dir=args.profile_dir)
+        trainer.run()
+    finally:
+        if grouped:
+            torch.distributed.destroy_process_group()
+
+
+def _spawned_rank(index: int, args, per_node: int, world: int) -> None:
+    """torch.multiprocessing.spawn's entry: card ``index`` of this node."""
+    device = args.device if args.device == "cpu" else f"cuda:{index}"
+    run_rank(args, args.rank * per_node + index, world, device)
+
+
 def main(argv: Optional[list] = None) -> None:
     args = get_parser().parse_intermixed_args(argv)
-    config = load_config(args.config_file, args.opts)
-    print(f"Running with config:\n{config}")
-    trainer = Trainer(config, max_steps=args.max_steps, device=args.device,
-                      profile_dir=args.profile_dir)
-    trainer.run()
+    if dist.launched_by_torchrun():
+        run_rank(args)
+    elif args.multiprocessing_distributed:
+        # the reference's launcher: --world_size nodes, --rank this node's
+        per_node = torch.cuda.device_count() if args.device != "cpu" else 1
+        if per_node < 1:
+            raise RuntimeError("--multiprocessing-distributed: no CUDA device is available")
+        if not args.dist_url:
+            if args.world_size != 1:
+                raise ValueError("--dist-url is needed across nodes")
+            args.dist_url = f"tcp://localhost:{_free_port()}"
+        torch.multiprocessing.spawn(_spawned_rank, args=(args, per_node,
+                                                         per_node * args.world_size),
+                                    nprocs=per_node)
+    elif args.world_size > 1:
+        if not args.dist_url:
+            raise ValueError("--world_size above 1 needs --dist-url")
+        run_rank(args, args.rank, args.world_size)
+    else:
+        run_rank(args)
 
 
 if __name__ == "__main__":

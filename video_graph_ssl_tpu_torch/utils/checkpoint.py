@@ -11,6 +11,10 @@ layout (lib/utils/saver.py:20-43, tools/train_video_contrast_dis.py:271-287):
 seeds, so a resumed run continues the same random streams.  The metadata
 (``epoch``, ``best_pred``, ``step`` and any extra keys) is also written to
 ``<path>.meta.json``, as in the JAX package.
+
+Under several ranks the state is replicated, so one file holds it: the
+``Saver`` writes it from rank 0 while the other ranks wait at a barrier,
+and every rank loads it on resume.
 """
 
 from __future__ import annotations

@@ -7,6 +7,10 @@ state and promotes ``model_best`` by comparing ``best_pred.txt`` across
 sibling experiments; ``save_experiment_config`` dumps ``parameters.txt``.
 Checkpoints are ``torch.save`` files (``utils/checkpoint.py``); the JAX
 package's sharded orbax backend (``TPU.CKPT_BACKEND orbax``) is not ported.
+Under several ranks the state is the same on every rank, so rank 0 alone
+owns the experiment directory and writes; every rank calls
+:meth:`Saver.save_checkpoint`, and the others wait there at a barrier until
+the file is complete.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import os
 import shutil
 from typing import Any, Dict, Optional
 
+from ..parallel import dist
 from .checkpoint import save_checkpoint_state
 
 
@@ -29,6 +34,10 @@ class Saver:
         self.cfg = cfg
         self.directory = os.path.join(base_dir, cfg.DATASET.NAME,
                                       cfg.CHECKPOINT.CHECKNAME)
+        self.writes = dist.is_main()
+        self.experiment_dir = None
+        if not self.writes:
+            return
         runs = sorted(glob.glob(os.path.join(self.directory, "experiment_*")),
                       key=lambda p: int(p.split("_")[-1]))
         run_id = int(runs[-1].split("_")[-1]) + 1 if runs else 0
@@ -45,7 +54,15 @@ class Saver:
                         extra: Optional[Dict[str, Any]] = None) -> str:
         """Write the checkpoint; on ``is_best`` record best_pred and promote
         it to ``model_best.pth.tar`` when it beats every sibling experiment
-        (reference: saver.py:20-43)."""
+        (reference: saver.py:20-43).  Returns the path (None on a rank
+        other than 0, which only waits for rank 0's write)."""
+        path = None
+        if self.writes:
+            path = self._write(state, epoch, best_pred, is_best, filename, extra)
+        dist.barrier()
+        return path
+
+    def _write(self, state, epoch, best_pred, is_best, filename, extra) -> str:
         path = self.checkpoint_path(filename)
         save_checkpoint_state(path, state, epoch, best_pred, extra)
         if is_best:
@@ -67,6 +84,8 @@ class Saver:
 
     def save_experiment_config(self) -> None:
         """Dump the full config (reference writes parameters.txt,
-        saver.py:45-58)."""
+        saver.py:45-58); rank 0 only."""
+        if not self.writes:
+            return
         with open(self.checkpoint_path("parameters.txt"), "w") as f:
             f.write(self.cfg.dump())

@@ -43,12 +43,23 @@ class TensorboardSummary:
         self._jsonl.close()
 
 
+class NullSummary:
+    """The writer of a rank other than 0: records nothing."""
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def close(self):
+        pass
+
+
 def creat_saver(cfg, base_dir: str = "run"):
     """Saver + writer bundle (reference: lib/utils/build.py:4-10; the
-    reference name 'creat_saver' is kept for interface parity)."""
+    reference name 'creat_saver' is kept for interface parity).  Under
+    several ranks only rank 0 writes telemetry."""
     from .saver import Saver
 
     saver = Saver(cfg, base_dir=base_dir)
     saver.save_experiment_config()
-    writer = TensorboardSummary(saver.experiment_dir)
+    writer = TensorboardSummary(saver.experiment_dir) if saver.writes else NullSummary()
     return saver, writer
