@@ -12,16 +12,18 @@ Phases (each raises on failure; the script then exits non-zero):
 2. K1 (graph adjacency) against its plain PyTorch version at the three S3D
    aug-point shapes of the bs-128 16x112x112 step, fp32 and bf16 inputs:
    unsampled, sampled with given noise, the in-kernel Philox draw, and the
-   closed-form backward against autograd of the plain version; then T = 32
-   at the first aug point's D, a ragged D and a D below one split, two
-   calls bit-equal; a rank's rows (``rows=(clip0, B)``, clip0 = r * B / W
-   for W = 2 and 4): the in-kernel draw equals the full batch's rows bit
-   for bit; kernel and plain times, and in bf16 the kernels'
-   device-only time (``torch.profiler``) and the wrapper's host time per
-   call (``video_graph_ssl_tpu_torch/kernel_times.py``).
-3. K2 (GCN propagation) likewise: forward, transpose mode (each twice,
-   bit-equal), autograd dx and dadj; T = 32, F ragged to 64 and to 8, adj
-   in fp32; then kernel, plain, ``torch.bmm``, device-only and host times.
+   closed-form backward against autograd of the plain version; the same
+   checks (untimed) at the three aug-point shapes of the 16x224x224 bs-32
+   step (phase 6c, phase 9 (b)); then T = 32 at the first aug point's D, a
+   ragged D and a D below one split, two calls bit-equal; a rank's rows
+   (``rows=(clip0, B)``, clip0 = r * B / W for W = 2 and 4): the in-kernel
+   draw equals the full batch's rows bit for bit; kernel and plain times,
+   and in bf16 the kernels' device-only time (``torch.profiler``) and the
+   wrapper's host time per call (``video_graph_ssl_tpu_torch/kernel_times.py``).
+3. K2 (GCN propagation) likewise, at both steps' shapes: forward,
+   transpose mode (each twice, bit-equal), autograd dx and dadj; T = 32,
+   F ragged to 64 and to 8, adj in fp32; then kernel, plain, ``torch.bmm``,
+   device-only and host times (112x112 shapes).
 4. K3/K4 (max-pool backward) at the shape of every pool of one S3D pass,
    fp32 and bf16: against the plain version (exact), against torch's own
    max_pool3d backward (random cotangent; ones cotangent on inputs that
@@ -81,9 +83,27 @@ Phases (each raises on failure; the script then exits non-zero):
    with ``TPU.SHUFFLE_BN True``: finite losses, bit-equal ranks; (d) then a
    ``Trainer`` with ``TPU.SEPCONV_FUSED True`` on those ranks must raise
    ``NotImplementedError``.
+9. the SimSiam (GCA-S) and memory-bank regimes: (a) a small SimSiam step
+   and a small bank step (one negative draw made on the CPU) on the card
+   against the same steps on the CPU, at 8 clips; three readings of the
+   SimSiam loss's spread at 4 clips (card vs CPU with and without the
+   graph, CPU fp32 vs a float64 backbone), printed; (b) the trainer on
+   ``configs/visual_simsiam.yaml`` with the graph on (full S3D, 16x224x224,
+   FEAT_DIM 1024, bf16) at bs 32, one rank's rows of the shipped 256 over 8
+   ranks; (c) the trainer at the ``configs/visual_moco.yaml`` geometry
+   (bs 128, 16x112x112) with ``CONTRAST.MEM_TYPE bank``, the schema's NCE_K
+   65536 and a 240,000 x 128 bank (Kinetics-400's clip count: the synthetic
+   source holds ``DATASET.NUM_CLASS`` x 4 clips); each for 2 warm-up and 3
+   timed steps, with the K1-K4 counts of exactly those steps held to
+   ``kernel_times.step_calls`` (SimSiam runs both views' backwards: K3 18
+   and K4 8 per step), finite losses, the bank's moved rows, step host ms
+   and ``max_memory_allocated``; (d) for each regime one NCCL rank against
+   no group, bit for bit, then two rank processes sharing the card over
+   gloo running both regimes: bit-equal states (the bank included), each
+   rank's counts, step host ms and peak memory.
 
-Times are CUDA events around one call, the median of 20 calls (10 for K5;
-``kernel_times.event_ms``).  ``bound``
+Each phase prints its wall seconds.  Times are CUDA events around one
+call, the median of 20 calls (10 for K5; ``kernel_times.event_ms``).  ``bound``
 is the least time the card could take: the larger of the bytes the
 function must move over 3.35 TB/s and its operations over the peak rate
 of its type (989 TFLOP/s bf16, 67 TFLOP/s fp32), for the published H100
@@ -119,9 +139,11 @@ import torch
 # (B, T, D) of K1's q/k and K2_SHAPES (B, T, H, W, C) of K2's input at S3D
 # aug points 5, 9 and 14 of the bs-128, 16x112x112 step; POOLS every max
 # pool and SEPCONVS every fused SepConv pair of one S3D pass there
+# step_calls: each kernel's wrapper calls per step of a regime; geometry:
+# the same tables for another frame size and batch
 from video_graph_ssl_tpu_torch.kernel_times import (K1_SHAPES, K2_SHAPES, PATTERNS, POOLS,
-                                                    SEPCONVS, device_us, event_ms, host_us,
-                                                    sepconv_inputs)
+                                                    SEPCONVS, device_us, event_ms, geometry,
+                                                    host_us, sepconv_inputs, step_calls)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "visual_moco.yaml")
@@ -146,12 +168,10 @@ CL = torch.channels_last_3d
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 
-# the same pools in the 16x224x224 step at bs 32 (activations of the size
-# of the bs-128 112x112 step's): frame sizes 56, 28, 14, 7, 3 at 112x112
-# are 112, 56, 28, 14, 7 at 224x224 (pool_13 rounds 7 down to 3, not 14 to 6)
-HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 3: 7}
-POOLS_224 = [(name, kn, (32, t, HW_224[h], HW_224[w], c), k, s, p)
-             for name, kn, (_, t, h, w, c), k, s, p in POOLS]
+# K1's, K2's and the pools' shapes in the 16x224x224 step at bs 32 (phase
+# 6c and SimSiam's phase 9 (b)), whose activations are the size of the
+# bs-128 112x112 step's
+K1_224, K2_224, POOLS_224, _ = geometry(224, 32)
 # K5 checks: four branch-1 shapes, one narrow branch-2 shape, a small
 # ragged one (C, F not multiples of 8: the simt route in both dtypes; 64-row
 # tiles straddle clip edges) and a small aligned one (the tensor-core route
@@ -230,13 +250,16 @@ def phase_k1(dev) -> dict:
     bys = set()
     g = torch.Generator(device=dev).manual_seed(0)
     timings = []
-    for b, t, d in K1_SHAPES:
+    # the 112x112 step's shapes (timed), then the 224x224 bs-32 step's, whose
+    # splits of D and tile counts differ
+    for (b, t, d), timed in [(x, True) for x in K1_SHAPES] + [(x, False) for x in K1_224]:
         theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
         for dn, dt in DTYPES.items():
             q = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(dt)
             k = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(dt)
             u = torch.rand(b, t, t, device=dev, generator=g) * (1 - 2e-6) + 1e-6
-            tag = f"({b},{t},{d}) {dn}"
+            plan = gk.adjacency_plan(b, t, d, dt)
+            tag = f"({b},{t},{d}) {dn}" + ("" if timed else f" [{plan.splits} splits]")
             a_k = gk.adjacency_fwd_kernel(q, k, theta, None, 0, 1.0, False, 0)
             a_p = gk._adjacency_fwd_plain(q, k, theta, None, 0, 1.0, False, 0)
             for name, x, y in zip(("adj", "S", "p"), a_k, a_p):
@@ -273,6 +296,8 @@ def phase_k1(dev) -> dict:
                     err = float((x.float() - y.float()).abs().max()
                                 / y.float().abs().max().clamp_min(1e-30))
                     check(f"K1 {tag} sample={sample} {name} (rel)", err, TOL_GRAD[dn])
+            if not timed:
+                continue
             fwd = lambda: gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0)
             tk = event_ms(fwd)
             tp = event_ms(lambda: gk._adjacency_fwd_plain(
@@ -368,12 +393,14 @@ def phase_k2(dev) -> dict:
     bys = set()
     g = torch.Generator(device=dev).manual_seed(1)
     timings = []
-    for shape in K2_SHAPES:
+    # the 112x112 step's shapes (timed), then the 224x224 bs-32 step's
+    for shape, timed in [(x, True) for x in K2_SHAPES] + [(x, False) for x in K2_224]:
         b, t = shape[:2]
         for dn, dt in DTYPES.items():
             x = torch.randn(shape, device=dev, generator=g).to(dt)
             adj = torch.rand(b, t, t, device=dev, generator=g).to(dt)
-            tag = f"{shape} {dn}"
+            plan = gp.propagate_plan(b, t, x.numel() // (b * t), dt)
+            tag = f"{shape} {dn}" + ("" if timed else f" [{plan.route}, {plan.blocks} blocks]")
             for tr in (False, True):
                 y_k = gp._launch(adj, x, transpose=tr)
                 y_p = gp.propagate_plain(adj, x, transpose=tr)
@@ -392,6 +419,8 @@ def phase_k2(dev) -> dict:
             err = float((da_k.float() - da_p.float()).abs().max()
                         / da_p.float().abs().max())
             check(f"K2 {tag} dadj (rel)", err, TOL_GRAD[dn])
+            if not timed:
+                continue
             fwd = lambda: gp._launch(adj, x, transpose=False)
             tk = event_ms(fwd)
             tp = event_ms(lambda: gp.propagate_plain(adj, x))
@@ -402,7 +431,6 @@ def phase_k2(dev) -> dict:
             dev_us = host = None
             if dn == "bf16":
                 dev_us, host = device_us(fwd, PATTERNS["K2"]), host_us(fwd)
-            plan = gp.propagate_plan(b, t, x.numel() // (b * t), dt)
             timings.append((tag, tk, tp, tl, bm, by, dev_us, host, plan))
             if dn == "bf16":
                 bys.add(by)
@@ -809,8 +837,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> 
     n = len(batches)
     # K3/K4/K5 run in the query pass's backward only (the key pass takes no
     # gradient)
-    want = {"graph_adjacency": 6 * n, "gcn_propagate": 9 * n, "maxpool_bwd_s1": 9 * n,
-            "maxpool_bwd_strided": 4 * n, "sepconv_bwd": 18 * n if fused else 0}
+    want = _want_counts(n, fused=fused)
     print(f"  kernel calls in the 5 steps: {counts} (want {want})")
     print(f"  cotangents copied to channels_last_3d in the 5 steps: pool dy "
           f"{copies[0]}, SepConv g {copies[1]}")
@@ -991,8 +1018,7 @@ def check_steps(trainer, n: int, counts: dict) -> None:
         state.ema_model.parameters(), state.model.parameters()))
     if not diff > 0.0:
         raise RuntimeError("EMA params equal the params")
-    want = {"graph_adjacency": 6 * n, "gcn_propagate": 9 * n, "maxpool_bwd_s1": 9 * n,
-            "maxpool_bwd_strided": 4 * n, "sepconv_bwd": 0}
+    want = _want_counts(n)
     print(f"  kernel calls in the {n} steps: {counts} (want {want}); EMA vs params "
           f"max |diff| {diff:.3e}; queue ptr {state.contrast.ptr}")
     if counts != want:
@@ -1091,7 +1117,8 @@ def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
     from video_graph_ssl_tpu_torch.utils.checkpoint import checkpoint_payload
 
     epoch = trainer.train_loader.epoch(0)
-    batches = [trainer.to_device(b) for b in itertools.islice(epoch, n)]
+    batches = [(trainer.to_device(b), trainer.index_of(b))
+               for b in itertools.islice(epoch, n)]
     epoch.close()
     init = _cpu(trainer.state.model.state_dict())
     lr = trainer.lr_fn(0)
@@ -1103,9 +1130,9 @@ def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
         if bn_mode is not None:
             for m in (trainer.state.model, trainer.state.ema_model):
                 modes.enter_context(bn_mode(m))
-        for clips in batches:
+        for clips, index in batches:
             t0 = time.perf_counter()
-            metrics = trainer.train_step(clips, lr)
+            metrics = trainer.train_step(clips, lr, index)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(metrics["loss"]))
@@ -1117,15 +1144,25 @@ def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
             "state": _cpu(checkpoint_payload(trainer.state, 0))}
 
 
-def _want_counts(n: int = RANK_STEPS) -> dict:
-    return {"graph_adjacency": 6 * n, "gcn_propagate": 9 * n, "maxpool_bwd_s1": 9 * n,
-            "maxpool_bwd_strided": 4 * n, "sepconv_bwd": 0}
+def _want_counts(n: int = RANK_STEPS, mem_type: str = "moco", fused: bool = False) -> dict:
+    """Each kernel's wrapper calls in n steps of ``mem_type``."""
+    return {k: v * n for k, v in step_calls(mem_type, fused).items()}
 
 
-def _rank_main(rank: int, world: int, backend: str, init: str, out: str, opts: list,
-               run_dir: str, try_fused: bool, per_rank: bool) -> None:
-    """One rank of phase 8 (b)/(c)/(d), in its own process: on cuda:0 over
-    gloo, on cuda:rank over NCCL; ``per_rank``: the control, BN per rank."""
+def rank_run(opts: list, config: str = CONFIG, per_rank: bool = False,
+             try_fused: bool = False) -> dict:
+    """One run of a rank process: RANK_STEPS steps of the trainer on
+    ``config`` + ``opts``; ``per_rank``: the control, BN per rank;
+    ``try_fused``: then build a ``TPU.SEPCONV_FUSED True`` trainer, which
+    must raise at world size 2."""
+    return {"config": config, "opts": opts, "per_rank": per_rank, "try_fused": try_fused}
+
+
+def _rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: list,
+               run_dir: str) -> None:
+    """One rank of phase 8 or 9 (d), in its own process (on cuda:0 over
+    gloo, on cuda:rank over NCCL): each of ``runs`` (``rank_run``) in turn,
+    each on a new trainer."""
     from video_graph_ssl_tpu_torch.parallel import dist, sync_bn
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
@@ -1136,28 +1173,33 @@ def _rank_main(rank: int, world: int, backend: str, init: str, out: str, opts: l
     torch.cuda.set_device(device)
     dist.init_distributed(backend, init, world, rank)
     try:
-        trainer = Trainer(load_config(CONFIG, opts), max_steps=RANK_STEPS, device=device,
-                          run_dir=run_dir)
-        res = drive_steps(trainer, bn_mode=sync_bn.per_rank_bn if per_rank else None)
-        res["rows"] = trainer.batch_slice
-        res["ddp"] = trainer.state.ddp is not None
-        del trainer
-        if try_fused:   # (d): the fused step at world size 2
-            res["fused_error"] = None
-            try:
-                Trainer(load_config(CONFIG, opts + ["TPU.SEPCONV_FUSED", "True"]),
-                        device=device, run_dir=run_dir)
-            except NotImplementedError as e:
-                res["fused_error"] = str(e)
-        torch.save(res, out)
+        results = []
+        for run in runs:
+            trainer = Trainer(load_config(run["config"], run["opts"]), max_steps=RANK_STEPS,
+                              device=device, run_dir=run_dir)
+            res = drive_steps(trainer,
+                              bn_mode=sync_bn.per_rank_bn if run["per_rank"] else None)
+            res["rows"] = trainer.batch_slice
+            res["ddp"] = trainer.state.ddp is not None
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            if run["try_fused"]:   # 8 (d): the fused step at world size 2
+                res["fused_error"] = None
+                try:
+                    Trainer(load_config(run["config"], run["opts"] + ["TPU.SEPCONV_FUSED", "True"]),
+                            device=device, run_dir=run_dir)
+                except NotImplementedError as e:
+                    res["fused_error"] = str(e)
+            results.append(res)
+        torch.save(results, out)
     finally:
         torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(opts: list, world: int = 2, backend: str = "gloo",
-                try_fused: bool = False, per_rank: bool = False) -> list:
-    """``world`` rank processes (gloo: all on cuda:0; NCCL: one per card);
-    their results."""
+def spawn_ranks(runs: list, world: int = 2, backend: str = "gloo") -> list:
+    """``world`` rank processes (gloo: all on cuda:0; NCCL: one per card),
+    each making ``runs`` in turn; for each run, the ranks' results."""
     import torch.multiprocessing as mp
 
     gc.collect()
@@ -1166,8 +1208,8 @@ def spawn_ranks(opts: list, world: int = 2, backend: str = "gloo",
     init = "file://" + os.path.join(work, "rendezvous")
     outs = [os.path.join(work, f"rank{r}.pt") for r in range(world)]
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, backend, init, outs[r], opts,
-                                                  RUN_DIR, try_fused, per_rank))
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, backend, init, outs[r], runs, RUN_DIR))
              for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
@@ -1181,9 +1223,10 @@ def spawn_ranks(opts: list, world: int = 2, backend: str = "gloo",
     codes = [p.exitcode for p in procs]
     if codes != [0] * world:
         raise RuntimeError(f"rank processes exited with {codes}")
-    print(f"  {world} rank processes ({backend}): {time.perf_counter() - t0:.1f} s from "
-          "spawn to exit")
-    return [torch.load(o, weights_only=False) for o in outs]
+    print(f"  {world} rank processes ({backend}), {len(runs)} run(s) each: "
+          f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+    per_rank = [torch.load(o, weights_only=False) for o in outs]
+    return [list(ranks) for ranks in zip(*per_rank)]
 
 
 def _update(res, after: str = "state") -> torch.Tensor:
@@ -1294,7 +1337,7 @@ def nccl_ranks(gpu: str, opts: list, one: dict) -> dict:
     cards = torch.cuda.device_count()
     tag = f"(b) {cards} ranks, bfloat16, global bs 128, NCCL"
     print(f"  {tag}: {128 // cards} rows per rank, one card each")
-    ranks = spawn_ranks(opts, cards, "nccl")
+    ranks, = spawn_ranks([rank_run(opts)], cards, "nccl")
     hold_ranks(tag, ranks, gpu, f"{cards} ranks, one card each, NCCL")
     return hold_to_one_process(tag, ranks, one, 128, TOL_RANKS["bfloat16"])
 
@@ -1335,7 +1378,8 @@ def phase_ranks(dev, gpu: str) -> None:
                                f"{_want_counts()}")
         del alone, grouped
         # (b) two ranks on one card against one process: fp32 at bs 32, bf16
-        # at bs 128, then the bf16 control with BN per rank
+        # at bs 128, each then with BN per rank (the control) in the same
+        # rank processes; in bf16 the processes then run (c) and (d)
         errors = {}
         for dtype, bsz in (("float32", 32), ("bfloat16", 128)):
             tag = f"(b) two ranks, {dtype}, global bs {bsz}"
@@ -1343,12 +1387,15 @@ def phase_ranks(dev, gpu: str) -> None:
                   "TF32 off, cudnn.deterministic")
             opts = rank_opts(bsz, dtype)
             one = one_process_twice(opts, tag, gpu)
-            ranks = spawn_ranks(opts)
+            runs = [rank_run(opts), rank_run(opts, per_rank=True)]
+            if dtype == "bfloat16":
+                runs.append(rank_run(rank_opts(128, "bfloat16", shuffle=True), try_fused=True))
+            ranks, control, *shuffled = spawn_ranks(runs)
             hold_ranks(tag, ranks, gpu, SHARED)
             errors[dtype] = hold_to_one_process(tag, ranks, one, bsz, TOL_RANKS[dtype])
-            del ranks
-            errors[f"{dtype} control"] = control_fails(
-                tag, spawn_ranks(opts, per_rank=True), one, bsz, TOL_RANKS[dtype])
+            errors[f"{dtype} control"] = control_fails(tag, control, one, bsz,
+                                                       TOL_RANKS[dtype])
+            del ranks, control
         # (b) again where the host has several cards: one rank per card, NCCL
         if torch.cuda.device_count() >= 2:
             errors["bfloat16 nccl"] = nccl_ranks(gpu, opts, one)
@@ -1358,7 +1405,7 @@ def phase_ranks(dev, gpu: str) -> None:
     # (c) ShuffleBN, and (d) the fused step at world size 2 must raise
     tag = "(c) two ranks, ShuffleBN, bfloat16, global bs 128"
     print(f"  {tag}: 64 rows per rank, {RANK_STEPS} steps")
-    ranks = spawn_ranks(rank_opts(128, "bfloat16", shuffle=True), try_fused=True)
+    ranks, = shuffled
     hold_ranks(tag, ranks, gpu, SHARED)
     for r, res in enumerate(ranks):
         msg = res["fused_error"]
@@ -1367,6 +1414,254 @@ def phase_ranks(dev, gpu: str) -> None:
         if msg is None or "ROADMAP" not in msg:
             raise RuntimeError("TPU.SEPCONV_FUSED True at world size 2 did not raise")
     print("phase 8 errors against one process: " + json.dumps(errors))
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the SimSiam (GCA-S) and memory-bank regimes.  SimSiam at the
+# shipped configs/visual_simsiam.yaml geometry (S3D, 16x224x224, FEAT_DIM
+# 1024, bf16) at bs 32, one rank's rows of the shipped 256 over 8 ranks (two
+# gradient passes of the shipped bs 256 do not fit on one card); the bank at
+# the configs/visual_moco.yaml geometry (bs 128, 16x112x112) with the
+# schema's NCE_K 65536 and crossentropy, over Kinetics-400's 240,000 clips:
+# the synthetic source holds DATASET.NUM_CLASS x 4 clips, so NUM_CLASS 60000
+# gives n_data 240,000 and a 240,000 x 128 bank.
+SIMSIAM_CONFIG = os.path.join(REPO, "configs", "visual_simsiam.yaml")
+KINETICS_CLIPS = 240_000
+REGIMES = {
+    "simsiam": (SIMSIAM_CONFIG, ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic",
+                                 "DATALOADER.BATCH_SIZE", "32"]),
+    "bank": (CONFIG, ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic",
+                      "CONTRAST.MEM_TYPE", "bank", "CONTRAST.NCE_K", "65536",
+                      "DATASET.NUM_CLASS", str(KINETICS_CLIPS // 4),
+                      "DATALOADER.BATCH_SIZE", "128"]),
+}
+
+
+def small_regime_step(mem_type: str, d, b: int, opts: tuple = ()) -> tuple:
+    """One step of ``mem_type`` on a small S3D+graph model (graph blocks at
+    5, 9, 14; fp32; sampler none; ``opts`` on top) on device ``d`` from the
+    seeded initial state and a seeded batch of ``b`` clips; the bank takes
+    one negative draw, made on the CPU.  (loss, bank memory or None,
+    parameter update, the batch's indices.)"""
+    from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+    from video_graph_ssl_tpu_torch.engine.pretrain import make_bank_step, make_pretrain_step
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    n_data, K = 64, 64
+    c = load_config(CONFIG, [
+        "MODEL.AUG_FLAG", "True", "GRAPH.SAMPLER", "none", "TPU.COMPUTE_DTYPE", "float32",
+        "CONTRAST.MEM_TYPE", mem_type, "CONTRAST.NCE_K", str(K), "CONTRAST.NCE_T", "1.0",
+        *opts])
+    g = torch.Generator().manual_seed(3)
+    clips = torch.randn(b, 2, 16, 64, 64, 3, generator=g)
+    index = torch.randperm(n_data, generator=g)[:b]
+    idx = torch.randint(0, n_data, (b, K + 1), generator=g)
+    model, _ = create_visual_model(c)
+    state = create_pretrain_state(c, model, d, n_data=n_data)
+    p0 = [p.detach().cpu().double() for p in state.model.parameters()]
+    if mem_type == "bank":
+        step = make_bank_step(K, 1.0, float(c.CONTRAST.NCE_M), "crossentropy",
+                              draw=lambda *a: idx.to(d))
+    else:
+        step = make_pretrain_step(c)
+    loss = float(step(state, clips.to(d), 0.06, index.to(d))["loss"])
+    delta = torch.cat([(p.detach().cpu().double() - q).flatten()
+                       for p, q in zip(state.model.parameters(), p0)])
+    memory = state.contrast.memory.cpu() if mem_type == "bank" else None
+    return loss, memory, delta, index
+
+
+def small_regime_parity(dev, mem_type: str, b: int = 8) -> None:
+    """The small step of ``mem_type`` (``small_regime_step``): the card
+    (kernels) against the CPU (plain versions)."""
+    print(f"  small S3D+graph {mem_type} step ({b}x16x64x64, fp32), card vs CPU")
+    lc, mc, dc, index = small_regime_step(mem_type, torch.device("cpu"), b)
+    lg, mg, dg, _ = small_regime_step(mem_type, dev, b)
+    tag = f"slice small ({mem_type})"
+    check(f"{tag}: loss", abs(lc - lg) / max(1.0, abs(lc)), 1e-4)
+    if mem_type == "bank":
+        # the clips' rows took the features; train-mode BN over 8 clips
+        # amplifies rounding, as phase 6's keys
+        check(f"{tag}: bank rows of the batch", rel_err(mg[index], mc[index]), 1e-3)
+    # at init the update cancels through the normalisations (phase 6)
+    check(f"{tag}: parameter update (rel-L2)", float((dg - dc).norm() / dc.norm()), 1e-1)
+
+
+def simsiam_four_clips(dev) -> None:
+    """Why (a) holds SimSiam at 8 clips and not 4: three readings of the
+    loss difference of the small step at 4 clips, printed, not gated: card
+    vs CPU with the graph (K1/K2 in the forward), card vs CPU without it (no
+    kernel in the forward; K3/K4 run in the backward only), and on the CPU
+    fp32 against a float64 backbone (no kernel)."""
+    cpu = torch.device("cpu")
+    print("  SimSiam small step at 4 clips (the loss difference, absolute):")
+    for what, opts, a, b in (
+            ("card vs CPU, graph on (K1/K2 in the forward)", (), dev, cpu),
+            ("card vs CPU, graph off (no kernel in the forward)",
+             ("MODEL.AUG_FLAG", "False"), dev, cpu),
+            ("CPU fp32 vs CPU float64 backbone, graph on (no kernel)", (), cpu, "float64")):
+        la = small_regime_step("simsiam", a, 4, opts)[0]
+        lb = (small_regime_step("simsiam", cpu, 4, ("TPU.COMPUTE_DTYPE", "float64"))[0]
+              if b == "float64" else small_regime_step("simsiam", b, 4, opts)[0])
+        print(f"  reading: {what}: {la!r} vs {lb!r}, |diff| {abs(la - lb):.3e}")
+
+
+def run_regime(gpu: str, mem_type: str, n: int = 5) -> dict:
+    """n trainer steps of ``mem_type`` at the full width of REGIMES (2
+    warm-up, the rest timed) from synthetic clips through the Loader; the
+    K1-K4 counts of exactly those steps held to ``kernel_times.step_calls``,
+    finite losses, the memory, step host ms and peak memory."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+
+    config, opts = REGIMES[mem_type]
+    c = load_config(config, opts)
+    trainer = Trainer(c, max_steps=n, device="cuda", run_dir=RUN_DIR)
+    state = trainer.state
+    size = list(c.INPUT.BASE_SIZE)
+    geometry = (f"bs {c.DATALOADER.BATCH_SIZE}, 16x{size[0]}x{size[1]}, FEAT_DIM "
+                f"{c.CROSS.FEAT_DIM}, {c.TPU.COMPUTE_DTYPE}")
+    print(f"  trainer, {mem_type}, full S3D width: {geometry}")
+    if mem_type == "simsiam":
+        if size != [224, 224] or int(c.CROSS.FEAT_DIM) != 1024 or c.TPU.COMPUTE_DTYPE != "bfloat16":
+            raise RuntimeError("configs/visual_simsiam.yaml no longer gives 224x224, "
+                               "FEAT_DIM 1024 with bf16 compute")
+        if state.ema_model is not None or state.contrast is not None:
+            raise RuntimeError("the SimSiam state holds an EMA encoder or a memory")
+    else:
+        shape = tuple(state.contrast.memory.shape)
+        print(f"  bank: n_data {trainer.n_data} (synthetic, DATASET.NUM_CLASS x 4), memory "
+              f"{shape} fp32, NCE_K {c.CONTRAST.NCE_K}, criterion {c.CROSS.CRITERION}")
+        if shape != (KINETICS_CLIPS, 128) or state.ema_model is not None:
+            raise RuntimeError(f"bank memory {shape}, EMA {state.ema_model is not None}")
+        memory0 = state.contrast.memory.clone()
+    t0 = time.perf_counter()
+    epoch = trainer.train_loader.epoch(0)
+    batches = [(trainer.to_device(b), trainer.index_of(b))
+               for b in itertools.islice(epoch, n)]
+    epoch.close()
+    print(f"  {n} synthetic batches made in {time.perf_counter() - t0:.1f} s")
+    lr = trainer.lr_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, losses = [], []
+    for clips, index in batches:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(clips, lr, index)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (ms, loss) in enumerate(zip(step_ms, losses)):
+        print(f"  step {i} ({'warm-up' if i < 2 else 'timed'}): {ms:.1f} ms, loss {loss:.4f}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{mem_type}: non-finite loss {losses}")
+    want = _want_counts(n, mem_type)
+    print(f"  kernel calls in the {n} steps: {counts} (want {want})")
+    if counts != want:
+        raise RuntimeError(f"{mem_type}: kernel call counts {counts} != {want}")
+    if mem_type == "bank":
+        rows = torch.cat([i for _, i in batches]).unique()
+        moved = (state.contrast.memory != memory0).any(dim=1).nonzero().flatten()
+        norms = state.contrast.memory[rows].norm(dim=1)
+        print(f"  bank: {moved.numel()} rows moved, {rows.numel()} rows in the batches; "
+              f"their norms in [{float(norms.min()):.6f}, {float(norms.max()):.6f}]")
+        if not torch.equal(moved, rows.sort().values) or float((norms - 1).abs().max()) > 1e-5:
+            raise RuntimeError("bank: the rows that moved are not the batches' rows, or "
+                               "are not unit vectors")
+        del memory0
+    timed = step_ms[2:]
+    mean_ms = sum(timed) / len(timed)
+    bsz = int(c.DATALOADER.BATCH_SIZE)
+    print(f"slice {mem_type} ({geometry}): {mean_ms:.1f} ms/step, {bsz / mean_ms * 1e3:.1f} "
+          f"clips/s (mean of {len(timed)} timed steps), max_memory_allocated {peak:.2f} GiB "
+          f"on {gpu}")
+    del trainer, state, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": mean_ms, "peak_gib": peak, "counts": counts}
+
+
+def regime_ranks(gpu: str) -> None:
+    """(d) two rank processes sharing the card over gloo, both regimes in
+    each: bit-equal states (the bank included), K1-K4 counts, finite
+    losses, step host ms and peak memory per rank."""
+    from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
+
+    results = spawn_ranks([rank_run(opts, config) for config, opts in REGIMES.values()])
+    for mem_type, (a, b) in zip(REGIMES, results):
+        bad = mismatches(a["state"], b["state"])
+        what = "the bank memory included" if mem_type == "bank" else "no memory"
+        print(f"  (d) {mem_type}: rank 0 vs rank 1 state ({what}): {len(bad)} entries differ "
+              f"(want 0, bit for bit); losses {a['losses']} / {b['losses']}")
+        if bad or a["losses"] != b["losses"]:
+            raise RuntimeError(f"(d) {mem_type}: ranks differ at {bad[:10]}")
+        want = _want_counts(mem_type=mem_type)
+        for r, res in enumerate((a, b)):
+            print(f"  (d) {mem_type}: rank {r} rows {res['rows']}, DDP {res['ddp']}: kernel "
+                  f"calls {res['counts']}; step host ms {[round(x, 1) for x in res['ms']]} "
+                  f"({SHARED}); max_memory_allocated {res['peak_gib']:.2f} GiB on {gpu}")
+            if res["counts"] != want:
+                raise RuntimeError(f"(d) {mem_type}: rank {r} kernel calls {res['counts']} "
+                                   f"!= {want}")
+            if not all(math.isfinite(x) for x in res["losses"]):
+                raise RuntimeError(f"(d) {mem_type}: non-finite loss {res['losses']}")
+
+
+def regime_nccl_one_rank(gpu: str, mem_type: str) -> None:
+    """(d) one rank in an NCCL group against the trainer without a group,
+    RANK_STEPS steps under cudnn.deterministic: bit for bit."""
+    from video_graph_ssl_tpu_torch.parallel import dist
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import (Trainer, _free_port,
+                                                                    load_config)
+    from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
+
+    config, opts = REGIMES[mem_type]
+    c = load_config(config, opts)
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = drive_steps(Trainer(c, max_steps=RANK_STEPS, device="cuda", run_dir=RUN_DIR))
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.init_distributed("nccl", f"tcp://localhost:{_free_port()}", 1, 0)
+        try:
+            trainer = Trainer(c, max_steps=RANK_STEPS, device="cuda:0", run_dir=RUN_DIR)
+            if trainer.state.ddp is None:
+                raise RuntimeError("the one-rank trainer is not in a DDP group")
+            grouped = drive_steps(trainer)
+            del trainer
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bad = mismatches(alone["state"], grouped["state"])
+    print(f"  (d) {mem_type}, NCCL at world size 1 against no group: losses "
+          f"{grouped['losses']} vs {alone['losses']}; {len(bad)} state entries differ (want 0, "
+          f"bit for bit); kernel calls {grouped['counts']} vs {alone['counts']}")
+    if bad or grouped["losses"] != alone["losses"] or grouped["counts"] != alone["counts"]:
+        raise RuntimeError(f"(d) {mem_type}: NCCL world size 1 differs from no group: "
+                           f"{bad[:10]}")
+    del alone, grouped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_regimes(dev, gpu: str) -> None:
+    print("phase 9: the SimSiam (GCA-S) and memory-bank regimes")
+    print("  (a) small steps, card vs CPU")
+    for mem_type in REGIMES:
+        small_regime_parity(dev, mem_type)
+    simsiam_four_clips(dev)
+    print("  (b) SimSiam (GCA-S) on configs/visual_simsiam.yaml")
+    run_regime(gpu, "simsiam")
+    print("  (c) the memory bank at the configs/visual_moco.yaml geometry")
+    run_regime(gpu, "bank")
+    print(f"  (d) across ranks, {RANK_STEPS} steps each")
+    for mem_type in REGIMES:
+        regime_nccl_one_rank(gpu, mem_type)
+    regime_ranks(gpu)
 
 
 def main() -> int:
@@ -1390,10 +1685,19 @@ def main() -> int:
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.last_build_seconds:.1f} s) -> {_build.library_path().name}")
 
-    kernels = [phase_k1(dev), phase_k2(dev), *phase_pools(dev), phase_k5(dev)]
-    counts, synthetic_ms = phase_slice(dev, gpu)
-    phase_store(dev, gpu, synthetic_ms)
-    phase_ranks(dev, gpu)
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"  ({fn.__name__}: {time.perf_counter() - t:.1f} s)")
+        return out
+
+    kernels = [timed(phase_k1, dev), timed(phase_k2, dev), *timed(phase_pools, dev),
+               timed(phase_k5, dev)]
+    counts, synthetic_ms = timed(phase_slice, dev, gpu)
+    timed(phase_store, dev, gpu, synthetic_ms)
+    timed(phase_ranks, dev, gpu)
+    timed(phase_regimes, dev, gpu)
+    print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

@@ -19,6 +19,8 @@ import torch.distributed as tdist
 import torch.multiprocessing as mp
 
 TIMEOUT_S = 240
+# the bank's rows in the regime tests (the JAX states are built with it too)
+N_DATA = 32
 
 
 def run_ranks(fn, world: int, directory, *args, timeout: float = TIMEOUT_S):
@@ -87,14 +89,18 @@ def port_cfg(opts=()):
 
 
 def state_arrays(state) -> dict:
-    """The pretrain state as numpy arrays: params and buffers, EMA, queue,
-    pointer, step."""
+    """The pretrain state as numpy arrays: params and buffers, the EMA (MoCo),
+    the queue and pointer (MoCo) or the bank's memory, the step."""
     out = {f"model.{k}": v.detach().cpu().numpy().copy()
            for k, v in state.model.state_dict().items()}
-    out.update({f"ema.{k}": v.detach().cpu().numpy().copy()
-                for k, v in state.ema_model.state_dict().items()})
-    out["queue"] = state.contrast.queue.cpu().numpy().copy()
-    out["ptr"] = np.asarray(state.contrast.ptr)
+    if state.ema_model is not None:
+        out.update({f"ema.{k}": v.detach().cpu().numpy().copy()
+                    for k, v in state.ema_model.state_dict().items()})
+    if hasattr(state.contrast, "queue"):
+        out["queue"] = state.contrast.queue.cpu().numpy().copy()
+        out["ptr"] = np.asarray(state.contrast.ptr)
+    elif state.contrast is not None:
+        out["memory"] = state.contrast.memory.cpu().numpy().copy()
     out["step"] = np.asarray(state.step)
     return out
 
@@ -161,6 +167,42 @@ def step_worker(rank, world, opts, state_dict, queue, clips, lrs, fused, perm=No
                               permutation=lambda s, n: torch.from_numpy(perm))
     local = torch.from_numpy(clips[rows(rank, world, clips.shape[0])])
     metrics = [{k: float(v) for k, v in step(state, local, lr).items()} for lr in lrs]
+    return {"metrics": metrics, "state": state_arrays(state)}
+
+
+def regime_worker(rank, world, opts, state_dict, memory, clips, index, lrs, draws=None,
+                  fused=False):
+    """``len(lrs)`` steps of the regime of ``opts`` (``CONTRAST.MEM_TYPE``
+    simsiam or bank) on this rank's rows of ``clips`` and ``index``:
+    ``make_pretrain_step`` on pre-augmented clips, or
+    ``make_fused_pretrain_step`` on raw uint8 ones when ``fused``.  The bank
+    starts from ``memory`` where given and takes its rows of the global
+    negative draw ``draws[step]`` where given.  Returns each step's metrics
+    and the final state."""
+    from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+    from video_graph_ssl_tpu_torch.engine.pretrain import (make_bank_step,
+                                                           make_fused_pretrain_step,
+                                                           make_pretrain_step)
+    from video_graph_ssl_tpu_torch.solver.build import grad_clip_norm
+
+    c = port_cfg(opts)
+    state = create_pretrain_state(c, _model(opts, state_dict), "cpu", n_data=N_DATA)
+    if memory is not None:
+        state.contrast.memory.copy_(torch.from_numpy(memory))
+    if fused:
+        step = make_fused_pretrain_step(c)
+    elif draws is not None:
+        def draw(st, device, n, b, K, rows):
+            return torch.from_numpy(draws[st.step])[rows[0]:rows[0] + b]
+
+        step = make_bank_step(int(c.CONTRAST.NCE_K), float(c.CONTRAST.NCE_T),
+                              float(c.CONTRAST.NCE_M), c.CROSS.CRITERION,
+                              grad_clip_norm(c), draw=draw)
+    else:
+        step = make_pretrain_step(c)
+    r = rows(rank, world, clips.shape[0])
+    local, idx = torch.from_numpy(clips[r]), torch.from_numpy(index[r])
+    metrics = [{k: float(v) for k, v in step(state, local, lr, idx).items()} for lr in lrs]
     return {"metrics": metrics, "state": state_arrays(state)}
 
 

@@ -1,8 +1,9 @@
 """Pretraining state (counterpart of ``video_graph_ssl_tpu/engine/train_state.py``).
 
 The JAX package keeps params, BN stats, optimizer buffers, the EMA encoder
-and the queue in one functional pytree.  Here they are the query model,
-its EMA copy, the optimizer and the MoCo queue, updated in place.  Under a
+and the contrast memory in one functional pytree.  Here they are the query
+model, its EMA copy (MoCo only), the optimizer and the memory (the MoCo
+queue or the bank; SimSiam has none), updated in place.  Under a
 process group every rank holds the same state; ``ddp`` is then the query
 model inside ``DistributedDataParallel``, which the step's query pass
 runs through so that the gradients are averaged over ranks.
@@ -11,20 +12,21 @@ runs through so that the gradients are averaged over ranks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
+from ..memory.bank import BankState
 from ..memory.moco import MocoState
 
 
 @dataclass
 class PretrainState:
-    model: nn.Module                 # query encoder (+ head), trained
-    ema_model: nn.Module             # MoCo momentum encoder, no grads
+    model: nn.Module                 # query encoder (+ heads), trained
+    ema_model: Optional[nn.Module]   # MoCo momentum encoder, no grads; else None
     optimizer: torch.optim.Optimizer
-    contrast: MocoState
+    contrast: Optional[Union[MocoState, BankState]]   # None for SimSiam
     seed: int                        # base of the per-step graph/augment seeds
     step: int = 0
     ddp: Optional[nn.Module] = None  # the query model in DistributedDataParallel
@@ -36,8 +38,9 @@ class PretrainState:
 
     def step_seed(self, stream: int) -> int:
         """Per-step seed of one random stream (1: graph noise, 2: augment,
-        3: ShuffleBN's permutation), the same for every pass of a step and
-        on every rank."""
+        3: ShuffleBN's permutation, 4: the bank's negative draw, 5: graph
+        noise of SimSiam's second view), the same for every pass of a step
+        and on every rank."""
         return ((self.seed * 1_000_003 + self.step) * 31 + stream) \
             & 0x7FFF_FFFF_FFFF_FFFF
 

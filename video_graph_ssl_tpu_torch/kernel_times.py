@@ -1,8 +1,10 @@
 """Device and host time of the graph kernels (K1, K2), the max-pool
 backward (K3/K4) and the SepConv pair backward (K5) at the shapes of the
-bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED True`` step).
+bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED True`` step),
+or with ``--size 224 --batch 32`` at those of the 16x224x224 step.
 
-    python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME]
+    python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME] \
+        [--mem_type moco|simsiam|bank] [--size 112|224] [--batch B]
 
 Run as a file so that ``--root`` (default: the checkout holding this file)
 decides which checkout's ``video_graph_ssl_tpu_torch`` is imported and
@@ -21,7 +23,11 @@ For each shape in bf16 it prints one JSON line with three times:
 
 Then one line per kernel of K3, K4 and K5 with ``pass_device_ms``: the sum
 of ``device_us`` over the calls of one encoder pass (13 pools, 18 SepConv
-pairs).
+pairs); and one line per kernel with its wrapper calls and device ms per
+step of the regime ``--mem_type`` (``CONTRAST.MEM_TYPE``; default moco), as
+:func:`step_calls` counts them: a MoCo step runs two encoder passes (key and
+query) and one backward, a SimSiam step two passes and two backwards (one
+per view), a bank step one of each.
 
 Needs a CUDA device; it never measures on the CPU.
 """
@@ -39,8 +45,17 @@ import time
 # (B, T, D) of K1's q/k and (B, T, H, W, C) of K2's input at S3D aug points
 # 5, 9 and 14 of the bs-128, 16x112x112 step (chip_smoke.py's K1_SHAPES,
 # K2_SHAPES)
-K1_SHAPES = [(128, 8, 7 * 7 * 96), (128, 4, 3 * 3 * 256), (128, 2, 1 * 1 * 416)]
 K2_SHAPES = [(128, 8, 14, 14, 192), (128, 4, 7, 7, 512), (128, 2, 3, 3, 832)]
+
+
+def k1_shape(k2_shape):
+    """K1's q/k (B, T, D) at a graph block whose input K2 sees as (B, T, H,
+    W, C): the embeddings halve C and the (1, 2, 2) pool halves H and W."""
+    b, t, h, w, c = k2_shape
+    return (b, t, (h // 2) * (w // 2) * (c // 2))
+
+
+K1_SHAPES = [k1_shape(s) for s in K2_SHAPES]
 # (name, kernel, x (B, T, H, W, C), window, stride, padding) of every max
 # pool of one S3D pass at bs 128, 16x112x112
 POOLS = [("pool_1", "K4", (128, 8, 56, 56, 64), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
@@ -65,6 +80,40 @@ _MIXED = {"3b": ((128, 8, 14, 14), (96, 128), (16, 32)),
           "5c": ((128, 2, 3, 3), (192, 384), (48, 128))}
 SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
             for br, (c, f) in zip(("b1", "b2"), brs)]
+# 16x224x224: frame sizes 56, 28, 14, 7, 3 at 112x112 are 112, 56, 28, 14, 7
+# (pool_13 rounds 7 down to 3, not 14 to 6)
+HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 3: 7, 1: 3}
+# graph blocks per encoder pass, and each kernel's calls per backward pass
+AUG_POINTS, POOLS_S1, POOLS_STRIDED = 3, 9, 4
+# (encoder passes, passes with a backward) of each regime's step
+REGIME_PASSES = {"moco": (2, 1), "simsiam": (2, 2), "bank": (1, 1)}
+
+
+def step_calls(mem_type: str, fused: bool = False) -> dict:
+    """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
+    graph blocks at 5, 9, 14): K1 and K2 once per block and pass, K2 again
+    (transposed) in each backward, K3/K4 in each backward, K5 (with
+    ``TPU.SEPCONV_FUSED``) in each backward."""
+    passes, grads = REGIME_PASSES[mem_type]
+    return {"graph_adjacency": AUG_POINTS * passes,
+            "gcn_propagate": AUG_POINTS * (passes + grads),
+            "maxpool_bwd_s1": POOLS_S1 * grads, "maxpool_bwd_strided": POOLS_STRIDED * grads,
+            "sepconv_bwd": len(SEPCONVS) * grads if fused else 0}
+
+
+def geometry(size: int = 112, batch: int = 128):
+    """(K1_SHAPES, K2_SHAPES, POOLS, SEPCONVS) of the step at 16 x size x
+    size (112 or 224) and batch ``batch``."""
+    hw = (lambda v: v) if size == 112 else HW_224.__getitem__
+    if size not in (112, 224):
+        raise ValueError(f"size {size}: 112 or 224")
+    k2 = [(batch, t, hw(h), hw(w), c) for _, t, h, w, c in K2_SHAPES]
+    pools = [(n, kn, (batch, t, hw(h), hw(w), c), k, s_, p)
+             for n, kn, (_, t, h, w, c), k, s_, p in POOLS]
+    seps = [(n, (batch, t, hw(h), hw(w)), c, f) for n, (_, t, h, w), c, f in SEPCONVS]
+    return [k1_shape(s_) for s_ in k2], k2, pools, seps
+
+
 PATTERNS = {"K1": r"adjacency|sim_partial", "K2": r"propagate", "K3/K4": r"maxpool_bwd",
             "K5": r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|bn_bwd_kernel|"
                   r"bn_bwd_vec_kernel|split_sum_kernel|sep_prep_kernel|sep_tc_p[1-6]_"}
@@ -148,7 +197,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=here, help="checkout whose port is timed")
     ap.add_argument("--tag", default="", help="label printed in every line")
+    ap.add_argument("--mem_type", default="moco", choices=sorted(REGIME_PASSES),
+                    help="CONTRAST.MEM_TYPE whose per-step calls are counted")
+    ap.add_argument("--size", default=112, type=int, help="frame size: 112 or 224")
+    ap.add_argument("--batch", default=128, type=int, help="batch size")
     args = ap.parse_args(argv)
+    k1_shapes, k2_shapes, pools, sepconvs = geometry(args.size, args.batch)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
@@ -175,22 +229,26 @@ def main(argv=None) -> int:
         print(json.dumps({"tag": tag, "kernel": kernel, "shape": list(shape),
                           "dtype": "bf16", "gpu": gpu, **t}))
 
-    for b, t, d in K1_SHAPES:
+    pass_us = {"K1": 0.0, "K2": 0.0, "K2 transpose": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0}
+    for b, t, d in k1_shapes:
         q = torch.randn(b, t, d, device=dev, generator=g).to(bf)
         k = torch.randn(b, t, d, device=dev, generator=g).to(bf)
         theta = torch.rand(t, t, device=dev, generator=g)
-        emit("K1", (b, t, d), times(lambda: gk.adjacency_fwd_kernel(
-            q, k, theta, None, 7, 1.0, True, 0), PATTERNS["K1"]))
-    for shape in K2_SHAPES:
+        t_ = times(lambda: gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0),
+                   PATTERNS["K1"])
+        pass_us["K1"] += t_["device_us"]
+        emit("K1", (b, t, d), t_)
+    for shape in k2_shapes:
         b, t = shape[:2]
         x = torch.randn(shape, device=dev, generator=g).to(bf)
         adj = torch.rand(b, t, t, device=dev, generator=g).to(bf)
         for tr in (False, True):
-            emit("K2" + (" transpose" if tr else ""), shape, times(
-                lambda: gp._launch(adj, x, transpose=tr), PATTERNS["K2"]))
+            kn = "K2" + (" transpose" if tr else "")
+            t_ = times(lambda: gp._launch(adj, x, transpose=tr), PATTERNS["K2"])
+            pass_us[kn] += t_["device_us"]
+            emit(kn, shape, t_)
     cl = torch.channels_last_3d
-    pass_us = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
-    for name, kn, (b, t, h, w, c), k, s, p in POOLS:
+    for name, kn, (b, t, h, w, c), k, s, p in pools:
         x = torch.randn(b, c, t, h, w, device=dev, generator=g).to(bf).contiguous(
             memory_format=cl)
         y = F.max_pool3d(x, k, s, p).contiguous(memory_format=cl)
@@ -198,16 +256,31 @@ def main(argv=None) -> int:
         t_ = times(lambda: mp._launch(x, y, dy, k, s, p), PATTERNS["K3/K4"])
         pass_us[kn] += t_["device_us"]
         emit(f"{kn} {name}", (b, t, h, w, c), t_)
-    for name, (b, t, h, w), c, f in SEPCONVS:
+    for name, (b, t, h, w), c, f in sepconvs:
         sep = sepconv_inputs((b, t, h, w, c, f), dev, bf, g)
         t_ = times(lambda: sb.sepconv_bwd(*sep), PATTERNS["K5"])
         pass_us["K5"] += t_["device_us"]
         emit(f"K5 {name}", (b, t, h, w, c, f), t_)
         del sep
-    for kn, us in pass_us.items():
-        calls = len(SEPCONVS) if kn == "K5" else sum(r[1] == kn for r in POOLS)
+    for kn in ("K3", "K4", "K5"):
+        calls = len(sepconvs) if kn == "K5" else sum(r[1] == kn for r in pools)
         print(json.dumps({"tag": tag, "kernel": kn, "calls_per_pass": calls,
-                          "pass_device_ms": us / 1e3, "dtype": "bf16", "gpu": gpu}))
+                          "pass_device_ms": pass_us[kn] / 1e3, "dtype": "bf16", "gpu": gpu}))
+    # per step of the regime: K1 and K2 per encoder pass, K2 transposed and
+    # K3-K5 per backward (K5 only with TPU.SEPCONV_FUSED True)
+    passes, grads = REGIME_PASSES[args.mem_type]
+    calls = step_calls(args.mem_type, fused=True)
+    per_step = {"K1": (calls["graph_adjacency"], pass_us["K1"] * passes),
+                "K2": (calls["gcn_propagate"],
+                       pass_us["K2"] * passes + pass_us["K2 transpose"] * grads),
+                "K3": (calls["maxpool_bwd_s1"], pass_us["K3"] * grads),
+                "K4": (calls["maxpool_bwd_strided"], pass_us["K4"] * grads),
+                "K5 (SEPCONV_FUSED)": (calls["sepconv_bwd"], pass_us["K5"] * grads)}
+    for kn, (n, us) in per_step.items():
+        print(json.dumps({"tag": tag, "kernel": kn, "mem_type": args.mem_type,
+                          "geometry": f"bs {args.batch}, 16x{args.size}x{args.size}",
+                          "calls_per_step": n, "step_device_ms": us / 1e3,
+                          "dtype": "bf16", "gpu": gpu}))
     return 0
 
 

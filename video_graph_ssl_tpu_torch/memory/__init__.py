@@ -1,1 +1,1 @@
-"""MoCo queue and contrastive loss."""
+"""Contrast memories (MoCo queue, instance-discrimination bank) and losses."""

@@ -1,5 +1,6 @@
 """Model factory (counterpart of ``video_graph_ssl_tpu/models/build.py``)
-for the backbones ported so far: S3D and tiny3d, 3D, RGB."""
+for the backbones ported so far (S3D and tiny3d, 3D, RGB) and the visual
+pretrain regimes (``CONTRAST.MEM_TYPE`` moco, bank, simsiam)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,11 @@ import torch
 from .layers import init_params_
 from .s3d import S3D, S3D_FEATURE_DIM
 from .tiny import TINY3D_FEATURE_DIM, Tiny3D
-from .wrappers import ContrastWrapper, GraphWrapper, VisualEncoder
+from .wrappers import ContrastWrapper, GraphWrapper, SimSiam, VisualEncoder
+
+MEM_TYPES = ("moco", "bank", "simsiam")
+CMC_NOT_PORTED = ("CROSS.MODALITY {!r} (CMC) is not ported yet: ROADMAP.md, Queue 1, "
+                  "item 4b, CMC moco and bank")
 
 # name -> (ctor, feature_dim, default graph-aug points)
 BACKBONES_3D = {
@@ -44,7 +49,10 @@ def graph_cfg_from(cfg) -> Dict[str, Any]:
 
 def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
     """The SSL pretraining model, initialised on the CPU from
-    ``MODEL.SEED`` (or ``seed``); returns (module, backbone feature dim)."""
+    ``MODEL.SEED`` (or ``seed``); returns (module, backbone feature dim).
+    ``simsiam`` builds SimSiam's two-view model (hid_dim
+    ``CROSS.FEAT_DIM``), ``moco`` and ``bank`` the encoder + projection
+    head."""
     name = cfg.MODEL.BACKBONE
     if cfg.MODEL.BACKBONE_TYPE != "3D" or name not in BACKBONES_3D:
         raise NotImplementedError(
@@ -52,10 +60,11 @@ def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
             f"(have 3D: {sorted(BACKBONES_3D)})")
     if cfg.INPUT.MODALITY != "RGB" or int(cfg.INPUT.NEW_LENGTH) not in (-1, 1):
         raise NotImplementedError("only RGB clips with NEW_LENGTH 1 are ported")
-    if cfg.CROSS.MODALITY != "visual" or cfg.CONTRAST.MEM_TYPE != "moco":
-        raise NotImplementedError(
-            f"only the visual MoCo regime is ported, got "
-            f"{cfg.CROSS.MODALITY}/{cfg.CONTRAST.MEM_TYPE}")
+    if cfg.CROSS.MODALITY != "visual":
+        raise NotImplementedError(CMC_NOT_PORTED.format(cfg.CROSS.MODALITY))
+    mem_type = cfg.CONTRAST.MEM_TYPE
+    if mem_type not in MEM_TYPES:
+        raise ValueError(f"Unknown CONTRAST.MEM_TYPE: {mem_type}")
     ctor, feat_dim, default_aug = BACKBONES_3D[name]
     aug = bool(cfg.MODEL.AUG_FLAG)
     extra = {}
@@ -68,9 +77,12 @@ def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
         graph_cfg=graph_cfg_from(cfg) if aug else None,
         dtype=compute_dtype(cfg), **extra)
     encoder = VisualEncoder(backbone, float(cfg.MODEL.DROPOUT))
-    model = GraphWrapper(ContrastWrapper(encoder, feat_dim,
-                                         int(cfg.CROSS.FEAT_DIM),
-                                         cfg.CROSS.HEAD_TYPE))
+    hid_dim = int(cfg.CROSS.FEAT_DIM)
+    if mem_type == "simsiam":
+        model = GraphWrapper(SimSiam(encoder, feat_dim, hid_dim))
+    else:
+        model = GraphWrapper(ContrastWrapper(encoder, feat_dim, hid_dim,
+                                             cfg.CROSS.HEAD_TYPE))
     gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED if seed is None else seed))
     init_params_(model, gen)
     return model, feat_dim

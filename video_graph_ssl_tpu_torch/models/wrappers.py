@@ -1,21 +1,25 @@
 """Model wrappers (counterpart of ``video_graph_ssl_tpu/models/wrappers.py``):
-encoder -> projection head, under the reference's ``GraphWrapper`` names
-(``model.encoder.base_model.*``, ``model.proj_head.head.*``).
+encoder -> projection head (MoCo, bank) or SimSiam's two-view model, under
+the reference's ``GraphWrapper`` names (``model.encoder.base_model.*``,
+``model.proj_head.head.*``; SimSiam: ``model.projection.*``,
+``model.prediction.*``).
 
 Clips arrive as ``(B, T, H, W, C)``; ``graph_seed`` keys the graph-block
 noise of one pass, and ``graph_rows`` (row0, global B), on a rank holding
 rows ``[row0, row0 + B)`` of a global batch, makes that noise those rows of
-the global batch's draw.
+the global batch's draw.  SimSiam takes both views ``(B, 2, T, H, W, C)``
+and one seed per view: in JAX each call of a graph block draws a fresh key
+(flax's per-call ``make_rng``), so its two branches get different noise.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from .heads import ProjectHead
+from .heads import PredictionMLP, ProjectHead, ProjectionMLP, l2_normalize
 
 Rows = Optional[Tuple[int, int]]
 
@@ -50,15 +54,49 @@ class ContrastWrapper(nn.Module):
         return self.proj_head(self.encoder(x, graph_seed=graph_seed, graph_rows=graph_rows))
 
 
-class GraphWrapper(nn.Module):
-    """The MoCo/bank model: ``model`` is a ContrastWrapper."""
+def simsiam_d(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Negative cosine similarity with stop-gradient on ``z`` (the
+    reference's D 'v2'), norms clamped at 1e-12."""
+    z = z.detach()
+    return -torch.mean(torch.sum(l2_normalize(p) * l2_normalize(z), dim=-1))
 
-    def __init__(self, model: ContrastWrapper):
+
+class SimSiam(nn.Module):
+    """Two-view SimSiam, the symmetric loss computed inside the model:
+    ``D(p1, h2) / 2 + D(p2, h1) / 2``.  The encoder and both MLPs are shared
+    by the views, and each view takes its own encoder pass (per-view BN
+    statistics, as in JAX)."""
+
+    def __init__(self, encoder: VisualEncoder, feat_dim: int, hid_dim: int = 1024):
+        super().__init__()
+        self.encoder = encoder
+        self.projection = ProjectionMLP(feat_dim, hid_dim, hid_dim)
+        self.prediction = PredictionMLP(hid_dim, hid_dim // 2, hid_dim)
+
+    def branch(self, x: torch.Tensor, graph_seed: int, graph_rows: Rows = None):
+        """(h, p) of one view."""
+        h = self.projection(self.encoder(x, graph_seed=graph_seed, graph_rows=graph_rows))
+        return h, self.prediction(h)
+
+    def forward(self, x: torch.Tensor, graph_seed: Sequence[int] = (0, 1),
+                graph_rows: Rows = None) -> torch.Tensor:
+        """``x`` (B, 2, T, H, W, C), ``graph_seed`` (view 1's, view 2's) ->
+        the scalar loss."""
+        s1, s2 = graph_seed
+        h1, p1 = self.branch(x[:, 0], s1, graph_rows)
+        h2, p2 = self.branch(x[:, 1], s2, graph_rows)
+        return simsiam_d(p1, h2) / 2 + simsiam_d(p2, h1) / 2
+
+
+class GraphWrapper(nn.Module):
+    """The pretrain model: ``model`` is a ContrastWrapper (MoCo, bank) or a
+    SimSiam."""
+
+    def __init__(self, model: nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, x: torch.Tensor, graph_seed: int = 0,
-                graph_rows: Rows = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, graph_seed=0, graph_rows: Rows = None) -> torch.Tensor:
         return self.model(x, graph_seed=graph_seed, graph_rows=graph_rows)
 
     def encode(self, x: torch.Tensor, graph_seed: int = 0,

@@ -2,15 +2,20 @@
 
     python -m video_graph_ssl_tpu_torch.profile_step \\
         --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
-        DATASET.SOURCE synthetic
+        DATASET.SOURCE synthetic [CONTRAST.MEM_TYPE bank CONTRAST.NCE_K 65536]
+    python -m video_graph_ssl_tpu_torch.profile_step \\
+        --config_file configs/visual_simsiam.yaml MODEL.AUG_FLAG True \\
+        DATASET.SOURCE synthetic DATALOADER.BATCH_SIZE 32
 
 Builds the trainer, runs ``--warmup`` steps, times ``--steps`` steps, then
 traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities)
 and prints: the step time (host clock around synchronised steps, untraced
 and traced), the device-busy share (union of kernel intervals over wall
-time), device time by kernel class and by phase of the step, and the top
-kernels and aten ops by device time.  Needs a CUDA device; it never
-measures on the CPU.
+time), device time by kernel class and by phase of the step (the spans of
+the regime ``CONTRAST.MEM_TYPE``: ``engine/pretrain.py:REGIME_PHASES``),
+for the bank the device time of its gather and logits, the top kernels and
+aten ops by device time, and ``max_memory_allocated``.  Needs a CUDA
+device; it never measures on the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from .ops import gcn_propagate as gp
 from .ops import graph_kernel as gk
 from .ops import maxpool as mp
 from .ops import sepconv_bwd as sb
-from .engine.pretrain import PHASES
+from .engine.pretrain import PHASES, REGIME_PHASES
 from .train_video_contrast_dis import Trainer, load_config
 
 # kernel-name pattern -> class, first match wins
@@ -112,16 +117,18 @@ def main(argv=None) -> None:
     bsz = trainer.batch_size
     n = args.warmup + 2 * args.steps
     epoch = trainer.train_loader.epoch(0)
-    batches = [trainer.to_device(b) for b in itertools.islice(epoch, n)]
+    batches = [(trainer.to_device(b), trainer.index_of(b))
+               for b in itertools.islice(epoch, n)]
     epoch.close()
     batches = (batches * n)[:n]   # an epoch may hold fewer batches than n
     lr = trainer.lr_fn(0)
-    for clips in batches[:args.warmup]:
-        trainer.train_step(clips, lr)
+    for clips, index in batches[:args.warmup]:
+        trainer.train_step(clips, lr, index)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for clips in batches[args.warmup:args.warmup + args.steps]:
-        trainer.train_step(clips, lr)
+    for clips, index in batches[args.warmup:args.warmup + args.steps]:
+        trainer.train_step(clips, lr, index)
     torch.cuda.synchronize()
     plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -130,8 +137,8 @@ def main(argv=None) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for clips in batches[args.warmup + args.steps:]:
-            trainer.train_step(clips, lr)
+        for clips, index in batches[args.warmup + args.steps:]:
+            trainer.train_step(clips, lr, index)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     step_ms = wall_ms / args.steps
@@ -157,8 +164,10 @@ def main(argv=None) -> None:
         if k5_product(e.name):
             by_product[k5_product(e.name)] += us
 
-    print(f"device: {torch.cuda.get_device_name(0)}; batch {bsz}; "
-          f"{args.steps} traced steps after {args.warmup} warm-up")
+    mem_type = cfg.CONTRAST.MEM_TYPE
+    print(f"device: {torch.cuda.get_device_name(0)}; regime {mem_type}; batch {bsz}; "
+          f"{args.steps} traced steps after {args.warmup} warm-up; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (untraced steps)")
     print(f"step: {plain_step_ms:.1f} ms untraced ({bsz / plain_step_ms * 1e3:.1f} "
           f"clips/s), {step_ms:.1f} ms traced (host clock, {args.steps} steps each); "
           f"kernels per step: {len(kernels) / args.steps:.0f}")
@@ -186,7 +195,7 @@ def main(argv=None) -> None:
     for e in prof.events():
         if e.name in PHASES and e.device_type == torch.autograd.DeviceType.CPU:
             phase_ms[e.name] += _device_us(e) / 1e3
-    for name in PHASES:
+    for name in REGIME_PHASES[mem_type]:
         if name != "backward":
             print(f"  {name:<12s} {phase_ms[name] / args.steps:8.2f} ms/step")
     rest = (dev_total - sum(phase_ms.values())) / args.steps
@@ -195,9 +204,20 @@ def main(argv=None) -> None:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
         print(f"  {us / 1e3 / args.steps:8.2f} ms/step  x{count[name] // args.steps:<4d} "
               f"{name[:110]}")
-    print(f"top {args.top_ops} aten ops by self device time (input shapes):")
     ops = [a for a in prof.key_averages(group_by_input_shape=True)
            if a.key.startswith("aten::") and _self_device_us(a) > 0]
+    if mem_type == "bank":
+        # the gather of the (B, K+1) rows and the bmm of the logits, forward
+        # and backward: ops whose input shapes hold the K+1 dimension
+        kp1 = int(cfg.CONTRAST.NCE_K) + 1
+        bank_ops = [a for a in ops if a.key in ("aten::index_select", "aten::bmm",
+                                                "aten::index", "aten::gather")
+                    and any(kp1 in s or bsz * kp1 in s for s in a.input_shapes if s)]
+        total = sum(_self_device_us(a) for a in bank_ops) / 1e3 / args.steps
+        print(f"bank gather + logits (K+1 = {kp1}): " + ", ".join(
+            f"{a.key} x{a.count // args.steps} {_self_device_us(a) / 1e3 / args.steps:.2f}"
+            for a in bank_ops) + f" ms/step; total {total:.2f} ms/step")
+    print(f"top {args.top_ops} aten ops by self device time (input shapes):")
     for a in sorted(ops, key=lambda a: -_self_device_us(a))[:args.top_ops]:
         print(f"  {_self_device_us(a) / 1e3 / args.steps:8.2f} ms/step  "
               f"x{a.count // args.steps:<4d} {a.key:<36s} {str(a.input_shapes)[:120]}")

@@ -1,4 +1,4 @@
-"""SSL contrastive pretraining (GCA MoCo) on a GPU -- the port's entry point.
+"""SSL contrastive pretraining on a GPU -- the port's entry point.
 
 Counterpart of ``tools/train_video_contrast_dis.py``, same CLI and YAML::
 
@@ -6,6 +6,12 @@ Counterpart of ``tools/train_video_contrast_dis.py``, same CLI and YAML::
         --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
         DATASET.SOURCE frames INPUT.PRE_LOAD shard \\
         DATASET.VISUAL_ROOT_DIR <store> DATASET.TRAIN_SPLIT <list> --max_steps 5
+
+The regime is ``CONTRAST.MEM_TYPE``: ``moco`` (GCA-M with
+``MODEL.AUG_FLAG True``), ``simsiam`` (``configs/visual_simsiam.yaml``;
+GCA-S with the graph on) or ``bank`` (the instance-discrimination memory
+bank, ``CROSS.CRITERION`` crossentropy or NCE, one row per clip of the
+dataset).  ``CROSS.MODALITY`` other than ``visual`` (CMC) is not ported.
 
 Data comes from ``build_video_contrastive_loader`` (synthetic clips, JPEG
 frame folders or a shard store, ``python -m
@@ -166,7 +172,7 @@ class Trainer:
         self.model, self.feat_dim = create_visual_model(config)
         self.train_loader, self.n_data = build_video_contrastive_loader(
             config, batch_slice=self.batch_slice)
-        self.state = create_pretrain_state(config, self.model, self.device)
+        self.state = create_pretrain_state(config, self.model, self.device, self.n_data)
         self._load_pretrain_backbone()
         self.lr_fn = make_lr_scheduler(config)
         self.batch_size = int(config.DATALOADER.BATCH_SIZE)
@@ -198,7 +204,8 @@ class Trainer:
             raise RuntimeError(f"=> no pretrain backbone found at '{path}'")
         sd = load_backbone_state_dict(path)
         for model in (self.state.model, self.state.ema_model):
-            model.model.encoder.base_model.load_state_dict(sd, strict=True)
+            if model is not None:   # the bank and SimSiam have no EMA encoder
+                model.model.encoder.base_model.load_state_dict(sd, strict=True)
         self._log(f"=> initialized backbone from '{path}' (MODEL.PRETRAIN_PATH)")
 
     def _resume(self) -> None:
@@ -219,9 +226,18 @@ class Trainer:
     def to_device(self, batch: dict) -> torch.Tensor:
         return to_device(batch["clips"], self.device)
 
-    def train_step(self, raw_clips: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
-        """One fused step on a raw uint8 (B, 2, T, H, W, 3) device batch."""
-        return self.step_fn(self.state, raw_clips, lr)
+    def index_of(self, batch: dict) -> Optional[torch.Tensor]:
+        """The batch's dataset indices on the device, for the bank (which
+        reads them as its rows); None for the other regimes."""
+        if self.cfg.CONTRAST.MEM_TYPE != "bank":
+            return None
+        return to_device(batch["index"].astype("int64"), self.device)
+
+    def train_step(self, raw_clips: torch.Tensor, lr: float,
+                   index: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One fused step on a raw uint8 (B, 2, T, H, W, 3) device batch;
+        ``index`` (B,) feeds the bank."""
+        return self.step_fn(self.state, raw_clips, lr, index)
 
     def _at_max_steps(self, steps_done: int) -> bool:
         return bool(self.max_steps) and steps_done >= self.max_steps
@@ -246,16 +262,18 @@ class Trainer:
                     prof.start()
                 t_feed = time.time()
                 clips = self.to_device(batch)
+                index = self.index_of(batch)
                 feed_s = time.time() - t_feed
-                metrics = self.train_step(clips, lr)
+                metrics = self.train_step(clips, lr, index)
                 if prof is not None and i == PROFILE_STEPS[1]:
                     self._stop_profile(prof)
                     prof = None
                 if i % print_freq == 0 or i == n_iter - 1:
                     m = {k: float(v) for k, v in metrics.items()}   # device sync
                     self.losses.update(m["loss"], bsz)
-                    self.top1.update(m["top1"], bsz)
-                    self.top5.update(m["top5"], bsz)
+                    if "top1" in m:   # SimSiam reports its loss only
+                        self.top1.update(m["top1"], bsz)
+                        self.top5.update(m["top5"], bsz)
                     self.batch_time.update(time.time() - end)
                     self.history.append(dict(epoch=epoch, i=i, data=data_s, feed=feed_s,
                                              step=self.batch_time.val, loss=m["loss"]))

@@ -5,8 +5,9 @@
 A checkpoint is one ``torch.save`` file holding a dict in the reference's
 layout (lib/utils/saver.py:20-43, tools/train_video_contrast_dis.py:271-287):
 ``epoch``, ``state_dict`` (parameters and BN statistics, reference names),
-``optimizer`` (the SGD momentum buffers), ``contrast`` (queue and ptr),
-``model_ema`` and ``best_pred``; plus ``step`` and ``seed``, from which
+``optimizer`` (the SGD momentum buffers), ``contrast`` (the MoCo queue and
+ptr, or the bank's ``memory``; none for SimSiam), ``model_ema`` (MoCo only)
+and ``best_pred``; plus ``step`` and ``seed``, from which
 :meth:`PretrainState.step_seed` derives each step's graph and augmentation
 seeds, so a resumed run continues the same random streams.  The metadata
 (``epoch``, ``best_pred``, ``step`` and any extra keys) is also written to
@@ -28,19 +29,32 @@ import torch
 META_KEYS = ("epoch", "best_pred", "step")
 
 
+def _contrast(contrast) -> Optional[Dict[str, Any]]:
+    if contrast is None:
+        return None
+    if hasattr(contrast, "queue"):
+        return {"queue": contrast.queue, "ptr": int(contrast.ptr)}
+    return {"memory": contrast.memory}
+
+
 def checkpoint_payload(state, epoch: int, best_pred: float = 0.0) -> Dict[str, Any]:
     """The live state as the checkpoint dict (tensors are the state's own,
-    on its device)."""
-    return {
+    on its device); ``contrast`` and ``model_ema`` only where the regime
+    has them."""
+    payload = {
         "epoch": int(epoch),
         "state_dict": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
-        "contrast": {"queue": state.contrast.queue, "ptr": int(state.contrast.ptr)},
-        "model_ema": state.ema_model.state_dict(),
         "best_pred": float(best_pred),
         "step": int(state.step),
         "seed": int(state.seed),
     }
+    contrast = _contrast(state.contrast)
+    if contrast is not None:
+        payload["contrast"] = contrast
+    if state.ema_model is not None:
+        payload["model_ema"] = state.ema_model.state_dict()
+    return payload
 
 
 def save_checkpoint_state(path: str, state, epoch: int, best_pred: float = 0.0,
@@ -61,13 +75,25 @@ def save_checkpoint_state(path: str, state, epoch: int, best_pred: float = 0.0,
 def load_checkpoint_state(path: str, state) -> Dict[str, Any]:
     """Restore a checkpoint into the live ``PretrainState`` on its device
     (strict names); returns the metadata."""
-    device = state.contrast.queue.device
+    device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
+    for part, present in (("model_ema", state.ema_model is not None),
+                          ("contrast", state.contrast is not None)):
+        if (part in payload) != present:
+            raise KeyError(f"checkpoint {path}: '{part}' is "
+                           f"{'missing' if present else 'present'}, which does not fit "
+                           "the configured CONTRAST.MEM_TYPE")
     state.model.load_state_dict(payload["state_dict"], strict=True)
-    state.ema_model.load_state_dict(payload["model_ema"], strict=True)
+    if state.ema_model is not None:
+        state.ema_model.load_state_dict(payload["model_ema"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
-    state.contrast.queue.copy_(payload["contrast"]["queue"])
-    state.contrast.ptr = int(payload["contrast"]["ptr"])
+    contrast = payload.get("contrast")
+    if contrast is not None:
+        if hasattr(state.contrast, "queue"):
+            state.contrast.queue.copy_(contrast["queue"])
+            state.contrast.ptr = int(contrast["ptr"])
+        else:
+            state.contrast.memory.copy_(contrast["memory"])
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
     return payload["meta"]

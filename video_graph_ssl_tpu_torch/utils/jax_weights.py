@@ -5,7 +5,9 @@
 Numpy only (no JAX import): ``params`` and ``batch_stats`` are the JAX
 model's nested dicts with numpy leaves.  Names are the reference's, the
 same that ``video_graph_ssl_tpu.utils.ckpt_convert.export_pretrain_to_torch``
-writes for S3D.  Layout rules: a flax conv kernel (kt, kh, kw, cin, cout)
+writes for S3D: ``model.proj_head.head.{0,2}`` (MoCo, bank) or
+``model.projection.l{1,2,3}.{0,1}`` and ``model.prediction.{l1.{0,1},l2}``
+(SimSiam).  Layout rules: a flax conv kernel (kt, kh, kw, cin, cout)
 becomes (cout, cin, kt, kh, kw); a Dense kernel (in, out) is transposed; a
 graph block's Dense becomes a 1x1x1 conv; BN scale/bias/mean/var become
 weight/bias/running_mean/running_var.
@@ -134,21 +136,39 @@ def tiny3d_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
 BACKBONES = {"S3D": s3d_state_dict, "tiny3d": tiny3d_state_dict}
 
 
+def _dense(out: SD, name: str, d: dict) -> None:
+    out[name + ".weight"] = np.ascontiguousarray(np.asarray(d["kernel"]).T)
+    out[name + ".bias"] = np.asarray(d["bias"])
+
+
+def simsiam_heads_state_dict(p: dict, s: dict) -> SD:
+    """JAX SimSiam ``projection`` and ``prediction`` MLPs (``p``/``s``: the
+    ``model`` subtrees of params and batch_stats) -> the port's names."""
+    out: SD = {}
+    for head, layers in (("projection", ("l1", "l2", "l3")), ("prediction", ("l1",))):
+        for l in layers:
+            _dense(out, f"model.{head}.{l}.0", p[head][l]["fc"])
+            _bn(out, f"model.{head}.{l}.1", p[head][l]["bn"], s[head][l]["bn"])
+    _dense(out, "model.prediction.l2", p["prediction"]["l2"])
+    return out
+
+
 def pretrain_state_dict(params: dict, batch_stats: dict, backbone: str = "S3D",
                         head_type: str = "mlp", graph_sub_sample: bool = True) -> SD:
-    """JAX ``GraphWrapper`` (contrastive) variables -> the port's
-    ``GraphWrapper`` state_dict, as numpy arrays."""
+    """JAX ``GraphWrapper`` variables (contrastive or SimSiam, told apart by
+    their heads) -> the port's ``GraphWrapper`` state_dict, as numpy
+    arrays."""
     mp, ms = params["model"], batch_stats["model"]
     enc = BACKBONES[backbone](mp["encoder"]["base_model"],
                               ms["encoder"]["base_model"], graph_sub_sample)
     out = {f"model.encoder.base_model.{k}": v for k, v in enc.items()}
+    if "projection" in mp:
+        out.update(simsiam_heads_state_dict(mp, ms))
+        return out
     heads = ((("fc", "head.0"),) if head_type == "linear"
              else (("fc1", "head.0"), ("fc2", "head.2")))
     for jname, tname in heads:
-        d = mp["proj_head"][jname]
-        out[f"model.proj_head.{tname}.weight"] = np.ascontiguousarray(
-            np.asarray(d["kernel"]).T)
-        out[f"model.proj_head.{tname}.bias"] = np.asarray(d["bias"])
+        _dense(out, f"model.proj_head.{tname}", mp["proj_head"][jname])
     return out
 
 
@@ -179,9 +199,10 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
     """Load a JAX ``TrainState`` (the state dict of a ``.msgpack``
     checkpoint's ``state``, numpy leaves) into the port's live
     ``PretrainState``: params and BN statistics, the EMA params and EMA BN
-    statistics, the SGD momentum traces as ``momentum_buffer``s, the queue,
-    its pointer and the step.  The backbone, head and graph naming are read
-    off the two states.
+    statistics (MoCo), the SGD momentum traces as ``momentum_buffer``s, the
+    contrast memory (the MoCo queue and its pointer, or the bank's rows;
+    SimSiam has none) and the step.  The backbone, head and graph naming are
+    read off the two states.
 
     The JAX optimizer scales a bias gradient by ``SOLVER.BIAS_LR_FACTOR``
     *before* ``optax.trace`` (JAX ``solver/build.py:163-168``); the port
@@ -190,7 +211,7 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
     divided by it here."""
     enc = tree["params"]["model"]["encoder"]["base_model"]
     backbone = "S3D" if "mixed_3b" in enc else "tiny3d"
-    head = "linear" if "fc" in tree["params"]["model"]["proj_head"] else "mlp"
+    head = "linear" if "fc" in tree["params"]["model"].get("proj_head", {}) else "mlp"
     want = set(state.model.state_dict())
     for sub_sample in (True, False):
         names = dict(backbone=backbone, head_type=head, graph_sub_sample=sub_sample)
@@ -208,7 +229,10 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
             strict=True)
 
     load(state.model, tree["params"], tree["batch_stats"])
-    load(state.ema_model, tree["ema_params"], tree["ema_batch_stats"])
+    if (state.ema_model is None) != (not tree.get("ema_params")):
+        raise KeyError("the JAX state and the port's disagree on an EMA encoder")
+    if state.ema_model is not None:
+        load(state.ema_model, tree["ema_params"], tree["ema_batch_stats"])
 
     trace = _find_key(tree["opt_state"], "trace")
     if trace is None:
@@ -221,6 +245,12 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
         opt.state[p]["momentum_buffer"] = buf.to(p.device).contiguous(
             memory_format=torch.channels_last_3d if p.dim() == 5
             else torch.contiguous_format)
-    state.contrast.queue.copy_(torch.from_numpy(np.array(tree["contrast"]["queue"])))
-    state.contrast.ptr = int(tree["contrast"]["ptr"])
+    contrast = tree.get("contrast") or None
+    if (state.contrast is None) != (contrast is None):
+        raise KeyError("the JAX state and the port's disagree on a contrast memory")
+    if contrast is not None and "queue" in contrast:
+        state.contrast.queue.copy_(torch.from_numpy(np.array(contrast["queue"])))
+        state.contrast.ptr = int(contrast["ptr"])
+    elif contrast is not None:
+        state.contrast.memory.copy_(torch.from_numpy(np.array(contrast["memory"])))
     state.step = int(tree["step"])
