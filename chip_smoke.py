@@ -14,13 +14,14 @@ Phases (each raises on failure; the script then exits non-zero):
    unsampled, sampled with given noise, the in-kernel Philox draw, and the
    closed-form backward against autograd of the plain version; the same
    checks (untimed) at the three aug-point shapes of the 16x224x224 bs-32
-   step (phase 6c, phase 9 (b)); then T = 32 at the first aug point's D, a
+   step (phase 6c, phase 9 (b)) and of the 16x112x112 bs-32 step (phase
+   10), whose splits of D follow the batch; then T = 32 at the first aug point's D, a
    ragged D and a D below one split, two calls bit-equal; a rank's rows
    (``rows=(clip0, B)``, clip0 = r * B / W for W = 2 and 4): the in-kernel
    draw equals the full batch's rows bit for bit; kernel and plain times,
    and in bf16 the kernels' device-only time (``torch.profiler``) and the
    wrapper's host time per call (``video_graph_ssl_tpu_torch/kernel_times.py``).
-3. K2 (GCN propagation) likewise, at both steps' shapes: forward,
+3. K2 (GCN propagation) likewise, at the three steps' shapes: forward,
    transpose mode (each twice, bit-equal), autograd dx and dadj; T = 32,
    F ragged to 64 and to 8, adj in fp32; then kernel, plain, ``torch.bmm``,
    device-only and host times (112x112 shapes).
@@ -30,14 +31,16 @@ Phases (each raises on failure; the script then exits non-zero):
    tie), then kernel, plain and torch times beside each launch's shared
    memory per block and block count; then every pool geometry at ragged
    shapes (C not a multiple of 8, odd H and W, T = 1) against the plain
-   version (exact); then every pool of the 16x224x224 step at bs 32
-   against the plain version (exact), each with its plan (strips of dx
+   version (exact); then every pool of the 16x224x224 and 16x112x112
+   steps at bs 32 against the plain version (exact), each with its plan (strips of dx
    rows where a slab exceeds a block), the strip plans timed.
 5. K5 (SepConv pair backward) against its plain version on all seven
    outputs at five Mixed-block shapes, one small ragged shape (the simt
    route in both dtypes) and one small aligned shape (128-row tiles that
    straddle clip edges), fp32 and bf16, each with its route (bf16 with C
-   and F multiples of 8 takes the tensor-core route); two calls bit-equal;
+   and F multiples of 8 takes the tensor-core route); the same seven
+   outputs (rel-L2, untimed) at all 18 pairs of the 16x112x112 bs-32 step,
+   whose row-tile counts and wgrad row splits differ; two calls bit-equal;
    then kernel, plain and unfused-backward times at all 18 fused SepConvs
    of a pass, each with its launch plan, and the wrapper's host time per
    call.
@@ -101,6 +104,28 @@ Phases (each raises on failure; the script then exits non-zero):
    no group, bit for bit, then two rank processes sharing the card over
    gloo running both regimes: bit-equal states (the bank included), each
    rank's counts, step host ms and peak memory.
+10. downstream training and evaluation through the port's ``train_ds``,
+   ``test_ds`` and ``video_retrieval``: (a) a small S3D+graph fine-tune
+   step and eval forward (fp32, partial BN) on the card against the CPU,
+   the parameter update within ``TOL_DS_UPDATE``;
+   (b) ``train_ds``'s Trainer on ``configs/action_fine_tune.yaml`` (S3D,
+   bs 32, 16x112x112, 101 classes, DROPOUT 0.7, partial BN, bf16) from a
+   checkpoint that the port's MoCo trainer writes in the phase: 2 warm-up
+   and 3 timed steps (K3 9 and K4 4 per step, K1, K2 and K5 none), a
+   validation and ``model_best_state``; (c) the linear probe
+   (``configs/action_linear_probe.yaml``) under ``PROBE_BN eval`` and
+   ``reference``: the encoder's parameters bit for bit unchanged,
+   ``new_fc`` moved, ``stem_0``'s BN statistics alone moved under
+   ``reference``, K3/K4 none; (d) ``MODEL.AUG_FLAG True``: 3 steps and an
+   eval batch, K1/K2 as ``kernel_times.step_calls``; (e) ``MODEL.NO_PARTIALBN
+   True TPU.SEPCONV_FUSED True``: 3 steps, K5 18 per step; (f) ``test_ds`` on
+   (b)'s best checkpoint, 16 videos x 10 clips x 3 crops: finite scores
+   that equal the mean of the logits computed one crop at a time within
+   ``TOL_BATCHING_BF16``, the eval forward's clips/s and peak memory; (g)
+   ``video_retrieval`` on the phase's pretrain checkpoint, 32 videos per
+   split: finite features, R@k and videos/s.  Each run prints its step
+   host ms, clips/s, losses, peak memory and kernel counts, and the phase
+   ends with a ``downstream_launches`` JSON line.
 
 Each phase prints its wall seconds.  Times are CUDA events around one
 call, the median of 20 calls (10 for K5; ``kernel_times.event_ms``).  ``bound``
@@ -172,6 +197,11 @@ PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 # 6c and SimSiam's phase 9 (b)), whose activations are the size of the
 # bs-128 112x112 step's
 K1_224, K2_224, POOLS_224, _ = geometry(224, 32)
+# every kernel's shapes in the 16x112x112 step at bs 32 (phase 10's
+# fine-tune, graph and fused runs): K1's splits of D follow B, and K5's
+# BN tile and wgrad row splits follow the row count, so these launch plans
+# differ from the bs-128 step's; checked, not timed
+K1_112_32, K2_112_32, POOLS_112_32, SEPCONVS_112_32 = geometry(112, 32)
 # K5 checks: four branch-1 shapes, one narrow branch-2 shape, a small
 # ragged one (C, F not multiples of 8: the simt route in both dtypes; 64-row
 # tiles straddle clip edges) and a small aligned one (the tensor-core route
@@ -250,9 +280,10 @@ def phase_k1(dev) -> dict:
     bys = set()
     g = torch.Generator(device=dev).manual_seed(0)
     timings = []
-    # the 112x112 step's shapes (timed), then the 224x224 bs-32 step's, whose
-    # splits of D and tile counts differ
-    for (b, t, d), timed in [(x, True) for x in K1_SHAPES] + [(x, False) for x in K1_224]:
+    # the 112x112 step's shapes (timed), then the 224x224 and 112x112 bs-32
+    # steps', whose splits of D and tile counts differ
+    for (b, t, d), timed in [(x, True) for x in K1_SHAPES] + [
+            (x, False) for x in K1_224 + K1_112_32]:
         theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
         for dn, dt in DTYPES.items():
             q = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(dt)
@@ -393,8 +424,10 @@ def phase_k2(dev) -> dict:
     bys = set()
     g = torch.Generator(device=dev).manual_seed(1)
     timings = []
-    # the 112x112 step's shapes (timed), then the 224x224 bs-32 step's
-    for shape, timed in [(x, True) for x in K2_SHAPES] + [(x, False) for x in K2_224]:
+    # the 112x112 step's shapes (timed), then the 224x224 and 112x112 bs-32
+    # steps'
+    for shape, timed in [(x, True) for x in K2_SHAPES] + [
+            (x, False) for x in K2_224 + K2_112_32]:
         b, t = shape[:2]
         for dn, dt in DTYPES.items():
             x = torch.randn(shape, device=dev, generator=g).to(dt)
@@ -542,10 +575,12 @@ def phase_pools(dev) -> list:
         err = max_abs(mp._launch(x, y, dy, k, s, p), mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
         check(f"{kn} k{k} s{s} p{p} {shape} {dn} vs plain (max abs)", err, 0.0)
         worst[kn] = max(worst[kn], err)
-    # every pool of the 16x224x224 step at bs 32, exact; the slabs above
-    # one block's shared memory run in strips of dx rows with halos
-    print("  K3/K4 at 16x224x224, bs 32 (strips where a slab exceeds a block):")
-    for name, kn, shape, k, s, p in POOLS_224:
+    # every pool of the 16x224x224 and 16x112x112 steps at bs 32, exact; the
+    # slabs above one block's shared memory run in strips of dx rows with
+    # halos
+    print("  K3/K4 at 16x224x224 and 16x112x112, bs 32 (strips where a slab exceeds a "
+          "block):")
+    for name, kn, shape, k, s, p in POOLS_224 + POOLS_112_32:
         for dn, dt in DTYPES.items():
             x = _ncdhw(shape, dev, dt, g)
             y = F.max_pool3d(x, k, s, p).contiguous(memory_format=CL)
@@ -643,6 +678,21 @@ def phase_k5(dev) -> dict:
                 check(f"{tag} (rel-L2)", rel_l2(a, r), TOL_K5[dn])
                 if name == K5_SMALL[0] and dn == "fp32":
                     check(f"{tag} (max rel)", mx, TOL_K5_SMALL)
+            del args, got, want
+    # the 18 pairs of the 16x112x112 step at bs 32: other row-tile counts and
+    # wgrad row splits than the bs-128 step's
+    for name, bthw, c, f in SEPCONVS_112_32:
+        for dn, dt in DTYPES.items():
+            args = sepconv_inputs((*bthw, c, f), dev, dt, g)
+            plan = _sep_plan_str(sb.plan(*bthw, c, f, dt))
+            got = sb.sepconv_bwd(*args)
+            want = fs.bwd_reference(*args)
+            errs = [rel_l2(a, r) for a, r in zip(got, want)]
+            print(f"  K5 {name} {bthw} {c}->{f} {dn} [{plan}]: rel-L2 "
+                  + " ".join(f"{n} {e:.2e}" for n, e in zip(names, errs)))
+            for n, a, r, e in zip(names, got, want, errs):
+                worst = max(worst, max_abs(a, r))
+                check(f"K5 {name} {bthw} {c}->{f} {dn} {n} (rel-L2)", e, TOL_K5[dn])
             del args, got, want
     for name in K5_DETERMINISM:
         bthw, c, f = by_name[name]
@@ -1144,9 +1194,11 @@ def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
             "state": _cpu(checkpoint_payload(trainer.state, 0))}
 
 
-def _want_counts(n: int = RANK_STEPS, mem_type: str = "moco", fused: bool = False) -> dict:
-    """Each kernel's wrapper calls in n steps of ``mem_type``."""
-    return {k: v * n for k, v in step_calls(mem_type, fused).items()}
+def _want_counts(n: int = RANK_STEPS, mem_type: str = "moco", fused: bool = False,
+                 **kw) -> dict:
+    """Each kernel's wrapper calls in n steps of ``mem_type`` (``kw``:
+    ``step_calls``'s ``partial_bn`` and ``graph``)."""
+    return {k: v * n for k, v in step_calls(mem_type, fused, **kw).items()}
 
 
 def rank_run(opts: list, config: str = CONFIG, per_rank: bool = False,
@@ -1664,6 +1716,318 @@ def phase_regimes(dev, gpu: str) -> None:
     regime_ranks(gpu)
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: downstream training and evaluation through the port's train_ds,
+# test_ds and video_retrieval, at the shipped configs/action_fine_tune.yaml
+# geometry (S3D, bs 32, 16x112x112, 101 classes, DROPOUT 0.7, partial BN,
+# bf16) and configs/action_linear_probe.yaml, on synthetic clips.
+FT_CONFIG = os.path.join(REPO, "configs", "action_fine_tune.yaml")
+PROBE_CONFIG = os.path.join(REPO, "configs", "action_linear_probe.yaml")
+SYNTHETIC = ["DATASET.SOURCE", "synthetic"]
+DS_STEPS = 5          # (b): 2 warm-up, 3 timed
+DS_SHORT = 3          # (c)-(e)
+# (a): the small fine-tune step's parameter update, card against CPU,
+# rel-L2.  With the deep BNs frozen, train-mode BN no longer amplifies
+# rounding over 4 clips as in phase 6 (reading 1.5e-4 on an H100 80GB HBM3,
+# 700 W), so a backward that is a few percent off fails
+TOL_DS_UPDATE = 1e-3
+# (f): the bf16 network's logits over one batch of 480 crops against the
+# same crops 16 at a time (other cuDNN algorithms, the same rounding of
+# every activation to bf16), rel-L2 (reading 4.2e-4 on an H100 80GB HBM3,
+# 700 W).  Both sides take their crops from test_ds.crops_of, so this holds
+# the batching; the crops' placement is held against JAX's multi_crop_eval
+# by the CPU tests
+TOL_BATCHING_BF16 = 5e-3
+STEM_0 = "base_model.base.0."
+
+
+def small_downstream_parity(dev) -> None:
+    """(a) one fine-tune step (graph blocks at 5, 9, 14, sampler none, fp32,
+    DROPOUT 0, partial BN) and one eval forward of a small S3D on 4 clips
+    of 16x64x64, from one initial state: the card against the CPU."""
+    from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
+    from video_graph_ssl_tpu_torch.engine.downstream import (make_downstream_train_step,
+                                                             make_eval_step,
+                                                             make_feature_step)
+    from video_graph_ssl_tpu_torch.models.build import create_video_model
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    print("  (a) small S3D+graph fine-tune step and eval forward (4x16x64x64, fp32, "
+          "partial BN), card vs CPU")
+    c = load_config(FT_CONFIG, ["MODEL.AUG_FLAG", "True", "GRAPH.SAMPLER", "none",
+                                "TPU.COMPUTE_DTYPE", "float32", "MODEL.DROPOUT", "0.0",
+                                "DATASET.NUM_CLASS", "16"])
+    g = torch.Generator().manual_seed(5)
+    clips = torch.randn(4, 16, 64, 64, 3, generator=g)
+    labels = torch.randint(0, 16, (4,), generator=g)
+    runs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        model, _ = create_video_model(c)
+        state = create_downstream_state(c, model, d)
+        x = clips.to(d)
+        logits = make_eval_step()(state.model, x).cpu()
+        feats = make_feature_step()(state.model, x).cpu()
+        p0 = [p.detach().cpu().double() for p in state.model.parameters()]
+        loss = float(make_downstream_train_step(True)(state, x, labels.to(d), 0.06)["loss"])
+        delta = torch.cat([(p.detach().cpu().double() - q).flatten()
+                           for p, q in zip(state.model.parameters(), p0)])
+        runs[name] = (loss, logits, feats, delta)
+    (lc, gc_, fc, dc), (lg, gg, fg, dg) = runs["cpu"], runs["gpu"]
+    check("downstream small: loss", abs(lc - lg) / max(1.0, abs(lc)), 1e-4)
+    check("downstream small: eval features (rel-L2)", rel_l2(fg, fc), 1e-3)
+    check("downstream small: eval logits (rel-L2)", rel_l2(gg, gc_), 1e-3)
+    check("downstream small: parameter update (rel-L2)",
+          float((dg - dc).norm() / dc.norm()), TOL_DS_UPDATE)
+
+
+def write_pretrain_checkpoint(dev) -> str:
+    """One MoCo step of the port's pretrain trainer at full S3D width
+    (configs/visual_moco.yaml geometry, bs 8, NCE_K 64) and its checkpoint
+    through the trainer's Saver; returns the path."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+
+    c = load_config(CONFIG, SYNTHETIC + ["DATALOADER.BATCH_SIZE", "8", "CONTRAST.NCE_K", "64",
+                                         "CHECKPOINT.CHECKNAME", "phase10_pretrain"])
+    trainer = Trainer(c, max_steps=1, device=str(dev), run_dir=RUN_DIR)
+    epoch = trainer.train_loader.epoch(0)
+    batch = next(epoch)
+    epoch.close()
+    loss = float(trainer.train_step(trainer.to_device(batch), trainer.lr_fn(0))["loss"])
+    path = trainer.saver.save_checkpoint(trainer.state, 1, filename="checkpoint_1.pth.tar")
+    print(f"  pretrain checkpoint (MoCo, 1 step, loss {loss:.4f}): {path}")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"pretrain step: non-finite loss {loss}")
+    del trainer
+    return path
+
+
+def run_downstream(dev, gpu: str, config: str, opts: list, n: int, ssl: str = "") -> dict:
+    """n steps of train_ds's Trainer on ``config`` + ``opts`` from synthetic
+    batches (the first 2 warm-up), the K1-K5 counts of exactly those steps;
+    the trainer, its state before the steps (on the CPU), step host ms,
+    losses and peak memory."""
+    from video_graph_ssl_tpu_torch.train_ds import Trainer
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    c = load_config(config, SYNTHETIC + opts)
+    trainer = Trainer(c, ssl_checkpoint=ssl, max_steps=n, device=str(dev), run_dir=RUN_DIR)
+    epoch = trainer.train_loader.epoch(0)
+    batches = [trainer.batch_to_device(b) for b in itertools.islice(epoch, n)]
+    epoch.close()
+    before = _cpu(trainer.state.model.state_dict())
+    lr = trainer.lr_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = [], []
+    for clips, labels in batches:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(clips, labels, lr)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = ms[2:] if len(ms) > 2 else ms[1:]
+    mean_ms = sum(timed) / len(timed)
+    bsz = int(c.DATALOADER.BATCH_SIZE)
+    print(f"  {os.path.basename(config)} {' '.join(opts)}: step host ms "
+          f"{[round(x, 1) for x in ms]}, losses {[round(x, 4) for x in losses]}; mean of "
+          f"{len(timed)} timed steps {mean_ms:.1f} ms, {bsz / mean_ms * 1e3:.1f} clips/s "
+          f"(bs {bsz}), max_memory_allocated {peak:.2f} GiB on {gpu}; kernel calls {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"downstream: non-finite loss {losses}")
+    return {"trainer": trainer, "before": before, "counts": counts, "ms": mean_ms,
+            "peak_gib": peak, "batches": batches}
+
+
+def _hold_counts(tag: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        raise RuntimeError(f"{tag}: kernel call counts {counts} != {want}")
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def probe_run(dev, gpu: str, probe_bn: str) -> dict:
+    """(c) the linear probe under ``probe_bn``: the encoder's parameters bit
+    for bit unchanged, new_fc moved, and the BN statistics: stem_0's alone
+    moved under ``reference``, none under ``eval``."""
+    r = run_downstream(dev, gpu, PROBE_CONFIG, ["MODEL.PROBE_BN", probe_bn], DS_SHORT)
+    model = r["trainer"].state.model
+    after = _cpu(model.state_dict())
+    params = {n for n, _ in model.named_parameters()}
+    moved = sorted(k for k, v in r["before"].items() if not torch.equal(v, after[k]))
+    enc_moved = [k for k in moved if k in params and not k.startswith("new_fc.")]
+    stats_moved = [k for k in moved if "running" in k]
+    want_stats = sorted(k for k in after if "running" in k and k.startswith(STEM_0)) \
+        if probe_bn == "reference" else []
+    print(f"  (c) probe, PROBE_BN {probe_bn}: encoder parameters moved {len(enc_moved)} "
+          f"(want 0, bit for bit), new_fc moved {'new_fc.weight' in moved}; BN statistics "
+          f"moved {stats_moved} (want {want_stats})")
+    if enc_moved or "new_fc.weight" not in moved or stats_moved != want_stats:
+        raise RuntimeError(f"(c) probe {probe_bn}: encoder {enc_moved[:5]}, statistics "
+                           f"{stats_moved}")
+    _hold_counts(f"(c) probe {probe_bn}", r["counts"], _want_counts(
+        DS_SHORT, "probe", partial_bn=True, graph=False))
+    return r
+
+
+def downstream_test_ds(dev, gpu: str, best: str) -> None:
+    """(f) test_ds on (b)'s best checkpoint over 16 videos x 10 clips x 3
+    crops: its scores finite and, within TOL_BATCHING_BF16, the mean of the
+    logits computed one (clip, crop) at a time; the eval forward's clips/s
+    and peak memory."""
+    import numpy as np
+    from video_graph_ssl_tpu_torch import test_ds
+    from video_graph_ssl_tpu_torch.data.build import make_test_loader
+    from video_graph_ssl_tpu_torch.data.pipeline import to_device
+    from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
+    from video_graph_ssl_tpu_torch.engine.downstream import make_eval_step
+    from video_graph_ssl_tpu_torch.models.build import create_video_model
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+    from video_graph_ssl_tpu_torch.utils.checkpoint import load_checkpoint_state
+
+    n_videos, n_clips, n_crops = 16, 10, 3
+    opts = SYNTHETIC + ["TEST.BATCH_SIZE", str(n_videos)]
+    scores_path = os.path.join(RUN_DIR, "phase10_scores.npz")
+    t0 = time.perf_counter()
+    rep = test_ds.main(["--device", str(dev), "--config_file", FT_CONFIG, "--checkpoint", best,
+                        "--test_crops",
+                        str(n_crops), "--test_clips", str(n_clips), "--max_videos",
+                        str(n_videos), "--save_scores", scores_path, *opts])
+    print(f"  (f) test_ds: {time.perf_counter() - t0:.1f} s, top-1 {rep['top1']:.2f}%, "
+          f"mean class accuracy {rep['mean_class_acc']:.2f}%")
+    scores = torch.from_numpy(np.load(scores_path)["scores"])
+    c = load_config(FT_CONFIG, opts)
+    model, _ = create_video_model(c)
+    state = create_downstream_state(c, model, dev)
+    load_checkpoint_state(best, state)
+    epoch = make_test_loader(c, num_clips=n_clips).epoch(0)
+    raw = to_device(next(epoch)["clips"], dev)
+    epoch.close()
+    eval_fn = test_ds.build_eval_fn(c, n_crops)
+    eval_fn(state.model, raw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = eval_fn(state.model, raw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = raw.shape[0] * n_clips * n_crops
+    step = make_eval_step()
+    crops = test_ds.crops_of(raw, c, n_crops)
+    x = crops.reshape(raw.shape[0], n_clips * n_crops, *crops.shape[1:])
+    one_at_a_time = torch.stack([step(state.model, x[:, j]).float()
+                                 for j in range(x.shape[1])], dim=1).mean(dim=1).cpu()
+    print(f"  (f) eval forward (resize, {n_crops} crops, one forward): {n} clips of "
+          f"{tuple(x.shape[2:5])} in {sec * 1e3:.1f} ms, {n / sec:.1f} clips/s, "
+          f"max_memory_allocated {peak:.2f} GiB on {gpu}")
+    if tuple(scores.shape) != (raw.shape[0], int(c.DATASET.NUM_CLASS)) \
+            or not torch.isfinite(scores).all():
+        raise RuntimeError(f"(f) test_ds scores {tuple(scores.shape)}, finite "
+                           f"{bool(torch.isfinite(scores).all())}")
+    check("(f) test_ds scores vs its eval_fn again (rel-L2)",
+          rel_l2(again.float().cpu(), scores), TOL_BATCHING_BF16)
+    check("(f) scores vs the mean of one crop at a time (rel-L2)",
+          rel_l2(scores, one_at_a_time), TOL_BATCHING_BF16)
+
+
+def downstream_retrieval(dev, gpu: str, ssl: str) -> None:
+    """(g) video_retrieval on the phase's pretrain checkpoint: features of
+    32 videos x 10 clips per split, finite; R@k and videos/s."""
+    import pickle
+
+    import numpy as np
+    from video_graph_ssl_tpu_torch import video_retrieval
+
+    n_videos = 32
+    feature_dir = os.path.join(RUN_DIR, "phase10_features")
+    t0 = time.perf_counter()
+    recalls = video_retrieval.main([
+        "--device", str(dev), "--config_file", CONFIG, "--checkpoint", ssl, "--extract_feature",
+        "--feature_dir", feature_dir, "--test_clips", "10", "--max_videos", str(n_videos),
+        *SYNTHETIC, "TEST.BATCH_SIZE", str(n_videos)])
+    sec = time.perf_counter() - t0
+    for split in ("train", "val"):
+        with open(os.path.join(feature_dir, f"{split}_features.pkl"), "rb") as f:
+            feats = pickle.load(f)["features"]
+        if feats.shape != (n_videos, 1024) or not np.isfinite(feats).all():
+            raise RuntimeError(f"(g) {split} features {feats.shape}, finite "
+                               f"{bool(np.isfinite(feats).all())}")
+    print(f"  (g) video_retrieval: R@k {recalls}; {2 * n_videos} videos x 10 clips in "
+          f"{sec:.1f} s ({2 * n_videos / sec:.1f} videos/s, model set-up included) on {gpu}")
+
+
+def phase_downstream(dev, gpu: str) -> None:
+    print("phase 10: downstream training and evaluation (train_ds, test_ds, video_retrieval)")
+    small_downstream_parity(dev)
+    _free()
+    print("  (b) train_ds on configs/action_fine_tune.yaml from the port's MoCo checkpoint")
+    ssl = write_pretrain_checkpoint(dev)
+    _free()
+    r = run_downstream(dev, gpu, FT_CONFIG, [], DS_STEPS, ssl=ssl)
+    trainer = r["trainer"]
+    c = trainer.cfg
+    if (int(c.DATALOADER.BATCH_SIZE), int(c.INPUT.VIDEO_LENGTH), list(c.INPUT.BASE_SIZE),
+            int(c.DATASET.NUM_CLASS), float(c.MODEL.DROPOUT), bool(c.MODEL.NO_PARTIALBN),
+            c.TPU.COMPUTE_DTYPE) != (32, 16, [112, 112], 101, 0.7, False, "bfloat16"):
+        raise RuntimeError("configs/action_fine_tune.yaml no longer gives S3D bs 32, "
+                           "16x112x112, 101 classes, DROPOUT 0.7, partial BN, bf16")
+    _hold_counts("(b) fine-tune", r["counts"], _want_counts(
+        DS_STEPS, "finetune", partial_bn=True, graph=False))
+    ds_counts = {"finetune": r["counts"]}
+    # the first validation writes model_best_state whatever its top-1
+    trainer.best_pred = -1.0
+    t0 = time.perf_counter()
+    top1 = trainer.validation(0)
+    best = os.path.join(trainer.saver.experiment_dir, "model_best_state.pth.tar")
+    print(f"  (b) validation over {len(trainer.val_loader.dataset)} videos: top-1 "
+          f"{top1:.2f}% in {time.perf_counter() - t0:.1f} s; {best} written "
+          f"{os.path.exists(best)}")
+    if not os.path.exists(best):
+        raise RuntimeError("(b) model_best_state.pth.tar was not written")
+    del trainer, r
+    _free()
+    for probe_bn in ("eval", "reference"):
+        p = probe_run(dev, gpu, probe_bn)
+        ds_counts[f"probe {probe_bn}"] = p["counts"]
+        del p
+        _free()
+    print("  (d) MODEL.AUG_FLAG True: 3 fine-tune steps, then one eval batch")
+    r = run_downstream(dev, gpu, FT_CONFIG, ["MODEL.AUG_FLAG", "True"], DS_SHORT)
+    _hold_counts("(d) fine-tune with the graph", r["counts"], _want_counts(
+        DS_SHORT, "finetune", partial_bn=True, graph=True))
+    trainer = r["trainer"]
+    reset_counts()
+    logits = trainer.eval_fn(trainer.state.model, r["batches"][0][0])
+    torch.cuda.synchronize()
+    eval_counts = read_counts()
+    print(f"  (d) eval batch: logits {tuple(logits.shape)}, kernel calls {eval_counts}")
+    _hold_counts("(d) eval with the graph", eval_counts, _want_counts(1, "eval", graph=True))
+    if not torch.isfinite(logits).all():
+        raise RuntimeError("(d) non-finite eval logits")
+    ds_counts["finetune graph"], ds_counts["eval graph"] = r["counts"], eval_counts
+    del trainer, r, logits
+    _free()
+    print("  (e) MODEL.NO_PARTIALBN True TPU.SEPCONV_FUSED True: 3 fine-tune steps")
+    r = run_downstream(dev, gpu, FT_CONFIG, ["MODEL.NO_PARTIALBN", "True",
+                                        "TPU.SEPCONV_FUSED", "True"], DS_SHORT)
+    _hold_counts("(e) fused, no partial BN", r["counts"], _want_counts(
+        DS_SHORT, "finetune", fused=True, partial_bn=False, graph=False))
+    ds_counts["finetune fused"] = r["counts"]
+    del r
+    _free()
+    downstream_test_ds(dev, gpu, best)
+    _free()
+    downstream_retrieval(dev, gpu, ssl)
+    _free()
+    print(json.dumps({"downstream_launches": ds_counts}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1697,6 +2061,7 @@ def main() -> int:
     timed(phase_store, dev, gpu, synthetic_ms)
     timed(phase_ranks, dev, gpu)
     timed(phase_regimes, dev, gpu)
+    timed(phase_downstream, dev, gpu)
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

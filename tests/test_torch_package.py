@@ -1,9 +1,10 @@
 """Package-level properties of the PyTorch port.
 
-* Importing the port (every module, the shard builder and the native
-  JPEG pool's loader included), building its S3D model and drawing a
-  batch from its loader never imports JAX, nor the JAX package; the port's copy of the config schema equals the JAX
-  package's.
+* Importing the port (every module, the shard builder, the native JPEG
+  pool's loader and the downstream tools included), building its S3D
+  pretrain and downstream models and states and drawing a batch from its
+  loader never imports JAX, nor the JAX package; the port's copy of the
+  config schema equals the JAX package's.
 * The kernel wrappers take their plain versions only for CPU tensors; on
   CUDA tensors they launch the kernel or raise (``cuda`` marker: skipped
   where no GPU is present; run them on the card with
@@ -117,6 +118,10 @@ def test_port_never_imports_jax():
         from video_graph_ssl_tpu_torch.data.native import native_jpeg_available
         from video_graph_ssl_tpu_torch.utils import checkpoint, meters, saver, summary
         from video_graph_ssl_tpu_torch.parallel import dist, shuffle_bn, sync_bn
+        from video_graph_ssl_tpu_torch import test_ds, train_ds, video_retrieval
+        from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
+        from video_graph_ssl_tpu_torch.engine.downstream import make_fused_downstream_step
+        from video_graph_ssl_tpu_torch.models.build import create_video_model
         native_jpeg_available()      # the native pool's build-and-load path
         cfg_file = {os.path.join(REPO, 'configs', 'visual_moco.yaml')!r}
         create_visual_model(load_config(cfg_file, ['TPU.SEPCONV_FUSED', 'True']))
@@ -131,6 +136,9 @@ def test_port_never_imports_jax():
         assert next(batches)['clips'].shape == (2, 2, 16, 8, 8, 3)
         batches.close()
         assert dim == 1024 and len(model.model.encoder.base_model.aug_points) == 3
+        ft = load_config({os.path.join(REPO, 'configs', 'action_fine_tune.yaml')!r}, [])
+        create_downstream_state(ft, create_video_model(ft)[0], 'cpu')
+        make_fused_downstream_step(ft)
         bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))
         assert not bad, bad
         jax_pkg = sorted(m for m in sys.modules if m.split('.')[0] == 'video_graph_ssl_tpu')

@@ -1,6 +1,9 @@
-"""On-device SSL augmentation (counterpart of the channel-first chain in
-``video_graph_ssl_tpu/data/transforms_device.py``: ``ssl_augment_cf`` and
-``make_batch_augment_fn(cfg, 'ssl')``).
+"""On-device augmentation (counterpart of
+``video_graph_ssl_tpu/data/transforms_device.py``): the SSL chain (the
+channel-first ``ssl_augment_cf``, ``make_batch_augment_fn(cfg, 'ssl')``),
+the downstream ``train`` chain (MultiScaleCrop, flip, normalise), the
+``eval`` chain (resize, centre crop, normalise) and the test-time
+``multi_crop_eval``.
 
 The random parameters are drawn apart from their application
 (:func:`draw_ssl_params` / :func:`apply_ssl_augment`), so a test can feed
@@ -15,6 +18,16 @@ Chain per clip-view, on (T, C, H, W) pixels in [0, 255]: RandomResizedCrop
 colour jitter in one of the 24 op orders (one order per group of clips, as
 in the JAX package), grayscale, separable Gaussian blur, horizontal flip,
 normalise.  Works on the clips' device in the compute dtype.
+
+The downstream chains work on (N, T, H, W, C) float32 pixels, as the JAX
+ones do, and return float32.  The ``train`` chain's draws (a MultiScaleCrop
+size pair and one of 13 offsets, a flip) are likewise apart from their
+application (:func:`draw_train_params` / :func:`apply_train_augment`).
+Every resize is an explicit weight matrix per axis
+(:func:`resize_weights`): the crop's bilinear resize without antialias
+(``jax.image.scale_and_translate``), and ``resize_clip``'s linear resize
+with antialias, as ``jax.image.resize`` defaults to (a triangle kernel
+widened by the down-scale factor).
 """
 
 from __future__ import annotations
@@ -126,19 +139,27 @@ def draw_ssl_params(n: int, canvas_hw: Tuple[int, int], generator: torch.Generat
 
 
 def resize_weights(in_size: int, out_size: int, start: torch.Tensor,
-                   length: torch.Tensor) -> torch.Tensor:
+                   length: torch.Tensor, antialias: bool = False) -> torch.Tensor:
     """(N, out, in) fp32 linear-interpolation weights that map the window
     [start, start + length) of an axis onto ``out_size`` samples -- the
     weight matrix of ``jax.image.scale_and_translate(method='linear',
-    antialias=False)`` with scale out/length and translation -start*scale."""
+    antialias=...)`` with scale out/length and translation -start*scale.
+    With ``antialias`` a down-scale widens the triangle kernel by
+    length/out (``jax.image.resize``'s default)."""
     dev = start.device
-    scale = float(out_size) / length.float()
+    length = length.float()
+    # a true division (a Python scalar over a tensor is its reciprocal times
+    # the scalar in torch, which rounds twice)
+    scale = torch.full_like(length, float(out_size)) / length
     trans = -start.float() * scale
     inv = 1.0 / scale
     o = torch.arange(out_size, dtype=torch.float32, device=dev)
     sample_f = (o[None] + 0.5) * inv[:, None] - (trans * inv)[:, None] - 0.5
     src = torch.arange(in_size, dtype=torch.float32, device=dev)
-    w = (1.0 - (sample_f[:, None, :] - src[None, :, None]).abs()).clamp_min(0.0)
+    dist = (sample_f[:, None, :] - src[None, :, None]).abs()
+    if antialias:
+        dist = dist / inv.clamp_min(1.0)[:, None, None]
+    w = (1.0 - dist).clamp_min(0.0)
     total = w.sum(dim=1, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * _F32_EPS,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
@@ -265,18 +286,172 @@ def apply_ssl_augment(clips: torch.Tensor, p: SSLParams, out_hw: Tuple[int, int]
     return x.permute(0, 1, 3, 4, 2).reshape(b, v, t, oh, ow, c)
 
 
+# --------------------------------------------------------------------------- #
+# downstream chains (N, T, H, W, C) float32
+# --------------------------------------------------------------------------- #
+MSC_SCALES = (1.0, 0.875, 0.75, 0.66)
+# the TSN 13-position fixed-offset grid in quarters of the free room (w, h)
+# (JAX ``_fix_offsets_13``)
+FIX_OFFSETS_13 = ((0, 0), (4, 0), (0, 4), (4, 4), (2, 2), (0, 2), (4, 2), (2, 4), (2, 0),
+                  (1, 1), (3, 1), (1, 3), (3, 3))
+
+
+def msc_crop_pairs(H: int, W: int, input_size, scales=MSC_SCALES,
+                   max_distort: int = 1):
+    """The MultiScaleCrop (w, h) candidates (a copy of the JAX
+    ``msc_crop_pairs``): the short side scaled, sizes within 3 px of the
+    target snapped to it, pairs with |i - j| <= max_distort."""
+    base = min(H, W)
+    crop_sizes = [int(base * s) for s in scales]
+    crop_h = [input_size[0] if abs(x - input_size[0]) < 3 else x for x in crop_sizes]
+    crop_w = [input_size[1] if abs(x - input_size[1]) < 3 else x for x in crop_sizes]
+    return [(w, h) for i, h in enumerate(crop_h) for j, w in enumerate(crop_w)
+            if abs(i - j) <= max_distort]
+
+
+@dataclass
+class TrainParams:
+    """Per-clip draws of the ``train`` chain."""
+
+    pair: torch.Tensor     # (N,) int64 index into msc_crop_pairs
+    offset: torch.Tensor   # (N,) int64 index into FIX_OFFSETS_13
+    flip: torch.Tensor     # (N,) bool
+
+
+def draw_train_params(n: int, generator: torch.Generator, device, n_pairs: int,
+                      flip_p: float = 0.5) -> TrainParams:
+    return TrainParams(
+        pair=torch.randint(0, n_pairs, (n,), generator=generator, device=device),
+        offset=torch.randint(0, len(FIX_OFFSETS_13), (n,), generator=generator,
+                             device=device),
+        flip=torch.rand(n, generator=generator, device=device) < flip_p)
+
+
+def msc_boxes(p: TrainParams, canvas_hw: Tuple[int, int], pairs) -> torch.Tensor:
+    """(N, 4) int64 (top, left, height, width): the crop of each draw, its
+    offsets in float32 truncated to integers as the JAX chain's int32 cast."""
+    H, W = canvas_hw
+    dev = p.pair.device
+    wh = torch.tensor(pairs, dtype=torch.float32, device=dev)[p.pair]      # (N, 2)
+    grid = torch.tensor(FIX_OFFSETS_13, dtype=torch.float32, device=dev)[p.offset]
+    room = torch.tensor([W, H], dtype=torch.float32, device=dev) - wh
+    off = (grid * (room / 4.0)).long()                                   # (w, h)
+    return torch.stack([off[:, 1], off[:, 0], wh[:, 1].long(), wh[:, 0].long()], dim=1)
+
+
+def _normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """(x - 255 mean) / (255 std) over the trailing channel dim."""
+    c = x.shape[-1]
+    if len(mean) != c:
+        raise NotImplementedError(f"{c}-channel clips: the chains are ported for RGB")
+    m = torch.tensor(mean, dtype=torch.float32, device=x.device) * 255.0
+    s = torch.tensor(std, dtype=torch.float32, device=x.device) * 255.0
+    return (x - m) / s
+
+
+def _resize_boxes(x: torch.Tensor, box: torch.Tensor, out_hw, antialias: bool = False):
+    """(N, T, H, W, C) -> (N, T, oh, ow, C): each clip's box resized."""
+    H, W = x.shape[2:4]
+    top, left, hh, ww = box.unbind(1)
+    wy = resize_weights(H, out_hw[0], top, hh, antialias)
+    wx = resize_weights(W, out_hw[1], left, ww, antialias)
+    x = torch.einsum("nyh,nthwc->ntywc", wy, x)
+    return torch.einsum("nxw,ntywc->ntyxc", wx, x)
+
+
+def apply_train_augment(clips: torch.Tensor, p: TrainParams, out_hw: Tuple[int, int],
+                        mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
+    """(N, T, H, W, C) uint8 -> (N, T, oh, ow, C) float32: MultiScaleCrop
+    (bilinear, no antialias), horizontal flip, normalise (JAX
+    ``train_augment``)."""
+    H, W = clips.shape[2:4]
+    pairs = msc_crop_pairs(H, W, out_hw)
+    x = _resize_boxes(clips.float(), msc_boxes(p, (H, W), pairs), out_hw)
+    x = torch.where(p.flip.reshape(-1, 1, 1, 1, 1), x.flip(3), x)
+    return _normalize(x, mean, std)
+
+
+def resize_clip(clips: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(N, T, H, W, C) -> (N, T, oh, ow, C) float32: ``jax.image.resize``'s
+    linear method, antialias on."""
+    n, _, H, W = clips.shape[:4]
+    box = torch.tensor([[0, 0, H, W]], device=clips.device).expand(n, 4)
+    return _resize_boxes(clips.float(), box, out_hw, antialias=True)
+
+
+def center_crop(clips: torch.Tensor, crop_hw: Tuple[int, int]) -> torch.Tensor:
+    H, W = clips.shape[2:4]
+    y, x = (H - crop_hw[0]) // 2, (W - crop_hw[1]) // 2
+    return clips[:, :, y:y + crop_hw[0], x:x + crop_hw[1]]
+
+
+def eval_transform(clips: torch.Tensor, scale_hw, crop_hw, mean, std) -> torch.Tensor:
+    """The ``eval`` chain: resize, centre crop, normalise."""
+    return _normalize(center_crop(resize_clip(clips, scale_hw), crop_hw), mean, std)
+
+
+N_CROPS = (1, 3, 5, 6, 10)
+
+
+def crop_offsets(scale_hw, crop_hw, n_crops: int):
+    """(top, left) of each crop of ``multi_crop_eval`` before the flips."""
+    H, W = scale_hw
+    ch, cw = crop_hw
+    if n_crops not in N_CROPS:
+        raise ValueError(f"n_crops {n_crops}: one of {N_CROPS}")
+    base = {1: 1, 3: 3, 5: 5, 6: 3, 10: 5}[n_crops]
+    w4, h4 = (W - cw) // 4, (H - ch) // 4
+    if base == 1:
+        return [((H - ch) // 2, (W - cw) // 2)]
+    if base == 3:
+        return [(2 * h4, 0), (2 * h4, 4 * w4), (2 * h4, 2 * w4)]
+    return [(0, 0), (0, 4 * w4), (4 * h4, 0), (4 * h4, 4 * w4), (2 * h4, 2 * w4)]
+
+
+def multi_crop_eval(clips: torch.Tensor, scale_hw, crop_hw, n_crops: int,
+                    mean, std) -> torch.Tensor:
+    """(N, T, H, W, C) -> (N, n_crops, T, ch, cw, C) float32: resize, then
+    1 centre | 3 full-height left/right/centre | 5 corners + centre crops,
+    6 and 10 adding the 3 and 5 flipped (JAX ``multi_crop_eval``)."""
+    x = resize_clip(clips, scale_hw)
+    ch, cw = crop_hw
+    crops = [x[:, :, oy:oy + ch, ox:ox + cw] for oy, ox in crop_offsets(scale_hw, crop_hw,
+                                                                          n_crops)]
+    if n_crops in (6, 10):
+        crops += [c.flip(3) for c in crops]
+    return _normalize(torch.stack(crops, dim=1), mean, std)
+
+
 def make_batch_augment_fn(cfg, kind: str) -> Callable:
     """kind='ssl': fn(generator, clips (B, V, T, H, W, C) uint8, rows=None)
     -> the augmented, normalised clips in ``TPU.COMPUTE_DTYPE``.  ``rows``
     (row0, global B): the clips are rows ``[row0, row0 + B)`` of a global
-    batch, and take those rows of the global batch's draws."""
-    if kind != "ssl":
-        raise NotImplementedError(f"augment kind {kind!r} is not ported yet")
-    from ..models.build import compute_dtype
+    batch, and take those rows of the global batch's draws.
 
+    kind='train': fn(generator, clips (B, T, H, W, C) uint8) -> float32, the
+    ``train`` chain to ``INPUT.BASE_SIZE``; kind='eval':
+    fn(clips (B, T, H, W, C) uint8) -> float32, resized to
+    ``INPUT.SCALE_SIZE`` and centre-cropped to ``INPUT.CROP_SIZE``."""
+    if kind not in ("ssl", "train", "eval"):
+        raise ValueError(f"unknown augment kind: {kind}")
     mean, std = tuple(cfg.INPUT.MEAN), tuple(cfg.INPUT.STD)
     out_hw = (int(cfg.INPUT.BASE_SIZE[0]), int(cfg.INPUT.BASE_SIZE[1]))
     flip_p = 0.5 if cfg.INPUT.FLIP else 0.0
+    if kind == "eval":
+        scale_hw = (int(cfg.INPUT.SCALE_SIZE[0]), int(cfg.INPUT.SCALE_SIZE[1]))
+        crop_hw = (int(cfg.INPUT.CROP_SIZE[0]), int(cfg.INPUT.CROP_SIZE[1]))
+        return lambda clips: eval_transform(clips, scale_hw, crop_hw, mean, std)
+    if kind == "train":
+        def train_fn(generator: torch.Generator, clips: torch.Tensor) -> torch.Tensor:
+            b, _, h, w = clips.shape[:4]
+            p = draw_train_params(b, generator, clips.device,
+                                  len(msc_crop_pairs(h, w, out_hw)), flip_p)
+            return apply_train_augment(clips, p, out_hw, mean, std)
+
+        return train_fn
+
+    from ..models.build import compute_dtype
+
     dtype = compute_dtype(cfg)
 
     def fn(generator: torch.Generator, clips: torch.Tensor,

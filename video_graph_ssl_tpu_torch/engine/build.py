@@ -1,5 +1,6 @@
-"""Pretrain-state construction (counterpart of
-``video_graph_ssl_tpu/engine/build.py:create_pretrain_state``)."""
+"""State construction (counterpart of ``video_graph_ssl_tpu/engine/build.py``:
+``create_pretrain_state``, ``create_downstream_state`` and
+``linear_probe_mask``)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ from ..memory.build import create_contrast
 from ..parallel import dist
 from ..solver.build import make_optimizer
 from .train_state import PretrainState
+
+DOWNSTREAM_ACROSS_RANKS = ("downstream training is not ported across ranks yet: ROADMAP.md, "
+                           "Queue 1, item 5b, downstream across ranks")
 
 
 def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> PretrainState:
@@ -54,3 +58,26 @@ def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> Pre
         seed=int(cfg.MODEL.SEED) + 2,
         ddp=ddp,
     )
+
+
+def is_probe_param(name: str) -> bool:
+    """The linear probe trains ``new_fc`` alone (JAX ``linear_probe_mask``)."""
+    return name.split(".", 1)[0] == "new_fc"
+
+
+def create_downstream_state(cfg, model: nn.Module, device) -> PretrainState:
+    """The fine-tune / linear-probe state: ``model`` (a ``VideoModel``) on
+    ``device`` in channels_last_3d, SGD over all its parameters or, with
+    ``MODEL.LINEAR_PROBE``, over ``new_fc``'s alone, the encoder's taking no
+    gradient (so no encoder backward runs); no EMA encoder and no memory.
+    The seed is the JAX state's, ``MODEL.SEED + 2``."""
+    if dist.world_size() > 1:
+        raise NotImplementedError(DOWNSTREAM_ACROSS_RANKS)
+    model = model.to(device=torch.device(device), memory_format=torch.channels_last_3d)
+    trainable = is_probe_param if bool(cfg.MODEL.LINEAR_PROBE) else None
+    if trainable is not None:
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+    return PretrainState(model=model, ema_model=None,
+                         optimizer=make_optimizer(cfg, model, trainable),
+                         contrast=None, seed=int(cfg.MODEL.SEED) + 2)

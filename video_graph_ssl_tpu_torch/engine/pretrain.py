@@ -63,6 +63,8 @@ REGIME_PHASES = {
     "moco": ("augment", "key_pass", "query_pass", "backward", "optimizer", "enqueue_ema"),
     "simsiam": ("augment", "query_pass", "backward", "optimizer"),
     "bank": ("augment", "query_pass", "backward", "optimizer", "bank_update"),
+    # engine/downstream.py's fine-tune and linear-probe steps
+    "downstream": ("augment", "forward", "backward", "optimizer"),
 }
 PHASES = tuple(dict.fromkeys(p for ps in REGIME_PHASES.values() for p in ps))
 

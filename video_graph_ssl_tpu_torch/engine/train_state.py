@@ -1,4 +1,6 @@
-"""Pretraining state (counterpart of ``video_graph_ssl_tpu/engine/train_state.py``).
+"""Training state (counterpart of ``video_graph_ssl_tpu/engine/train_state.py``),
+for pretraining and for downstream training (``create_downstream_state``:
+a ``VideoModel`` with no EMA encoder and no memory).
 
 The JAX package keeps params, BN stats, optimizer buffers, the EMA encoder
 and the contrast memory in one functional pytree.  Here they are the query
@@ -37,10 +39,11 @@ class PretrainState:
         return self.ddp if self.ddp is not None else self.model
 
     def step_seed(self, stream: int) -> int:
-        """Per-step seed of one random stream (1: graph noise, 2: augment,
-        3: ShuffleBN's permutation, 4: the bank's negative draw, 5: graph
-        noise of SimSiam's second view), the same for every pass of a step
-        and on every rank."""
+        """Per-step seed of one random stream (1: graph noise and the
+        features' dropout, 2: the SSL augmentation, 3: ShuffleBN's
+        permutation, 4: the bank's negative draw, 5: graph noise of
+        SimSiam's second view, 13: the downstream ``train`` augmentation),
+        the same for every pass of a step and on every rank."""
         return ((self.seed * 1_000_003 + self.step) * 31 + stream) \
             & 0x7FFF_FFFF_FFFF_FFFF
 

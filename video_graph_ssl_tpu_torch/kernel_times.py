@@ -4,7 +4,7 @@ bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED True`` step),
 or with ``--size 224 --batch 32`` at those of the 16x224x224 step.
 
     python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME] \
-        [--mem_type moco|simsiam|bank] [--size 112|224] [--batch B]
+        [--mem_type moco|simsiam|bank|finetune|probe|eval] [--size 112|224] [--batch B]
 
 Run as a file so that ``--root`` (default: the checkout holding this file)
 decides which checkout's ``video_graph_ssl_tpu_torch`` is imported and
@@ -24,10 +24,14 @@ For each shape in bf16 it prints one JSON line with three times:
 Then one line per kernel of K3, K4 and K5 with ``pass_device_ms``: the sum
 of ``device_us`` over the calls of one encoder pass (13 pools, 18 SepConv
 pairs); and one line per kernel with its wrapper calls and device ms per
-step of the regime ``--mem_type`` (``CONTRAST.MEM_TYPE``; default moco), as
-:func:`step_calls` counts them: a MoCo step runs two encoder passes (key and
-query) and one backward, a SimSiam step two passes and two backwards (one
-per view), a bank step one of each.
+step of the regime ``--mem_type`` (``CONTRAST.MEM_TYPE``, or a downstream
+step; default moco), as :func:`step_calls` counts them: a MoCo step runs
+two encoder passes (key and query) and one backward, a SimSiam step two
+passes and two backwards (one per view), a bank step one of each; a
+fine-tune step one of each, a linear-probe step and an eval forward one
+pass and no backward (the probe's encoder takes no gradient).  K5's line
+counts the ``TPU.SEPCONV_FUSED True`` step with ``MODEL.NO_PARTIALBN
+True``: under partial BN no pair runs K5.
 
 Needs a CUDA device; it never measures on the CPU.
 """
@@ -85,20 +89,25 @@ SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
 HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 3: 7, 1: 3}
 # graph blocks per encoder pass, and each kernel's calls per backward pass
 AUG_POINTS, POOLS_S1, POOLS_STRIDED = 3, 9, 4
-# (encoder passes, passes with a backward) of each regime's step
-REGIME_PASSES = {"moco": (2, 1), "simsiam": (2, 2), "bank": (1, 1)}
+# (encoder passes, passes with a backward) of each regime's step, and of the
+# downstream steps (engine/downstream.py)
+REGIME_PASSES = {"moco": (2, 1), "simsiam": (2, 2), "bank": (1, 1),
+                 "finetune": (1, 1), "probe": (1, 0), "eval": (1, 0)}
 
 
-def step_calls(mem_type: str, fused: bool = False) -> dict:
+def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
+               graph: bool = True) -> dict:
     """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
-    graph blocks at 5, 9, 14): K1 and K2 once per block and pass, K2 again
-    (transposed) in each backward, K3/K4 in each backward, K5 (with
-    ``TPU.SEPCONV_FUSED``) in each backward."""
+    graph blocks at 5, 9, 14 with ``graph``, ``MODEL.AUG_FLAG``): K1 and K2
+    once per block and pass, K2 again (transposed) in each backward, K3/K4
+    in each backward, K5 (with ``TPU.SEPCONV_FUSED``) in each backward
+    unless ``partial_bn`` freezes the pairs' BNs, which takes them off K5."""
     passes, grads = REGIME_PASSES[mem_type]
-    return {"graph_adjacency": AUG_POINTS * passes,
-            "gcn_propagate": AUG_POINTS * (passes + grads),
+    blocks = AUG_POINTS if graph else 0
+    return {"graph_adjacency": blocks * passes,
+            "gcn_propagate": blocks * (passes + grads),
             "maxpool_bwd_s1": POOLS_S1 * grads, "maxpool_bwd_strided": POOLS_STRIDED * grads,
-            "sepconv_bwd": len(SEPCONVS) * grads if fused else 0}
+            "sepconv_bwd": len(SEPCONVS) * grads if fused and not partial_bn else 0}
 
 
 def geometry(size: int = 112, batch: int = 128):

@@ -1,6 +1,7 @@
 """Model factory (counterpart of ``video_graph_ssl_tpu/models/build.py``)
-for the backbones ported so far (S3D and tiny3d, 3D, RGB) and the visual
-pretrain regimes (``CONTRAST.MEM_TYPE`` moco, bank, simsiam)."""
+for the backbones ported so far (S3D and tiny3d, 3D, RGB): the visual
+pretrain regimes (``CONTRAST.MEM_TYPE`` moco, bank, simsiam) and the
+downstream classifier (``create_video_model``)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 from .layers import init_params_
 from .s3d import S3D, S3D_FEATURE_DIM
 from .tiny import TINY3D_FEATURE_DIM, Tiny3D
-from .wrappers import ContrastWrapper, GraphWrapper, SimSiam, VisualEncoder
+from .wrappers import ContrastWrapper, GraphWrapper, SimSiam, VideoModel, VisualEncoder
 
 MEM_TYPES = ("moco", "bank", "simsiam")
 CMC_NOT_PORTED = ("CROSS.MODALITY {!r} (CMC) is not ported yet: ROADMAP.md, Queue 1, "
@@ -47,12 +48,10 @@ def graph_cfg_from(cfg) -> Dict[str, Any]:
                 mask_frame=g.MASK_FRAME, nei_size=g.NEI_SIZE)
 
 
-def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
-    """The SSL pretraining model, initialised on the CPU from
-    ``MODEL.SEED`` (or ``seed``); returns (module, backbone feature dim).
-    ``simsiam`` builds SimSiam's two-view model (hid_dim
-    ``CROSS.FEAT_DIM``), ``moco`` and ``bank`` the encoder + projection
-    head."""
+def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int]:
+    """The configured 3D backbone (graph blocks with ``MODEL.AUG_FLAG``, K5's
+    backward with ``TPU.SEPCONV_FUSED``) and its feature dim; raises for
+    what is not ported."""
     name = cfg.MODEL.BACKBONE
     if cfg.MODEL.BACKBONE_TYPE != "3D" or name not in BACKBONES_3D:
         raise NotImplementedError(
@@ -62,12 +61,9 @@ def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
         raise NotImplementedError("only RGB clips with NEW_LENGTH 1 are ported")
     if cfg.CROSS.MODALITY != "visual":
         raise NotImplementedError(CMC_NOT_PORTED.format(cfg.CROSS.MODALITY))
-    mem_type = cfg.CONTRAST.MEM_TYPE
-    if mem_type not in MEM_TYPES:
-        raise ValueError(f"Unknown CONTRAST.MEM_TYPE: {mem_type}")
     ctor, feat_dim, default_aug = BACKBONES_3D[name]
     aug = bool(cfg.MODEL.AUG_FLAG)
-    extra = {}
+    extra = {"partial_bn": True} if partial_bn else {}
     if bool(cfg.TPU.SEPCONV_FUSED):
         if name != "S3D":
             raise ValueError(f"TPU.SEPCONV_FUSED only applies to S3D, got {name}")
@@ -76,6 +72,19 @@ def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
         aug_points=(tuple(cfg.GRAPH.AUG_POINTS) or default_aug) if aug else (),
         graph_cfg=graph_cfg_from(cfg) if aug else None,
         dtype=compute_dtype(cfg), **extra)
+    return backbone, feat_dim
+
+
+def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
+    """The SSL pretraining model, initialised on the CPU from
+    ``MODEL.SEED`` (or ``seed``); returns (module, backbone feature dim).
+    ``simsiam`` builds SimSiam's two-view model (hid_dim
+    ``CROSS.FEAT_DIM``), ``moco`` and ``bank`` the encoder + projection
+    head."""
+    mem_type = cfg.CONTRAST.MEM_TYPE
+    backbone, feat_dim = create_backbone(cfg)
+    if mem_type not in MEM_TYPES:
+        raise ValueError(f"Unknown CONTRAST.MEM_TYPE: {mem_type}")
     encoder = VisualEncoder(backbone, float(cfg.MODEL.DROPOUT))
     hid_dim = int(cfg.CROSS.FEAT_DIM)
     if mem_type == "simsiam":
@@ -85,4 +94,21 @@ def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
                                              cfg.CROSS.HEAD_TYPE))
     gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED if seed is None else seed))
     init_params_(model, gen)
+    return model, feat_dim
+
+
+def create_video_model(cfg, seed: int = None) -> Tuple[VideoModel, int]:
+    """The downstream fine-tune / linear-probe classifier (JAX
+    ``create_video_model``), initialised on the CPU from ``MODEL.SEED`` (or
+    ``seed``): partial BN unless ``MODEL.NO_PARTIALBN``, ``MODEL.DROPOUT``
+    on the features, ``DATASET.NUM_CLASS`` logits; returns (module,
+    backbone feature dim)."""
+    backbone, feat_dim = create_backbone(cfg, partial_bn=not bool(cfg.MODEL.NO_PARTIALBN))
+    model = VideoModel(backbone, feat_dim, int(cfg.DATASET.NUM_CLASS),
+                       float(cfg.MODEL.DROPOUT))
+    gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED if seed is None else seed))
+    init_params_(model, gen)
+    with torch.no_grad():
+        torch.nn.init.normal_(model.new_fc.weight, 0.0, 0.001, generator=gen)
+        model.new_fc.bias.zero_()
     return model, feat_dim

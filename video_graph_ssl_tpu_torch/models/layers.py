@@ -74,6 +74,11 @@ class BatchNorm(nn.Module):
     JAX package's sharded step does, and every rank's running statistics
     take the same global update; ``per_rank`` (set only by
     ``sync_bn.per_rank_bn``, for ShuffleBN's key pass) keeps them local.
+
+    ``frozen`` (partial BN, :func:`freeze_bn_`): train mode normalises with
+    the running statistics and leaves them as they are, as eval mode does;
+    gradients still reach the scale, the bias and the input (flax
+    ``use_running_average`` under the JAX package's ``bn_frozen``).
     """
 
     def __init__(self, num_features: int, momentum: float, eps: float,
@@ -88,6 +93,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.per_rank = False
         self.sum_form = False
+        self.frozen = False
 
     def forward(self, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
@@ -100,13 +106,14 @@ class BatchNorm(nn.Module):
         # parity tests) gets float64 parameters
         pd = torch.float64 if x.dtype == torch.float64 else torch.float32
         w, b = self.weight.to(pd), self.bias.to(pd)
-        if self.training and not self.per_rank and (self.sum_form or dist.world_size() > 1):
+        live = self.training and not self.frozen
+        if live and not self.per_rank and (self.sum_form or dist.world_size() > 1):
             y, mean, var = sync_bn.SyncBatchNormFn.apply(x, w, b, self.eps, None)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
                 self.running_var.mul_(m).add_(var.float(), alpha=1.0 - m)
-        elif self.training:
+        elif live:
             y, mean, invstd = torch.native_batch_norm(
                 x, w, b, None, None, True, 0.0, self.eps)
             with torch.no_grad():
@@ -151,8 +158,10 @@ class SepConv3d(nn.Module):
     autograd function whose backward is the three-sweep kernel K5 on CUDA
     tensors, with flax's fast-variance batch statistics.  Eval mode, and
     other shapes (the k=7 stem), take the standard path, which in eval mode
-    is the same running-statistics composition.  The parameters and their
-    names do not change.
+    is the same running-statistics composition.  So does a pair whose BNs
+    are frozen (partial BN) in train mode: K5 computes the backward of
+    train-mode BN, which is not that pair's function (JAX
+    ``layers.py:373-395``).  The parameters and their names do not change.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
@@ -170,7 +179,7 @@ class SepConv3d(nn.Module):
         self.fused = bool(fused_bwd) and (k, s, p) == (3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and self.training:
+        if self.fused and self.training and not self.bn_s.frozen:
             return self._fused_train(x)
         dt = self.dtype
         for conv, bn in ((self.conv_s, self.bn_s), (self.conv_t, self.bn_t)):
@@ -252,6 +261,18 @@ class InceptionBlock(nn.Module):
     @staticmethod
     def out_channels(b0: int, b1: Sequence[int], b2: Sequence[int], b3: int) -> int:
         return b0 + b1[1] + b2[1] + b3
+
+
+def freeze_bn_(module: nn.Module) -> None:
+    """Partial BN: freeze every :class:`BatchNorm` of ``module`` outside its
+    graph blocks, whose BNs the JAX package runs in train mode."""
+    from ..ops.temporal_graph import TemporalGraphAug
+
+    graph = {id(b) for m in module.modules() if isinstance(m, TemporalGraphAug)
+             for b in m.modules()}
+    for m in module.modules():
+        if isinstance(m, BatchNorm) and id(m) not in graph:
+            m.frozen = True
 
 
 @torch.no_grad()

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
-from .layers import BasicConv3d, InceptionBlock, MaxPool3d, SepConv3d
+from .layers import BasicConv3d, InceptionBlock, MaxPool3d, SepConv3d, freeze_bn_
 
 _MIXED_SPECS = {
     5: (64, (96, 128), (16, 32), 32),
@@ -81,12 +81,17 @@ class S3D(nn.Module):
 
     ``fused_sepconv`` (``TPU.SEPCONV_FUSED``) gives the Mixed blocks' branch
     SepConvs the three-sweep backward (``SepConv3d.fused_bwd``); the stem
-    SepConvs keep the standard path, as in the JAX S3D."""
+    SepConvs keep the standard path, as in the JAX S3D.
+
+    ``partial_bn`` (downstream training unless ``MODEL.NO_PARTIALBN``)
+    freezes every BN after ``stem_0`` (``layers.freeze_bn_``): stage
+    granular as in the JAX S3D, so ``stem_0``'s two BNs stay live; the graph
+    blocks' BNs stay live too."""
 
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 fused_sepconv: bool = False):
+                 fused_sepconv: bool = False, partial_bn: bool = False):
         super().__init__()
         kw = dict(dtype=dtype)
         stages = [
@@ -115,6 +120,9 @@ class S3D(nn.Module):
             stages[idx] = nn.Sequential(graph, stages[idx])
         self.base = nn.Sequential(*stages)
         self.dtype = dtype
+        if partial_bn:
+            for stage in self.base[1:]:
+                freeze_bn_(stage)
 
     @property
     def feature_dim(self) -> int:

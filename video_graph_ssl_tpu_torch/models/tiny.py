@@ -1,6 +1,7 @@
 """Tiny 3D backbone for CPU tests (counterpart of
 ``video_graph_ssl_tpu/models/tiny.py``); its one graph-aug point is 1, the
-input of ``stage1``."""
+input of ``stage1``.  ``partial_bn`` freezes ``stage1`` and ``stage2``'s
+BNs, as the JAX Tiny3D does."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
-from .layers import BasicConv3d, max_pool_3d
+from .layers import BasicConv3d, freeze_bn_, max_pool_3d
 from .s3d import to_bthwc, to_ncdhw
 
 TINY3D_FEATURE_DIM = 64
@@ -19,7 +20,7 @@ TINY3D_FEATURE_DIM = 64
 class Tiny3D(nn.Module):
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, partial_bn: bool = False):
         super().__init__()
         self.stage0 = BasicConv3d(3, 16, 3, 2, 1, dtype=dtype)
         self.aug_points = tuple(int(i) for i in aug_points)
@@ -29,6 +30,9 @@ class Tiny3D(nn.Module):
         self.stage1 = BasicConv3d(16, 32, 3, 2, 1, dtype=dtype)
         self.stage2 = BasicConv3d(32, TINY3D_FEATURE_DIM, 1, 1, 0, dtype=dtype)
         self.dtype = dtype
+        if partial_bn:
+            freeze_bn_(self.stage1)
+            freeze_bn_(self.stage2)
 
     @property
     def feature_dim(self) -> int:

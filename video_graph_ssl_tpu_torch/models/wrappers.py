@@ -2,7 +2,8 @@
 encoder -> projection head (MoCo, bank) or SimSiam's two-view model, under
 the reference's ``GraphWrapper`` names (``model.encoder.base_model.*``,
 ``model.proj_head.head.*``; SimSiam: ``model.projection.*``,
-``model.prediction.*``).
+``model.prediction.*``); the downstream classifier ``VideoModel`` under the
+reference's ``VideoModelWrapper`` names (``base_model.*``, ``new_fc.*``).
 
 Clips arrive as ``(B, T, H, W, C)``; ``graph_seed`` keys the graph-block
 noise of one pass, and ``graph_rows`` (row0, global B), on a rank holding
@@ -19,25 +20,63 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.graph_kernel import global_rows
+from ..ops.temporal_graph import stage_seed
 from .heads import PredictionMLP, ProjectHead, ProjectionMLP, l2_normalize
 
 Rows = Optional[Tuple[int, int]]
+# the dropout's seed is the pass's graph seed keyed as one stage past the
+# last backbone stage (S3D's are 0-15)
+DROPOUT_STAGE = 16
+
+
+def keyed_dropout(x: torch.Tensor, p: float, seed: int, rows: Rows = None) -> torch.Tensor:
+    """Dropout of rate ``p`` whose keep mask is drawn from ``seed`` (with
+    ``rows``, those rows of the global batch's draw), so a step's mask is
+    its own stream's, on any device: kept entries are scaled by 1/(1-p)."""
+    full, row0 = global_rows(x.shape, rows)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(int(seed))
+    u = torch.rand(full, generator=gen, device=x.device)[row0:row0 + x.shape[0]]
+    return torch.where(u >= p, x / (1.0 - p), torch.zeros_like(x))
 
 
 class VisualEncoder(nn.Module):
-    """3D backbone + feature dropout -> (B, feat_dim)."""
+    """3D backbone + feature dropout -> (B, feat_dim).  The dropout runs in
+    train mode only, keyed on the pass's ``graph_seed``."""
 
     def __init__(self, backbone: nn.Module, dropout: float = 0.0):
         super().__init__()
         self.base_model = backbone
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
+        self.dropout = float(dropout)
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Rows = None) -> torch.Tensor:
         feat = self.base_model(x, graph_seed=graph_seed, graph_rows=graph_rows)
-        if self.dropout is not None:
-            feat = self.dropout(feat)
+        if self.training and self.dropout > 0:
+            feat = keyed_dropout(feat, self.dropout, stage_seed(graph_seed, DROPOUT_STAGE),
+                                 graph_rows)
         return feat
+
+
+class VideoModel(VisualEncoder):
+    """The downstream classifier (JAX ``VideoModel``): the encoder, then
+    ``new_fc``, an fp32 Linear initialised Normal(0, 0.001) with a zero bias
+    (``models/build.py:create_video_model``).  ``forward`` gives logits,
+    ``encode`` the encoder's features."""
+
+    def __init__(self, backbone: nn.Module, feat_dim: int, num_classes: int,
+                 dropout: float = 0.0):
+        super().__init__(backbone, dropout)
+        self.new_fc = nn.Linear(feat_dim, num_classes)
+
+    def encode(self, x: torch.Tensor, graph_seed: int = 0,
+               graph_rows: Rows = None) -> torch.Tensor:
+        return super().forward(x, graph_seed, graph_rows)
+
+    def forward(self, x: torch.Tensor, graph_seed: int = 0,
+                graph_rows: Rows = None) -> torch.Tensor:
+        return self.new_fc(self.encode(x, graph_seed, graph_rows).float())
 
 
 class ContrastWrapper(nn.Module):

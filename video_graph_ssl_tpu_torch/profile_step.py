@@ -1,4 +1,4 @@
-"""Where the pretrain step's time goes on the card.
+"""Where the pretrain or downstream step's time goes on the card.
 
     python -m video_graph_ssl_tpu_torch.profile_step \\
         --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
@@ -6,13 +6,22 @@
     python -m video_graph_ssl_tpu_torch.profile_step \\
         --config_file configs/visual_simsiam.yaml MODEL.AUG_FLAG True \\
         DATASET.SOURCE synthetic DATALOADER.BATCH_SIZE 32
+    python -m video_graph_ssl_tpu_torch.profile_step --downstream finetune \\
+        DATASET.SOURCE synthetic      # configs/action_fine_tune.yaml
+    python -m video_graph_ssl_tpu_torch.profile_step --downstream probe \\
+        DATASET.SOURCE synthetic      # configs/action_linear_probe.yaml
+
+``--downstream`` profiles ``train_ds``'s fused step (the ``train``
+augmentation, the forward, the backward and SGD) on the config given, by
+default the one named above.
 
 Builds the trainer, runs ``--warmup`` steps, times ``--steps`` steps, then
 traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities)
 and prints: the step time (host clock around synchronised steps, untraced
 and traced), the device-busy share (union of kernel intervals over wall
 time), device time by kernel class and by phase of the step (the spans of
-the regime ``CONTRAST.MEM_TYPE``: ``engine/pretrain.py:REGIME_PHASES``),
+the regime ``CONTRAST.MEM_TYPE`` or of the downstream step:
+``engine/pretrain.py:REGIME_PHASES``),
 for the bank the device time of its gather and logits, the top kernels and
 aten ops by device time, and ``max_memory_allocated``.  Needs a CUDA
 device; it never measures on the CPU.
@@ -37,6 +46,9 @@ from .ops import maxpool as mp
 from .ops import sepconv_bwd as sb
 from .engine.pretrain import PHASES, REGIME_PHASES
 from .train_video_contrast_dis import Trainer, load_config
+
+DOWNSTREAM_CONFIGS = {"finetune": "configs/action_fine_tune.yaml",
+                      "probe": "configs/action_linear_probe.yaml"}
 
 # kernel-name pattern -> class, first match wins
 CLASSES = (
@@ -98,7 +110,11 @@ def _device_us(event) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config_file", default="configs/visual_moco.yaml")
+    ap.add_argument("--config_file", default="",
+                    help="default: configs/visual_moco.yaml, or with --downstream "
+                         "the fine-tune or linear-probe config")
+    ap.add_argument("--downstream", default="", choices=["", *DOWNSTREAM_CONFIGS],
+                    help="profile train_ds's step instead of the pretrain step")
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
@@ -109,26 +125,43 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
 
-    cfg = load_config(args.config_file, args.opts)
+    config_file = args.config_file or DOWNSTREAM_CONFIGS.get(args.downstream,
+                                                             "configs/visual_moco.yaml")
+    cfg = load_config(config_file, args.opts)
     # the trainer's saver makes an experiment directory; this tool saves nothing
     run_dir = tempfile.mkdtemp(prefix="profile_step_run_")
     atexit.register(shutil.rmtree, run_dir, True)
-    trainer = Trainer(cfg, device="cuda", run_dir=run_dir)
+    if args.downstream:
+        from .train_ds import Trainer as DownstreamTrainer
+
+        trainer = DownstreamTrainer(cfg, device="cuda", run_dir=run_dir)
+        to_device = trainer.batch_to_device
+        lr = trainer.lr_fn(0)
+
+        def step(batch):
+            return trainer.train_step(*batch, lr)
+    else:
+        trainer = Trainer(cfg, device="cuda", run_dir=run_dir)
+        lr = trainer.lr_fn(0)
+
+        def to_device(b):
+            return trainer.to_device(b), trainer.index_of(b)
+
+        def step(batch):
+            return trainer.train_step(batch[0], lr, batch[1])
     bsz = trainer.batch_size
     n = args.warmup + 2 * args.steps
     epoch = trainer.train_loader.epoch(0)
-    batches = [(trainer.to_device(b), trainer.index_of(b))
-               for b in itertools.islice(epoch, n)]
+    batches = [to_device(b) for b in itertools.islice(epoch, n)]
     epoch.close()
     batches = (batches * n)[:n]   # an epoch may hold fewer batches than n
-    lr = trainer.lr_fn(0)
-    for clips, index in batches[:args.warmup]:
-        trainer.train_step(clips, lr, index)
+    for batch in batches[:args.warmup]:
+        step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for clips, index in batches[args.warmup:args.warmup + args.steps]:
-        trainer.train_step(clips, lr, index)
+    for batch in batches[args.warmup:args.warmup + args.steps]:
+        step(batch)
     torch.cuda.synchronize()
     plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -137,8 +170,8 @@ def main(argv=None) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for clips, index in batches[args.warmup + args.steps:]:
-            trainer.train_step(clips, lr, index)
+        for batch in batches[args.warmup + args.steps:]:
+            step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     step_ms = wall_ms / args.steps
@@ -164,7 +197,8 @@ def main(argv=None) -> None:
         if k5_product(e.name):
             by_product[k5_product(e.name)] += us
 
-    mem_type = cfg.CONTRAST.MEM_TYPE
+    mem_type = args.downstream or cfg.CONTRAST.MEM_TYPE
+    phases = REGIME_PHASES["downstream" if args.downstream else mem_type]
     print(f"device: {torch.cuda.get_device_name(0)}; regime {mem_type}; batch {bsz}; "
           f"{args.steps} traced steps after {args.warmup} warm-up; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (untraced steps)")
@@ -195,7 +229,7 @@ def main(argv=None) -> None:
     for e in prof.events():
         if e.name in PHASES and e.device_type == torch.autograd.DeviceType.CPU:
             phase_ms[e.name] += _device_us(e) / 1e3
-    for name in REGIME_PHASES[mem_type]:
+    for name in phases:
         if name != "backward":
             print(f"  {name:<12s} {phase_ms[name] / args.steps:8.2f} ms/step")
     rest = (dev_total - sum(phase_ms.values())) / args.steps

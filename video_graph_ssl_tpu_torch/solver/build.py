@@ -9,13 +9,17 @@ with lr and ``WEIGHT_DECAY``, biases with lr * ``BIAS_LR_FACTOR`` and
 ``WEIGHT_DECAY_BIAS`` (``tests/test_torch_moco_step.py`` checks it against
 the optax chain).  The per-step lr is written into each group as
 ``lr * group['lr_factor']``.
+
+``trainable`` (the linear probe's ``new_fc``) chooses the parameters the
+optimizer holds; the others take no step at all, which is what the JAX
+package's ``set_to_zero`` mask over the final updates gives them.
 """
 
 from __future__ import annotations
 
 import math
 from bisect import bisect_right
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -29,13 +33,17 @@ def label_params(model: nn.Module) -> Dict[str, str]:
             for name, _ in model.named_parameters()}
 
 
-def make_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
+def make_optimizer(cfg, model: nn.Module,
+                   trainable: Optional[Callable[[str], bool]] = None) -> torch.optim.Optimizer:
+    """SGD over ``model``'s parameters, or over those whose names
+    ``trainable`` accepts."""
     if bool(cfg.SOLVER.USE_TRICK):
         raise NotImplementedError("SOLVER.USE_TRICK policies are not ported yet")
     if cfg.SOLVER.OPTIMIZER_NAME != "SGD":
         raise NotImplementedError(
             f"optimizer {cfg.SOLVER.OPTIMIZER_NAME} is not ported yet (SGD is)")
-    labels = label_params(model)
+    labels = {n: lab for n, lab in label_params(model).items()
+              if trainable is None or trainable(n)}
     params = dict(model.named_parameters())
     groups = []
     for label, wd, factor in (

@@ -1,0 +1,235 @@
+"""Downstream action recognition on a GPU: fine-tune or linear probe -- the
+port's counterpart of ``tools/train_ds.py``, same CLI and YAML::
+
+    python -m video_graph_ssl_tpu_torch.train_ds \\
+        --config_file configs/action_fine_tune.yaml DATASET.SOURCE synthetic \\
+        [--ssl_checkpoint run/.../checkpoint_N.pth.tar] --max_steps 5
+
+The encoder starts from a pretrain checkpoint of the port's trainer
+(``--ssl_checkpoint`` or ``MODEL.PRETRAIN_PATH``; MoCo, SimSiam or bank) by
+checkpoint surgery, with a fresh ``new_fc``; ``/`` or ``none`` means a
+random encoder.  ``MODEL.LINEAR_PROBE True`` trains ``new_fc`` alone;
+``MODEL.PROBE_BN`` then chooses the encoder's BN: ``eval`` (the whole model
+in eval mode) or ``reference`` (the reference's partial-BN train mode:
+``stem_0``'s BNs live, the rest on running statistics).  Fine-tuning runs
+partial BN unless ``MODEL.NO_PARTIALBN``.
+
+Each epoch trains, then validates every ``CHECKPOINT.EVAL_INTERVAL``
+epochs (top-1/top-5 of the concatenated logits, ``model_best_state.pth.tar``
+when top-1 improves), with ``checkpoint_<epoch>.pth.tar`` every
+``CHECKPOINT.CHECKPOINT_INTERVAL``.  SIGTERM finishes the step, writes
+``checkpoint_preempt.pth.tar`` and exits 0.  ``--max_steps`` caps the steps
+of an epoch and the batches of a validation, and stops after the first
+epoch.  Runs live under ``run/<dataset>/<checkname>/experiment_NN``.
+
+``--device`` defaults to ``cuda`` and raises when no GPU is present.  One
+process only: a world size above 1 raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import threading
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .data.build import make_data_loader
+from .data.pipeline import to_device
+from .engine.build import DOWNSTREAM_ACROSS_RANKS, create_downstream_state
+from .engine.downstream import make_fused_downstream_step, make_fused_eval_step
+from .models.build import create_video_model
+from .parallel import dist
+from .solver.build import make_lr_scheduler
+from .train_video_contrast_dis import load_config, resolve_device
+from .utils.checkpoint import load_params_only, transfer_encoder_params
+from .utils.meters import AverageMeter, accuracy
+from .utils.summary import creat_saver
+
+PROBE_BN_MODES = ("eval", "reference")
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Downstream action training on a GPU (PyTorch port)")
+    parser.add_argument("--config_file", default="", type=str)
+    parser.add_argument("--ssl_checkpoint", default="", type=str,
+                        help="pretrain checkpoint to initialise the encoder from "
+                             "(MODEL.PRETRAIN_PATH also works)")
+    parser.add_argument("--max_steps", default=0, type=int,
+                        help="cap the steps of an epoch and the batches of a "
+                             "validation, and stop after one epoch (0 = unlimited)")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device to train on (default: cuda)")
+    parser.add_argument("opts", nargs="*", help="config overrides: KEY VALUE ...")
+    return parser
+
+
+def bn_train_of(config) -> bool:
+    """Whether the train step runs the model in train mode: always when
+    fine-tuning, under ``PROBE_BN reference`` when probing."""
+    probe_bn = str(config.MODEL.PROBE_BN)
+    if probe_bn not in PROBE_BN_MODES:
+        raise ValueError(f"MODEL.PROBE_BN must be one of {PROBE_BN_MODES}, got {probe_bn}")
+    return not bool(config.MODEL.LINEAR_PROBE) or probe_bn == "reference"
+
+
+class Trainer:
+    """Counterpart of the JAX tool's Trainer: the model, the downstream
+    state, the surgery, the fused train and eval steps, the loaders, the
+    LR schedule, the saver and the meters."""
+
+    def __init__(self, config, ssl_checkpoint: str = "", max_steps: int = 0,
+                 device: str = "cuda", run_dir: str = "run"):
+        self.cfg = config
+        self.max_steps = int(max_steps)
+        self.bn_train = bn_train_of(config)
+        self.device = resolve_device(device)
+        model, _ = create_video_model(config)
+        # raises at a world size above 1
+        self.state = create_downstream_state(config, model, self.device)
+        self._load_ssl_checkpoint(ssl_checkpoint or config.MODEL.PRETRAIN_PATH)
+        self.step_fn = make_fused_downstream_step(config, self.bn_train)
+        self.eval_fn = make_fused_eval_step(config)
+        self.train_loader = make_data_loader(config, is_train=True)
+        self.val_loader = make_data_loader(config, is_train=False)
+        self.lr_fn = make_lr_scheduler(config)
+        self.saver, self.writer = creat_saver(config, base_dir=run_dir)
+        self.batch_size = int(config.DATALOADER.BATCH_SIZE)
+        self.best_pred = 0.0
+        self.meters = {k: AverageMeter() for k in ("batch_time", "data_time", "loss",
+                                                   "top1", "top5")}
+        self._preempted = False
+
+    def _on_sigterm(self, signum, frame):
+        print("=> SIGTERM: checkpointing after the current step...", flush=True)
+        self._preempted = True
+
+    def _load_ssl_checkpoint(self, path) -> None:
+        """Checkpoint surgery (reference: train_ds.py:65-84)."""
+        if not path or str(path) in ("none", "/"):
+            return
+        if not os.path.exists(path):
+            raise RuntimeError(f"=> no SSL checkpoint found at '{path}'")
+        sd, meta = load_params_only(path)
+        transfer_encoder_params(sd, self.state.model)
+        print(f"=> initialized encoder from '{path}' (epoch {meta.get('epoch')}), "
+              "new_fc randomly initialized", flush=True)
+
+    def batch_to_device(self, batch: dict):
+        """(raw uint8 clips, int64 labels) of a host batch on the device."""
+        return (to_device(batch["clips"], self.device),
+                to_device(batch["label"].astype(np.int64), self.device))
+
+    def train_step(self, clips: torch.Tensor, labels: torch.Tensor,
+                   lr: float) -> Dict[str, torch.Tensor]:
+        return self.step_fn(self.state, clips, labels, lr)
+
+    def _capped(self, i: int) -> bool:
+        return bool(self.max_steps) and i + 1 >= self.max_steps
+
+    def training(self, epoch: int) -> None:
+        for m in self.meters.values():
+            m.reset()
+        lr = self.lr_fn(epoch)
+        n_iter = len(self.train_loader)
+        print_freq = int(self.cfg.CHECKPOINT.PRINT_FREQ)
+        bsz = self.batch_size
+        batches = self.train_loader.epoch(epoch)
+        end = time.time()
+        try:
+            for i, batch in enumerate(batches):
+                self.meters["data_time"].update(time.time() - end)
+                metrics = self.train_step(*self.batch_to_device(batch), lr)
+                if i % print_freq == 0 or i == n_iter - 1:
+                    m = {k: float(v) for k, v in metrics.items()}   # device sync
+                    for k in ("loss", "top1", "top5"):
+                        self.meters[k].update(m[k], bsz)
+                    self.meters["batch_time"].update(time.time() - end)
+                    self.writer.add_scalar("train/total_loss_iter", m["loss"],
+                                           i + n_iter * epoch)
+                    mt = self.meters
+                    print(f"Epoch: [{epoch}][{i}/{n_iter}], lr: {lr:.5f}\t"
+                          f"Time {mt['batch_time'].val:.3f} ({mt['batch_time'].avg:.3f})\t"
+                          f"Loss {mt['loss'].val:.4f} ({mt['loss'].avg:.4f})\t"
+                          f"Prec@1 {mt['top1'].val:.3f} ({mt['top1'].avg:.3f})\t"
+                          f"Prec@5 {mt['top5'].val:.3f} ({mt['top5'].avg:.3f})", flush=True)
+                end = time.time()
+                if self._preempted:
+                    print("======>Preemption Checkpoint...", flush=True)
+                    self.saver.save_checkpoint(self.state, epoch, self.best_pred,
+                                               filename="checkpoint_preempt.pth.tar")
+                    return
+                if self._capped(i):
+                    break
+        finally:
+            batches.close()
+        self.writer.add_scalar("train/loss", self.meters["loss"].avg, epoch)
+        self.writer.add_scalar("train/top1_acc", self.meters["top1"].avg, epoch)
+        self.writer.add_scalar("lr", lr, epoch)
+
+    def validation(self, epoch: int) -> float:
+        """Top-1/top-5 of the concatenated logits; ``model_best_state``
+        when top-1 improves (reference: train_ds.py:164-221)."""
+        all_logits, all_labels = [], []
+        batches = self.val_loader.epoch(epoch)
+        try:
+            for i, batch in enumerate(batches):
+                clips = to_device(batch["clips"], self.device)
+                all_logits.append(self.eval_fn(self.state.model, clips).float().cpu().numpy())
+                all_labels.append(batch["label"])
+                if self._capped(i):
+                    break
+        finally:
+            batches.close()
+        logits, labels = np.concatenate(all_logits), np.concatenate(all_labels)
+        top1, top5 = accuracy(logits, labels, topk=(1, 5))
+        print(f"Validation: [Epoch: {epoch}] Prec@1 {top1:.3f} Prec@5 {top5:.3f}", flush=True)
+        self.writer.add_scalar("val/top1_acc", top1, epoch)
+        self.writer.add_scalar("val/top5_acc", top5, epoch)
+        if top1 > self.best_pred:
+            self.best_pred = top1
+            self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred, is_best=True,
+                                       filename="model_best_state.pth.tar")
+        return top1
+
+    def run(self) -> None:
+        main = threading.current_thread() is threading.main_thread()
+        previous = signal.signal(signal.SIGTERM, self._on_sigterm) if main else None
+        try:
+            for epoch in range(int(self.cfg.SOLVER.START_EPOCH),
+                               int(self.cfg.SOLVER.MAX_EPOCHS)):
+                self.training(epoch)
+                if self._preempted:
+                    break
+                if (not bool(self.cfg.CHECKPOINT.NO_VAL)
+                        and (epoch + 1) % int(self.cfg.CHECKPOINT.EVAL_INTERVAL) == 0):
+                    self.validation(epoch)
+                if (epoch + 1) % int(self.cfg.CHECKPOINT.CHECKPOINT_INTERVAL) == 0:
+                    print("======>Saving Checkpoint...", flush=True)
+                    self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
+                                               filename=f"checkpoint_{epoch + 1}.pth.tar")
+                if self.max_steps:
+                    break
+        finally:
+            if main:
+                signal.signal(signal.SIGTERM, previous)
+            self.writer.close()
+
+
+def main(argv: Optional[list] = None) -> None:
+    args = get_parser().parse_intermixed_args(argv)
+    if dist.launched_by_torchrun() and int(os.environ["WORLD_SIZE"]) > 1:
+        raise NotImplementedError(DOWNSTREAM_ACROSS_RANKS)
+    config = load_config(args.config_file, args.opts)
+    print(f"Running with config:\n{config}")
+    Trainer(config, ssl_checkpoint=args.ssl_checkpoint, max_steps=args.max_steps,
+            device=args.device).run()
+
+
+if __name__ == "__main__":
+    main()

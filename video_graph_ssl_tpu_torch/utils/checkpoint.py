@@ -16,6 +16,14 @@ seeds, so a resumed run continues the same random streams.  The metadata
 Under several ranks the state is replicated, so one file holds it: the
 ``Saver`` writes it from rank 0 while the other ranks wait at a barrier,
 and every rank loads it on resume.
+
+A downstream checkpoint is the same file over a ``VideoModel``: its
+``state_dict`` has the reference ``VideoModelWrapper``'s names
+(``base_model.*``, ``new_fc.*``) and it holds no ``contrast`` and no
+``model_ema``; :func:`load_checkpoint_state` restores it (JAX
+``load_checkpoint_any``: the port writes single files only).
+:func:`transfer_encoder_params` is the SSL -> downstream surgery (JAX
+``load_params_only`` + ``transfer_encoder_params``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 META_KEYS = ("epoch", "best_pred", "step")
+SSL_ENCODER = "model.encoder.base_model."
+CMC_NOT_PORTED = ("a CMC pretrain checkpoint ('model_1' encoder) is not ported yet: "
+                  "ROADMAP.md, Queue 1, item 4b, CMC moco and bank")
 
 
 def _contrast(contrast) -> Optional[Dict[str, Any]]:
@@ -97,6 +108,27 @@ def load_checkpoint_state(path: str, state) -> Dict[str, Any]:
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
     return payload["meta"]
+
+
+def load_params_only(path: str):
+    """(state_dict, meta) of a checkpoint on the CPU, for surgery."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return payload["state_dict"], payload.get("meta", {})
+
+
+def transfer_encoder_params(ssl_state_dict: Dict[str, torch.Tensor], model) -> None:
+    """Checkpoint surgery: load the encoder of a port pretrain checkpoint's
+    ``state_dict`` (MoCo, SimSiam or bank: ``model.encoder.base_model.*``)
+    into ``model``'s ``base_model``, strictly, keeping its fresh
+    ``new_fc``; the projection heads are dropped (the checkpoint's EMA
+    encoder and memory are not in its ``state_dict``)."""
+    if any(k.startswith("model_1.") for k in ssl_state_dict):
+        raise NotImplementedError(CMC_NOT_PORTED)
+    enc = {k[len(SSL_ENCODER):]: v for k, v in ssl_state_dict.items()
+           if k.startswith(SSL_ENCODER)}
+    if not enc:
+        raise KeyError(f"no '{SSL_ENCODER}*' entries: not a pretrain checkpoint")
+    model.base_model.load_state_dict(enc, strict=True)
 
 
 def mismatches(a: Any, b: Any, prefix: str = "") -> List[str]:

@@ -1,6 +1,10 @@
 """Weight bridge: the JAX package's ``GraphWrapper`` variables -> the port's
 ``state_dict``, and a whole JAX ``TrainState`` -> the port's live
-``PretrainState`` (:func:`pretrain_state_from_jax`).
+``PretrainState`` (:func:`pretrain_state_from_jax`); likewise a JAX
+``VideoModel``'s variables -> the port's ``VideoModel``
+(:func:`downstream_state_dict`, the names of JAX
+``export_downstream_to_torch``) and a JAX downstream ``TrainState`` -> the
+port's downstream state (:func:`downstream_state_from_jax`).
 
 Numpy only (no JAX import): ``params`` and ``batch_stats`` are the JAX
 model's nested dicts with numpy leaves.  Names are the reference's, the
@@ -253,4 +257,62 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
         state.contrast.ptr = int(contrast["ptr"])
     elif contrast is not None:
         state.contrast.memory.copy_(torch.from_numpy(np.array(contrast["memory"])))
+    state.step = int(tree["step"])
+
+
+def downstream_state_dict(params: dict, batch_stats: dict, backbone: str = "S3D",
+                          graph_sub_sample: bool = True) -> SD:
+    """JAX ``VideoModel`` variables -> the port's ``VideoModel`` state_dict
+    (``base_model.*``, ``new_fc.*``), as numpy arrays."""
+    enc = BACKBONES[backbone](params["encoder"]["base_model"],
+                              batch_stats["encoder"]["base_model"], graph_sub_sample)
+    out = {f"base_model.{k}": v for k, v in enc.items()}
+    _dense(out, "new_fc", params["new_fc"])
+    return out
+
+
+def _backbone_of(params: dict) -> str:
+    return "S3D" if "mixed_3b" in params["encoder"]["base_model"] else "tiny3d"
+
+
+def load_downstream_weights(model: nn.Module, params: dict, batch_stats: dict,
+                            backbone: str = None, graph_sub_sample: bool = True) -> None:
+    """Load JAX ``VideoModel`` variables into the port's with ``strict=True``."""
+    sd = downstream_state_dict(params, batch_stats, backbone or _backbone_of(params),
+                               graph_sub_sample)
+    model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                           for k, v in sd.items()}, strict=True)
+
+
+def downstream_state_from_jax(tree: dict, state) -> None:
+    """Load a JAX downstream ``TrainState`` (a ``.msgpack`` checkpoint's
+    ``state``, numpy leaves) into the port's downstream state: parameters,
+    BN statistics, the SGD momentum of the parameters the port's optimizer
+    holds (all of them, or ``new_fc``'s for the linear probe; bias traces
+    divided by their ``lr_factor`` as in :func:`pretrain_state_from_jax`)
+    and the step."""
+    backbone = _backbone_of(tree["params"])
+    want = set(state.model.state_dict())
+    for sub_sample in (True, False):
+        sd = downstream_state_dict(tree["params"], tree["batch_stats"], backbone, sub_sample)
+        if set(sd) == want:
+            break
+    else:
+        raise KeyError(f"the JAX {backbone} state does not name the port's "
+                       f"parameters: {sorted(want ^ set(sd))[:8]}")
+    state.model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                                 for k, v in sd.items()}, strict=True)
+    trace = _find_key(tree["opt_state"], "trace")
+    if trace is None:
+        raise KeyError("no optax trace (SGD momentum) in the JAX opt_state")
+    traces = downstream_state_dict(trace, tree["batch_stats"], backbone, sub_sample)
+    opt = state.optimizer
+    factor = {id(p): g["lr_factor"] for g in opt.param_groups for p in g["params"]}
+    for name, p in state.model.named_parameters():
+        if id(p) not in factor:
+            continue
+        buf = torch.from_numpy(np.array(traces[name], np.float32) / factor[id(p)])
+        opt.state[p]["momentum_buffer"] = buf.to(p.device).contiguous(
+            memory_format=torch.channels_last_3d if p.dim() == 5
+            else torch.contiguous_format)
     state.step = int(tree["step"])
