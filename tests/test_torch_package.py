@@ -1,9 +1,10 @@
 """Package-level properties of the PyTorch port.
 
 * Importing the port (every module, the shard builder, the native JPEG
-  pool's loader and the downstream tools included), building its S3D
-  pretrain and downstream models and states and drawing a batch from its
-  loader never imports JAX, nor the JAX package; the port's copy of the
+  pool's loader, the downstream tools and the graph-benefit runner
+  included), building its S3D pretrain and downstream models and states
+  and the runner's tiny3d state, and drawing a batch from its loader and
+  a probe set never imports JAX, nor the JAX package; the port's copy of the
   config schema equals the JAX package's.
 * The kernel wrappers take their plain versions only for CPU tensors; on
   CUDA tensors they launch the kernel or raise (``cuda`` marker: skipped
@@ -118,7 +119,7 @@ def test_port_never_imports_jax():
         from video_graph_ssl_tpu_torch.data.native import native_jpeg_available
         from video_graph_ssl_tpu_torch.utils import checkpoint, meters, saver, summary
         from video_graph_ssl_tpu_torch.parallel import dist, shuffle_bn, sync_bn
-        from video_graph_ssl_tpu_torch import test_ds, train_ds, video_retrieval
+        from video_graph_ssl_tpu_torch import graph_benefit, test_ds, train_ds, video_retrieval
         from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
         from video_graph_ssl_tpu_torch.engine.downstream import make_fused_downstream_step
         from video_graph_ssl_tpu_torch.models.build import create_video_model
@@ -139,6 +140,9 @@ def test_port_never_imports_jax():
         ft = load_config({os.path.join(REPO, 'configs', 'action_fine_tune.yaml')!r}, [])
         create_downstream_state(ft, create_video_model(ft)[0], 'cpu')
         make_fused_downstream_step(ft)
+        ab = graph_benefit.make_cfg('bank', True, 8, 16)
+        create_pretrain_state(ab, create_visual_model(ab)[0], 'cpu', n_data=48)
+        assert synthetic.temporal_shortcut_clips(per_class=1)[0].shape == (4, 2, 8, 16, 16, 3)
         bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))
         assert not bad, bad
         jax_pkg = sorted(m for m in sys.modules if m.split('.')[0] == 'video_graph_ssl_tpu')

@@ -89,25 +89,39 @@ SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
 HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 3: 7, 1: 3}
 # graph blocks per encoder pass, and each kernel's calls per backward pass
 AUG_POINTS, POOLS_S1, POOLS_STRIDED = 3, 9, 4
+# the same per backbone: tiny3d (the graph-benefit A/B's) has one graph
+# block (aug point 1) and one strided pool, (1, 2, 2) after stage1
+BACKBONE_CALLS = {"S3D": (AUG_POINTS, POOLS_S1, POOLS_STRIDED), "tiny3d": (1, 0, 1)}
 # (encoder passes, passes with a backward) of each regime's step, and of the
 # downstream steps (engine/downstream.py)
 REGIME_PASSES = {"moco": (2, 1), "simsiam": (2, 2), "bank": (1, 1),
                  "finetune": (1, 1), "probe": (1, 0), "eval": (1, 0)}
 
 
+def gpu_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
 def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
-               graph: bool = True) -> dict:
+               graph: bool = True, backbone: str = "S3D") -> dict:
     """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
-    graph blocks at 5, 9, 14 with ``graph``, ``MODEL.AUG_FLAG``): K1 and K2
-    once per block and pass, K2 again (transposed) in each backward, K3/K4
-    in each backward, K5 (with ``TPU.SEPCONV_FUSED``) in each backward
-    unless ``partial_bn`` freezes the pairs' BNs, which takes them off K5."""
+    graph blocks at 5, 9, 14 with ``graph``, ``MODEL.AUG_FLAG``; or tiny3d,
+    one block at 1, one strided pool): K1 and K2 once per block and pass,
+    K2 again (transposed) in each backward, K3/K4 in each backward, K5
+    (with ``TPU.SEPCONV_FUSED``, S3D only) in each backward unless
+    ``partial_bn`` freezes the pairs' BNs, which takes them off K5."""
     passes, grads = REGIME_PASSES[mem_type]
-    blocks = AUG_POINTS if graph else 0
+    aug_points, pools_s1, pools_strided = BACKBONE_CALLS[backbone]
+    blocks = aug_points if graph else 0
+    sepconvs = len(SEPCONVS) if backbone == "S3D" else 0
     return {"graph_adjacency": blocks * passes,
             "gcn_propagate": blocks * (passes + grads),
-            "maxpool_bwd_s1": POOLS_S1 * grads, "maxpool_bwd_strided": POOLS_STRIDED * grads,
-            "sepconv_bwd": len(SEPCONVS) * grads if fused and not partial_bn else 0}
+            "maxpool_bwd_s1": pools_s1 * grads, "maxpool_bwd_strided": pools_strided * grads,
+            "sepconv_bwd": sepconvs * grads if fused and not partial_bn else 0}
 
 
 def geometry(size: int = 112, batch: int = 128):
@@ -223,9 +237,7 @@ def main(argv=None) -> int:
     from video_graph_ssl_tpu_torch.ops import maxpool as mp
     from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
 
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    gpu = gpu_line()
     src = os.path.dirname(gk.__file__)
     print(f"kernel_times {args.tag}: {gpu}; port from {src}")
     dev = torch.device("cuda", 0)
