@@ -135,6 +135,25 @@ Phases (each raises on failure; the script then exits non-zero):
    K1-K5 calls of exactly that pair held to ``kernel_times.step_calls(...,
    backbone="tiny3d")`` and the shapes each kernel saw to the tables; it
    fails when an arm does not train or the margin is below ``AB_MARGIN``.
+12. downstream across ranks, ``train_ds`` from a graph-on MoCo checkpoint
+   that the phase writes, ``MODEL.AUG_FLAG True``, 3 steps per run: (a) the
+   fine-tune (``configs/action_fine_tune.yaml``: S3D, bs 32, 16x112x112, 101
+   classes, DROPOUT 0.7, partial BN, bf16) as one rank in an NCCL group
+   against no group, bit for bit, with the step's kernel counts; (b) two
+   rank processes sharing the card over gloo, 16 rows each: the fine-tune
+   and the linear probe (``configs/action_linear_probe.yaml``) under
+   ``PROBE_BN reference`` and ``eval`` in bf16 (bit-equal ranks, each
+   rank's K1-K4 counts held to ``kernel_times.step_calls``, step host ms,
+   peak memory), then the fine-tune and the reference probe in fp32 against
+   one process (sum-form BN, repeated bit for bit) within ``TOL_DS_RANKS``,
+   beside the same ranks with BN per rank, which must exceed a bound; (c)
+   ``test_ds`` (202 videos in batches of 45) and ``video_retrieval`` (15
+   videos per split in batches of 5) through their ``main`` on the same two
+   ranks, bf16 and fp32: rank 0 alone prints the report and writes, and its
+   scores and features equal one process's within ``TOL["fp32"]``; (d) K1,
+   K2 and K3/K4 against their plain versions at a rank's shapes (bs 16,
+   16x112x112, bf16), K1's draw at clip 16 equal to those rows of the draw
+   over 32 clips, bit for bit.
 
 Each phase prints its wall seconds.  Times are CUDA events around one
 call, the median of 20 calls (10 for K5; ``kernel_times.event_ms``).  ``bound``
@@ -1173,17 +1192,27 @@ def _cpu(obj):
     return obj
 
 
+def _stepper(trainer):
+    """(feed, step) of a pretrain or a ``train_ds`` Trainer: feed(host batch)
+    -> the step's device inputs, step(inputs, lr) -> metrics."""
+    if hasattr(trainer, "batch_to_device"):   # train_ds: (clips, labels)
+        return trainer.batch_to_device, lambda x, lr: trainer.train_step(*x, lr)
+    return (lambda b: (trainer.to_device(b), trainer.index_of(b)),
+            lambda x, lr: trainer.train_step(x[0], lr, x[1]))
+
+
 def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
-    """n steps of ``trainer`` on its first n batches (its rows of them under
-    a group), the kernel counts read around exactly those steps; the
-    parameters before the steps and after the first, and the state after
-    them, on the CPU.  ``bn_mode`` (``sync_bn.sum_form_bn`` or
-    ``per_rank_bn``) is entered on the query and EMA models for the steps."""
+    """n steps of ``trainer`` (the pretrain trainer's or ``train_ds``'s) on
+    its first n batches (its rows of them under a group), the kernel counts
+    read around exactly those steps; the parameters before the steps and
+    after the first, and the state after them, on the CPU.  ``bn_mode``
+    (``sync_bn.sum_form_bn`` or ``per_rank_bn``) is entered on the query and
+    EMA models for the steps."""
     from video_graph_ssl_tpu_torch.utils.checkpoint import checkpoint_payload
 
+    feed, step = _stepper(trainer)
     epoch = trainer.train_loader.epoch(0)
-    batches = [(trainer.to_device(b), trainer.index_of(b))
-               for b in itertools.islice(epoch, n)]
+    batches = [feed(b) for b in itertools.islice(epoch, n)]
     epoch.close()
     init = _cpu(trainer.state.model.state_dict())
     lr = trainer.lr_fn(0)
@@ -1194,10 +1223,11 @@ def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
     with contextlib.ExitStack() as modes:
         if bn_mode is not None:
             for m in (trainer.state.model, trainer.state.ema_model):
-                modes.enter_context(bn_mode(m))
-        for clips, index in batches:
+                if m is not None:
+                    modes.enter_context(bn_mode(m))
+        for inputs in batches:
             t0 = time.perf_counter()
-            metrics = trainer.train_step(clips, lr, index)
+            metrics = step(inputs, lr)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(metrics["loss"]))
@@ -1217,19 +1247,35 @@ def _want_counts(n: int = RANK_STEPS, mem_type: str = "moco", fused: bool = Fals
 
 
 def rank_run(opts: list, config: str = CONFIG, per_rank: bool = False,
-             try_fused: bool = False) -> dict:
+             try_fused: bool = False, ssl: str = None) -> dict:
     """One run of a rank process: RANK_STEPS steps of the trainer on
-    ``config`` + ``opts``; ``per_rank``: the control, BN per rank;
-    ``try_fused``: then build a ``TPU.SEPCONV_FUSED True`` trainer, which
-    must raise at world size 2."""
-    return {"config": config, "opts": opts, "per_rank": per_rank, "try_fused": try_fused}
+    ``config`` + ``opts`` (``train_ds``'s from the pretrain checkpoint
+    ``ssl`` where one is given, else the pretrain trainer's); ``per_rank``:
+    the control, BN per rank; ``try_fused``: then build a
+    ``TPU.SEPCONV_FUSED True`` trainer, which must raise at world size 2."""
+    return {"config": config, "opts": opts, "per_rank": per_rank, "try_fused": try_fused,
+            "ssl": ssl}
+
+
+def make_trainer(run: dict, device: str, run_dir: str):
+    """The trainer of a ``rank_run``: ``train_ds``'s when it names an
+    ``ssl`` checkpoint, else the pretrain trainer."""
+    from video_graph_ssl_tpu_torch import train_ds
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+
+    c = load_config(run["config"], run["opts"])
+    if run["ssl"] is not None:
+        return train_ds.Trainer(c, ssl_checkpoint=run["ssl"], max_steps=RANK_STEPS,
+                                device=device, run_dir=run_dir)
+    return Trainer(c, max_steps=RANK_STEPS, device=device, run_dir=run_dir)
 
 
 def _rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: list,
                run_dir: str) -> None:
-    """One rank of phase 8 or 9 (d), in its own process (on cuda:0 over
-    gloo, on cuda:rank over NCCL): each of ``runs`` (``rank_run``) in turn,
-    each on a new trainer."""
+    """One rank of phase 8, 9 (d) or 12, in its own process (on cuda:0 over
+    gloo, on cuda:rank over NCCL): each of ``runs`` in turn, each a
+    ``rank_run`` on a new trainer, or ``{"eval_tools": (best, ssl, dtype)}``
+    for phase 12 (c)'s ``eval_tools``."""
     from video_graph_ssl_tpu_torch.parallel import dist, sync_bn
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
@@ -1242,8 +1288,10 @@ def _rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: l
     try:
         results = []
         for run in runs:
-            trainer = Trainer(load_config(run["config"], run["opts"]), max_steps=RANK_STEPS,
-                              device=device, run_dir=run_dir)
+            if "eval_tools" in run:
+                results.append(eval_tools(device, run_dir, f"rank{rank}", *run["eval_tools"]))
+                continue
+            trainer = make_trainer(run, device, run_dir)
             res = drive_steps(trainer,
                               bn_mode=sync_bn.per_rank_bn if run["per_rank"] else None)
             res["rows"] = trainer.batch_slice
@@ -1302,11 +1350,13 @@ def _update(res, after: str = "state") -> torch.Tensor:
                       if v.is_floating_point() and "running" not in k])
 
 
-def hold_ranks(tag: str, ranks: list, gpu: str, layout: str) -> None:
+def hold_ranks(tag: str, ranks: list, gpu: str, layout: str, want: dict = None) -> None:
     """All ranks: bit-equal states and losses, K1-K4 launched at the step's
-    counts; their step host times and peak memory."""
+    counts (``want``, default the MoCo step's); their step host times and
+    peak memory."""
     from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
 
+    want = want or _want_counts()
     for r in range(1, len(ranks)):
         bad = mismatches(ranks[0]["state"], ranks[r]["state"])
         print(f"  {tag}: rank 0 vs rank {r} state: {len(bad)} entries differ (want 0, bit "
@@ -1317,8 +1367,8 @@ def hold_ranks(tag: str, ranks: list, gpu: str, layout: str) -> None:
         print(f"  {tag}: rank {r} rows {res['rows']}, DDP {res['ddp']}: kernel calls "
               f"{res['counts']}; step host ms {[round(x, 1) for x in res['ms']]} ({layout}); "
               f"max_memory_allocated {res['peak_gib']:.2f} GiB on {gpu}")
-        if res["counts"] != _want_counts():
-            raise RuntimeError(f"{tag}: rank {r} kernel calls {res['counts']} != {_want_counts()}")
+        if res["counts"] != want:
+            raise RuntimeError(f"{tag}: rank {r} kernel calls {res['counts']} != {want}")
         if not all(math.isfinite(x) for x in res["losses"]):
             raise RuntimeError(f"{tag}: non-finite loss {res['losses']}")
 
@@ -1378,15 +1428,15 @@ def control_fails(tag: str, control: list, one: dict, bsz: int, tol: dict) -> di
     return errs
 
 
-def one_process_twice(opts: list, tag: str, gpu: str) -> dict:
-    """The one-process trainer's run of phase 8 with the ranks' BN function,
-    twice: the second run must repeat the first bit for bit."""
+def one_process_twice(opts: list, tag: str, gpu: str, config: str = CONFIG,
+                      ssl: str = None) -> dict:
+    """The one-process trainer's run of phase 8 or 12 (``rank_run``'s
+    arguments) with the ranks' BN function, twice: the second run must
+    repeat the first bit for bit."""
     from video_graph_ssl_tpu_torch.parallel import sync_bn
-    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
     from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
 
-    one, again = (drive_steps(Trainer(load_config(CONFIG, opts), max_steps=RANK_STEPS,
-                                      device="cuda", run_dir=RUN_DIR),
+    one, again = (drive_steps(make_trainer(rank_run(opts, config, ssl=ssl), "cuda", RUN_DIR),
                               bn_mode=sync_bn.sum_form_bn) for _ in range(2))
     bad = mismatches(one["state"], again["state"])
     print(f"  {tag}: one process (sum-form BN): step host ms "
@@ -1677,26 +1727,23 @@ def regime_ranks(gpu: str) -> None:
                 raise RuntimeError(f"(d) {mem_type}: non-finite loss {res['losses']}")
 
 
-def regime_nccl_one_rank(gpu: str, mem_type: str) -> None:
-    """(d) one rank in an NCCL group against the trainer without a group,
-    RANK_STEPS steps under cudnn.deterministic: bit for bit."""
+def nccl_one_rank(tag: str, run: dict) -> dict:
+    """One rank in an NCCL group against the trainer without a group, the
+    ``rank_run`` ``run``, RANK_STEPS steps under cudnn.deterministic: bit
+    for bit; the grouped run's results."""
     from video_graph_ssl_tpu_torch.parallel import dist
-    from video_graph_ssl_tpu_torch.train_video_contrast_dis import (Trainer, _free_port,
-                                                                    load_config)
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import _free_port
     from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
 
-    config, opts = REGIMES[mem_type]
-    c = load_config(config, opts)
     torch.backends.cudnn.deterministic = True
     try:
-        alone = drive_steps(Trainer(c, max_steps=RANK_STEPS, device="cuda", run_dir=RUN_DIR))
-        gc.collect()
-        torch.cuda.empty_cache()
+        alone = drive_steps(make_trainer(run, "cuda", RUN_DIR))
+        _free()
         dist.init_distributed("nccl", f"tcp://localhost:{_free_port()}", 1, 0)
         try:
-            trainer = Trainer(c, max_steps=RANK_STEPS, device="cuda:0", run_dir=RUN_DIR)
-            if trainer.state.ddp is None:
-                raise RuntimeError("the one-rank trainer is not in a DDP group")
+            trainer = make_trainer(run, "cuda:0", RUN_DIR)
+            if trainer.state.ddp is None or torch.distributed.get_backend() != "nccl":
+                raise RuntimeError(f"{tag}: the one-rank trainer is not in an NCCL DDP group")
             grouped = drive_steps(trainer)
             del trainer
         finally:
@@ -1704,15 +1751,20 @@ def regime_nccl_one_rank(gpu: str, mem_type: str) -> None:
     finally:
         torch.backends.cudnn.deterministic = False
     bad = mismatches(alone["state"], grouped["state"])
-    print(f"  (d) {mem_type}, NCCL at world size 1 against no group: losses "
-          f"{grouped['losses']} vs {alone['losses']}; {len(bad)} state entries differ (want 0, "
-          f"bit for bit); kernel calls {grouped['counts']} vs {alone['counts']}")
+    print(f"  {tag}, NCCL at world size 1 against no group: losses {grouped['losses']} vs "
+          f"{alone['losses']}; {len(bad)} state entries differ (want 0, bit for bit); kernel "
+          f"calls {grouped['counts']} vs {alone['counts']}")
     if bad or grouped["losses"] != alone["losses"] or grouped["counts"] != alone["counts"]:
-        raise RuntimeError(f"(d) {mem_type}: NCCL world size 1 differs from no group: "
-                           f"{bad[:10]}")
-    del alone, grouped
-    gc.collect()
-    torch.cuda.empty_cache()
+        raise RuntimeError(f"{tag}: NCCL world size 1 differs from no group: {bad[:10]}")
+    del alone
+    _free()
+    return grouped
+
+
+def regime_nccl_one_rank(gpu: str, mem_type: str) -> None:
+    """(d) one rank in an NCCL group against the trainer without a group."""
+    config, opts = REGIMES[mem_type]
+    nccl_one_rank(f"(d) {mem_type}", rank_run(opts, config))
 
 
 def phase_regimes(dev, gpu: str) -> None:
@@ -1795,21 +1847,23 @@ def small_downstream_parity(dev) -> None:
           float((dg - dc).norm() / dc.norm()), TOL_DS_UPDATE)
 
 
-def write_pretrain_checkpoint(dev) -> str:
+def write_pretrain_checkpoint(dev, name: str = "phase10_pretrain", opts=()) -> str:
     """One MoCo step of the port's pretrain trainer at full S3D width
-    (configs/visual_moco.yaml geometry, bs 8, NCE_K 64) and its checkpoint
-    through the trainer's Saver; returns the path."""
+    (configs/visual_moco.yaml geometry, bs 8, NCE_K 64, + ``opts``) and its
+    checkpoint through the trainer's Saver under CHECKNAME ``name``; returns
+    the path."""
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
     c = load_config(CONFIG, SYNTHETIC + ["DATALOADER.BATCH_SIZE", "8", "CONTRAST.NCE_K", "64",
-                                         "CHECKPOINT.CHECKNAME", "phase10_pretrain"])
+                                         "CHECKPOINT.CHECKNAME", name, *opts])
     trainer = Trainer(c, max_steps=1, device=str(dev), run_dir=RUN_DIR)
     epoch = trainer.train_loader.epoch(0)
     batch = next(epoch)
     epoch.close()
     loss = float(trainer.train_step(trainer.to_device(batch), trainer.lr_fn(0))["loss"])
     path = trainer.saver.save_checkpoint(trainer.state, 1, filename="checkpoint_1.pth.tar")
-    print(f"  pretrain checkpoint (MoCo, 1 step, loss {loss:.4f}): {path}")
+    print(f"  pretrain checkpoint (MoCo{' '.join(['', *opts])}, 1 step, loss {loss:.4f}): "
+          f"{path}")
     if not math.isfinite(loss):
         raise RuntimeError(f"pretrain step: non-finite loss {loss}")
     del trainer
@@ -1977,7 +2031,7 @@ def downstream_retrieval(dev, gpu: str, ssl: str) -> None:
           f"{sec:.1f} s ({2 * n_videos / sec:.1f} videos/s, model set-up included) on {gpu}")
 
 
-def phase_downstream(dev, gpu: str) -> None:
+def phase_downstream(dev, gpu: str) -> tuple:
     print("phase 10: downstream training and evaluation (train_ds, test_ds, video_retrieval)")
     small_downstream_parity(dev)
     _free()
@@ -2041,6 +2095,7 @@ def phase_downstream(dev, gpu: str) -> None:
     downstream_retrieval(dev, gpu, ssl)
     _free()
     print(json.dumps({"downstream_launches": ds_counts}))
+    return ssl, best
 
 # --------------------------------------------------------------------------- #
 # phase 11: the graph-benefit A/B (graph_benefit.py, the counterpart of the
@@ -2062,36 +2117,52 @@ AB_KW = dict(regime="moco", seed=0, epochs=AB_EPOCHS, t=8, hw=16, per_class=12, 
              dataset="shortcut")
 
 
-def ab_kernel_checks(dev) -> None:
-    """(a) K1, K2 and K4 against their plain versions at the A/B's shapes
-    in fp32: K1 unsampled, with given noise, with its own draw, and its
-    closed-form backward; K2 both ways and its autograd; K4 exact and
-    against torch's own pool backward."""
+def kernel_checks(dev, tag: str, k1_shapes, k2_shapes, pools, dn: str,
+                  clip0: int = 0) -> None:
+    """K1, K2 and K3/K4 against their plain versions at one path's shapes
+    in ``dn``: K1 unsampled, with given noise, with its own draw and its
+    closed-form backward, the draw at clip offset ``clip0`` (a rank's
+    clips) equal bit for bit to those rows of the draw over clip0 + B
+    clips; K2 both ways and its autograd; each pool (``POOLS``' rows) exact
+    and against torch's own pool backward."""
     import torch.nn.functional as F
     from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
     from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
     from video_graph_ssl_tpu_torch.ops import maxpool as mp
     from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
 
+    dt = DTYPES[dn]
     g = torch.Generator(device=dev).manual_seed(11)
-    for b, t, d in AB_K1:
-        tag = f"(a) K1 ({b},{t},{d}) fp32"
+    for b, t, d in k1_shapes:
+        kt = f"{tag} K1 ({b},{t},{d}) {dn}"
         theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
-        q = torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25
-        k = torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25
+        q = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(dt)
+        k = (torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(dt)
         u = torch.rand(b, t, t, device=dev, generator=g) * (1 - 2e-6) + 1e-6
         for name, x, y in zip(("adj", "S", "p"),
                               gk.adjacency_fwd_kernel(q, k, theta, None, 0, 1.0, False, 0),
                               gk._adjacency_fwd_plain(q, k, theta, None, 0, 1.0, False, 0)):
-            check(f"{tag} sample=False {name}", rel_err(x, y), TOL["fp32"])
-        check(f"{tag} sample=True, given u",
+            check(f"{kt} sample=False {name}", rel_err(x, y), TOL["fp32"])
+        check(f"{kt} sample=True, given u",
               rel_err(gk.adjacency_fwd_kernel(q, k, theta, u, 0, 1.0, True, 0)[0],
                       gk._adjacency_fwd_plain(q, k, theta, u, 0, 1.0, True, 0)[0]), TOL_SAMPLED)
+        rows = (clip0, clip0 + b) if clip0 else None
         u_out = torch.empty(b, t, t, device=dev)
-        drawn = gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0, u_out=u_out)[0]
-        check(f"{tag} Philox draw, adj vs plain on u_out",
+        drawn = gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0, u_out=u_out,
+                                        rows=rows)[0]
+        check(f"{kt} Philox draw at clip {clip0}, adj vs plain on u_out",
               rel_err(drawn, gk._adjacency_fwd_plain(q, k, theta, u_out, 7, 1.0, True, 0)[0]),
               TOL_SAMPLED)
+        if clip0:
+            # the draw over clip0 + b clips, of which these are the last b
+            qf, kf = (torch.cat([x.new_zeros(clip0, t, d), x]) for x in (q, k))
+            u_full = torch.empty(clip0 + b, t, t, device=dev)
+            gk.adjacency_fwd_kernel(qf, kf, theta, None, 7, 1.0, True, 0, u_out=u_full)
+            if not torch.equal(u_out, u_full[clip0:]):
+                raise RuntimeError(f"{kt}: the draw at clip {clip0} differs from the rows of "
+                                   f"the draw over {clip0 + b} clips")
+            print(f"  {kt}: the draw at clip {clip0} equals rows [{clip0}, {clip0 + b}) of "
+                  f"the draw over {clip0 + b} clips, bit for bit")
         gout = torch.randn(b, t, t, device=dev, generator=g)
         for sample in (False, True):
             qa, ka = q.clone().requires_grad_(), k.clone().requires_grad_()
@@ -2102,37 +2173,40 @@ def ab_kernel_checks(dev) -> None:
             adj = gk.graph_adjacency_plain(qb, kb, theta, 0, 1.0, sample, u)
             want = torch.autograd.grad((adj * gout).sum(), (qb, kb))
             for name, x, y in zip(("dq", "dk"), got, want):
-                check(f"{tag} sample={sample} {name} (rel)",
-                      float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)),
-                      TOL_GRAD["fp32"])
-    for shape in AB_K2:
+                check(f"{kt} sample={sample} {name} (rel)",
+                      float((x.float() - y.float()).abs().max()
+                            / y.float().abs().max().clamp_min(1e-30)), TOL_GRAD[dn])
+    for shape in k2_shapes:
         b, t = shape[:2]
-        tag = f"(a) K2 {shape} fp32"
-        x = torch.randn(shape, device=dev, generator=g)
-        adj = torch.rand(b, t, t, device=dev, generator=g)
+        kt = f"{tag} K2 {shape} {dn}"
+        x = torch.randn(shape, device=dev, generator=g).to(dt)
+        adj = torch.rand(b, t, t, device=dev, generator=g).to(dt)
         for tr in (False, True):
-            check(f"{tag} transpose={tr}", rel_err(gp._launch(adj, x, transpose=tr),
-                                                   gp.propagate_plain(adj, x, transpose=tr)),
-                  TOL["fp32"])
-        gout = torch.randn(shape, device=dev, generator=g)
+            check(f"{kt} transpose={tr}", rel_err(gp._launch(adj, x, transpose=tr),
+                                                  gp.propagate_plain(adj, x, transpose=tr)),
+                  TOL[dn])
+        gout = torch.randn(shape, device=dev, generator=g).to(dt)
         xa, aa = x.clone().requires_grad_(), adj.clone().requires_grad_()
-        dx_k, da_k = torch.autograd.grad((gp._GcnPropagate.apply(aa, xa) * gout).sum(), (xa, aa))
+        dx_k, da_k = torch.autograd.grad(
+            (gp._GcnPropagate.apply(aa, xa).float() * gout.float()).sum(), (xa, aa))
         xb, ab = x.clone().requires_grad_(), adj.clone().requires_grad_()
-        dx_p, da_p = torch.autograd.grad((gp.propagate_plain(ab, xb) * gout).sum(), (xb, ab))
-        check(f"{tag} dx", rel_err(dx_k, dx_p), TOL["fp32"])
-        check(f"{tag} dadj (rel)", float((da_k - da_p).abs().max() / da_p.abs().max()),
-              TOL_GRAD["fp32"])
-    shape, k, s, p = AB_POOL
-    x = _ncdhw(shape, dev, torch.float32, g)
-    y, idx = F.max_pool3d(x, k, s, p, return_indices=True)
-    y = y.contiguous(memory_format=CL)
-    dy = torch.randn(y.shape, device=dev, generator=g).contiguous(memory_format=CL)
-    dx = mp._launch(x, y, dy, k, s, p)
-    tag = f"(a) K4 k{k} s{s} {shape} fp32"
-    check(f"{tag} vs plain (max abs)", max_abs(dx, mp.max_pool3d_bwd_plain(x, y, dy, k, s, p)),
-          0.0)
-    check(f"{tag} vs torch", rel_err(dx, torch.ops.aten.max_pool3d_with_indices_backward(
-        dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx)), TOL_POOL_LIB["fp32"])
+        dx_p, da_p = torch.autograd.grad(
+            (gp.propagate_plain(ab, xb).float() * gout.float()).sum(), (xb, ab))
+        check(f"{kt} dx", rel_err(dx_k, dx_p), TOL[dn])
+        check(f"{kt} dadj (rel)", float((da_k.float() - da_p.float()).abs().max()
+                                        / da_p.float().abs().max()), TOL_GRAD[dn])
+    for name, kn, shape, k, s, p in pools:
+        x = _ncdhw(shape, dev, dt, g)
+        y, idx = F.max_pool3d(x, k, s, p, return_indices=True)
+        y = y.contiguous(memory_format=CL)
+        dy = torch.randn(y.shape, device=dev, generator=g).to(dt).contiguous(memory_format=CL)
+        dx = mp._launch(x, y, dy, k, s, p)
+        kt = f"{tag} {kn} {name} {shape} {dn}"
+        check(f"{kt} vs plain (max abs)", max_abs(dx, mp.max_pool3d_bwd_plain(x, y, dy, k, s, p)),
+              0.0)
+        check(f"{kt} vs torch", rel_err(dx, torch.ops.aten.max_pool3d_with_indices_backward(
+            dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx)), TOL_POOL_LIB[dn])
+        del x, y, idx, dy, dx
 
 
 def phase_ab(dev, gpu: str) -> None:
@@ -2145,7 +2219,7 @@ def phase_ab(dev, gpu: str) -> None:
     from video_graph_ssl_tpu_torch.ops import maxpool as mp
 
     print("phase 11: the graph-benefit A/B (tiny3d, moco, temporal_shortcut_clips, seed 0)")
-    ab_kernel_checks(dev)
+    kernel_checks(dev, "(a)", AB_K1, AB_K2, [("A/B pool", "K4", *AB_POOL)], "fp32")
     seen = {"K1": set(), "K2": set(), "K4": set()}
     k1, k2, k4 = gk.adjacency_fwd_kernel, gp._launch, mp._launch
 
@@ -2206,6 +2280,218 @@ def phase_ab(dev, gpu: str) -> None:
         raise RuntimeError(f"(b) margin {margin:+.4f} below the gate {AB_MARGIN:+.3f}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: downstream across ranks.  train_ds's Trainer from phase 10's
+# pretrain checkpoint, RANK_STEPS steps, graph on (MODEL.AUG_FLAG True, so
+# K1/K2 run): the fine-tune at the shipped configs/action_fine_tune.yaml
+# geometry (S3D, bs 32, 16x112x112, 101 classes, DROPOUT 0.7, partial BN)
+# and the linear probe (configs/action_linear_probe.yaml) under PROBE_BN
+# reference and eval.  Two ranks share the card over gloo, 16 rows each.
+DS_RANK_RUNS = {"finetune": (FT_CONFIG, []),
+                "probe reference": (PROBE_CONFIG, ["MODEL.PROBE_BN", "reference"]),
+                "probe eval": (PROBE_CONFIG, ["MODEL.PROBE_BN", "eval"])}
+# The fp32 runs (TF32 off, cudnn.deterministic) against one process on the
+# same global batches that takes its BN statistics through the ranks' own
+# function (sync_bn.sum_form_bn) and repeats itself bit for bit, as in phase
+# 8: the errors of ds_rank_errors (each step's loss, the parameter update
+# after steps 1 and 3 and its norm, the BN statistics).  Under partial BN only
+# stem_0's and the graph blocks' BNs are live; the control (BN per rank)
+# must exceed at least one bound, so the bounds see whether those BNs are
+# the global batch's.  At initialisation the logits are near 0 and every
+# loss near ln 101 whatever the update, so the losses are held only against
+# a blow-up.  Readings on an H100 80GB HBM3 (700 W), ranks / control:
+#   fine-tune: losses 0, 0, 0 / 3.1e-7, 2.1e-7, 9.3e-7; update_1 4.7e-4 /
+#   7.7e-3, update_1_norm 3.2e-9 / 9.1e-5, update_3 2.7e-4 / 6.6e-3,
+#   update_3_norm 4.4e-8 / 2.0e-5; bn 7.4e-8 / 2.5e-3;
+#   probe reference: losses 1.0e-7, 0, 0 / 1.0e-7, 1.0e-7, 3.1e-7; update_1
+#   1.9e-6 / 3.0e-3, update_1_norm 3.2e-8 / 3.6e-5, update_3 1.3e-6 / 3.0e-3,
+#   update_3_norm 2.0e-9 / 1.8e-5; bn 8.4e-8 / 2.5e-3.
+# The update and bn bounds sit 6x (the fine-tune's updates) to 100x above the
+# ranks' readings and below the control's, which exceeds them all.
+TOL_DS_RANKS = {
+    "finetune": {"loss_1": 1e-5, "loss_2": 1e-5, "loss_3": 1e-5, "update_1": 3e-3,
+                 "update_1_norm": 1e-5, "update_3": 3e-3, "update_3_norm": 1e-5, "bn": 1e-5},
+    "probe reference": {"loss_1": 1e-5, "loss_2": 1e-5, "loss_3": 1e-5, "update_1": 1e-4,
+                        "update_1_norm": 5e-6, "update_3": 1e-4, "update_3_norm": 5e-6,
+                        "bn": 1e-5}}
+# (c): test_ds over the 202 videos of the 101-class synthetic test set in
+# batches of 45 (each padded to 46 for two ranks; the last batch holds 22), 2
+# clips x 3 crops; video_retrieval over 15 videos per split in batches of 5
+# (each padded to 6), 2 clips; bf16 and fp32, each held to TOL["fp32"]
+# rel-L2 against one process (an H100 80GB HBM3 at 700 W read them equal bit
+# for bit in both dtypes).
+TEST_VIDEOS, TEST_DS_BATCH, RETRIEVAL_VIDEOS, RETRIEVAL_BATCH = 202, 45, 15, 5
+
+
+def ds_run(name: str, dtype: str, ssl: str, per_rank: bool = False) -> dict:
+    config, opts = DS_RANK_RUNS[name]
+    return rank_run(SYNTHETIC + ["MODEL.AUG_FLAG", "True", "TPU.COMPUTE_DTYPE", dtype, *opts],
+                    config, per_rank=per_rank, ssl=ssl)
+
+
+def ds_want(name: str) -> dict:
+    """K1-K5 calls of RANK_STEPS steps of the run ``name``, partial BN, graph on."""
+    return _want_counts(RANK_STEPS, "finetune" if name == "finetune" else "probe",
+                        partial_bn=True, graph=True)
+
+
+def ds_rank_errors(got: dict, ref: dict) -> dict:
+    """Errors of a downstream run against one process's on the same global
+    batches: the relative error of each step's loss, rel-L2 of the
+    parameter update after step 1 and after the last step and the relative
+    error of its norm, and the largest rel-L2 of the BN statistics."""
+    errs = {f"loss_{i + 1}": abs(a - b) / abs(b)
+            for i, (a, b) in enumerate(zip(got["losses"], ref["losses"]))}
+    for step, after in ((1, "after_1"), (RANK_STEPS, "state")):
+        u, v = _update(got, after), _update(ref, after)
+        errs[f"update_{step}"] = rel_l2(u, v)
+        errs[f"update_{step}_norm"] = abs(float(u.norm() / v.norm()) - 1.0)
+    ref_sd = ref["state"]["state_dict"]
+    errs["bn"] = max(rel_l2(v, ref_sd[k]) for k, v in got["state"]["state_dict"].items()
+                     if "running_" in k)
+    return errs
+
+
+def hold_ds_to_one_process(tag: str, ranks: list, control: list, one: dict,
+                           tol: dict) -> dict:
+    """The fp32 ranks within ``tol`` of one process; the control (BN per
+    rank) above at least one bound."""
+    errs = ds_rank_errors(ranks[0], one)
+    print(f"  {tag} vs one process: losses {ranks[0]['losses']} vs {one['losses']}")
+    over = _over(f"{tag} vs one process", errs, tol)
+    if over or ranks[0]["state"]["step"] != one["state"]["step"]:
+        raise RuntimeError(f"{tag}: {over} above their bounds against one process")
+    cerrs = ds_rank_errors(control[0], one)
+    if not _over(f"{tag}, control with BN per rank, vs one process", cerrs, tol):
+        raise RuntimeError(f"{tag}: per-rank BN meets every bound; the bounds catch nothing")
+    return {"ranks": errs, "control": cerrs}
+
+
+def eval_tools(device: str, run_dir: str, tag: str, best: str, ssl: str, dtype: str) -> dict:
+    """(c) ``test_ds`` on ``best`` and ``video_retrieval`` on ``ssl`` through
+    their ``main`` in this process (as a rank where a group is joined), at
+    ``dtype``, their standard output captured: the report lines each
+    printed, whether this process wrote the scores and the features (paths
+    of its own, ``tag``), the scores and features it wrote, the seconds."""
+    import io
+    import pickle
+
+    import numpy as np
+    from video_graph_ssl_tpu_torch import test_ds, video_retrieval
+
+    scores = os.path.join(run_dir, f"phase12_scores_{dtype}_{tag}.npz")
+    feats = os.path.join(run_dir, f"phase12_features_{dtype}_{tag}")
+    opts = [*SYNTHETIC, "TPU.COMPUTE_DTYPE", dtype]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        test_ds.main(["--device", device, "--config_file", FT_CONFIG, "--checkpoint", best,
+                      "--test_crops", "3", "--test_clips", "2", "--save_scores", scores, *opts,
+                      "TEST.BATCH_SIZE", str(TEST_DS_BATCH)])
+        t1 = time.perf_counter()
+        video_retrieval.main([
+            "--device", device, "--config_file", CONFIG, "--checkpoint", ssl,
+            "--extract_feature", "--feature_dir", feats, "--test_clips", "2", "--max_videos",
+            str(RETRIEVAL_VIDEOS), *opts, "TEST.BATCH_SIZE", str(RETRIEVAL_BATCH)])
+    printed = out.getvalue()
+    res = {"reports": printed.count("Accuracy Prec@1"), "recalls": printed.count("R@1:"),
+           "seconds": (t1 - t0, time.perf_counter() - t1),
+           "wrote": [p for p in (scores, feats) if os.path.exists(p)]}
+    if os.path.exists(scores):
+        with np.load(scores) as z:
+            res["scores"], res["labels"] = z["scores"], z["labels"]
+    if os.path.exists(feats):
+        for split in ("train", "val"):
+            with open(os.path.join(feats, f"{split}_features.pkl"), "rb") as f:
+                res[split] = pickle.load(f)
+    return res
+
+
+def hold_eval_tools(dtype: str, ranks: list, one: dict, gpu: str) -> None:
+    """(c) the ranks' test_ds and video_retrieval against one process: rank
+    0 alone printed and wrote; its scores and features within TOL["fp32"]
+    of one process's (bit-equal or not is printed)."""
+    import numpy as np
+
+    r0, r1 = ranks
+    print(f"  (c) {dtype}: report lines printed by rank 0, rank 1: test_ds {r0['reports']}, "
+          f"{r1['reports']}; retrieval R@1 {r0['recalls']}, {r1['recalls']}; files written "
+          f"{len(r0['wrote'])}, {len(r1['wrote'])}; seconds (test_ds, retrieval) rank 0 "
+          f"{[round(x, 1) for x in r0['seconds']]}, one process "
+          f"{[round(x, 1) for x in one['seconds']]} on {gpu}")
+    if (r0["reports"], r1["reports"], r0["recalls"] > 0, r1["recalls"]) != (1, 0, True, 0) \
+            or len(r0["wrote"]) != 2 or r1["wrote"]:
+        raise RuntimeError(f"(c) {dtype}: the report or the files are not rank 0's alone")
+    if not r0["scores"].shape == one["scores"].shape == (TEST_VIDEOS, 101) \
+            or not np.array_equal(r0["labels"], one["labels"]):
+        raise RuntimeError(f"(c) {dtype}: scores {r0['scores'].shape}, one process's "
+                           f"{one['scores'].shape}, want ({TEST_VIDEOS}, 101)")
+    pairs = [("test_ds scores", r0["scores"], one["scores"])] + [
+        (f"retrieval {split} features", r0[split]["features"], one[split]["features"])
+        for split in ("train", "val")]
+    for what, got, ref in pairs:
+        same = bool(np.array_equal(got, ref))
+        check(f"(c) {dtype} {what} {tuple(got.shape)}, two ranks vs one (rel-L2; bit for "
+              f"bit {same})", rel_l2(torch.from_numpy(got), torch.from_numpy(ref)),
+              TOL["fp32"])
+    for split in ("train", "val"):
+        f = r0[split]["features"]
+        if f.shape[0] != RETRIEVAL_VIDEOS or not np.isfinite(f).all():
+            raise RuntimeError(f"(c) {dtype}: {split} features {f.shape}, finite "
+                               f"{bool(np.isfinite(f).all())}")
+
+
+def phase_ds_ranks(dev, gpu: str, ssl: str, best: str) -> None:
+    """(a)-(c) from a pretrain checkpoint with the graph on (the runs' own,
+    as its encoder holds the graph blocks) and (c) on phase 10's
+    checkpoints: its pretrain checkpoint ``ssl`` and its ``best``."""
+    print("phase 12: downstream across ranks (train_ds, test_ds, video_retrieval)")
+    ssl_graph = write_pretrain_checkpoint(dev, "phase12_pretrain", ["MODEL.AUG_FLAG", "True"])
+    _free()
+    print(f"  (a) NCCL at world size 1 against no group: the fine-tune, bs 32, 16x112x112, "
+          f"bf16, graph on, {RANK_STEPS} steps, cudnn.deterministic")
+    grouped = nccl_one_rank("(a) fine-tune", ds_run("finetune", "bfloat16", ssl_graph))
+    _hold_counts("(a) fine-tune", grouped["counts"], ds_want("finetune"))
+    del grouped
+    print("  (b), (c) two ranks sharing the card (gloo), 16 rows each of the global 32: "
+          "bf16 runs, fp32 runs with their per-rank-BN controls, then test_ds and "
+          "video_retrieval in bf16 and fp32")
+    fp32 = ("finetune", "probe reference")
+    runs = [ds_run(name, "bfloat16", ssl_graph) for name in DS_RANK_RUNS]
+    for name in fp32:
+        runs += [ds_run(name, "float32", ssl_graph),
+                 ds_run(name, "float32", ssl_graph, per_rank=True)]
+    runs += [{"eval_tools": (best, ssl, dtype)} for dtype in ("bfloat16", "float32")]
+    results = spawn_ranks(runs)
+    for name, ranks in zip(DS_RANK_RUNS, results):
+        hold_ranks(f"(b) {name}, bfloat16", ranks, gpu, SHARED, ds_want(name))
+    errors = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, name in enumerate(fp32):
+            tag = f"(b) {name}, float32, global bs 32"
+            ranks, control = results[len(DS_RANK_RUNS) + 2 * i:len(DS_RANK_RUNS) + 2 * i + 2]
+            hold_ranks(tag, ranks, gpu, SHARED, ds_want(name))
+            config, opts = DS_RANK_RUNS[name]
+            one = one_process_twice(SYNTHETIC + ["MODEL.AUG_FLAG", "True", "TPU.COMPUTE_DTYPE",
+                                                 "float32", *opts], tag, gpu, config,
+                                   ssl_graph)
+            errors[name] = hold_ds_to_one_process(tag, ranks, control, one, TOL_DS_RANKS[name])
+            del one
+            _free()
+        for dtype, ranks in zip(("bfloat16", "float32"), results[-2:]):
+            hold_eval_tools(dtype, ranks, eval_tools("cuda", RUN_DIR, "one", best, ssl, dtype),
+                            gpu)
+            _free()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print("phase 12 errors against one process: " + json.dumps(errors))
+    # (d) K1-K4 at a rank's shapes of (b): bs 16, 16x112x112, bf16, K1 at clip 16
+    k1s, k2s, pools, _ = geometry(112, 16)
+    print("  (d) K1-K4 vs plain at a rank's shapes: bs 16, 16x112x112, bf16, K1 at clip 16")
+    kernel_checks(dev, "(d)", k1s, k2s, pools, "bf16", clip0=16)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2239,8 +2525,9 @@ def main() -> int:
     timed(phase_store, dev, gpu, synthetic_ms)
     timed(phase_ranks, dev, gpu)
     timed(phase_regimes, dev, gpu)
-    timed(phase_downstream, dev, gpu)
+    ssl, best = timed(phase_downstream, dev, gpu)
     timed(phase_ab, dev, gpu)
+    timed(phase_ds_ranks, dev, gpu, ssl, best)
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

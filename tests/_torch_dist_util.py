@@ -226,3 +226,65 @@ def fused_guard_worker(rank, world):
         out["layer"] = str(e)
     out["running_mean"] = layer.bn_s.running_mean.numpy().copy()
     return out
+
+
+def several_worker(rank, world, calls):
+    """[fn(rank, world, *args) for fn, args in calls]: several workers' runs
+    in one spawn of the ranks."""
+    return [fn(rank, world, *args) for fn, args in calls]
+
+
+def ds_step_worker(rank, world, opts, state_dict, clips, labels, lrs, fused):
+    """``len(lrs)`` downstream train steps of this rank on its rows of
+    ``clips`` and ``labels``: ``make_fused_downstream_step`` on raw uint8
+    clips when ``fused`` (then also this rank's augmented clips of the first
+    step), else ``make_downstream_train_step`` on pre-augmented ones.  The
+    ``VideoModel`` of ``port_cfg(opts)`` starts from ``state_dict`` where
+    given, else from ``MODEL.SEED``.  Returns each step's metrics, the final
+    state and whether the state is in ``DistributedDataParallel``."""
+    from video_graph_ssl_tpu_torch.data.transforms_device import make_batch_augment_fn
+    from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
+    from video_graph_ssl_tpu_torch.engine.downstream import (TRAIN_AUGMENT_STREAM,
+                                                             make_downstream_train_step,
+                                                             make_fused_downstream_step)
+    from video_graph_ssl_tpu_torch.models.build import create_video_model
+    from video_graph_ssl_tpu_torch.train_ds import bn_train_of
+
+    c = port_cfg(opts)
+    model, _ = create_video_model(c)
+    if state_dict is not None:
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    state = create_downstream_state(c, model, "cpu")
+    bn_train = bn_train_of(c)
+    r = rows(rank, world, clips.shape[0])
+    local, y = torch.from_numpy(clips[r]), torch.from_numpy(labels[r])
+    augmented = None
+    if fused:
+        step = make_fused_downstream_step(c, bn_train)
+        gen = torch.Generator().manual_seed(state.step_seed(TRAIN_AUGMENT_STREAM))
+        augmented = make_batch_augment_fn(c, "train")(gen, local,
+                                                     (r.start, clips.shape[0])).numpy()
+    else:
+        step = make_downstream_train_step(bn_train)
+    metrics = [{k: float(v) for k, v in step(state, local, y, lr).items()} for lr in lrs]
+    return {"metrics": metrics, "state": state_arrays(state), "augmented": augmented,
+            "ddp": state.ddp is not None}
+
+
+def ds_validation_worker(rank, world, opts, run_dir):
+    """``train_ds``'s Trainer on ``port_cfg(opts)`` as this rank: the
+    validation logits and labels (``val_logits``), then a validation whose
+    top-1 writes ``model_best_state`` (rank 0 only)."""
+    import glob
+
+    from video_graph_ssl_tpu_torch.train_ds import Trainer
+
+    trainer = Trainer(port_cfg(opts), device="cpu", run_dir=run_dir)
+    logits, labels = trainer.val_logits(0)
+    trainer.best_pred = -1.0
+    top1 = trainer.validation(0)
+    trainer.writer.close()
+    return {"logits": logits, "labels": labels, "top1": top1,
+            "experiment_dir": trainer.saver.experiment_dir,
+            "written": sorted(glob.glob(os.path.join(run_dir, "**", "*.pth.tar"),
+                                        recursive=True))}

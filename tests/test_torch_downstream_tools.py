@@ -13,7 +13,8 @@
   pretrain checkpoint; the surgery copies the encoder and keeps ``new_fc``.
 * SIGTERM during ``train_ds`` writes ``checkpoint_preempt``.
 * A bad ``MODEL.PROBE_BN``, a CMC checkpoint, a non-pretrain checkpoint and
-  a world size above 1 raise.
+  ``TPU.SEPCONV_FUSED`` with ``MODEL.NO_PARTIALBN`` at a world size above 1
+  raise.
 """
 
 import importlib.util
@@ -212,15 +213,26 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="PROBE_BN"):
         train_ds.Trainer(bad, device="cpu", run_dir=str(tmp_path))
     config = pretrain.load_config(DS[1], TINY)
+    # K5 across ranks (TPU.SEPCONV_FUSED with MODEL.NO_PARTIALBN) is refused
+    # before the model is built: under the torchrun environment, through the
+    # launcher, which joins the group and leaves it after the refusal, and at
+    # world size 2
+    fused = ["TPU.SEPCONV_FUSED", "True", "MODEL.NO_PARTIALBN", "True"]
+    calls = []
     with monkeypatch.context() as m:
         for var, value in zip(dist.TORCHRUN_VARS, ("0", "2", "localhost", "29500")):
             m.setenv(var, value)
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            train_ds.main([*DS, "--device", "cpu"])
+        m.setattr(dist, "init_distributed", lambda backend, *a: calls.append(backend))
+        m.setattr(dist, "world_size", lambda: 2)
+        m.setattr(torch.distributed, "destroy_process_group", lambda: calls.append("left"))
+        with pytest.raises(NotImplementedError, match="item 3b"):
+            train_ds.main([*DS, "--device", "cpu", "--dist-backend", "gloo", *fused])
+    assert calls == ["gloo", "left"]
     with monkeypatch.context() as m:
         m.setattr(dist, "world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            create_downstream_state(config, create_video_model(config)[0], "cpu")
+        with pytest.raises(NotImplementedError, match="item 3b"):
+            train_ds.Trainer(pretrain.load_config(DS[1], TINY + fused), device="cpu",
+                             run_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_ds.Trainer(pretrain.load_config(DS[1], TINY), device="cuda",
                          run_dir=str(tmp_path))

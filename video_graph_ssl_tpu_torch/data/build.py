@@ -6,7 +6,9 @@ latent bug by using VISUAL_ROOT_DIR) and ``build_video_contrastive_loader``
 (:35-54).  Batch sizes are GLOBAL, as in the JAX package.
 
 ``batch_slice`` (``parallel.dist.process_batch_slice``) gives a rank its
-rows of every global batch of the pretrain loader.
+rows of every global batch of the pretrain loader and of the downstream
+train loader; the validation and test loaders keep full host batches, which
+the eval tools share out over the ranks (``parallel.dist.eval_over_ranks``).
 
 ``cfg.DATASET.SOURCE = 'synthetic'`` swaps in the deterministic synthetic
 sources so every entry point runs without a frames-on-disk dataset.
@@ -80,8 +82,10 @@ def build_video_contrastive_loader(cfg, batch_slice=None) -> Tuple[Loader, int]:
     return loader, len(ds)
 
 
-def make_data_loader(cfg, is_train: bool = True) -> Loader:
-    """Downstream train/val loader (reference: lib/data/build.py:7-33)."""
+def make_data_loader(cfg, is_train: bool = True, batch_slice=None) -> Loader:
+    """Downstream train/val loader (reference: lib/data/build.py:7-33).
+    ``batch_slice``: this rank's rows of each global train batch (the
+    validation loader, which keeps its ragged tail, takes none)."""
     if cfg.DATASET.SOURCE == "synthetic":
         ds = SyntheticFrameDataset(
             n_data=int(cfg.DATASET.NUM_CLASS) * 4,
@@ -115,6 +119,7 @@ def make_data_loader(cfg, is_train: bool = True) -> Loader:
         num_workers=int(cfg.DATALOADER.NUM_WORKERS),
         seed=int(cfg.MODEL.SEED),
         prefetch=int(cfg.TPU.PREFETCH),
+        batch_slice=batch_slice,
     )
 
 

@@ -22,7 +22,9 @@ normalise.  Works on the clips' device in the compute dtype.
 The downstream chains work on (N, T, H, W, C) float32 pixels, as the JAX
 ones do, and return float32.  The ``train`` chain's draws (a MultiScaleCrop
 size pair and one of 13 offsets, a flip) are likewise apart from their
-application (:func:`draw_train_params` / :func:`apply_train_augment`).
+application (:func:`draw_train_params` / :func:`apply_train_augment`), and
+a rank applies its rows of the global batch's draws
+(:meth:`TrainParams.rows`).
 Every resize is an explicit weight matrix per axis
 (:func:`resize_weights`): the crop's bilinear resize without antialias
 (``jax.image.scale_and_translate``), and ``resize_clip``'s linear resize
@@ -317,6 +319,13 @@ class TrainParams:
     offset: torch.Tensor   # (N,) int64 index into FIX_OFFSETS_13
     flip: torch.Tensor     # (N,) bool
 
+    def rows(self, lo: int, hi: int) -> "TrainParams":
+        """The draws of clips ``[lo, hi)``."""
+        n = self.pair.shape[0]
+        if not 0 <= lo < hi <= n:
+            raise ValueError(f"rows [{lo}, {hi}) outside {n} clips")
+        return TrainParams(self.pair[lo:hi], self.offset[lo:hi], self.flip[lo:hi])
+
 
 def draw_train_params(n: int, generator: torch.Generator, device, n_pairs: int,
                       flip_p: float = 0.5) -> TrainParams:
@@ -428,8 +437,9 @@ def make_batch_augment_fn(cfg, kind: str) -> Callable:
     (row0, global B): the clips are rows ``[row0, row0 + B)`` of a global
     batch, and take those rows of the global batch's draws.
 
-    kind='train': fn(generator, clips (B, T, H, W, C) uint8) -> float32, the
-    ``train`` chain to ``INPUT.BASE_SIZE``; kind='eval':
+    kind='train': fn(generator, clips (B, T, H, W, C) uint8, rows=None) ->
+    float32, the ``train`` chain to ``INPUT.BASE_SIZE``, ``rows`` as for
+    'ssl'; kind='eval':
     fn(clips (B, T, H, W, C) uint8) -> float32, resized to
     ``INPUT.SCALE_SIZE`` and centre-cropped to ``INPUT.CROP_SIZE``."""
     if kind not in ("ssl", "train", "eval"):
@@ -442,10 +452,14 @@ def make_batch_augment_fn(cfg, kind: str) -> Callable:
         crop_hw = (int(cfg.INPUT.CROP_SIZE[0]), int(cfg.INPUT.CROP_SIZE[1]))
         return lambda clips: eval_transform(clips, scale_hw, crop_hw, mean, std)
     if kind == "train":
-        def train_fn(generator: torch.Generator, clips: torch.Tensor) -> torch.Tensor:
+        def train_fn(generator: torch.Generator, clips: torch.Tensor,
+                     rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
             b, _, h, w = clips.shape[:4]
-            p = draw_train_params(b, generator, clips.device,
+            row0, total = rows if rows is not None else (0, b)
+            p = draw_train_params(total, generator, clips.device,
                                   len(msc_crop_pairs(h, w, out_hw)), flip_p)
+            if total != b:
+                p = p.rows(row0, row0 + b)
             return apply_train_augment(clips, p, out_hw, mean, std)
 
         return train_fn

@@ -15,8 +15,20 @@ from ..parallel import dist
 from ..solver.build import make_optimizer
 from .train_state import PretrainState
 
-DOWNSTREAM_ACROSS_RANKS = ("downstream training is not ported across ranks yet: ROADMAP.md, "
-                           "Queue 1, item 5b, downstream across ranks")
+
+def _replicated_ddp(model: nn.Module, device: torch.device, what: str, extra=()):
+    """Under a process group: check that every rank holds the same state
+    (rank 0's broadcast against each rank's own, bit for bit), then wrap
+    ``model`` in ``DistributedDataParallel`` over its trainable parameters,
+    without buffer broadcasts (the live BN statistics are already the global
+    batch's on every rank).  None without a group."""
+    if not dist.is_distributed():
+        return None
+    dist.check_replicated([*model.state_dict().values(), *extra], what)
+    ids = None
+    if device.type == "cuda":
+        ids = [device.index if device.index is not None else torch.cuda.current_device()]
+    return DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False)
 
 
 def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> PretrainState:
@@ -40,16 +52,10 @@ def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> Pre
         for p in ema.parameters():
             p.requires_grad_(False)
     contrast = create_contrast(cfg, device, n_data)
-    ddp = None
-    if dist.is_distributed():
-        memory = [] if contrast is None else [
-            contrast.queue if hasattr(contrast, "queue") else contrast.memory]
-        dist.check_replicated([*model.state_dict().values(), *memory],
-                              "the initial parameters, BN statistics and memory")
-        ids = None
-        if device.type == "cuda":
-            ids = [device.index if device.index is not None else torch.cuda.current_device()]
-        ddp = DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False)
+    memory = [] if contrast is None else [
+        contrast.queue if hasattr(contrast, "queue") else contrast.memory]
+    ddp = _replicated_ddp(model, device, "the initial parameters, BN statistics and memory",
+                          memory)
     return PretrainState(
         model=model,
         ema_model=ema,
@@ -70,14 +76,20 @@ def create_downstream_state(cfg, model: nn.Module, device) -> PretrainState:
     ``device`` in channels_last_3d, SGD over all its parameters or, with
     ``MODEL.LINEAR_PROBE``, over ``new_fc``'s alone, the encoder's taking no
     gradient (so no encoder backward runs); no EMA encoder and no memory.
-    The seed is the JAX state's, ``MODEL.SEED + 2``."""
-    if dist.world_size() > 1:
-        raise NotImplementedError(DOWNSTREAM_ACROSS_RANKS)
-    model = model.to(device=torch.device(device), memory_format=torch.channels_last_3d)
+    The seed is the JAX state's, ``MODEL.SEED + 2``.
+
+    Under a process group ``model`` must already hold what every rank
+    trains from (the checkpoint surgery comes first): that is checked, and
+    the model is wrapped in ``DistributedDataParallel`` over its trainable
+    parameters (``new_fc``'s alone for the probe), as for pretraining."""
+    device = torch.device(device)
+    model = model.to(device=device, memory_format=torch.channels_last_3d)
     trainable = is_probe_param if bool(cfg.MODEL.LINEAR_PROBE) else None
     if trainable is not None:
         for name, p in model.named_parameters():
             p.requires_grad_(trainable(name))
     return PretrainState(model=model, ema_model=None,
                          optimizer=make_optimizer(cfg, model, trainable),
-                         contrast=None, seed=int(cfg.MODEL.SEED) + 2)
+                         contrast=None, seed=int(cfg.MODEL.SEED) + 2,
+                         ddp=_replicated_ddp(model, device,
+                                             "the initial parameters and BN statistics"))

@@ -12,6 +12,7 @@ collectives of a sharded step.  The port runs one process per rank under
 | the global key batch at the enqueue          | :func:`all_gather_rows`                   |
 | replicated params, EMA, queue                | same seed on every rank, checked once     |
 | ``process_batch_slice`` -> ``Loader``        | :func:`process_batch_slice`               |
+| eval: ``pad_batch_to_multiple``, sharded fn  | :func:`eval_over_ranks`                   |
 
 Without a process group every function here is the one-process identity:
 ``rank() == 0``, ``world_size() == 1``, gathers return their input, and
@@ -22,8 +23,9 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -101,6 +103,26 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(world_size())]
     dist.all_gather(parts, x)
     return torch.cat(parts, dim=0)
+
+
+def eval_over_ranks(fn: Callable[[np.ndarray], torch.Tensor],
+                    batch: np.ndarray) -> torch.Tensor:
+    """``fn(batch)`` with the rows shared out over the ranks, as the JAX
+    tools shard an eval batch over the mesh: the host batch is padded to a
+    multiple of the world size by repeating its last row (JAX
+    ``pad_batch_to_multiple``), each rank runs ``fn`` on its equal share,
+    the outputs are gathered in rank order and cut back to the batch's
+    rows.  Every rank returns the whole output; ``fn(batch)`` itself
+    without a group of more than one rank."""
+    w = world_size()
+    if w == 1:
+        return fn(batch)
+    n = len(batch)
+    pad = (-n) % w
+    if pad:
+        batch = np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
+    per = len(batch) // w
+    return all_gather_rows(fn(batch[rank() * per:(rank() + 1) * per]))[:n]
 
 
 @torch.no_grad()

@@ -13,6 +13,13 @@ confusion matrix, the mean per-class accuracy over non-empty classes, and
 the scores as an ``.npz``.  ``TEST.BATCH_SIZE`` videos go through one
 forward.  The checkpoint (``train_ds``'s) loads strictly.  ``--device``
 defaults to ``cuda`` and raises when no GPU is present.
+
+Across ranks (``train_ds``'s launchers: torchrun, ``--world_size N --rank R
+--dist-url URL``, ``--multiprocessing-distributed``) each batch is padded to
+a multiple of the world size, each rank scores its share of it and the
+scores are gathered in rank order (``parallel.dist.eval_over_ranks``), as
+the JAX tool shards a padded batch over the mesh; rank 0 alone prints the
+report and writes ``--save_scores``.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from .data.transforms_device import N_CROPS, multi_crop_eval
 from .engine.build import create_downstream_state
 from .engine.downstream import make_eval_step
 from .models.build import create_video_model
-from .train_video_contrast_dis import load_config, resolve_device
+from .parallel import dist
+from .train_video_contrast_dis import add_dist_args, launch, resolve_device
 from .utils.checkpoint import load_checkpoint_state
 from .utils.meters import accuracy
 
@@ -38,6 +46,7 @@ from .utils.meters import accuracy
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Video-level evaluation (PyTorch port)")
     parser.add_argument("--config_file", default="", type=str)
+    add_dist_args(parser)
     parser.add_argument("--checkpoint", default="", type=str, required=True)
     parser.add_argument("--test_crops", default=1, type=int, choices=list(N_CROPS))
     parser.add_argument("--test_clips", default=10, type=int)
@@ -89,31 +98,37 @@ def scores_report(scores: np.ndarray, labels: np.ndarray) -> dict:
             "mean_class_acc": float(cls_acc[cnt > 0].mean() * 100.0)}
 
 
-def main(argv: Optional[list] = None) -> dict:
-    args = get_parser().parse_intermixed_args(argv)
-    config = load_config(args.config_file, args.opts)
-    device = resolve_device(args.device)
+def evaluate(config, args, device: str) -> Optional[dict]:
+    """The body of :func:`launch`: score the test set; the report on rank
+    0, None on the other ranks."""
+    device = resolve_device(device)
+    log = print if dist.is_main() else (lambda *a, **k: None)
     model, _ = create_video_model(config)
     state = create_downstream_state(config, model, device)
     meta = load_checkpoint_state(args.checkpoint, state)
-    print(f"=> loaded checkpoint '{args.checkpoint}' (epoch {meta.get('epoch')})")
+    log(f"=> loaded checkpoint '{args.checkpoint}' (epoch {meta.get('epoch')})")
     loader = make_test_loader(config, num_clips=args.test_clips)
     eval_fn = build_eval_fn(config, args.test_crops)
+
+    def scores_of(rows: np.ndarray) -> torch.Tensor:
+        return eval_fn(state.model, to_device(rows, device))
+
     scores, labels, seen = [], [], 0
     t0 = time.perf_counter()
     batches = loader.epoch(0)
     try:
         for batch in batches:
-            s = eval_fn(state.model, to_device(batch["clips"], device))
-            scores.append(s.float().cpu().numpy())
+            scores.append(dist.eval_over_ranks(scores_of, batch["clips"]).float().cpu().numpy())
             labels.append(batch["label"].astype(np.int64))
             seen += len(batch["label"])
-            print(f"video {seen} done", flush=True)
+            log(f"video {seen} done", flush=True)
             if args.max_videos and seen >= args.max_videos:
                 break
     finally:
         batches.close()
     seconds = time.perf_counter() - t0
+    if not dist.is_main():
+        return None
     scores, labels = np.concatenate(scores), np.concatenate(labels)
     rep = scores_report(scores, labels)
     print(f"Accuracy Prec@1 {rep['top1']:.02f}% Prec@5 {rep['top5']:.02f}%")
@@ -124,6 +139,10 @@ def main(argv: Optional[list] = None) -> dict:
         np.savez(args.save_scores, scores=scores, labels=labels)
         print(f"saved scores to {args.save_scores}")
     return rep
+
+
+def main(argv: Optional[list] = None) -> Optional[dict]:
+    return launch(get_parser().parse_intermixed_args(argv), evaluate)
 
 
 if __name__ == "__main__":

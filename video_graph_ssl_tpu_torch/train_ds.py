@@ -22,8 +22,23 @@ when top-1 improves), with ``checkpoint_<epoch>.pth.tar`` every
 of an epoch and the batches of a validation, and stops after the first
 epoch.  Runs live under ``run/<dataset>/<checkname>/experiment_NN``.
 
-``--device`` defaults to ``cuda`` and raises when no GPU is present.  One
-process only: a world size above 1 raises ``NotImplementedError``.
+``--device`` defaults to ``cuda`` and raises when no GPU is present.
+
+Several GPUs, as the JAX tool runs on a mesh: one process per rank under
+``torch.distributed``, with the pretrain trainer's launchers (torchrun's
+environment, or ``--world_size N --rank R --dist-url URL``, or
+``--multiprocessing-distributed``; ``--dist-backend`` nccl or gloo)::
+
+    torchrun --nproc_per_node 4 -m video_graph_ssl_tpu_torch.train_ds \
+        --config_file configs/action_fine_tune.yaml ...
+
+``DATALOADER.BATCH_SIZE`` is global: each rank trains on its rows of every
+global batch (``DistributedDataParallel`` over the trainable parameters,
+the live BNs over the global batch, the draws as the global batch's rows),
+and each validation batch is shared out over the ranks and its logits
+gathered (``parallel.dist.eval_over_ranks``), so every rank holds the same
+top-1 and ``best_pred``.  Only rank 0 prints and writes; SIGTERM on any
+rank stops every rank after the same step.
 """
 
 from __future__ import annotations
@@ -40,12 +55,12 @@ import torch
 
 from .data.build import make_data_loader
 from .data.pipeline import to_device
-from .engine.build import DOWNSTREAM_ACROSS_RANKS, create_downstream_state
+from .engine.build import create_downstream_state
 from .engine.downstream import make_fused_downstream_step, make_fused_eval_step
 from .models.build import create_video_model
 from .parallel import dist
 from .solver.build import make_lr_scheduler
-from .train_video_contrast_dis import load_config, resolve_device
+from .train_video_contrast_dis import add_dist_args, launch, resolve_device
 from .utils.checkpoint import load_params_only, transfer_encoder_params
 from .utils.meters import AverageMeter, accuracy
 from .utils.summary import creat_saver
@@ -57,6 +72,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Downstream action training on a GPU (PyTorch port)")
     parser.add_argument("--config_file", default="", type=str)
+    add_dist_args(parser)
     parser.add_argument("--ssl_checkpoint", default="", type=str,
                         help="pretrain checkpoint to initialise the encoder from "
                              "(MODEL.PRETRAIN_PATH also works)")
@@ -79,9 +95,11 @@ def bn_train_of(config) -> bool:
 
 
 class Trainer:
-    """Counterpart of the JAX tool's Trainer: the model, the downstream
-    state, the surgery, the fused train and eval steps, the loaders, the
-    LR schedule, the saver and the meters."""
+    """Counterpart of the JAX tool's Trainer: the model, the surgery, the
+    downstream state, the fused train and eval steps, the loaders, the LR
+    schedule, the saver and the meters.  Under a process group (initialised
+    by the caller) it is one rank: it trains on its rows of each global
+    batch, and only rank 0 writes and prints."""
 
     def __init__(self, config, ssl_checkpoint: str = "", max_steps: int = 0,
                  device: str = "cuda", run_dir: str = "run"):
@@ -89,13 +107,21 @@ class Trainer:
         self.max_steps = int(max_steps)
         self.bn_train = bn_train_of(config)
         self.device = resolve_device(device)
-        model, _ = create_video_model(config)
-        # raises at a world size above 1
-        self.state = create_downstream_state(config, model, self.device)
-        self._load_ssl_checkpoint(ssl_checkpoint or config.MODEL.PRETRAIN_PATH)
+        # first: it refuses what is not ported before anything is built
         self.step_fn = make_fused_downstream_step(config, self.bn_train)
+        self.is_main = dist.is_main()
+        self.batch_slice = (dist.process_batch_slice(int(config.DATALOADER.BATCH_SIZE))
+                            if dist.is_distributed() else None)
+        # SIGTERM reaches each rank on its own: the ranks vote after every step
+        self.vote_group = dist.host_group()
+        model, _ = create_video_model(config)
+        # the surgery comes before the state, which checks under a group
+        # that every rank holds the same model
+        self._load_ssl_checkpoint(model, ssl_checkpoint or config.MODEL.PRETRAIN_PATH)
+        self.state = create_downstream_state(config, model, self.device)
         self.eval_fn = make_fused_eval_step(config)
-        self.train_loader = make_data_loader(config, is_train=True)
+        self.train_loader = make_data_loader(config, is_train=True,
+                                             batch_slice=self.batch_slice)
         self.val_loader = make_data_loader(config, is_train=False)
         self.lr_fn = make_lr_scheduler(config)
         self.saver, self.writer = creat_saver(config, base_dir=run_dir)
@@ -109,16 +135,20 @@ class Trainer:
         print("=> SIGTERM: checkpointing after the current step...", flush=True)
         self._preempted = True
 
-    def _load_ssl_checkpoint(self, path) -> None:
-        """Checkpoint surgery (reference: train_ds.py:65-84)."""
+    def _load_ssl_checkpoint(self, model, path) -> None:
+        """Checkpoint surgery into ``model`` (reference: train_ds.py:65-84)."""
         if not path or str(path) in ("none", "/"):
             return
         if not os.path.exists(path):
             raise RuntimeError(f"=> no SSL checkpoint found at '{path}'")
         sd, meta = load_params_only(path)
-        transfer_encoder_params(sd, self.state.model)
-        print(f"=> initialized encoder from '{path}' (epoch {meta.get('epoch')}), "
-              "new_fc randomly initialized", flush=True)
+        transfer_encoder_params(sd, model)
+        self._log(f"=> initialized encoder from '{path}' (epoch {meta.get('epoch')}), "
+                  "new_fc randomly initialized")
+
+    def _log(self, line: str) -> None:
+        if self.is_main:
+            print(line, flush=True)
 
     def batch_to_device(self, batch: dict):
         """(raw uint8 clips, int64 labels) of a host batch on the device."""
@@ -153,14 +183,15 @@ class Trainer:
                     self.writer.add_scalar("train/total_loss_iter", m["loss"],
                                            i + n_iter * epoch)
                     mt = self.meters
-                    print(f"Epoch: [{epoch}][{i}/{n_iter}], lr: {lr:.5f}\t"
-                          f"Time {mt['batch_time'].val:.3f} ({mt['batch_time'].avg:.3f})\t"
-                          f"Loss {mt['loss'].val:.4f} ({mt['loss'].avg:.4f})\t"
-                          f"Prec@1 {mt['top1'].val:.3f} ({mt['top1'].avg:.3f})\t"
-                          f"Prec@5 {mt['top5'].val:.3f} ({mt['top5'].avg:.3f})", flush=True)
+                    self._log(f"Epoch: [{epoch}][{i}/{n_iter}], lr: {lr:.5f}\t"
+                              f"Time {mt['batch_time'].val:.3f} ({mt['batch_time'].avg:.3f})\t"
+                              f"Loss {mt['loss'].val:.4f} ({mt['loss'].avg:.4f})\t"
+                              f"Prec@1 {mt['top1'].val:.3f} ({mt['top1'].avg:.3f})\t"
+                              f"Prec@5 {mt['top5'].val:.3f} ({mt['top5'].avg:.3f})")
                 end = time.time()
-                if self._preempted:
-                    print("======>Preemption Checkpoint...", flush=True)
+                if dist.any_rank(self._preempted, self.vote_group):
+                    self._preempted = True
+                    self._log("======>Preemption Checkpoint...")
                     self.saver.save_checkpoint(self.state, epoch, self.best_pred,
                                                filename="checkpoint_preempt.pth.tar")
                     return
@@ -172,23 +203,33 @@ class Trainer:
         self.writer.add_scalar("train/top1_acc", self.meters["top1"].avg, epoch)
         self.writer.add_scalar("lr", lr, epoch)
 
-    def validation(self, epoch: int) -> float:
-        """Top-1/top-5 of the concatenated logits; ``model_best_state``
-        when top-1 improves (reference: train_ds.py:164-221)."""
+    def val_logits(self, epoch: int):
+        """(logits, labels) of the validation set as numpy arrays.  Each
+        batch's rows are shared out over the ranks and the logits gathered,
+        so every rank scores the whole set."""
         all_logits, all_labels = [], []
+
+        def logits_of(rows: np.ndarray) -> torch.Tensor:
+            return self.eval_fn(self.state.model, to_device(rows, self.device))
+
         batches = self.val_loader.epoch(epoch)
         try:
             for i, batch in enumerate(batches):
-                clips = to_device(batch["clips"], self.device)
-                all_logits.append(self.eval_fn(self.state.model, clips).float().cpu().numpy())
+                logits = dist.eval_over_ranks(logits_of, batch["clips"])
+                all_logits.append(logits.float().cpu().numpy())
                 all_labels.append(batch["label"])
                 if self._capped(i):
                     break
         finally:
             batches.close()
-        logits, labels = np.concatenate(all_logits), np.concatenate(all_labels)
+        return np.concatenate(all_logits), np.concatenate(all_labels)
+
+    def validation(self, epoch: int) -> float:
+        """Top-1/top-5 of the concatenated logits; ``model_best_state``
+        when top-1 improves (reference: train_ds.py:164-221)."""
+        logits, labels = self.val_logits(epoch)
         top1, top5 = accuracy(logits, labels, topk=(1, 5))
-        print(f"Validation: [Epoch: {epoch}] Prec@1 {top1:.3f} Prec@5 {top5:.3f}", flush=True)
+        self._log(f"Validation: [Epoch: {epoch}] Prec@1 {top1:.3f} Prec@5 {top5:.3f}")
         self.writer.add_scalar("val/top1_acc", top1, epoch)
         self.writer.add_scalar("val/top5_acc", top5, epoch)
         if top1 > self.best_pred:
@@ -210,7 +251,7 @@ class Trainer:
                         and (epoch + 1) % int(self.cfg.CHECKPOINT.EVAL_INTERVAL) == 0):
                     self.validation(epoch)
                 if (epoch + 1) % int(self.cfg.CHECKPOINT.CHECKPOINT_INTERVAL) == 0:
-                    print("======>Saving Checkpoint...", flush=True)
+                    self._log("======>Saving Checkpoint...")
                     self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
                                                filename=f"checkpoint_{epoch + 1}.pth.tar")
                 if self.max_steps:
@@ -221,14 +262,16 @@ class Trainer:
             self.writer.close()
 
 
-def main(argv: Optional[list] = None) -> None:
-    args = get_parser().parse_intermixed_args(argv)
-    if dist.launched_by_torchrun() and int(os.environ["WORLD_SIZE"]) > 1:
-        raise NotImplementedError(DOWNSTREAM_ACROSS_RANKS)
-    config = load_config(args.config_file, args.opts)
-    print(f"Running with config:\n{config}")
+def run_trainer(config, args, device: str) -> None:
+    """The body of :func:`launch`: one rank's Trainer run."""
+    if dist.is_main():
+        print(f"Running with config:\n{config}")
     Trainer(config, ssl_checkpoint=args.ssl_checkpoint, max_steps=args.max_steps,
-            device=args.device).run()
+            device=device).run()
+
+
+def main(argv: Optional[list] = None) -> None:
+    launch(get_parser().parse_intermixed_args(argv), run_trainer)
 
 
 if __name__ == "__main__":

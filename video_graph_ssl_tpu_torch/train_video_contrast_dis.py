@@ -53,7 +53,7 @@ import signal
 import socket
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.multiprocessing
@@ -79,8 +79,23 @@ def get_parser() -> argparse.ArgumentParser:
         description="Video contrastive pretraining on a GPU (PyTorch port)")
     parser.add_argument("--config_file", default="", type=str,
                         help="path to YAML config")
-    # the reference's DDP flags (ignored under torchrun, whose environment
-    # gives the ranks)
+    add_dist_args(parser)
+    parser.add_argument("--max_steps", default=0, type=int,
+                        help="cap total steps, counted across epochs (0 = unlimited)")
+    parser.add_argument("--profile_dir", default="", type=str,
+                        help="write a torch.profiler trace of steps 5-10 of the "
+                             "first epoch into this directory")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device to train on (default: cuda)")
+    parser.add_argument("opts", nargs="*",
+                        help="config overrides: KEY VALUE ... (options may "
+                             "come before or after them)")
+    return parser
+
+
+def add_dist_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The reference's DDP flags, which :func:`launch` reads (ignored under
+    torchrun, whose environment gives the ranks)."""
     parser.add_argument("--rank", default=0, type=int,
                         help="node rank (with --multiprocessing-distributed), "
                              "else this process's rank")
@@ -96,16 +111,6 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dist-backend", default="nccl", type=str,
                         help="torch.distributed backend (nccl; gloo for CPU ranks "
                              "or ranks that share one card)")
-    parser.add_argument("--max_steps", default=0, type=int,
-                        help="cap total steps, counted across epochs (0 = unlimited)")
-    parser.add_argument("--profile_dir", default="", type=str,
-                        help="write a torch.profiler trace of steps 5-10 of the "
-                             "first epoch into this directory")
-    parser.add_argument("--device", default="cuda", type=str,
-                        help="torch device to train on (default: cuda)")
-    parser.add_argument("opts", nargs="*",
-                        help="config overrides: KEY VALUE ... (options may "
-                             "come before or after them)")
     return parser
 
 
@@ -360,10 +365,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_rank(args, rank: Optional[int] = None, world: Optional[int] = None,
-             device: Optional[str] = None) -> None:
-    """Train as one process: alone, as a torchrun rank, or as rank ``rank``
-    of ``world`` at ``--dist-url``; the process group ends with the run."""
+def run_rank(args, body: Callable, rank: Optional[int] = None,
+             world: Optional[int] = None, device: Optional[str] = None):
+    """``body(config, args, device)`` as one process: alone (or inside a
+    group the caller already joined), as a torchrun rank, or as rank
+    ``rank`` of ``world`` at ``--dist-url``; a group joined here ends with
+    the run.  Returns what ``body`` returns."""
     config = load_config(args.config_file, args.opts)
     grouped = dist.launched_by_torchrun() or world is not None
     if dist.launched_by_torchrun():
@@ -371,27 +378,27 @@ def run_rank(args, rank: Optional[int] = None, world: Optional[int] = None,
     elif world is not None:
         dist.init_distributed(args.dist_backend, args.dist_url, world, rank)
     try:
-        if dist.is_main():
-            print(f"Running with config:\n{config}")
-        trainer = Trainer(config, max_steps=args.max_steps, device=device or args.device,
-                          profile_dir=args.profile_dir)
-        trainer.run()
+        return body(config, args, device or args.device)
     finally:
         if grouped:
             torch.distributed.destroy_process_group()
 
 
-def _spawned_rank(index: int, args, per_node: int, world: int) -> None:
+def _spawned_rank(index: int, args, per_node: int, world: int, body: Callable) -> None:
     """torch.multiprocessing.spawn's entry: card ``index`` of this node."""
     device = args.device if args.device == "cpu" else f"cuda:{index}"
-    run_rank(args, args.rank * per_node + index, world, device)
+    run_rank(args, body, args.rank * per_node + index, world, device)
 
 
-def main(argv: Optional[list] = None) -> None:
-    args = get_parser().parse_intermixed_args(argv)
+def launch(args, body: Callable):
+    """Run ``body(config, args, device)`` on the ranks that ``args`` (the
+    flags of :func:`add_dist_args`) or torchrun's environment give: one
+    process, this process as one rank, or with ``--multiprocessing-distributed``
+    one spawned rank per card of this node.  Returns ``body``'s result where
+    this process ran it (None where it spawned the ranks)."""
     if dist.launched_by_torchrun():
-        run_rank(args)
-    elif args.multiprocessing_distributed:
+        return run_rank(args, body)
+    if args.multiprocessing_distributed:
         # the reference's launcher: --world_size nodes, --rank this node's
         per_node = torch.cuda.device_count() if args.device != "cpu" else 1
         if per_node < 1:
@@ -401,14 +408,26 @@ def main(argv: Optional[list] = None) -> None:
                 raise ValueError("--dist-url is needed across nodes")
             args.dist_url = f"tcp://localhost:{_free_port()}"
         torch.multiprocessing.spawn(_spawned_rank, args=(args, per_node,
-                                                         per_node * args.world_size),
+                                                         per_node * args.world_size, body),
                                     nprocs=per_node)
-    elif args.world_size > 1:
+        return None
+    if args.world_size > 1:
         if not args.dist_url:
             raise ValueError("--world_size above 1 needs --dist-url")
-        run_rank(args, args.rank, args.world_size)
-    else:
-        run_rank(args)
+        return run_rank(args, body, args.rank, args.world_size)
+    return run_rank(args, body)
+
+
+def train(config, args, device: str) -> None:
+    """The pretrain body of :func:`launch`: one rank's Trainer run."""
+    if dist.is_main():
+        print(f"Running with config:\n{config}")
+    Trainer(config, max_steps=args.max_steps, device=device,
+            profile_dir=args.profile_dir).run()
+
+
+def main(argv: Optional[list] = None) -> None:
+    launch(get_parser().parse_intermixed_args(argv), train)
 
 
 if __name__ == "__main__":

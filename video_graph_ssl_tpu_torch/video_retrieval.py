@@ -19,6 +19,13 @@ R@{1,5,10,20,50} (k up to the train count) and writes
 ``topk_correct.json``.  ``--save_vis N`` draws the first N queries with
 their top-5 neighbours (needs cv2).  ``--device`` defaults to ``cuda`` and
 raises when no GPU is present.
+
+Across ranks (``train_ds``'s launchers: torchrun, ``--world_size N --rank R
+--dist-url URL``, ``--multiprocessing-distributed``) each batch is padded to
+a multiple of the world size, each rank encodes its share of it and the
+features are gathered in rank order (``parallel.dist.eval_over_ranks``);
+rank 0 alone writes the feature pickles, ``topk_correct.json`` and the
+figures, and prints R@k.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ from .data.pipeline import to_device
 from .data.transforms_device import N_CROPS
 from .engine.downstream import make_feature_step
 from .models.build import create_visual_model
+from .parallel import dist
 from .test_ds import crops_of
-from .train_video_contrast_dis import load_config, resolve_device
+from .train_video_contrast_dis import add_dist_args, launch, resolve_device
 from .utils.checkpoint import load_params_only
 
 TOPK = (1, 5, 10, 20, 50)
@@ -48,6 +56,7 @@ TOPK = (1, 5, 10, 20, 50)
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Video retrieval R@k (PyTorch port)")
     parser.add_argument("--config_file", default="", type=str)
+    add_dist_args(parser)
     parser.add_argument("--checkpoint", default="", type=str)
     parser.add_argument("--extract_feature", action="store_true")
     parser.add_argument("--feature_dir", default="features", type=str)
@@ -87,24 +96,32 @@ def _split_cfg(config, split: str):
 
 
 def extract_split(config, args, model, split: str, device) -> np.ndarray:
-    """Encode ``split``'s videos and pickle {features, classes} under
-    ``--feature_dir``; returns the features."""
+    """Encode ``split``'s videos (each batch shared out over the ranks) and
+    pickle {features, classes} under ``--feature_dir`` (rank 0); returns
+    the features, on every rank."""
     loader = make_test_loader(_split_cfg(config, split), num_clips=args.test_clips)
     feat_fn = build_feature_fn(config, n_crops=args.test_crops)
+
+    def feats_of(rows: np.ndarray) -> torch.Tensor:
+        return feat_fn(model, to_device(rows, device))
+
     feats, classes, seen = [], [], 0
     t0 = time.perf_counter()
     batches = loader.epoch(0)
     try:
         for batch in batches:
-            feats.append(feat_fn(model, to_device(batch["clips"], device)).float().cpu().numpy())
+            feats.append(dist.eval_over_ranks(feats_of, batch["clips"]).float().cpu().numpy())
             classes.append(batch["label"])
             seen += len(batch["label"])
-            print(f"[{split}] extracted {seen} videos", flush=True)
+            if dist.is_main():
+                print(f"[{split}] extracted {seen} videos", flush=True)
             if args.max_videos and seen >= args.max_videos:
                 break
     finally:
         batches.close()
     feats, classes = np.concatenate(feats), np.concatenate(classes)
+    if not dist.is_main():
+        return feats
     os.makedirs(args.feature_dir, exist_ok=True)
     out = os.path.join(args.feature_dir, f"{split}_features.pkl")
     with open(out, "wb") as f:
@@ -205,19 +222,24 @@ def load_encoder(config, checkpoint: str, device) -> torch.nn.Module:
     if checkpoint:
         sd, meta = load_params_only(checkpoint)
         model.load_state_dict(sd, strict=True)
-        print(f"=> loaded '{checkpoint}' (epoch {meta.get('epoch')})")
+        if dist.is_main():
+            print(f"=> loaded '{checkpoint}' (epoch {meta.get('epoch')})")
     return model
 
 
-def main(argv: Optional[list] = None) -> dict:
-    args = get_parser().parse_intermixed_args(argv)
-    config = load_config(args.config_file, args.opts)
+def retrieve(config, args, device: str) -> Optional[dict]:
+    """The body of :func:`launch`: extract the features where asked, then
+    R@k on rank 0 (None on the other ranks)."""
     if args.extract_feature:
-        device = resolve_device(args.device)
+        device = resolve_device(device)
         model = load_encoder(config, args.checkpoint, device)
         for split in ("train", "val"):
             extract_split(config, args, model, split, device)
-    return topk_retrieval(args, config)
+    return topk_retrieval(args, config) if dist.is_main() else None
+
+
+def main(argv: Optional[list] = None) -> Optional[dict]:
+    return launch(get_parser().parse_intermixed_args(argv), retrieve)
 
 
 if __name__ == "__main__":
