@@ -154,6 +154,32 @@ Phases (each raises on failure; the script then exits non-zero):
    K2 and K3/K4 against their plain versions at a rank's shapes (bs 16,
    16x112x112, bf16), K1's draw at clip 16 equal to those rows of the draw
    over 32 clips, bit for bit.
+13. the reference's exported 3D backbones S3DG, I3D and InceptionI3d
+   (``models/s3d.py`` with ``temporal_bias``, ``models/i3d.py``; I3D pads
+   TF "SAME", so every strided pool pads one more on its high side and
+   stage 13 leaves 4x4): (a) K3/K4 at every I3D pool of the bs-128
+   16x112x112 step and of the bs-32 16x224x224 step (the stem pool there in
+   strips), fp32 and bf16, against the plain version (exact) and torch's
+   own backward of the same pool (``ceil_mode`` with the low pads), then
+   at ragged SAME shapes (odd and even T, H, W; C not a multiple of 8),
+   exact; the kernel, plain, torch and bound times of the pool shapes that
+   S3D's step does not have; K1 and K2 against their plain versions at
+   I3D's aug point 14 (q/k (128, 2, 1664), x (128, 2, 4, 4, 832)), with
+   times; (b) a small I3D+graph and a small S3DG+graph MoCo step on the
+   card against the CPU; (c) the trainer on ``configs/visual_moco.yaml``
+   with ``MODEL.BACKBONE I3D``, then ``S3DG``, graph on (bs 128,
+   16x112x112, NCE_K 16384, bf16), 2 warm-up and 3 timed steps, the K1-K5
+   counts of exactly those steps held to ``kernel_times.step_calls`` (K1
+   30, K2 45, K3 45, K4 20, K5 0), ms/step, clips/s, finite losses, peak
+   memory; ``InceptionI3d``: I3D's parameter names and one step; (d)
+   ``train_ds`` on ``configs/action_fine_tune.yaml`` with I3D (partial BN,
+   the checkpoint's graph blocks kept) from (c)'s I3D checkpoint, 3 steps
+   (K3 9, K4 4, K1 3, K2 6 per step), a validation and ``test_ds`` over 8
+   videos; (e) ``MODEL.PRETRAIN_PATH``: an I3D and
+   an S3DG state_dict under the reference's names, with seeded values,
+   load strictly into both encoders of the pretrain trainer, which takes a
+   step (graph off); the I3D file into ``train_ds`` too.  The phase ends
+   with a ``backbones`` JSON line.
 
 Each phase prints its wall seconds.  Times are CUDA events around one
 call, the median of 20 calls (10 for K5; ``kernel_times.event_ms``).  ``bound``
@@ -302,6 +328,13 @@ def _bound_by(bys) -> str:
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def pool_key(shape, k, s, p) -> tuple:
+    """A pool's (x (B, T, H, W, C), window, stride, (lo, hi) pads), whatever
+    form its padding was given in (the wrappers pass (lo, hi) pairs)."""
+    from video_graph_ssl_tpu_torch.ops.maxpool import resolve_padding
+    return tuple(shape), tuple(k), tuple(s), resolve_padding(p, shape[1:4], k, s)
 
 
 # --------------------------------------------------------------------------- #
@@ -783,19 +816,20 @@ def phase_k5(dev) -> dict:
             **sums}
 
 # --------------------------------------------------------------------------- #
-def small_step_parity(dev, fused: bool) -> None:
-    """One MoCo step of a small S3D+graph model (graph blocks at 5, 9, 14;
-    fp32; sampler none; TPU.SEPCONV_FUSED as given) from one initial state
-    and one batch: the card (kernels) against the CPU (plain versions)."""
+def small_step_parity(dev, fused: bool, backbone: str = "S3D") -> None:
+    """One MoCo step of a small ``backbone``+graph model (graph blocks at 5,
+    9, 14; fp32; sampler none; TPU.SEPCONV_FUSED as given) from one initial
+    state and one batch: the card (kernels) against the CPU (plain
+    versions)."""
     from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
     from video_graph_ssl_tpu_torch.engine.pretrain import make_moco_step
     from video_graph_ssl_tpu_torch.models.build import create_visual_model
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
 
-    print(f"  small S3D+graph MoCo step (4x16x64x64, fp32, SEPCONV_FUSED {fused}), "
+    print(f"  small {backbone}+graph MoCo step (4x16x64x64, fp32, SEPCONV_FUSED {fused}), "
           "card vs CPU")
     c = load_config(CONFIG, [
-        "MODEL.AUG_FLAG", "True", "GRAPH.SAMPLER", "none",
+        "MODEL.BACKBONE", backbone, "MODEL.AUG_FLAG", "True", "GRAPH.SAMPLER", "none",
         "TPU.COMPUTE_DTYPE", "float32", "CONTRAST.NCE_K", "64",
         "CONTRAST.NCE_T", "1.0", "TPU.SEPCONV_FUSED", str(fused)])
     clips = torch.randn(4, 2, 16, 64, 64, 3,
@@ -811,7 +845,7 @@ def small_step_parity(dev, fused: bool) -> None:
                            for p, q in zip(state.model.parameters(), p0)])
         runs[name] = (loss, state.contrast.queue.cpu(), delta)
     (lc, qc, dc), (lg, qg, dg) = runs["cpu"], runs["gpu"]
-    tag = f"slice small (fused {fused})"
+    tag = f"slice small ({backbone}, fused {fused})"
     check(f"{tag}: loss", abs(lc - lg) / max(1.0, abs(lc)), 1e-4)
     # Train-mode BN over 4 clips amplifies rounding in the deep stages: the
     # keys of fp32 and fp64 runs on the CPU already differ by 8e-5.
@@ -844,26 +878,31 @@ def read_counts() -> dict:
             "sepconv_bwd": sb.launches}
 
 
-def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> dict:
-    """5 trainer steps at full S3D width (2 warm-up, 3 timed), bs ``bsz``,
-    16 x size x size (224: INPUT.BASE_SIZE [224, 224], SCALE_SIZE [256,
-    256]) from synthetic clips through the Loader; returns the launch
-    counts of exactly those steps and the mean ms of the timed steps."""
+def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
+                backbone: str = "S3D", save: bool = False) -> dict:
+    """5 trainer steps at full ``backbone`` width (2 warm-up, 3 timed), bs
+    ``bsz``, 16 x size x size (224: INPUT.BASE_SIZE [224, 224], SCALE_SIZE
+    [256, 256]) from synthetic clips through the Loader; returns the launch
+    counts of exactly those steps (``counts``), the mean ms of the timed
+    steps (``ms``), the peak memory (``peak_gib``) and, with ``save``, the
+    path of a checkpoint that the trainer's Saver writes after the steps
+    (``ckpt``)."""
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
     _, _, mp, sb = _counters()
-    print(f"  trainer at full S3D width, bs {bsz}, 16x{size}x{size}, SEPCONV_FUSED {fused}")
-    geometry = [] if size == 112 else ["INPUT.BASE_SIZE", f"[{size}, {size}]",
-                                       "INPUT.SCALE_SIZE", f"[{size * 8 // 7}, {size * 8 // 7}]"]
-    c = load_config(CONFIG, ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic",
-                             "DATALOADER.BATCH_SIZE", str(bsz),
-                             "TPU.SEPCONV_FUSED", str(fused)] + geometry)
+    print(f"  trainer at full {backbone} width, bs {bsz}, 16x{size}x{size}, "
+          f"SEPCONV_FUSED {fused}")
+    frames = [] if size == 112 else ["INPUT.BASE_SIZE", f"[{size}, {size}]",
+                                     "INPUT.SCALE_SIZE", f"[{size * 8 // 7}, {size * 8 // 7}]"]
+    c = load_config(CONFIG, ["MODEL.BACKBONE", backbone, "MODEL.AUG_FLAG", "True",
+                             "DATASET.SOURCE", "synthetic", "DATALOADER.BATCH_SIZE", str(bsz),
+                             "TPU.SEPCONV_FUSED", str(fused)] + frames)
     if list(c.INPUT.BASE_SIZE) != [size, size]:
         raise RuntimeError(f"INPUT.BASE_SIZE {c.INPUT.BASE_SIZE}, want {size}")
     if int(c.CONTRAST.NCE_K) != 16384 or c.TPU.COMPUTE_DTYPE != "bfloat16":
         raise RuntimeError("configs/visual_moco.yaml no longer gives NCE_K 16384 "
                            "with bf16 compute")
-    trainer = Trainer(c, max_steps=5, device="cuda", run_dir=RUN_DIR)
+    trainer = Trainer(c, max_steps=5, device=str(dev), run_dir=RUN_DIR)
     t0 = time.perf_counter()
     epoch = trainer.train_loader.epoch(0)
     batches = [trainer.to_device(bt) for bt in itertools.islice(epoch, 5)]
@@ -877,7 +916,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> 
 
     def pool_rec(x, y, dy, k, s, p):
         b, cc, t, h, w = x.shape
-        seen_pools.add(((b, t, h, w, cc), tuple(k), tuple(s), tuple(p)))
+        seen_pools.add(pool_key((b, t, h, w, cc), k, s, p))
         return pool_launch(x, y, dy, k, s, p)
 
     def sep_rec(x, ws, *rest):
@@ -921,7 +960,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> 
     n = len(batches)
     # K3/K4/K5 run in the query pass's backward only (the key pass takes no
     # gradient)
-    want = _want_counts(n, fused=fused)
+    want = _want_counts(n, fused=fused, backbone=backbone)
     print(f"  kernel calls in the 5 steps: {counts} (want {want})")
     print(f"  cotangents copied to channels_last_3d in the 5 steps: pool dy "
           f"{copies[0]}, SepConv g {copies[1]}")
@@ -931,8 +970,8 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> 
     if tc_calls != want["sepconv_bwd"] or copies[1] != 0:
         raise RuntimeError(f"K5: {tc_calls} tensor-core calls of {want['sepconv_bwd']}, "
                            f"{copies[1]} cotangent copies (want 0)")
-    want_pools = {((bsz, *shape[1:]), k, s, p)
-                  for _, _, shape, k, s, p in (POOLS if size == 112 else POOLS_224)}
+    want_pools = {pool_key(shape, k, s, p)
+                  for _, _, shape, k, s, p in geometry(size, bsz, backbone)[2]}
     if seen_pools != want_pools:
         raise RuntimeError(f"pool shapes {sorted(seen_pools)} != {sorted(want_pools)}")
     want_seps = {(bthw, c_, f) for _, bthw, c_, f in SEPCONVS} if fused else set()
@@ -940,13 +979,15 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112) -> 
         raise RuntimeError(f"SepConv shapes {sorted(seen_seps)} != {sorted(want_seps)}")
     timed = step_ms[2:]
     mean_ms = sum(timed) / len(timed)
-    print(f"slice (SEPCONV_FUSED {fused}, 16x{size}x{size}): {mean_ms:.1f} ms/step, "
-          f"{bsz / mean_ms * 1e3:.1f} clips/s (mean of 3 timed steps, bs {bsz}, "
+    print(f"slice ({backbone}, SEPCONV_FUSED {fused}, 16x{size}x{size}): {mean_ms:.1f} "
+          f"ms/step, {bsz / mean_ms * 1e3:.1f} clips/s (mean of 3 timed steps, bs {bsz}, "
           f"peak {peak:.1f} GiB) on {gpu}")
+    ckpt = (trainer.saver.save_checkpoint(state, 1, filename="checkpoint_1.pth.tar")
+            if save else None)
     del trainer, state, batches, metrics
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, mean_ms
+    return {"counts": counts, "ms": mean_ms, "peak_gib": peak, "ckpt": ckpt}
 
 
 def phase_slice(dev, gpu: str) -> dict:
@@ -955,13 +996,13 @@ def phase_slice(dev, gpu: str) -> dict:
     run of the path that uses it."""
     print("phase 6a: the GCA step")
     small_step_parity(dev, fused=False)
-    counts, synthetic_ms = run_trainer(dev, gpu, fused=False)
+    run = run_trainer(dev, gpu, fused=False)
+    counts, synthetic_ms = run["counts"], run["ms"]
     print("phase 6b: the GCA step with TPU.SEPCONV_FUSED True")
     small_step_parity(dev, fused=True)
-    fused_counts, _ = run_trainer(dev, gpu, fused=True)
-    counts["sepconv_bwd"] = fused_counts["sepconv_bwd"]
+    counts["sepconv_bwd"] = run_trainer(dev, gpu, fused=True)["counts"]["sepconv_bwd"]
     print("phase 6c: the GCA step at 16x224x224, bs 32 (K3/K4 in strips)")
-    big, _ = run_trainer(dev, gpu, fused=False, bsz=32, size=224)
+    big = run_trainer(dev, gpu, fused=False, bsz=32, size=224)["counts"]
     if not all(big[n] > 0 for n in ("graph_adjacency", "gcn_propagate", "maxpool_bwd_s1",
                                     "maxpool_bwd_strided")):
         raise RuntimeError(f"224x224 step: a kernel was not launched: {big}")
@@ -2233,7 +2274,7 @@ def phase_ab(dev, gpu: str) -> None:
 
     def k4_rec(x, y, dy, k, s, p):
         b, c, t, h, w = x.shape
-        seen["K4"].add(((b, t, h, w, c), tuple(k), tuple(s), tuple(p)))
+        seen["K4"].add(pool_key((b, t, h, w, c), k, s, p))
         return k4(x, y, dy, k, s, p)
 
     arms = {}
@@ -2271,7 +2312,7 @@ def phase_ab(dev, gpu: str) -> None:
           f"{rec['graph']['after']!r}, nograph after {rec['nograph']['after']!r}, margin "
           f"{rec['margin']:+.4f}; this run equals it bit for bit: {same}")
     _hold_counts("(b) the A/B pair", counts, want)
-    if seen != {"K1": set(AB_K1), "K2": set(AB_K2), "K4": {AB_POOL}}:
+    if seen != {"K1": set(AB_K1), "K2": set(AB_K2), "K4": {pool_key(*AB_POOL)}}:
         raise RuntimeError(f"(b) the kernels saw {seen}, not AB_K1, AB_K2, AB_POOL")
     for aug, r in arms.items():
         if not r["loss_last"] < AB_TRAINS * r["loss_first"]:
@@ -2492,6 +2533,269 @@ def phase_ds_ranks(dev, gpu: str, ssl: str, best: str) -> None:
     kernel_checks(dev, "(d)", k1s, k2s, pools, "bf16", clip0=16)
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the reference's exported 3D backbones S3DG, I3D and InceptionI3d
+# (models/s3d.py with temporal_bias, models/i3d.py).  I3D pads TF "SAME":
+# every strided pool pads one more on its high side than on its low side,
+# and stage 13 leaves 4x4 where S3D's pool leaves 3x3, so the graph block at
+# 14 sees x (128, 2, 4, 4, 832) and K1's q/k (128, 2, 1664)
+I3D_K1, I3D_K2, I3D_POOLS, _ = geometry(112, 128, "I3D")
+_, _, I3D_POOLS_224, _ = geometry(224, 32, "I3D")
+# ragged TF "SAME" shapes (B, T, H, W, C) at each I3D pool geometry: odd and
+# even T, H and W (a high pad one more than the low, and equal to it); C 12
+# (bf16) or 6 (fp32), the kernel's scalar path, or 40
+SAME_RAGGED = [(2, 5, 9, 7, None), (2, 8, 10, 10, None), (3, 4, 7, 6, 40)]
+I3D_OPTS = ["MODEL.BACKBONE", "I3D"]
+
+
+def i3d_pool_checks(dev) -> dict:
+    """(a) K3/K4 at every I3D pool of the bs-128 16x112x112 step and of the
+    bs-32 16x224x224 step (each with its plan; strips where a slab exceeds
+    a block), fp32 and bf16: against the plain version, exactly, and
+    against torch's own backward of the same pool (``ceil_mode`` with the
+    low pads: the same windows); then the ragged SAME shapes, exactly; the
+    kernel, plain, torch and bound times of the pool shapes S3D's step does
+    not have.  Returns the largest kernel-vs-plain difference per kernel."""
+    from video_graph_ssl_tpu_torch.ops import maxpool as mp
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    worst = {"K3": 0.0, "K4": 0.0}
+    s3d = {pool_key(shape, k, s_, p) for _, _, shape, k, s_, p in POOLS}
+    rows = []
+    for (name, kn, shape, k, s_, pads), dn in itertools.product(I3D_POOLS + I3D_POOLS_224,
+                                                               DTYPES):
+        dt = DTYPES[dn]
+        lo = [p[0] for p in pads]
+        ceil = any(a != b for a, b in pads)
+        x = _ncdhw(shape, dev, dt, g)
+        y, idx = mp.pool_forward(x, k, s_, pads, return_indices=True)
+        y = y.contiguous(memory_format=CL)
+        dy = torch.randn(y.shape, device=dev, generator=g).to(dt).contiguous(memory_format=CL)
+        plan = mp.bwd_plan(x.shape, k, s_, pads, dt)
+        tag = (f"{kn} I3D {name} {shape} pads {pads} {dn} [{plan.t_strips * plan.h_strips} "
+               f"strip(s), {plan.blocks} blocks, {plan.smem_bytes} B]")
+        dx = mp._launch(x, y, dy, k, s_, pads)
+        err = max_abs(dx, mp.max_pool3d_bwd_plain(x, y, dy, k, s_, pads))
+        check(f"{tag} vs plain (max abs)", err, 0.0)
+        worst[kn] = max(worst[kn], err)
+
+        def lib():
+            return torch.ops.aten.max_pool3d_with_indices_backward(
+                dy, x, list(k), list(s_), lo, [1, 1, 1], ceil, idx)
+
+        check(f"{tag} vs torch (ceil_mode {ceil})", rel_err(dx, lib()), TOL_POOL_LIB[dn])
+        if dn == "bf16" and shape[0] == 128 and pool_key(shape, k, s_, pads) not in s3d:
+            tk = event_ms(lambda: mp._launch(x, y, dy, k, s_, pads))
+            tp = event_ms(lambda: mp.max_pool3d_bwd_plain(x, y, dy, k, s_, pads))
+            tl = event_ms(lib)
+            bm, by = bound(2 * (x.numel() + y.numel()) * x.element_size(), 0, dn)
+            rows.append(f"  {kn} I3D {name} {shape} pads {pads} bf16: kernel {tk:.4f} ms  "
+                        f"plain {tp:.4f} ms  torch {tl:.4f} ms  bound {bm:.4f} ms ({by})  "
+                        f"[{plan.slab} slabs, {plan.group}-channel groups, {plan.smem_bytes} B "
+                        f"shared memory per block, {plan.blocks} blocks of {plan.threads} "
+                        f"threads]")
+        del x, y, idx, dy, dx
+    print("  (a) the I3D pool shapes that S3D's step does not have (bs 128, 16x112x112):")
+    for row in rows:
+        print(row)
+    geoms = sorted({(k, s_) for _, _, _, k, s_, _ in I3D_POOLS})
+    for (k, s_), shape, dn in itertools.product(geoms, SAME_RAGGED, DTYPES):
+        dt = DTYPES[dn]
+        shape = shape[:4] + (shape[4] or (12 if dn == "bf16" else 6),)
+        kn = "K3" if s_ == (1, 1, 1) else "K4"
+        pads = mp.same_padding(shape[1:4], k, s_)
+        x = _ncdhw(shape, dev, dt, g)
+        y = mp.pool_forward(x, k, s_, pads).contiguous(memory_format=CL)
+        dy = torch.randn(y.shape, device=dev, generator=g).to(dt).contiguous(memory_format=CL)
+        err = max_abs(mp._launch(x, y, dy, k, s_, "SAME"),
+                      mp.max_pool3d_bwd_plain(x, y, dy, k, s_, pads))
+        check(f"{kn} SAME k{k} s{s_} {shape} pads {pads} {dn} vs plain (max abs)", err, 0.0)
+        worst[kn] = max(worst[kn], err)
+    return worst
+
+
+def i3d_graph_checks(dev, gpu: str) -> None:
+    """(a) K1 and K2 against their plain versions at I3D's aug point 14
+    (x (128, 2, 4, 4, 832), q/k (128, 2, 1664)), fp32 and bf16, with the
+    kernel and plain times in bf16."""
+    from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
+    from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
+
+    for dn in DTYPES:
+        kernel_checks(dev, "(a) I3D point 14", [I3D_K1[2]], [I3D_K2[2]], [], dn)
+    g = torch.Generator(device=dev).manual_seed(14)
+    b, t, d = I3D_K1[2]
+    q, k = (torch.randn(b, t, d, device=dev, generator=g).to(torch.bfloat16) for _ in "qk")
+    theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
+    x = torch.randn(I3D_K2[2], device=dev, generator=g).to(torch.bfloat16)
+    adj = torch.rand(b, t, t, device=dev, generator=g).to(torch.bfloat16)
+    times_ = {
+        "K1": (event_ms(lambda: gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0)),
+               event_ms(lambda: gk._adjacency_fwd_plain(q, k, theta, None, 7, 1.0, True, 0))),
+        "K2": (event_ms(lambda: gp._launch(adj, x, transpose=False)),
+               event_ms(lambda: gp.propagate_plain(adj, x, transpose=False)))}
+    for kn, (tk, tp) in times_.items():
+        shape = I3D_K1[2] if kn == "K1" else I3D_K2[2]
+        print(f"  (a) {kn} I3D point 14 {shape} bf16: kernel {tk:.4f} ms  plain {tp:.4f} ms "
+              f"on {gpu}")
+
+
+def inception_i3d_step(dev) -> None:
+    """(c) ``InceptionI3d``: I3D's network under I3D's parameter names, one
+    trainer step at full width (bs 128, 16x112x112)."""
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+
+    opts = ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic", "DATALOADER.BATCH_SIZE", "128"]
+    c = load_config(CONFIG, opts + ["MODEL.BACKBONE", "InceptionI3d"])
+    trainer = Trainer(c, max_steps=1, device=str(dev), run_dir=RUN_DIR)
+    names = sorted(trainer.state.model.state_dict())
+    i3d, _ = create_visual_model(load_config(CONFIG, opts + I3D_OPTS))
+    if names != sorted(i3d.state_dict()):
+        raise RuntimeError("InceptionI3d's parameter names differ from I3D's")
+    epoch = trainer.train_loader.epoch(0)
+    batch = next(epoch)
+    epoch.close()
+    reset_counts()
+    loss = float(trainer.train_step(trainer.to_device(batch), trainer.lr_fn(0))["loss"])
+    counts = read_counts()
+    print(f"  (c) InceptionI3d: {len(names)} entries, I3D's names; one step at bs "
+          f"{c.DATALOADER.BATCH_SIZE}, loss {loss:.4f}, kernel calls {counts}")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"InceptionI3d step: non-finite loss {loss}")
+    _hold_counts("(c) InceptionI3d", counts, _want_counts(1, backbone="InceptionI3d"))
+    del trainer, i3d
+    _free()
+
+
+def i3d_downstream(dev, gpu: str, ssl: str) -> None:
+    """(d) train_ds on configs/action_fine_tune.yaml with I3D (partial BN)
+    from (c)'s I3D checkpoint, whose graph blocks it keeps (``MODEL.AUG_FLAG
+    True``): 3 steps (K3 9, K4 4, K1 3, K2 6 per step), a validation, then
+    test_ds on its best checkpoint over 8 videos."""
+    import numpy as np
+    from video_graph_ssl_tpu_torch import test_ds
+
+    opts = I3D_OPTS + ["MODEL.AUG_FLAG", "True"]
+    r = run_downstream(dev, gpu, FT_CONFIG, opts, DS_SHORT, ssl=ssl)
+    _hold_counts("(d) I3D fine-tune", r["counts"], _want_counts(
+        DS_SHORT, "finetune", partial_bn=True, graph=True, backbone="I3D"))
+    trainer = r["trainer"]
+    trainer.best_pred = -1.0
+    top1 = trainer.validation(0)
+    best = os.path.join(trainer.saver.experiment_dir, "model_best_state.pth.tar")
+    print(f"  (d) validation: top-1 {top1:.2f}%; {best} written {os.path.exists(best)}")
+    if not os.path.exists(best):
+        raise RuntimeError("(d) model_best_state.pth.tar was not written")
+    del trainer, r
+    _free()
+    scores_path = os.path.join(RUN_DIR, "phase13_scores.npz")
+    t0 = time.perf_counter()
+    rep = test_ds.main(["--device", str(dev), "--config_file", FT_CONFIG, "--checkpoint", best,
+                        "--test_crops", "3", "--test_clips", "2", "--max_videos", "8",
+                        "--save_scores", scores_path, *SYNTHETIC, "TEST.BATCH_SIZE", "8",
+                        *opts])
+    scores = np.load(scores_path)["scores"]
+    print(f"  (d) test_ds (I3D, 8 videos x 2 clips x 3 crops): {time.perf_counter() - t0:.1f} s, "
+          f"top-1 {rep['top1']:.2f}%, scores {scores.shape}")
+    if scores.shape != (8, 101) or not np.isfinite(scores).all():
+        raise RuntimeError(f"(d) test_ds scores {scores.shape}, finite "
+                           f"{bool(np.isfinite(scores).all())}")
+
+
+def reference_pretrain_path(dev, gpu: str) -> None:
+    """(e) ``MODEL.PRETRAIN_PATH``: for I3D and S3DG, a state_dict under the
+    reference's names (``utils/torch_names.reference_backbone_names``; the
+    classifier and torch BN's ``num_batches_tracked`` included, as the
+    reference saves them, wrapped in ``module.``) with seeded values loads
+    strictly into both of the pretrain trainer's encoders, which then take
+    one step (bs 32, graph off: a reference backbone holds no graph
+    block); the I3D file loads into ``train_ds``'s backbone too, one step."""
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+    from video_graph_ssl_tpu_torch.train_ds import Trainer as DsTrainer
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+    from video_graph_ssl_tpu_torch.utils.torch_names import reference_backbone_names
+
+    for backbone, layout, head in (("I3D", "i3d", "conv3d_0c_1x1.conv3d"),
+                                   ("S3DG", "s3dg", "features.18")):
+        opts = SYNTHETIC + ["MODEL.BACKBONE", backbone, "MODEL.AUG_FLAG", "False",
+                            "DATALOADER.BATCH_SIZE", "32"]
+        own = create_visual_model(load_config(CONFIG, opts))[0].model.encoder.base_model
+        gen = torch.Generator().manual_seed(17)
+        values = {k: (torch.rand(v.shape, generator=gen) + 0.5 if "running_var" in k
+                      else 0.1 * torch.randn(v.shape, generator=gen))
+                  for k, v in own.state_dict().items()}
+        sd = reference_backbone_names(values, layout)
+        sd.update({k.rsplit(".", 1)[0] + ".num_batches_tracked": torch.tensor(10)
+                   for k in list(sd) if k.endswith("running_mean")})
+        sd[head + ".weight"] = torch.zeros(400, 1024, 1, 1, 1)
+        sd[head + ".bias"] = torch.zeros(400)
+        path = os.path.join(RUN_DIR, f"reference_{backbone}.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, path)
+        c = load_config(CONFIG, opts + ["MODEL.PRETRAINED", "True", "MODEL.PRETRAIN_PATH", path])
+        trainer = Trainer(c, max_steps=1, device=str(dev), run_dir=RUN_DIR)
+        for model in (trainer.state.model, trainer.state.ema_model):
+            got = model.model.encoder.base_model.state_dict()
+            if sorted(got) != sorted(values) or not all(
+                    torch.equal(got[k].cpu(), v) for k, v in values.items()):
+                raise RuntimeError(f"(e) {backbone}: the reference-named file did not load "
+                                   "as written")
+        epoch = trainer.train_loader.epoch(0)
+        batch = next(epoch)
+        epoch.close()
+        loss = float(trainer.train_step(trainer.to_device(batch), trainer.lr_fn(0))["loss"])
+        print(f"  (e) {backbone}: {len(sd)} reference-named entries ({head} and the BN "
+              f"counters dropped) loaded strictly into both encoders; one step, loss "
+              f"{loss:.4f}")
+        if not math.isfinite(loss):
+            raise RuntimeError(f"(e) {backbone}: non-finite loss {loss}")
+        del trainer
+        _free()
+        if backbone == "I3D":
+            ds = DsTrainer(load_config(FT_CONFIG, SYNTHETIC + I3D_OPTS + [
+                "MODEL.PRETRAIN_PATH", path]), max_steps=1, device=str(dev), run_dir=RUN_DIR)
+            got = ds.state.model.base_model.state_dict()
+            if not all(torch.equal(got[k].cpu(), v) for k, v in values.items()):
+                raise RuntimeError("(e) train_ds: the reference-named I3D file did not load")
+            epoch = ds.train_loader.epoch(0)
+            clips, labels = ds.batch_to_device(next(epoch))
+            epoch.close()
+            loss = float(ds.train_step(clips, labels, ds.lr_fn(0))["loss"])
+            print(f"  (e) train_ds from the reference-named I3D file: one step, loss {loss:.4f}")
+            if not math.isfinite(loss):
+                raise RuntimeError(f"(e) train_ds: non-finite loss {loss}")
+            del ds
+            _free()
+
+
+def phase_backbones(dev, gpu: str) -> dict:
+    print("phase 13: the reference's exported 3D backbones S3DG, I3D and InceptionI3d")
+    worst = i3d_pool_checks(dev)
+    _free()
+    i3d_graph_checks(dev, gpu)
+    _free()
+    print("  (b) small steps, card vs CPU")
+    for backbone in ("I3D", "S3DG"):
+        small_step_parity(dev, fused=False, backbone=backbone)
+        _free()
+    print("  (c) the trainer at full width, configs/visual_moco.yaml, graph on")
+    runs = {}
+    for backbone in ("I3D", "S3DG"):
+        runs[backbone] = run_trainer(dev, gpu, fused=False, backbone=backbone,
+                                     save=backbone == "I3D")
+    inception_i3d_step(dev)
+    print("  (d) train_ds with I3D from (c)'s checkpoint")
+    i3d_downstream(dev, gpu, runs["I3D"]["ckpt"])
+    _free()
+    print("  (e) MODEL.PRETRAIN_PATH with reference-named state_dicts")
+    reference_pretrain_path(dev, gpu)
+    print(json.dumps({"backbones": {b: {"ms_per_step": r["ms"], "clips_per_s": 128e3 / r["ms"],
+                                        "peak_gib": r["peak_gib"], "launches": r["counts"]}
+                                    for b, r in runs.items()}, "gpu": gpu}))
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2528,6 +2832,11 @@ def main() -> int:
     ssl, best = timed(phase_downstream, dev, gpu)
     timed(phase_ab, dev, gpu)
     timed(phase_ds_ranks, dev, gpu, ssl, best)
+    worst = timed(phase_backbones, dev, gpu)
+    for k in kernels:   # the I3D pools' checks join K3's and K4's
+        kn = {"maxpool_bwd_s1": "K3", "maxpool_bwd_strided": "K4"}.get(k["name"])
+        if kn:
+            k["max_abs_err"] = max(k["max_abs_err"], worst[kn])
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

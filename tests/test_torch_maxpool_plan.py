@@ -17,7 +17,14 @@ blocking is checked here:
 * a plain-PyTorch emulation of a strip plan (each block's halo'd extent
   through the plain version, its owned dx rows kept) equals the plain
   version on the whole tensor bit for bit;
-* only a W too wide for a strip of one row with its halo raises.
+* only a W too wide for a strip of one row with its halo raises;
+* TF "SAME" padding (I3D's pools, a high pad one more than the low): the
+  plan's output extents are JAX's (``nn.max_pool(padding="SAME")``'s
+  ``eval_shape``) at every I3D pool of the 16x112x112 and 16x224x224
+  steps, and the port's forward gives them; ownership holds at ragged
+  SAME shapes, and the strip emulation equals the plain version bit for
+  bit at SAME strip plans (the stem pool's frame strips at 224x224, pool_7
+  strips along T and H with odd and even extents).
 """
 
 import itertools
@@ -132,16 +139,15 @@ def test_s3d_pools_plan_at_224_and_32_frames(name, geom):
                          shape[1:4], k, s, p)
 
 
-def _out_len(n, k, s, p):
-    return (n + 2 * p - k) // s + 1
-
-
-def _check_ownership(plan, thw, k, s, p):
+def _check_ownership(plan, thw, k, s, padding):
     """Every dx element owned by one block; the outputs covering its owned
     inputs and the inputs those outputs read lie in its staged ranges, and
-    the ranges fit the plan's shared layout."""
+    the ranges fit the plan's shared layout (``padding`` in any form the
+    port takes)."""
     t, h, w = thw
-    to, ho, wo = (_out_len(n, *a) for n, a in zip(thw, zip(k, s, p)))
+    pads = maxpool.resolve_padding(padding, thw, k, s)
+    p = tuple(lo for lo, _ in pads)
+    to, ho, wo = maxpool.out_sizes(thw, k, s, pads)
     b, c = plan.slabs // (t if plan.slab == "frame" else 1), plan.channels
     owned = np.zeros((b, c, t, h), np.int64)     # a block takes whole W
     staged_out = np.zeros((b, c, to, ho), np.int64)
@@ -186,6 +192,16 @@ OWNERSHIP = [(case, shape, dn) for case, shape, dn in itertools.product(
         (CASES[2], (2, 5, 9, 300, 16))) for dn in DTYPES]
 
 
+# TF "SAME" (I3D): the strided geometries at odd and even extents (high
+# pads one more than the low, and equal), ragged C; a strip plan of each
+SAME_CASES = [((1, 3, 3), (1, 2, 2), "SAME"), ((3, 3, 3), (2, 2, 2), "SAME"),
+              ((2, 2, 2), (2, 2, 2), "SAME")]
+OWNERSHIP += [(case, shape, dn) for case, shape, dn in itertools.product(
+    SAME_CASES, [(2, 6, 10, 10, 8), (2, 5, 9, 7, None), (2, 4, 7, 8, 16)], DTYPES)] + [
+    (SAME_CASES[0], (1, 2, 112, 112, 16), dn) for dn in DTYPES] + [
+    (SAME_CASES[1], (1, 16, 7, 80, 16), dn) for dn in DTYPES]
+
+
 @pytest.mark.parametrize("case,shape,dn", OWNERSHIP,
                          ids=[f"{i}-{dn}" for i, (_, _, dn) in enumerate(OWNERSHIP)])
 def test_every_input_and_output_in_exactly_one_block(case, shape, dn):
@@ -194,21 +210,24 @@ def test_every_input_and_output_in_exactly_one_block(case, shape, dn):
     c = c or (12 if dn == "bf16" else 6)         # ragged: the scalar path
     plan = maxpool.bwd_plan((b, c, t, h, w), k, s, p, DTYPES[dn])
     _check_ownership(plan, (t, h, w), k, s, p)
-    ho, wo = (_out_len(n, *a) for n, a in zip((h, w), zip(k[1:], s[1:], p[1:])))
+    pads = maxpool.resolve_padding(p, (t, h, w), k, s)
+    to, ho, wo = maxpool.out_sizes((t, h, w), k, s, pads)
+    assert plan.rows_out == ho
     n_x, n_y = plan.x_frames * plan.x_rows * w, plan.y_frames * plan.y_rows * wo
     assert plan.smem_bytes == (max(n_x, n_y) * plan.group * plan.element_size
                                + n_y * plan.group)
     assert plan.threads >= min(maxpool.MAX_THREADS, max(n_x, n_y) * plan.group // plan.vec)
     if plan.t_strips * plan.h_strips == 1:
-        to = _out_len(t, k[0], s[0], p[0])
         assert (plan.x_frames, plan.x_rows, plan.y_rows) == (plan.t_in, h, ho)
         assert plan.y_frames == (1 if plan.slab == "frame" else to)
 
 
-def emulate_plan(plan, x, y, dy, k, s, p):
+def emulate_plan(plan, x, y, dy, k, s, padding):
     """dx by the plan's blocks in plain PyTorch: each block's staged x (its
     rows of the padding as -inf) and staged y, dy through
     ``max_pool3d_bwd_plain``; only the block's owned dx rows are kept."""
+    pairs = maxpool.resolve_padding(padding, x.shape[2:], k, s)
+    p = tuple(lo for lo, _ in pairs)
     dx = torch.full_like(x, float("nan"))
     for i in range(0, plan.blocks, plan.groups):   # channels: all at once
         e = plan.block(i)
@@ -227,7 +246,7 @@ def emulate_plan(plan, x, y, dy, k, s, p):
         xs = F.pad(x[e.b:e.b + 1, :, e.x_t[0]:e.x_t[1], e.x_h[0]:e.x_h[1]],
                    (0, 0, *pads), value=float("-inf"))
         sub = (slice(e.b, e.b + 1), slice(None), slice(ot0, ot1), slice(oh0, oh1))
-        d = maxpool.max_pool3d_bwd_plain(xs, y[sub], dy[sub], k, s, (0, 0, p[2]))[0]
+        d = maxpool.max_pool3d_bwd_plain(xs, y[sub], dy[sub], k, s, (0, 0, pairs[2]))[0]
         lt0, lh0 = t0 - start[0], h0 - start[1]
         # owned rows that no staged window reads keep dx = 0
         a0, a1 = max(lt0, 0), min(lt0 + t1 - t0, d.shape[1])
@@ -244,7 +263,11 @@ EMULATED = {"stem_224_frame_strips": (CASES[3], (1, 2, 112, 112, 16)),
             "mixed_3b_224_clip_strips": (CASES[0], (2, 8, 28, 28, 16)),
             "s1_t_and_h_strips": (CASES[0], (1, 16, 6, 80, 16)),
             "pool7_t_and_h_strips": (CASES[1], (1, 16, 7, 80, 16)),
-            "pool13_ragged_strips": (CASES[2], (2, 5, 9, 300, 16))}
+            "pool13_ragged_strips": (CASES[2], (2, 5, 9, 300, 16)),
+            # TF "SAME": I3D's stem pool at 224x224, H and W (0, 1); pool_7
+            # with T (0, 1), H (1, 1) and W (0, 1)
+            "i3d_stem_224_same_frame_strips": (SAME_CASES[0], (1, 2, 112, 112, 16)),
+            "i3d_pool7_same_t_and_h_strips": (SAME_CASES[1], (1, 16, 7, 80, 16))}
 
 
 @pytest.mark.parametrize("dn", list(DTYPES))
@@ -256,7 +279,7 @@ def test_strip_plan_emulation_equals_plain(name, dn):
     assert plan.t_strips * plan.h_strips > 1
     g = torch.Generator().manual_seed(3)
     x = torch.randn((b, c, t, h, w), generator=g).to(dt)
-    y = F.max_pool3d(x, k, s, p)
+    y = maxpool.pool_forward(x, k, s, maxpool.resolve_padding(p, (t, h, w), k, s))
     dy = torch.randn(y.shape, generator=g).to(dt)
     want = maxpool.max_pool3d_bwd_plain(x, y, dy, k, s, p)
     got = emulate_plan(plan, x, y, dy, k, s, p)
@@ -280,3 +303,26 @@ def test_oversized_slab_raises(shape, k, s, p):
     plan = maxpool.bwd_plan(shape, k, s, p, torch.bfloat16)
     assert plan.t_strips * plan.h_strips > 1
     assert plan.smem_bytes <= maxpool.TWO_BLOCKS_SMEM
+
+
+@pytest.mark.parametrize("size,batch", [(112, 128), (224, 32)])
+def test_same_plan_outputs_equal_jax(size, batch):
+    """At every I3D pool of the step, the plan's output extents (and the
+    port's forward's) are those of JAX's "SAME" pool."""
+    import jax
+    import jax.numpy as jnp
+    from flax import linen as nn
+    from video_graph_ssl_tpu_torch.kernel_times import geometry
+
+    for name, kn, (b, t, h, w, c), k, s, pads in geometry(size, batch, "I3D")[2]:
+        want = jax.eval_shape(lambda v: nn.max_pool(v, k, s, padding="SAME"),
+                              jax.ShapeDtypeStruct((b, t, h, w, c), jnp.bfloat16)).shape
+        assert pads == maxpool.same_padding((t, h, w), k, s)
+        for dt in (torch.bfloat16, torch.float32):
+            plan = maxpool.bwd_plan((b, c, t, h, w), k, s, "SAME", dt)
+            assert plan.rows_out == want[2], name
+            assert plan.t_out == (1 if plan.slab == "frame" else want[1]), name
+            assert plan == maxpool.bwd_plan((b, c, t, h, w), k, s, pads, dt)
+        assert maxpool.out_sizes((t, h, w), k, s, pads) == tuple(want[1:4]), name
+        y = maxpool.pool_forward(torch.zeros(1, 1, t, h, w), k, s, pads)
+        assert tuple(y.shape[2:]) == tuple(want[1:4]), name

@@ -1,10 +1,13 @@
 """Device and host time of the graph kernels (K1, K2), the max-pool
 backward (K3/K4) and the SepConv pair backward (K5) at the shapes of the
 bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED True`` step),
-or with ``--size 224 --batch 32`` at those of the 16x224x224 step.
+or with ``--size 224 --batch 32`` at those of the 16x224x224 step; with
+``--backbone I3D`` (or S3DG, InceptionI3d) at that backbone's shapes (I3D:
+TF "SAME" pools, a 4x4 stage 14; no K5 for either).
 
     python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME] \
-        [--mem_type moco|simsiam|bank|finetune|probe|eval] [--size 112|224] [--batch B]
+        [--mem_type moco|simsiam|bank|finetune|probe|eval] [--size 112|224] [--batch B] \
+        [--backbone S3D|S3DG|I3D|InceptionI3d]
 
 Run as a file so that ``--root`` (default: the checkout holding this file)
 decides which checkout's ``video_graph_ssl_tpu_torch`` is imported and
@@ -87,11 +90,41 @@ SEPCONVS = [(f"{blk} {br}", bthw, c, f) for blk, (bthw, *brs) in _MIXED.items()
 # 16x224x224: frame sizes 56, 28, 14, 7, 3 at 112x112 are 112, 56, 28, 14, 7
 # (pool_13 rounds 7 down to 3, not 14 to 6)
 HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 3: 7, 1: 3}
+
+
+def same_pads(shape, k, s):
+    """TF "SAME" (lo, hi) pads of a pool over x (B, T, H, W, C)
+    (``ops/maxpool.py:same_padding``, JAX ``lax.padtype_to_pads``)."""
+    pads = []
+    for n, ki, si in zip(shape[1:4], k, s):
+        total = max((-(-n // si) - 1) * si + ki - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+# I3D at bs 128, 16x112x112 (models/i3d.py): K2's input at aug points 5, 9
+# and 14 (stage 13's "SAME" pool leaves 4x4 where S3D's leaves 3x3), and
+# every max pool of one pass with its TF "SAME" (lo, hi) pads: the strided
+# pools pad one more on the high side, the Mixed pools (1, 1)
+I3D_K2_SHAPES = [(128, 8, 14, 14, 192), (128, 4, 7, 7, 512), (128, 2, 4, 4, 832)]
+I3D_POOLS = [(n, kn, shape, k, s_, same_pads(shape, k, s_)) for n, kn, shape, k, s_ in (
+    [("pool_1", "K4", (128, 8, 56, 56, 64), (1, 3, 3), (1, 2, 2)),
+     ("pool_4", "K4", (128, 8, 28, 28, 192), (1, 3, 3), (1, 2, 2)),
+     ("pool_7", "K4", (128, 8, 14, 14, 480), (3, 3, 3), (2, 2, 2)),
+     ("pool_13", "K4", (128, 4, 7, 7, 832), (2, 2, 2), (2, 2, 2))]
+    + [(n, kn, shape[:2] + (4, 4) + shape[4:] if n.startswith("mixed_5") else shape, k, s_)
+       for n, kn, shape, k, s_, _ in POOLS[4:]])]
+# I3D frame sizes at 224x224 (stage 13 keeps 7x7 there)
+I3D_HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 4: 7}
 # graph blocks per encoder pass, and each kernel's calls per backward pass
 AUG_POINTS, POOLS_S1, POOLS_STRIDED = 3, 9, 4
-# the same per backbone: tiny3d (the graph-benefit A/B's) has one graph
-# block (aug point 1) and one strided pool, (1, 2, 2) after stage1
-BACKBONE_CALLS = {"S3D": (AUG_POINTS, POOLS_S1, POOLS_STRIDED), "tiny3d": (1, 0, 1)}
+# the same per backbone: S3DG and I3D have S3D's (blocks at 5, 9, 14; 9
+# stride-1 and 4 strided pools); tiny3d (the graph-benefit A/B's) has one
+# graph block (aug point 1) and one strided pool, (1, 2, 2) after stage1
+BACKBONE_CALLS = {**{name: (AUG_POINTS, POOLS_S1, POOLS_STRIDED)
+                     for name in ("S3D", "S3DG", "I3D", "InceptionI3d")},
+                  "tiny3d": (1, 0, 1)}
+I3D_NAMES = ("I3D", "InceptionI3d")
 # (encoder passes, passes with a backward) of each regime's step, and of the
 # downstream steps (engine/downstream.py)
 REGIME_PASSES = {"moco": (2, 1), "simsiam": (2, 2), "bank": (1, 1),
@@ -109,11 +142,12 @@ def gpu_line() -> str:
 def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
                graph: bool = True, backbone: str = "S3D") -> dict:
     """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
-    graph blocks at 5, 9, 14 with ``graph``, ``MODEL.AUG_FLAG``; or tiny3d,
-    one block at 1, one strided pool): K1 and K2 once per block and pass,
-    K2 again (transposed) in each backward, K3/K4 in each backward, K5
-    (with ``TPU.SEPCONV_FUSED``, S3D only) in each backward unless
-    ``partial_bn`` freezes the pairs' BNs, which takes them off K5."""
+    S3DG, I3D or InceptionI3d, graph blocks at 5, 9, 14 with ``graph``,
+    ``MODEL.AUG_FLAG``; or tiny3d, one block at 1, one strided pool): K1 and
+    K2 once per block and pass, K2 again (transposed) in each backward,
+    K3/K4 in each backward, K5 (with ``TPU.SEPCONV_FUSED``, S3D only) in
+    each backward unless ``partial_bn`` freezes the pairs' BNs, which takes
+    them off K5."""
     passes, grads = REGIME_PASSES[mem_type]
     aug_points, pools_s1, pools_strided = BACKBONE_CALLS[backbone]
     blocks = aug_points if graph else 0
@@ -124,17 +158,36 @@ def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
             "sepconv_bwd": sepconvs * grads if fused and not partial_bn else 0}
 
 
-def geometry(size: int = 112, batch: int = 128):
-    """(K1_SHAPES, K2_SHAPES, POOLS, SEPCONVS) of the step at 16 x size x
-    size (112 or 224) and batch ``batch``."""
-    hw = (lambda v: v) if size == 112 else HW_224.__getitem__
+def geometry(size: int = 112, batch: int = 128, backbone: str = "S3D"):
+    """(K1_SHAPES, K2_SHAPES, POOLS, SEPCONVS) of ``backbone``'s step at 16
+    x size x size (112 or 224) and batch ``batch``: S3D's and S3DG's
+    shapes, or I3D's with each pool's TF "SAME" pads for its input; K5's
+    SepConvs for S3D alone (S3DG's biased pairs and I3D's full convs take
+    the standard backward)."""
     if size not in (112, 224):
         raise ValueError(f"size {size}: 112 or 224")
-    k2 = [(batch, t, hw(h), hw(w), c) for _, t, h, w, c in K2_SHAPES]
-    pools = [(n, kn, (batch, t, hw(h), hw(w), c), k, s_, p)
-             for n, kn, (_, t, h, w, c), k, s_, p in POOLS]
-    seps = [(n, (batch, t, hw(h), hw(w)), c, f) for n, (_, t, h, w), c, f in SEPCONVS]
+    i3d = backbone in I3D_NAMES
+    scale = I3D_HW_224 if i3d else HW_224
+    hw = (lambda v: v) if size == 112 else scale.__getitem__
+    k2 = [(batch, t, hw(h), hw(w), c) for _, t, h, w, c in (I3D_K2_SHAPES if i3d else K2_SHAPES)]
+    pools = []
+    for n, kn, (_, t, h, w, c), k, s_, p in (I3D_POOLS if i3d else POOLS):
+        shape = (batch, t, hw(h), hw(w), c)
+        pools.append((n, kn, shape, k, s_, same_pads(shape, k, s_) if i3d else p))
+    seps = [(n, (batch, t, hw(h), hw(w)), c, f) for n, (_, t, h, w), c, f in SEPCONVS
+            ] if backbone == "S3D" else []
     return [k1_shape(s_) for s_ in k2], k2, pools, seps
+
+
+def pool_output(x, k, s, p):
+    """The pool's y for x (B, C, T, H, W): ``F.max_pool3d`` for PyTorch
+    padding, the port's forward (``maxpool.pool_forward``) for (lo, hi)
+    pairs."""
+    import torch.nn.functional as F
+    if all(isinstance(v, int) for v in p):
+        return F.max_pool3d(x, k, s, p)
+    from video_graph_ssl_tpu_torch.ops import maxpool
+    return maxpool.pool_forward(x, k, s, p)
 
 
 PATTERNS = {"K1": r"adjacency|sim_partial", "K2": r"propagate", "K3/K4": r"maxpool_bwd",
@@ -224,14 +277,15 @@ def main(argv=None) -> int:
                     help="CONTRAST.MEM_TYPE whose per-step calls are counted")
     ap.add_argument("--size", default=112, type=int, help="frame size: 112 or 224")
     ap.add_argument("--batch", default=128, type=int, help="batch size")
+    ap.add_argument("--backbone", default="S3D", choices=["S3D", "S3DG", *I3D_NAMES],
+                    help="MODEL.BACKBONE whose shapes are timed")
     args = ap.parse_args(argv)
-    k1_shapes, k2_shapes, pools, sepconvs = geometry(args.size, args.batch)
+    k1_shapes, k2_shapes, pools, sepconvs = geometry(args.size, args.batch, args.backbone)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    import torch.nn.functional as F
     from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
     from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
     from video_graph_ssl_tpu_torch.ops import maxpool as mp
@@ -239,7 +293,7 @@ def main(argv=None) -> int:
 
     gpu = gpu_line()
     src = os.path.dirname(gk.__file__)
-    print(f"kernel_times {args.tag}: {gpu}; port from {src}")
+    print(f"kernel_times {args.tag}: {gpu}; port from {src}; {args.backbone}")
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -272,7 +326,7 @@ def main(argv=None) -> int:
     for name, kn, (b, t, h, w, c), k, s, p in pools:
         x = torch.randn(b, c, t, h, w, device=dev, generator=g).to(bf).contiguous(
             memory_format=cl)
-        y = F.max_pool3d(x, k, s, p).contiguous(memory_format=cl)
+        y = pool_output(x, k, s, p).contiguous(memory_format=cl)
         dy = torch.randn(y.shape, device=dev, generator=g).to(bf).contiguous(memory_format=cl)
         t_ = times(lambda: mp._launch(x, y, dy, k, s, p), PATTERNS["K3/K4"])
         pass_us[kn] += t_["device_us"]
@@ -290,7 +344,7 @@ def main(argv=None) -> int:
     # per step of the regime: K1 and K2 per encoder pass, K2 transposed and
     # K3-K5 per backward (K5 only with TPU.SEPCONV_FUSED True)
     passes, grads = REGIME_PASSES[args.mem_type]
-    calls = step_calls(args.mem_type, fused=True)
+    calls = step_calls(args.mem_type, fused=True, backbone=args.backbone)
     per_step = {"K1": (calls["graph_adjacency"], pass_us["K1"] * passes),
                 "K2": (calls["gcn_propagate"],
                        pass_us["K2"] * passes + pass_us["K2 transpose"] * grads),
@@ -299,7 +353,8 @@ def main(argv=None) -> int:
                 "K5 (SEPCONV_FUSED)": (calls["sepconv_bwd"], pass_us["K5"] * grads)}
     for kn, (n, us) in per_step.items():
         print(json.dumps({"tag": tag, "kernel": kn, "mem_type": args.mem_type,
-                          "geometry": f"bs {args.batch}, 16x{args.size}x{args.size}",
+                          "geometry": f"{args.backbone}, bs {args.batch}, "
+                                      f"16x{args.size}x{args.size}",
                           "calls_per_step": n, "step_device_ms": us / 1e3,
                           "dtype": "bf16", "gpu": gpu}))
     return 0

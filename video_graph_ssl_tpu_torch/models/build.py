@@ -1,14 +1,17 @@
 """Model factory (counterpart of ``video_graph_ssl_tpu/models/build.py``)
-for the backbones ported so far (S3D and tiny3d, 3D, RGB): the visual
+for the backbones ported so far (3D, RGB: the reference's exported S3D,
+S3DG, I3D and InceptionI3d, and the test backbone tiny3d): the visual
 pretrain regimes (``CONTRAST.MEM_TYPE`` moco, bank, simsiam) and the
 downstream classifier (``create_video_model``)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 
+from .i3d import I3D, I3D_FEATURE_DIM
 from .layers import init_params_
 from .s3d import S3D, S3D_FEATURE_DIM
 from .tiny import TINY3D_FEATURE_DIM, Tiny3D
@@ -21,8 +24,15 @@ CMC_NOT_PORTED = ("CROSS.MODALITY {!r} (CMC) is not ported yet: ROADMAP.md, Queu
 # name -> (ctor, feature_dim, default graph-aug points)
 BACKBONES_3D = {
     "S3D": (S3D, S3D_FEATURE_DIM, (5, 9, 14)),
+    # S3D-G: S3D's topology with biased SepConv pairs (JAX build.py:30-31)
+    "S3DG": (functools.partial(S3D, temporal_bias=True), S3D_FEATURE_DIM, (5, 9, 14)),
+    # the reference's two I3D implementations are one network
+    "I3D": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
+    "InceptionI3d": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
     "tiny3d": (Tiny3D, TINY3D_FEATURE_DIM, (1,)),
 }
+NOT_PORTED = ("ROADMAP.md, Queue 1: item 6b for the 2D backbones (BACKBONE_TYPE 2D), "
+              "item 6c for the remaining 3D ones")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -56,7 +66,7 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
     if cfg.MODEL.BACKBONE_TYPE != "3D" or name not in BACKBONES_3D:
         raise NotImplementedError(
             f"backbone {cfg.MODEL.BACKBONE_TYPE}/{name} is not ported yet "
-            f"(have 3D: {sorted(BACKBONES_3D)})")
+            f"(have 3D: {sorted(BACKBONES_3D)}; {NOT_PORTED})")
     if cfg.INPUT.MODALITY != "RGB" or int(cfg.INPUT.NEW_LENGTH) not in (-1, 1):
         raise NotImplementedError("only RGB clips with NEW_LENGTH 1 are ported")
     if cfg.CROSS.MODALITY != "visual":
@@ -66,6 +76,8 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
     extra = {"partial_bn": True} if partial_bn else {}
     if bool(cfg.TPU.SEPCONV_FUSED):
         if name != "S3D":
+            # S3DG's biased pairs and I3D's full convs take the standard
+            # backward, as in JAX build.py:153-157
             raise ValueError(f"TPU.SEPCONV_FUSED only applies to S3D, got {name}")
         extra["fused_sepconv"] = True
     backbone = ctor(

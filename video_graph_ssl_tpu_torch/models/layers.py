@@ -130,6 +130,18 @@ class BatchNorm(nn.Module):
         return y.to(out_dtype)
 
 
+def conv3d_same(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                stride) -> torch.Tensor:
+    """``F.conv3d`` with TF "SAME" padding (JAX ``nn.Conv(padding="SAME")``,
+    ``lax.padtype_to_pads``): symmetric pads go to the convolution; where
+    the high side is larger (I3D's 7x7x7/2 stem: (2, 3) at even extents) x
+    is zero-padded (lo, hi) first."""
+    pads = maxpool.same_padding(x.shape[2:], weight.shape[2:], stride)
+    if all(lo == hi for lo, hi in pads):
+        return F.conv3d(x, weight, bias, stride, tuple(lo for lo, _ in pads))
+    return F.conv3d(F.pad(x, (*pads[2], *pads[1], *pads[0])), weight, bias, stride)
+
+
 class BasicConv3d(nn.Module):
     """Conv3d (no bias) + BN(eps 1e-3, flax momentum 0.999) + ReLU
     (reference s3d_1.py:37-48; JAX ``BasicConv3d``)."""
@@ -162,28 +174,37 @@ class SepConv3d(nn.Module):
     are frozen (partial BN) in train mode: K5 computes the backward of
     train-mode BN, which is not that pair's function (JAX
     ``layers.py:373-395``).  The parameters and their names do not change.
+
+    ``temporal_bias`` is S3DG's 'STConv3d' (JAX ``SepConv3d(temporal_bias=
+    True)``, reference S3DG_Pytorch.py:20-43): both convs biased, the
+    temporal kernel initialised Normal(0, 0.01) (:func:`init_params_`).
+    Such a pair always takes the standard path: ``fused_bwd`` is ignored,
+    as the JAX package gives K5 unbiased pairs only (``layers.py:327``).
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 fused_bwd: bool = False):
+                 fused_bwd: bool = False, temporal_bias: bool = False):
         super().__init__()
         k, s, p = kernel_size, stride, padding
+        self.temporal_bias = bool(temporal_bias)
         self.conv_s = nn.Conv3d(cin, cout, (1, k, k), (1, s, s), (0, p, p),
-                                bias=False)
+                                bias=self.temporal_bias)
         self.bn_s = BatchNorm(cout, momentum=0.999, eps=1e-3)
         self.conv_t = nn.Conv3d(cout, cout, (k, 1, 1), (s, 1, 1), (p, 0, 0),
-                                bias=False)
+                                bias=self.temporal_bias)
         self.bn_t = BatchNorm(cout, momentum=0.999, eps=1e-3)
         self.dtype = dtype
-        self.fused = bool(fused_bwd) and (k, s, p) == (3, 1, 1)
+        self.fused = (bool(fused_bwd) and not self.temporal_bias
+                      and (k, s, p) == (3, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and self.training and not self.bn_s.frozen:
             return self._fused_train(x)
         dt = self.dtype
         for conv, bn in ((self.conv_s, self.bn_s), (self.conv_t, self.bn_t)):
-            x = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
+            bias = None if conv.bias is None else conv.bias.to(dt)
+            x = F.conv3d(x.to(dt), conv.weight.to(dt), bias, conv.stride,
                          conv.padding)
             x = F.relu(bn(x).to(dt))
         return x
@@ -204,9 +225,11 @@ class SepConv3d(nn.Module):
 
 
 class MaxPool3d(nn.Module):
-    """3D max pooling with PyTorch padding semantics (``ops/maxpool.py``:
-    library forward; on CUDA tensors the backward is kernel K3 for stride-1
-    pools and K4 for strided ones).
+    """3D max pooling (``ops/maxpool.py``: library forward; on CUDA tensors
+    the backward is kernel K3 for stride-1 pools and K4 for strided ones).
+    ``padding``: PyTorch's symmetric padding (an int or one per axis),
+    ``(lo, hi)`` pairs, or ``"SAME"`` (TF padding, resolved per input:
+    I3D's pools, JAX ``nn.max_pool(padding="SAME")``).
 
     The JAX package's stride-1 pools are a separable ``where(>=)`` chain and
     its strided pools ``reduce_window``; both have this forward.  The port
@@ -222,7 +245,8 @@ class MaxPool3d(nn.Module):
         super().__init__()
         self.kernel_size = _triple(kernel_size)
         self.stride = _triple(stride)
-        self.padding = _triple(padding)
+        self.padding = padding if isinstance(padding, str) else maxpool.resolve_padding(
+            padding, None, self.kernel_size, self.stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return maxpool.max_pool3d(x, self.kernel_size, self.stride, self.padding)
@@ -238,21 +262,31 @@ class InceptionBlock(nn.Module):
     3x3x3 max pool -> 1x1x1, concatenated on channels.  The JAX
     ``TPU.PACK_POINTWISE`` packing is the same math on the same parameters,
     so the three 1x1x1 convs stay separate here.  ``fused_sepconv``
-    (``TPU.SEPCONV_FUSED``) sets ``fused_bwd`` on both branch SepConvs."""
+    (``TPU.SEPCONV_FUSED``) sets ``fused_bwd`` on both branch SepConvs,
+    ``temporal_bias`` (S3DG) makes them biased.  ``unit`` (I3D's
+    ``Unit3D``, a ``BasicConv3d`` with TF "SAME" padding) makes every conv
+    of the block one of its kind, the branch convs full 3x3x3 ones, and
+    the branch pool "SAME", which pads (1, 1) as S3D's does (JAX
+    ``I3DMixed``)."""
 
     def __init__(self, cin: int, b0: int, b1: Sequence[int], b2: Sequence[int],
                  b3: int, dtype: torch.dtype = torch.bfloat16,
-                 fused_sepconv: bool = False):
+                 fused_sepconv: bool = False, temporal_bias: bool = False,
+                 unit: Optional[type] = None):
         super().__init__()
-        kw = dict(dtype=dtype)
-        sep = dict(fused_bwd=fused_sepconv, **kw)
-        self.branch0 = nn.Sequential(BasicConv3d(cin, b0, 1, **kw))
-        self.branch1 = nn.Sequential(BasicConv3d(cin, b1[0], 1, **kw),
-                                     SepConv3d(b1[0], b1[1], 3, 1, 1, **sep))
-        self.branch2 = nn.Sequential(BasicConv3d(cin, b2[0], 1, **kw),
-                                     SepConv3d(b2[0], b2[1], 3, 1, 1, **sep))
-        self.branch3 = nn.Sequential(MaxPool3d(3, 1, 1),
-                                     BasicConv3d(cin, b3, 1, **kw))
+        pw = unit or BasicConv3d
+
+        def mid(c_in, c_out):
+            if unit is not None:
+                return unit(c_in, c_out, 3, dtype=dtype)
+            return SepConv3d(c_in, c_out, 3, 1, 1, fused_bwd=fused_sepconv,
+                             temporal_bias=temporal_bias, dtype=dtype)
+
+        self.branch0 = nn.Sequential(pw(cin, b0, 1, dtype=dtype))
+        self.branch1 = nn.Sequential(pw(cin, b1[0], 1, dtype=dtype), mid(b1[0], b1[1]))
+        self.branch2 = nn.Sequential(pw(cin, b2[0], 1, dtype=dtype), mid(b2[0], b2[1]))
+        self.branch3 = nn.Sequential(MaxPool3d(3, 1, 1 if unit is None else "SAME"),
+                                     pw(cin, b3, 1, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([self.branch0(x), self.branch1(x), self.branch2(x),
@@ -279,7 +313,8 @@ def freeze_bn_(module: nn.Module) -> None:
 def init_params_(module: nn.Module,
                  generator: Optional[torch.Generator] = None) -> None:
     """The JAX init: lecun-normal conv/linear kernels, except fan-in uniform
-    for the graph blocks' 1x1x1 convs; zero biases; BN scale 1, bias 0."""
+    for the graph blocks' 1x1x1 convs and Normal(0, 0.01) for the temporal
+    convs of biased (S3DG) SepConv pairs; zero biases; BN scale 1, bias 0."""
     from ..ops.temporal_graph import TemporalGraphAug
 
     graph = set()
@@ -293,3 +328,6 @@ def init_params_(module: nn.Module,
             init(m.weight, fan_in, generator)
             if m.bias is not None:
                 m.bias.zero_()
+    for m in module.modules():
+        if isinstance(m, SepConv3d) and m.temporal_bias:
+            nn.init.normal_(m.conv_t.weight, 0.0, 0.01, generator=generator)

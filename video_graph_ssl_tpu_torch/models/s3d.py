@@ -76,44 +76,14 @@ def head_pool(x: torch.Tensor) -> torch.Tensor:
     return y.mean(dim=1)
 
 
-class S3D(nn.Module):
-    """S3D encoder: (B, T, H, W, 3) clips -> (B, 1024) fp32 features.
+class StagedBackbone(nn.Module):
+    """A backbone run as one Sequential of stages, ``base`` (S3D, S3DG and
+    I3D): the stages at ``aug_points`` are wrapped with a graph block on
+    their input; ``partial_bn`` freezes every BN after stage 0 outside the
+    graph blocks.  Subclasses give the stages and each stage's input
+    channels to :meth:`_finish`."""
 
-    ``fused_sepconv`` (``TPU.SEPCONV_FUSED``) gives the Mixed blocks' branch
-    SepConvs the three-sweep backward (``SepConv3d.fused_bwd``); the stem
-    SepConvs keep the standard path, as in the JAX S3D.
-
-    ``partial_bn`` (downstream training unless ``MODEL.NO_PARTIALBN``)
-    freezes every BN after ``stem_0`` (``layers.freeze_bn_``): stage
-    granular as in the JAX S3D, so ``stem_0``'s two BNs stay live; the graph
-    blocks' BNs stay live too."""
-
-    def __init__(self, aug_points: Tuple[int, ...] = (),
-                 graph_cfg: Optional[Dict[str, Any]] = None,
-                 dtype: torch.dtype = torch.bfloat16,
-                 fused_sepconv: bool = False, partial_bn: bool = False):
-        super().__init__()
-        kw = dict(dtype=dtype)
-        stages = [
-            SepConv3d(3, 64, 7, 2, 3, **kw),
-            MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
-            BasicConv3d(64, 64, 1, **kw),
-            SepConv3d(64, 192, 3, 1, 1, **kw),
-            MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
-        ]
-        cin = 192
-        cins = [3, 64, 64, 64, 192]
-        for idx in range(5, 16):
-            cins.append(cin)
-            if idx == 7:
-                stages.append(MaxPool3d(3, 2, 1))
-            elif idx == 13:
-                stages.append(MaxPool3d(2, 2, 0))
-            else:
-                spec = _MIXED_SPECS[idx]
-                stages.append(InceptionBlock(cin, *spec, fused_sepconv=fused_sepconv,
-                                             **kw))
-                cin = InceptionBlock.out_channels(*spec)
+    def _finish(self, stages, cins, aug_points, graph_cfg, dtype, partial_bn) -> None:
         self.aug_points = tuple(int(i) for i in aug_points)
         for idx in self.aug_points:
             graph = TemporalGraphAug(cins[idx], dtype=dtype, **(graph_cfg or {}))
@@ -133,3 +103,56 @@ class S3D(nn.Module):
         x = to_ncdhw(x).to(self.dtype)
         x = run_stages(self.base, x, self.aug_points, graph_seed, graph_rows)
         return head_pool(x)
+
+
+def mixed_stages(stem, mixed, pool_7, pool_13):
+    """The 16 stages from the five of the stem: ``mixed(idx, cin)`` builds
+    the Inception block at ``idx``, and the pools at 7 and 13 are given;
+    returns (stages, each stage's input channels)."""
+    stages, cins, cin = list(stem), [3, 64, 64, 64, 192], 192
+    for idx in range(5, 16):
+        cins.append(cin)
+        if idx in (7, 13):
+            stages.append(pool_7 if idx == 7 else pool_13)
+        else:
+            stages.append(mixed(idx, cin))
+            cin = InceptionBlock.out_channels(*_MIXED_SPECS[idx])
+    return stages, cins
+
+
+class S3D(StagedBackbone):
+    """S3D encoder: (B, T, H, W, 3) clips -> (B, 1024) fp32 features.
+
+    ``fused_sepconv`` (``TPU.SEPCONV_FUSED``) gives the Mixed blocks' branch
+    SepConvs the three-sweep backward (``SepConv3d.fused_bwd``); the stem
+    SepConvs keep the standard path, as in the JAX S3D.
+
+    ``partial_bn`` (downstream training unless ``MODEL.NO_PARTIALBN``)
+    freezes every BN after ``stem_0`` (``layers.freeze_bn_``): stage
+    granular as in the JAX S3D, so ``stem_0``'s two BNs stay live; the graph
+    blocks' BNs stay live too.
+
+    ``temporal_bias`` is S3DG (JAX ``S3D(temporal_bias=True)``, reference
+    S3DG_Pytorch.py:310-355): every SepConv pair, the stem's included,
+    biased; ``fused_sepconv`` then reaches no pair (``SepConv3d``)."""
+
+    def __init__(self, aug_points: Tuple[int, ...] = (),
+                 graph_cfg: Optional[Dict[str, Any]] = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 fused_sepconv: bool = False, partial_bn: bool = False,
+                 temporal_bias: bool = False):
+        super().__init__()
+        kw = dict(dtype=dtype)
+        skw = dict(temporal_bias=temporal_bias, **kw)
+        stem = [
+            SepConv3d(3, 64, 7, 2, 3, **skw),
+            MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+            BasicConv3d(64, 64, 1, **kw),
+            SepConv3d(64, 192, 3, 1, 1, **skw),
+            MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+        ]
+        stages, cins = mixed_stages(
+            stem, lambda idx, cin: InceptionBlock(cin, *_MIXED_SPECS[idx],
+                                                  fused_sepconv=fused_sepconv, **skw),
+            MaxPool3d(3, 2, 1), MaxPool3d(2, 2, 0))
+        self._finish(stages, cins, aug_points, graph_cfg, dtype, partial_bn)

@@ -30,6 +30,15 @@ Both versions add the contributions to one input in increasing output
 order, as PyTorch's CPU backward does, so in fp32 they agree with it bit
 for bit.
 
+Padding is PyTorch's symmetric one (an int or one per axis), a
+``(lo, hi)`` pair per axis, or ``"SAME"``, resolved per input as JAX's
+``lax.padtype_to_pads`` resolves it (:func:`same_padding`; I3D's pools).
+The forward is ``F.max_pool3d`` with ``padding=lo``, with ``ceil_mode``
+where the high side is one larger (:func:`ceil_mode_matches`: the same
+windows, no copy), else on an input padded with -inf.  The kernel takes
+the low pads and the true output extents, and clips every window at the
+input's end, so a high-side pad needs nothing more of it.
+
 Tensors are ``(B, C, T, H, W)``; the kernel takes them in
 ``torch.channels_last_3d`` memory, the backbone's layout.
 """
@@ -38,7 +47,7 @@ from __future__ import annotations
 
 import functools
 import itertools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -65,11 +74,77 @@ TWO_BLOCKS_SMEM = 115712  # the most shared memory a block may take with two per
 _CL = torch.channels_last_3d
 
 
+Pads = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
+Padding = Union[int, str, Sequence]
+
+
 def _triple(v) -> Tuple[int, int, int]:
     if isinstance(v, (tuple, list)):
         assert len(v) == 3
         return tuple(int(i) for i in v)
     return (int(v),) * 3
+
+
+def same_padding(sizes, kernel_size, stride) -> Pads:
+    """TF "SAME" padding of each axis (JAX ``lax.padtype_to_pads``): the
+    output is ceil(n / s), the total pad max((out - 1) s + k - n, 0), of
+    which the low side takes half, rounded down."""
+    pads = []
+    for n, k, s in zip(sizes, _triple(kernel_size), _triple(stride)):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def resolve_padding(padding: Padding, sizes, kernel_size, stride) -> Pads:
+    """``(lo, hi)`` per axis of ``padding``: an int or one per axis
+    (symmetric), a ``(lo, hi)`` pair per axis, or ``"SAME"`` (for input
+    extents ``sizes``)."""
+    if isinstance(padding, str):
+        if padding.upper() != "SAME":
+            raise ValueError(f"padding {padding!r}: an int, (lo, hi) pairs or 'SAME'")
+        return same_padding(sizes, kernel_size, stride)
+    if not isinstance(padding, (tuple, list)):
+        padding = (padding,) * 3
+    if len(padding) != 3:
+        raise ValueError(f"padding {padding!r}: one entry per axis (T, H, W)")
+    return tuple((int(p[0]), int(p[1])) if isinstance(p, (tuple, list))
+                 else (int(p), int(p)) for p in padding)
+
+
+def out_sizes(sizes, k, s, pads: Pads) -> Tuple[int, int, int]:
+    """Output extents of a pool over ``sizes`` with ``(lo, hi)`` pads."""
+    return tuple((n + lo + hi - ki) // si + 1
+                 for n, ki, si, (lo, hi) in zip(sizes, k, s, pads))
+
+
+def ceil_mode_matches(sizes, k, s, pads: Pads) -> bool:
+    """Whether ``F.max_pool3d(padding=lo, ceil_mode=True)`` has the windows
+    of the ``(lo, hi)`` pads: the same starts o s - lo, so it does where
+    its output count (PyTorch's rule, pooling_shape.h) is the same and
+    each lo is at most half the window."""
+    for n, ki, si, (lo, hi) in zip(sizes, k, s, pads):
+        o = -(-(n + 2 * lo - ki) // si) + 1
+        if (o - 1) * si >= n + lo:
+            o -= 1
+        if lo > ki // 2 or o != (n + lo + hi - ki) // si + 1:
+            return False
+    return True
+
+
+def pool_forward(x: torch.Tensor, k, s, pads: Pads, return_indices: bool = False):
+    """The max pool's forward with ``(lo, hi)`` pads, through the library's
+    ``F.max_pool3d``: symmetric pads directly, a high side one larger with
+    ``ceil_mode`` where :func:`ceil_mode_matches`, else on a copy of x
+    padded with -inf (indices then index the padded input)."""
+    lo = tuple(p[0] for p in pads)
+    if all(a == b for a, b in pads):
+        return F.max_pool3d(x, k, s, lo, return_indices=return_indices)
+    if ceil_mode_matches(x.shape[2:], k, s, pads):
+        return F.max_pool3d(x, k, s, lo, ceil_mode=True, return_indices=return_indices)
+    flat = (*pads[2], *pads[1], *pads[0])
+    return F.max_pool3d(F.pad(x, flat, value=float("-inf")), k, s, 0,
+                        return_indices=return_indices)
 
 
 class Block(NamedTuple):
@@ -121,6 +196,7 @@ class BwdPlan(NamedTuple):
     slabs: int        # B for clips, B * T for frames
     t_in: int         # frames of x in a slab
     t_out: int        # frames of y in a slab
+    rows_out: int     # rows of y (Ho)
     group: int        # channels per block (the last group is masked at C)
     groups: int
     element_size: int
@@ -143,7 +219,7 @@ class BwdPlan(NamedTuple):
     x_rows: int
     y_frames: int
     y_rows: int
-    geometry: Tuple[Tuple[int, int, int], ...]   # window, stride, padding
+    geometry: Tuple[Tuple[int, int, int], ...]   # window, stride, low pads
 
     def block(self, i: int) -> Block:
         """Block ``i``, in the kernel's order: the channel group fastest,
@@ -154,10 +230,9 @@ class BwdPlan(NamedTuple):
         c0 = g * self.group
         chans = (c0, min(c0 + self.group, self.channels))
         (kt, kh, _), (st, sh, _), (pt, ph, _) = self.geometry
-        ho = (self.rows + 2 * ph - kh) // sh + 1
         h0 = hi * self.h_strip
         h1 = min(self.rows, h0 + self.h_strip)
-        oh0, oh1, xh0, xh1 = axis_cover(h0, h1, kh, sh, ph, self.rows, ho)
+        oh0, oh1, xh0, xh1 = axis_cover(h0, h1, kh, sh, ph, self.rows, self.rows_out)
         if self.slab == "frame":
             b, t = divmod(slab, self.frames)
             return Block(b, chans, (t, t + 1), (h0, h1), (t, t + 1), (oh0, oh1),
@@ -170,13 +245,15 @@ class BwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def _cached_plan(x_shape, k, s, p, dtype) -> BwdPlan:
-    return bwd_plan(x_shape, k, s, p, dtype)
+def _cached_plan(x_shape, k, s, pads, dtype) -> BwdPlan:
+    return bwd_plan(x_shape, k, s, pads, dtype)
 
 
 def bwd_plan(x_shape, kernel_size, stride, padding, dtype,
              group_bytes: int | None = None) -> BwdPlan:
-    """The launch of one backward call for x of ``x_shape`` (B, C, T, H, W).
+    """The launch of one backward call for x of ``x_shape`` (B, C, T, H, W)
+    and ``padding`` in any form :func:`resolve_padding` takes; the output
+    extents are the forward's (:func:`out_sizes`).
 
     Where a whole slab fits one block (227 KB of shared memory at the
     narrowest group), one block per (slab, channel group); the group is the
@@ -188,12 +265,13 @@ def bwd_plan(x_shape, kernel_size, stride, padding, dtype,
     most frames) that fits two blocks per SM, else one.  Raises
     ``ValueError`` where even a strip of one input row of one frame, with
     its halo, exceeds what one block may take."""
-    k, s, p = _triple(kernel_size), _triple(stride), _triple(padding)
+    k, s = _triple(kernel_size), _triple(stride)
     b, c, t, h, w = (int(v) for v in x_shape)
-    to, ho, wo = ((n + 2 * pi - ki) // si + 1
-                  for n, ki, si, pi in zip((t, h, w), k, s, p))
+    pads = resolve_padding(padding, (t, h, w), k, s)
+    p = tuple(lo for lo, _ in pads)
+    to, ho, wo = out_sizes((t, h, w), k, s, pads)
     esize = dtype.itemsize
-    frame = k[0] == 1 and s[0] == 1 and p[0] == 0
+    frame = k[0] == 1 and s[0] == 1 and pads[0] == (0, 0)
     slabs, t_in, t_out = (b * t, 1, 1) if frame else (b, t, to)
     vec = 16 // esize if c % (16 // esize) == 0 else 1
 
@@ -231,7 +309,7 @@ def bwd_plan(x_shape, kernel_size, stride, padding, dtype,
     # whole warps, and a whole number of positions (group // vec threads each)
     unit = max(32, group // vec)
     threads = min(MAX_THREADS, -(-n_pos * (group // vec) // unit) * unit)
-    return BwdPlan("frame" if frame else "clip", slabs, t_in, t_out, group, groups,
+    return BwdPlan("frame" if frame else "clip", slabs, t_in, t_out, ho, group, groups,
                    esize, vec, threads, slabs * nts * nhs * groups, smem, c, t, h,
                    strip[0], strip[1], nts, nhs, *lay, (k, s, p))
 
@@ -259,14 +337,17 @@ def _window_slices(k, s, out_shape):
 
 def max_pool3d_bwd_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
                          kernel_size, stride, padding) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: dx of ``y = max_pool3d(x)``.
+    """Plain PyTorch version of the kernel: dx of ``y = max_pool3d(x)``
+    (``padding`` in any form :func:`resolve_padding` takes).
 
     Each output's gradient goes to its first maximal tap; sums run in fp32
     (float64 for float64 inputs) and dx is cast to x's dtype."""
-    k, s, p = _triple(kernel_size), _triple(stride), _triple(padding)
+    k, s = _triple(kernel_size), _triple(stride)
+    pads = resolve_padding(padding, x.shape[2:], k, s)
+    p = tuple(lo for lo, _ in pads)
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    pads = (p[2], p[2], p[1], p[1], p[0], p[0])
-    xp = F.pad(x.to(acc), pads, value=float("-inf"))
+    flat = (*pads[2], *pads[1], *pads[0])
+    xp = F.pad(x.to(acc), flat, value=float("-inf"))
     yf = y.to(acc)
     tap = torch.full(y.shape, -1, dtype=torch.int16, device=x.device)
     slices = list(_window_slices(k, s, y.shape[2:]))
@@ -280,7 +361,7 @@ def max_pool3d_bwd_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     return dxp[:, :, p[0]:p[0] + t, p[1]:p[1] + h, p[2]:p[2] + w].to(x.dtype)
 
 
-def _check(x: torch.Tensor, y: torch.Tensor, k, s, p) -> None:
+def _check(x: torch.Tensor, y: torch.Tensor, k, s, pads: Pads) -> None:
     if x.dim() != 5 or y.dim() != 5:
         raise ValueError(f"max_pool3d backward: x {tuple(x.shape)} and y "
                          f"{tuple(y.shape)} must be (B, C, T, H, W)")
@@ -291,20 +372,31 @@ def _check(x: torch.Tensor, y: torch.Tensor, k, s, p) -> None:
         raise ValueError("max_pool3d backward: x and y must be on one CUDA device")
     if not (x.is_contiguous(memory_format=_CL) and y.is_contiguous(memory_format=_CL)):
         raise ValueError("max_pool3d backward: x and y must be channels_last_3d")
-    if max(k) > MAX_WINDOW or min(k) < 1 or min(s) < 1 or min(p) < 0:
+    if (max(k) > MAX_WINDOW or min(k) < 1 or min(s) < 1
+            or any(not 0 <= v < ki for ki, pair in zip(k, pads) for v in pair)):
+        # a pad of the window's size or more would leave a window with no input
         raise ValueError(f"max_pool3d backward: window {k}, stride {s}, "
-                         f"padding {p} outside the kernel's range")
+                         f"padding {pads} outside the kernel's range")
+    want = out_sizes(x.shape[2:], k, s, pads)
+    if tuple(y.shape[2:]) != want:
+        raise ValueError(f"max_pool3d backward: y {tuple(y.shape)} is not the output "
+                         f"{want} of x {tuple(x.shape)} under padding {pads}")
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
-            k, s, p) -> torch.Tensor:
-    """One backward call (one kernel launch): dx in channels_last_3d."""
+            k, s, padding) -> torch.Tensor:
+    """One backward call (one kernel launch): dx in channels_last_3d.
+    ``padding`` as :func:`resolve_padding` takes it; the kernel gets the
+    low pads and y's extents."""
     global launches_s1, launches_strided, dy_copies
-    _check(x, y, k, s, p)
+    k, s = _triple(k), _triple(s)
+    pads = resolve_padding(padding, x.shape[2:], k, s)
+    _check(x, y, k, s, pads)
     if dy.shape != y.shape:
         raise ValueError(f"max_pool3d backward: dy {tuple(dy.shape)} != y "
                          f"{tuple(y.shape)}")
-    plan = _cached_plan(tuple(x.shape), k, s, p, x.dtype)
+    plan = _cached_plan(tuple(x.shape), k, s, pads, x.dtype)
+    p = plan.geometry[2]
     dy = dy.to(y.dtype)
     if not dy.is_contiguous(memory_format=_CL):
         dy = dy.contiguous(memory_format=_CL)
@@ -330,7 +422,7 @@ def _launch(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
 class _MaxPool3d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, k, s, p):
-        y = F.max_pool3d(x, k, s, p)
+        y = pool_forward(x, k, s, p)
         if x.is_cuda:
             y = y.contiguous(memory_format=_CL)
         ctx.save_for_backward(x, y)
@@ -346,10 +438,12 @@ class _MaxPool3d(torch.autograd.Function):
         return _launch(x, y, dy, k, s, p), None, None, None
 
 
-def max_pool3d(x: torch.Tensor, kernel_size, stride, padding=0) -> torch.Tensor:
-    """``F.max_pool3d`` (PyTorch padding semantics) with the K3/K4 backward
-    on CUDA tensors and the plain backward on CPU tensors."""
-    k, s, p = _triple(kernel_size), _triple(stride), _triple(padding)
+def max_pool3d(x: torch.Tensor, kernel_size, stride, padding: Padding = 0) -> torch.Tensor:
+    """Max pooling (``padding``: an int or one per axis, PyTorch's
+    symmetric padding; ``(lo, hi)`` pairs; or ``"SAME"``) with the K3/K4
+    backward on CUDA tensors and the plain backward on CPU tensors."""
+    k, s = _triple(kernel_size), _triple(stride)
+    pads = resolve_padding(padding, x.shape[2:], k, s)
     if x.is_cuda:
         x = x.contiguous(memory_format=_CL)
-    return _MaxPool3d.apply(x, k, s, p)
+    return _MaxPool3d.apply(x, k, s, pads)

@@ -8,7 +8,9 @@ port's counterpart of ``tools/train_ds.py``, same CLI and YAML::
 The encoder starts from a pretrain checkpoint of the port's trainer
 (``--ssl_checkpoint`` or ``MODEL.PRETRAIN_PATH``; MoCo, SimSiam or bank) by
 checkpoint surgery, with a fresh ``new_fc``; ``/`` or ``none`` means a
-random encoder.  ``MODEL.LINEAR_PROBE True`` trains ``new_fc`` alone;
+random encoder.  ``MODEL.PRETRAIN_PATH`` may also name a bare backbone
+state_dict, the reference's S3DG or I3D names included
+(``utils/torch_names.py``): it loads strictly into the backbone.  ``MODEL.LINEAR_PROBE True`` trains ``new_fc`` alone;
 ``MODEL.PROBE_BN`` then chooses the encoder's BN: ``eval`` (the whole model
 in eval mode) or ``reference`` (the reference's partial-BN train mode:
 ``stem_0``'s BNs live, the rest on running statistics).  Fine-tuning runs
@@ -60,8 +62,9 @@ from .engine.downstream import make_fused_downstream_step, make_fused_eval_step
 from .models.build import create_video_model
 from .parallel import dist
 from .solver.build import make_lr_scheduler
-from .train_video_contrast_dis import add_dist_args, launch, resolve_device
-from .utils.checkpoint import load_params_only, transfer_encoder_params
+from .train_video_contrast_dis import (add_dist_args, launch, load_backbone_state_dict,
+                                       resolve_device)
+from .utils.checkpoint import SSL_ENCODER, transfer_encoder_params
 from .utils.meters import AverageMeter, accuracy
 from .utils.summary import creat_saver
 
@@ -136,13 +139,23 @@ class Trainer:
         self._preempted = True
 
     def _load_ssl_checkpoint(self, model, path) -> None:
-        """Checkpoint surgery into ``model`` (reference: train_ds.py:65-84)."""
+        """Checkpoint surgery into ``model`` (reference: train_ds.py:65-84).
+        A file that is not a pretrain checkpoint (through
+        ``MODEL.PRETRAIN_PATH``: a bare backbone state_dict, the reference's
+        S3DG or I3D names included) loads strictly into the backbone."""
         if not path or str(path) in ("none", "/"):
             return
         if not os.path.exists(path):
             raise RuntimeError(f"=> no SSL checkpoint found at '{path}'")
-        sd, meta = load_params_only(path)
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        sd = payload.get("state_dict") if isinstance(payload, dict) else None
+        if not (isinstance(sd, dict)
+                and any(k.startswith((SSL_ENCODER, "model_1.")) for k in sd)):
+            model.base_model.load_state_dict(load_backbone_state_dict(path), strict=True)
+            self._log(f"=> initialized backbone from '{path}', new_fc randomly initialized")
+            return
         transfer_encoder_params(sd, model)
+        meta = payload.get("meta", {})
         self._log(f"=> initialized encoder from '{path}' (epoch {meta.get('epoch')}), "
                   "new_fc randomly initialized")
 

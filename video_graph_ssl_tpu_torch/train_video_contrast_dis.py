@@ -69,6 +69,7 @@ from .solver.build import make_lr_scheduler
 from .utils.checkpoint import load_checkpoint_state
 from .utils.meters import AverageMeter
 from .utils.summary import creat_saver
+from .utils.torch_names import port_backbone_names
 
 # --profile_dir traces steps 5 to 10 (both included) of the first epoch
 PROFILE_STEPS = (5, 10)
@@ -137,7 +138,8 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ``base_model.`` is kept where any key has it.  So a bare backbone, a
     DDP-wrapped one and a whole pretrain checkpoint (heads included, as
     the port's ``Saver`` writes it) all give the backbone's own names
-    (``base.N...``)."""
+    (``base.N...``); the reference's S3DG and I3D names are mapped to the
+    port's (``utils/torch_names.py``)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj["state_dict"] if isinstance(obj, dict) and "state_dict" in obj else obj
     changed = True
@@ -149,8 +151,9 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
                 changed = True
     for prefix in ("encoder.base_model.", "base_model."):
         if any(k.startswith(prefix) for k in sd):
-            return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-    return sd
+            sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+            break
+    return port_backbone_names(sd)
 
 
 class Trainer:

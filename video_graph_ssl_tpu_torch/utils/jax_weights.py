@@ -7,7 +7,11 @@
 port's downstream state (:func:`downstream_state_from_jax`).
 
 Numpy only (no JAX import): ``params`` and ``batch_stats`` are the JAX
-model's nested dicts with numpy leaves.  Names are the reference's, the
+model's nested dicts with numpy leaves.  The backbones: S3D, S3DG (S3D's
+names, each SepConv conv's bias beside its weight), I3D (JAX ``conv3d_1a``,
+``conv3d_2b``, ``conv3d_2c`` and the Mixed blocks' ``Unit3D``s -> the
+port's stages 0, 2, 3 and the same branch paths as S3D's) and tiny3d,
+told apart by :func:`backbone_of`.  Names are the reference's, the
 same that ``video_graph_ssl_tpu.utils.ckpt_convert.export_pretrain_to_torch``
 writes for S3D: ``model.proj_head.head.{0,2}`` (MoCo, bank) or
 ``model.projection.l{1,2,3}.{0,1}`` and ``model.prediction.{l1.{0,1},l2}``
@@ -65,6 +69,8 @@ def _bn(out: SD, name: str, p: dict, s: dict) -> None:
 
 def _convbn(out: SD, conv: str, bn: str, p: dict, s: dict) -> None:
     out[conv + ".weight"] = _conv_kernel(p["conv"]["kernel"])
+    if "bias" in p["conv"]:     # S3DG's SepConv pairs
+        out[conv + ".bias"] = np.asarray(p["conv"]["bias"])
     _bn(out, bn, p["bn"], s["bn"])
 
 
@@ -107,22 +113,53 @@ def _graph(out: SD, prefix: str, p: dict, s: dict, sub_sample: bool) -> None:
         out[f"{prefix}.{k}"] = v
 
 
+def _graphs(out: SD, p: dict, s: dict, sub_sample: bool) -> None:
+    """The graph blocks of a staged backbone (``base.{idx}.0``)."""
+    for name in p:
+        if name.startswith("graph_aug_"):
+            idx = int(name.rsplit("_", 1)[1])
+            _graph(out, f"base.{idx}.0", p[name], s.get(name, {}), sub_sample)
+
+
+def _stage(p: dict, idx: int) -> str:
+    return f"base.{idx}" + (".1" if f"graph_aug_{idx}" in p else "")
+
+
 def s3d_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
-    """JAX ``S3D`` variables -> the port's ``S3D`` state_dict."""
+    """JAX ``S3D`` variables -> the port's ``S3D`` state_dict; with
+    ``temporal_bias`` (S3DG) each SepConv conv's bias comes along."""
     out: SD = {}
     for ours, (idx, kind) in _S3D_STAGES.items():
-        wrapped = f"graph_aug_{idx}" in p
-        base = f"base.{idx}" + (".1" if wrapped else "")
+        base = _stage(p, idx)
         if kind == "mixed":
             for bname, (path, bkind) in _MIXED_BRANCHES.items():
                 fn = _sep if bkind == "sep" else _basic
                 fn(out, f"{base}.{path}", p[ours][bname], s[ours][bname])
         else:
             (_sep if kind == "sep" else _basic)(out, base, p[ours], s[ours])
-    for name in p:
-        if name.startswith("graph_aug_"):
-            idx = int(name.rsplit("_", 1)[1])
-            _graph(out, f"base.{idx}.0", p[name], s.get(name, {}), sub_sample)
+    _graphs(out, p, s, sub_sample)
+    return out
+
+
+# JAX I3D's units -> the port's stage (JAX i3d.py:164-187); the Mixed blocks
+# are S3D's stages, their Unit3Ds at S3D's branch paths
+_I3D_UNITS = {"conv3d_1a": 0, "conv3d_2b": 2, "conv3d_2c": 3}
+
+
+def i3d_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
+    """JAX ``I3D`` variables -> the port's ``I3D`` state_dict."""
+    out: SD = {}
+    for ours, idx in _I3D_UNITS.items():
+        base = _stage(p, idx)
+        _convbn(out, base + ".conv", base + ".bn", p[ours], s[ours])
+    for ours, (idx, kind) in _S3D_STAGES.items():
+        if kind != "mixed":
+            continue
+        base = _stage(p, idx)
+        for bname, (path, _) in _MIXED_BRANCHES.items():
+            _convbn(out, f"{base}.{path}.conv", f"{base}.{path}.bn", p[ours][bname],
+                    s[ours][bname])
+    _graphs(out, p, s, sub_sample)
     return out
 
 
@@ -137,7 +174,19 @@ def tiny3d_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
     return out
 
 
-BACKBONES = {"S3D": s3d_state_dict, "tiny3d": tiny3d_state_dict}
+BACKBONES = {"S3D": s3d_state_dict, "S3DG": s3d_state_dict, "I3D": i3d_state_dict,
+             "InceptionI3d": i3d_state_dict, "tiny3d": tiny3d_state_dict}
+
+
+def backbone_of(enc: dict) -> str:
+    """The backbone of a JAX encoder's ``base_model`` variables (params or
+    an optimizer trace of them): I3D by its ``conv3d_1a`` tree, S3DG by its
+    conv biases, S3D, else tiny3d."""
+    if "conv3d_1a" in enc:
+        return "I3D"
+    if "mixed_3b" in enc:
+        return "S3DG" if "bias" in enc["stem_0"]["spatial"]["conv"] else "S3D"
+    return "tiny3d"
 
 
 def _dense(out: SD, name: str, d: dict) -> None:
@@ -157,12 +206,13 @@ def simsiam_heads_state_dict(p: dict, s: dict) -> SD:
     return out
 
 
-def pretrain_state_dict(params: dict, batch_stats: dict, backbone: str = "S3D",
+def pretrain_state_dict(params: dict, batch_stats: dict, backbone: str = None,
                         head_type: str = "mlp", graph_sub_sample: bool = True) -> SD:
     """JAX ``GraphWrapper`` variables (contrastive or SimSiam, told apart by
     their heads) -> the port's ``GraphWrapper`` state_dict, as numpy
-    arrays."""
+    arrays; ``backbone`` defaults to :func:`backbone_of` the params."""
     mp, ms = params["model"], batch_stats["model"]
+    backbone = backbone or backbone_of(mp["encoder"]["base_model"])
     enc = BACKBONES[backbone](mp["encoder"]["base_model"],
                               ms["encoder"]["base_model"], graph_sub_sample)
     out = {f"model.encoder.base_model.{k}": v for k, v in enc.items()}
@@ -177,7 +227,7 @@ def pretrain_state_dict(params: dict, batch_stats: dict, backbone: str = "S3D",
 
 
 def load_pretrain_weights(model: nn.Module, params: dict, batch_stats: dict,
-                          backbone: str = "S3D", head_type: str = "mlp",
+                          backbone: str = None, head_type: str = "mlp",
                           graph_sub_sample: bool = True) -> None:
     """Load the JAX variables into the port's model with ``strict=True``."""
     sd = pretrain_state_dict(params, batch_stats, backbone, head_type,
@@ -213,8 +263,7 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
     puts the factor in the bias group's lr instead (``solver/build.py``), so
     a JAX trace is the group's ``lr_factor`` times the port's buffer and is
     divided by it here."""
-    enc = tree["params"]["model"]["encoder"]["base_model"]
-    backbone = "S3D" if "mixed_3b" in enc else "tiny3d"
+    backbone = backbone_of(tree["params"]["model"]["encoder"]["base_model"])
     head = "linear" if "fc" in tree["params"]["model"].get("proj_head", {}) else "mlp"
     want = set(state.model.state_dict())
     for sub_sample in (True, False):
@@ -260,11 +309,12 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
     state.step = int(tree["step"])
 
 
-def downstream_state_dict(params: dict, batch_stats: dict, backbone: str = "S3D",
+def downstream_state_dict(params: dict, batch_stats: dict, backbone: str = None,
                           graph_sub_sample: bool = True) -> SD:
     """JAX ``VideoModel`` variables -> the port's ``VideoModel`` state_dict
-    (``base_model.*``, ``new_fc.*``), as numpy arrays."""
-    enc = BACKBONES[backbone](params["encoder"]["base_model"],
+    (``base_model.*``, ``new_fc.*``), as numpy arrays; ``backbone``
+    defaults to :func:`backbone_of` the params."""
+    enc = BACKBONES[backbone or _backbone_of(params)](params["encoder"]["base_model"],
                               batch_stats["encoder"]["base_model"], graph_sub_sample)
     out = {f"base_model.{k}": v for k, v in enc.items()}
     _dense(out, "new_fc", params["new_fc"])
@@ -272,14 +322,13 @@ def downstream_state_dict(params: dict, batch_stats: dict, backbone: str = "S3D"
 
 
 def _backbone_of(params: dict) -> str:
-    return "S3D" if "mixed_3b" in params["encoder"]["base_model"] else "tiny3d"
+    return backbone_of(params["encoder"]["base_model"])
 
 
 def load_downstream_weights(model: nn.Module, params: dict, batch_stats: dict,
                             backbone: str = None, graph_sub_sample: bool = True) -> None:
     """Load JAX ``VideoModel`` variables into the port's with ``strict=True``."""
-    sd = downstream_state_dict(params, batch_stats, backbone or _backbone_of(params),
-                               graph_sub_sample)
+    sd = downstream_state_dict(params, batch_stats, backbone, graph_sub_sample)
     model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                            for k, v in sd.items()}, strict=True)
 
