@@ -180,6 +180,34 @@ Phases (each raises on failure; the script then exits non-zero):
    load strictly into both encoders of the pretrain trainer, which takes a
    step (graph off); the I3D file into ``train_ds`` too.  The phase ends
    with a ``backbones`` JSON line.
+14. the 2D backbones (``MODEL.BACKBONE_TYPE 2D``: ResNet-18 .. 152,
+   BN-Inception, Inception-v3; frames folded into the batch, features
+   averaged over T) and the 3D ResNets (R3D, ``resnet_i3d``, R(2+1)D; graph
+   blocks on the inputs of stages 2, 3, 4, the 3x3x3 / 2 stem pool on K4):
+   (a) K1, K2 and K4 against their plain versions (``kernel_checks``), fp32
+   and bf16, at R3D-18's aug points (x (128, 8, 28, 28, 64), (128, 4, 14,
+   14, 128), (128, 2, 7, 7, 256)), at R3D-50's (256, 512, 1024 channels)
+   and at the stem pool, x (128, 16, 56, 56, 64) and, in strips, (32, 16,
+   112, 112, 64), bit for bit; then per call in bf16 the kernel's CUDA-event
+   ms, the bound, the plain version's and the library call's ms
+   (``torch.bmm``, torch's pool backward), as a ``resnet_kernels`` JSON
+   line; (b) the 3x3/1 average pool's backward on the card against the
+   CPU (the library's printed, ``layers.avg_pool3x3``'s held), then small
+   MoCo steps on the card against
+   the CPU for ``resnet3d_18``, ``resnet_i3d_18``, ``resnet2p1d_18``,
+   ``resnet18``, ``bninception`` and ``inception_v3`` (80x80); (c) GCA
+   MoCo through the trainer on ``configs/visual_moco.yaml`` with
+   ``MODEL.AUG_FLAG True``: R3D-18 at bs 128, 16x112x112 (K1 30, K2 45,
+   K4 5 over the 5 steps, 3 graph blocks), then ResNet-101 2D at bs 16,
+   16x224x224 (256 frames per view; no kernel, no graph block): ms/step,
+   clips/s, peak memory; (d) ``train_ds`` (partial BN) with R3D-18 from
+   (c)'s checkpoint (K1 3, K2 6, K4 1 per step) and with ResNet-50 2D (no
+   kernel), its validation and ``test_ds`` on its best checkpoint; (e) a
+   reference-named file per family (R3D, resnet_i3d, R(2+1)D, ResNet 2D,
+   BN-Inception, Inception-v3) loads strictly through
+   ``MODEL.PRETRAIN_PATH`` into both pretrain encoders and into
+   ``train_ds``, each taking a step.  The phase ends with a ``resnets``
+   JSON line.
 
 Each phase prints its wall seconds.  Times are CUDA events around one
 call, the median of 20 calls (10 for K5; ``kernel_times.event_ms``).  ``bound``
@@ -816,9 +844,11 @@ def phase_k5(dev) -> dict:
             **sums}
 
 # --------------------------------------------------------------------------- #
-def small_step_parity(dev, fused: bool, backbone: str = "S3D") -> None:
-    """One MoCo step of a small ``backbone``+graph model (graph blocks at 5,
-    9, 14; fp32; sampler none; TPU.SEPCONV_FUSED as given) from one initial
+def small_step_parity(dev, fused: bool, backbone: str = "S3D", opts=(),
+                      size: int = 64) -> None:
+    """One MoCo step of a small ``backbone``+graph model (its default graph
+    blocks, none for a 2D backbone; fp32; sampler none; TPU.SEPCONV_FUSED
+    as given; ``opts``) on 4 clips of 16 x size x size from one initial
     state and one batch: the card (kernels) against the CPU (plain
     versions)."""
     from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
@@ -826,13 +856,13 @@ def small_step_parity(dev, fused: bool, backbone: str = "S3D") -> None:
     from video_graph_ssl_tpu_torch.models.build import create_visual_model
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
 
-    print(f"  small {backbone}+graph MoCo step (4x16x64x64, fp32, SEPCONV_FUSED {fused}), "
-          "card vs CPU")
+    print(f"  small {backbone}+graph MoCo step (4x16x{size}x{size}, fp32, SEPCONV_FUSED "
+          f"{fused}), card vs CPU")
     c = load_config(CONFIG, [
         "MODEL.BACKBONE", backbone, "MODEL.AUG_FLAG", "True", "GRAPH.SAMPLER", "none",
         "TPU.COMPUTE_DTYPE", "float32", "CONTRAST.NCE_K", "64",
-        "CONTRAST.NCE_T", "1.0", "TPU.SEPCONV_FUSED", str(fused)])
-    clips = torch.randn(4, 2, 16, 64, 64, 3,
+        "CONTRAST.NCE_T", "1.0", "TPU.SEPCONV_FUSED", str(fused), *opts])
+    clips = torch.randn(4, 2, 16, size, size, 3,
                         generator=torch.Generator().manual_seed(3))
     runs = {}
     for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
@@ -879,10 +909,11 @@ def read_counts() -> dict:
 
 
 def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
-                backbone: str = "S3D", save: bool = False) -> dict:
+                backbone: str = "S3D", save: bool = False, opts=()) -> dict:
     """5 trainer steps at full ``backbone`` width (2 warm-up, 3 timed), bs
     ``bsz``, 16 x size x size (224: INPUT.BASE_SIZE [224, 224], SCALE_SIZE
-    [256, 256]) from synthetic clips through the Loader; returns the launch
+    [256, 256]) from synthetic clips through the Loader, with config
+    overrides ``opts``; returns the launch
     counts of exactly those steps (``counts``), the mean ms of the timed
     steps (``ms``), the peak memory (``peak_gib``) and, with ``save``, the
     path of a checkpoint that the trainer's Saver writes after the steps
@@ -896,7 +927,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
                                      "INPUT.SCALE_SIZE", f"[{size * 8 // 7}, {size * 8 // 7}]"]
     c = load_config(CONFIG, ["MODEL.BACKBONE", backbone, "MODEL.AUG_FLAG", "True",
                              "DATASET.SOURCE", "synthetic", "DATALOADER.BATCH_SIZE", str(bsz),
-                             "TPU.SEPCONV_FUSED", str(fused)] + frames)
+                             "TPU.SEPCONV_FUSED", str(fused)] + frames + list(opts))
     if list(c.INPUT.BASE_SIZE) != [size, size]:
         raise RuntimeError(f"INPUT.BASE_SIZE {c.INPUT.BASE_SIZE}, want {size}")
     if int(c.CONTRAST.NCE_K) != 16384 or c.TPU.COMPUTE_DTYPE != "bfloat16":
@@ -979,6 +1010,8 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
         raise RuntimeError(f"SepConv shapes {sorted(seen_seps)} != {sorted(want_seps)}")
     timed = step_ms[2:]
     mean_ms = sum(timed) / len(timed)
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
+    graph_blocks = sum(isinstance(m, TemporalGraphAug) for m in state.model.modules())
     print(f"slice ({backbone}, SEPCONV_FUSED {fused}, 16x{size}x{size}): {mean_ms:.1f} "
           f"ms/step, {bsz / mean_ms * 1e3:.1f} clips/s (mean of 3 timed steps, bs {bsz}, "
           f"peak {peak:.1f} GiB) on {gpu}")
@@ -987,7 +1020,8 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
     del trainer, state, batches, metrics
     gc.collect()
     torch.cuda.empty_cache()
-    return {"counts": counts, "ms": mean_ms, "peak_gib": peak, "ckpt": ckpt}
+    return {"counts": counts, "ms": mean_ms, "peak_gib": peak, "ckpt": ckpt,
+            "graph_blocks": graph_blocks}
 
 
 def phase_slice(dev, gpu: str) -> dict:
@@ -2704,23 +2738,30 @@ def i3d_downstream(dev, gpu: str, ssl: str) -> None:
                            f"{bool(np.isfinite(scores).all())}")
 
 
-def reference_pretrain_path(dev, gpu: str) -> None:
-    """(e) ``MODEL.PRETRAIN_PATH``: for I3D and S3DG, a state_dict under the
-    reference's names (``utils/torch_names.reference_backbone_names``; the
-    classifier and torch BN's ``num_batches_tracked`` included, as the
-    reference saves them, wrapped in ``module.``) with seeded values loads
-    strictly into both of the pretrain trainer's encoders, which then take
-    one step (bs 32, graph off: a reference backbone holds no graph
-    block); the I3D file loads into ``train_ds``'s backbone too, one step."""
+# phase 13 (e): (backbone, the reference's layout, its classifier, its
+# classifier's weight shape, config overrides)
+REFERENCE_FILES_13 = [("I3D", "i3d", "conv3d_0c_1x1.conv3d", (400, 1024, 1, 1, 1), []),
+                      ("S3DG", "s3dg", "features.18", (400, 1024, 1, 1, 1), [])]
+
+
+def reference_pretrain_path(dev, gpu: str, files=REFERENCE_FILES_13,
+                            ds_backbones=("I3D",), tag: str = "(e)") -> None:
+    """``MODEL.PRETRAIN_PATH``: for each of ``files`` (phase 13: I3D and
+    S3DG), a state_dict under the reference's names
+    (``utils/torch_names.reference_backbone_names``; the classifier and
+    torch BN's ``num_batches_tracked`` included, as the reference saves
+    them, wrapped in ``module.``) with seeded values loads strictly into
+    both of the pretrain trainer's encoders, which then take one step (bs
+    32, graph off: a reference backbone holds no graph block); the files of
+    ``ds_backbones`` load into ``train_ds``'s backbone too, one step."""
     from video_graph_ssl_tpu_torch.models.build import create_visual_model
     from video_graph_ssl_tpu_torch.train_ds import Trainer as DsTrainer
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
     from video_graph_ssl_tpu_torch.utils.torch_names import reference_backbone_names
 
-    for backbone, layout, head in (("I3D", "i3d", "conv3d_0c_1x1.conv3d"),
-                                   ("S3DG", "s3dg", "features.18")):
+    for backbone, layout, head, head_shape, extra in files:
         opts = SYNTHETIC + ["MODEL.BACKBONE", backbone, "MODEL.AUG_FLAG", "False",
-                            "DATALOADER.BATCH_SIZE", "32"]
+                            "DATALOADER.BATCH_SIZE", "32", *extra]
         own = create_visual_model(load_config(CONFIG, opts))[0].model.encoder.base_model
         gen = torch.Generator().manual_seed(17)
         values = {k: (torch.rand(v.shape, generator=gen) + 0.5 if "running_var" in k
@@ -2729,8 +2770,8 @@ def reference_pretrain_path(dev, gpu: str) -> None:
         sd = reference_backbone_names(values, layout)
         sd.update({k.rsplit(".", 1)[0] + ".num_batches_tracked": torch.tensor(10)
                    for k in list(sd) if k.endswith("running_mean")})
-        sd[head + ".weight"] = torch.zeros(400, 1024, 1, 1, 1)
-        sd[head + ".bias"] = torch.zeros(400)
+        sd[head + ".weight"] = torch.zeros(head_shape)
+        sd[head + ".bias"] = torch.zeros(head_shape[0])
         path = os.path.join(RUN_DIR, f"reference_{backbone}.pth")
         torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, path)
         c = load_config(CONFIG, opts + ["MODEL.PRETRAINED", "True", "MODEL.PRETRAIN_PATH", path])
@@ -2739,32 +2780,35 @@ def reference_pretrain_path(dev, gpu: str) -> None:
             got = model.model.encoder.base_model.state_dict()
             if sorted(got) != sorted(values) or not all(
                     torch.equal(got[k].cpu(), v) for k, v in values.items()):
-                raise RuntimeError(f"(e) {backbone}: the reference-named file did not load "
+                raise RuntimeError(f"{tag} {backbone}: the reference-named file did not load "
                                    "as written")
         epoch = trainer.train_loader.epoch(0)
         batch = next(epoch)
         epoch.close()
         loss = float(trainer.train_step(trainer.to_device(batch), trainer.lr_fn(0))["loss"])
-        print(f"  (e) {backbone}: {len(sd)} reference-named entries ({head} and the BN "
+        print(f"  {tag} {backbone}: {len(sd)} reference-named entries ({head} and the BN "
               f"counters dropped) loaded strictly into both encoders; one step, loss "
               f"{loss:.4f}")
         if not math.isfinite(loss):
-            raise RuntimeError(f"(e) {backbone}: non-finite loss {loss}")
+            raise RuntimeError(f"{tag} {backbone}: non-finite loss {loss}")
         del trainer
         _free()
-        if backbone == "I3D":
-            ds = DsTrainer(load_config(FT_CONFIG, SYNTHETIC + I3D_OPTS + [
-                "MODEL.PRETRAIN_PATH", path]), max_steps=1, device=str(dev), run_dir=RUN_DIR)
+        if backbone in ds_backbones:
+            ds = DsTrainer(load_config(FT_CONFIG, SYNTHETIC + [
+                "MODEL.BACKBONE", backbone, *extra, "MODEL.PRETRAIN_PATH", path]),
+                max_steps=1, device=str(dev), run_dir=RUN_DIR)
             got = ds.state.model.base_model.state_dict()
             if not all(torch.equal(got[k].cpu(), v) for k, v in values.items()):
-                raise RuntimeError("(e) train_ds: the reference-named I3D file did not load")
+                raise RuntimeError(f"{tag} train_ds: the reference-named {backbone} file did "
+                                   "not load")
             epoch = ds.train_loader.epoch(0)
             clips, labels = ds.batch_to_device(next(epoch))
             epoch.close()
             loss = float(ds.train_step(clips, labels, ds.lr_fn(0))["loss"])
-            print(f"  (e) train_ds from the reference-named I3D file: one step, loss {loss:.4f}")
+            print(f"  {tag} train_ds from the reference-named {backbone} file: one step, "
+                  f"loss {loss:.4f}")
             if not math.isfinite(loss):
-                raise RuntimeError(f"(e) train_ds: non-finite loss {loss}")
+                raise RuntimeError(f"{tag} train_ds: non-finite loss {loss}")
             del ds
             _free()
 
@@ -2794,6 +2838,203 @@ def phase_backbones(dev, gpu: str) -> dict:
                                         "peak_gib": r["peak_gib"], "launches": r["counts"]}
                                     for b, r in runs.items()}, "gpu": gpu}))
     return worst
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: the 2D backbones and the 3D ResNets
+# --------------------------------------------------------------------------- #
+# K1/K2 at the inputs of stages 2-4 and K4 at the stem pool of R3D-18 and
+# R3D-50 (bottleneck widths) in the bs-128 16x112x112 step; the stem pool
+# of the bs-32 16x224x224 step (in strips)
+R3D18_K1, R3D18_K2, R3D_POOLS, _ = geometry(112, 128, "resnet3d_18")
+R3D50_K1, R3D50_K2, _, _ = geometry(112, 128, "resnet3d_50")
+_, _, R3D_POOLS_224, _ = geometry(224, 32, "resnet3d_18")
+OPTS_2D = ["MODEL.BACKBONE_TYPE", "2D"]
+# (b): (backbone, overrides, frame size; Inception-v3's least is 75)
+SMALL_14 = [("resnet3d_18", [], 64), ("resnet_i3d_18", [], 64), ("resnet2p1d_18", [], 64),
+            ("resnet18", OPTS_2D, 64), ("bninception", OPTS_2D, 64),
+            ("inception_v3", OPTS_2D, 80)]
+# (e): one reference-named file per family, as in phase 13 (e)
+REFERENCE_FILES_14 = [
+    ("resnet3d_18", "resnet", "fc", (400, 512), []),
+    ("resnet_i3d_18", "resnet", "fc", (400, 512), []),
+    ("resnet2p1d_18", "resnet", "fc", (400, 512), []),
+    ("resnet18", "resnet", "fc", (400, 512), OPTS_2D),
+    # BN-Inception needs an even extent at inception4e: 224x224 (at 112x112
+    # its branches disagree there, 4x4 against 3x3, in JAX as here)
+    ("bninception", "bninception", "fc", (400, 1024),
+     OPTS_2D + ["DATALOADER.BATCH_SIZE", "8", "INPUT.BASE_SIZE", "[224, 224]",
+                "INPUT.SCALE_SIZE", "[256, 256]", "INPUT.CROP_SIZE", "[224, 224]"]),
+    ("inception_v3", "inception_v3", "fc", (400, 2048), OPTS_2D)]
+R101_BATCH = 16   # 16 clips of 16 frames: 256 frames of 224x224 per view
+
+
+def resnet_kernel_times(dev, gpu: str) -> None:
+    """(a) times in bf16 at R3D-18's and R3D-50's shapes: per call, the
+    CUDA-event ms (median of 20), the bound, the plain version's ms and the
+    library call's (K2: ``torch.bmm``; K4: torch's own pool backward; K1:
+    none).  The kernels' device-only time at these shapes is
+    ``kernel_times.py --backbone resnet3d_18`` (or ``resnet3d_50``): after
+    the phases that run process groups, ``torch.profiler`` in this process
+    drops device events."""
+    from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
+    from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+    from video_graph_ssl_tpu_torch.ops import maxpool as mp
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    bf = torch.bfloat16
+    rows = []
+
+    def row(kn, shape, fn, plain, lib, nbytes, flops, extra=""):
+        tk, tp = event_ms(fn), event_ms(plain)
+        tl = event_ms(lib) if lib is not None else None
+        bm, by = bound(nbytes, flops, "bf16")
+        rows.append({"kernel": kn, "shape": list(shape), "ms": tk, "bound_ms": bm,
+                     "bound_by": by, "plain_ms": tp, "library_ms": tl})
+        print(f"  (a) {kn} {shape} bf16{extra}: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
+              f"library {'%.4f ms' % tl if tl is not None else 'none'}  "
+              f"bound {bm:.4f} ms ({by}) on {gpu}")
+
+    for b, t, d in R3D18_K1 + R3D50_K1:
+        theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
+        q, k = ((torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(bf)
+                for _ in "qk")
+        row("K1", (b, t, d), lambda: gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0),
+            lambda: gk._adjacency_fwd_plain(q, k, theta, None, 7, 1.0, True, 0), None,
+            2 * q.numel() * 2 + 4 * t * t + 3 * 4 * b * t * t, 2 * b * t * t * d)
+    for shape in R3D18_K2 + R3D50_K2:
+        b, t = shape[:2]
+        x = torch.randn(shape, device=dev, generator=g).to(bf)
+        adj = torch.rand(b, t, t, device=dev, generator=g).to(bf)
+        row("K2", shape, lambda: gp._launch(adj, x, transpose=False),
+            lambda: gp.propagate_plain(adj, x), lambda: torch.bmm(adj, x.view(b, t, -1)),
+            (2 * x.numel() + adj.numel()) * 2, 2 * t * x.numel())
+        del x, adj
+    for name, kn, shape, k, s_, p in R3D_POOLS + R3D_POOLS_224:
+        import torch.nn.functional as F
+        x = _ncdhw(shape, dev, bf, g)
+        y, idx = F.max_pool3d(x, k, s_, p, return_indices=True)
+        y = y.contiguous(memory_format=CL)
+        dy = torch.randn(y.shape, device=dev, generator=g).to(bf).contiguous(memory_format=CL)
+        plan = mp.bwd_plan(x.shape, k, s_, p, bf)
+        row("K4", shape, lambda: mp._launch(x, y, dy, k, s_, p),
+            lambda: mp.max_pool3d_bwd_plain(x, y, dy, k, s_, p),
+            lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                dy, x, list(k), list(s_), list(p), [1, 1, 1], False, idx),
+            2 * (x.numel() + y.numel()) * 2, 0,
+            f" {name} [{plan.t_strips} x {plan.h_strips} strips of {plan.t_strip} frames x "
+            f"{plan.h_strip} rows, {plan.blocks} blocks, {plan.smem_bytes} B]")
+        del x, y, idx, dy
+        _free()
+    print(json.dumps({"resnet_kernels": rows, "gpu": gpu}))
+
+
+def avg_pool_check(dev) -> None:
+    """(b) the 2D Inception nets' 3x3/1 average pool on the card, a
+    channels-last input and a contiguous cotangent: the library's own CUDA
+    backward and ``layers.avg_pool3x3``'s (its forward both ways), each
+    against the CPU's; the first is printed, the second held to
+    ``TOL["fp32"]``."""
+    import torch.nn.functional as F
+    from video_graph_ssl_tpu_torch.models.layers import avg_pool3x3
+
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(64, 32, 17, 16, generator=g).contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(64, 32, 17, 16, generator=g)
+
+    def grad(fn, d):
+        xd = x.to(d).detach().requires_grad_()
+        (fn(xd) * gy.to(d)).sum().backward()
+        return xd.grad.cpu()
+
+    def lib(t):
+        return F.avg_pool2d(t, 3, 1, 1)
+
+    ref = grad(lib, "cpu")
+    print(f"  (b) F.avg_pool2d(x, 3, 1, 1)'s own backward on the card (channels-last x): "
+          f"rel-L2 {rel_l2(grad(lib, dev), ref):.3e} against the CPU's")
+    check("(b) layers.avg_pool3x3 backward, card vs CPU (rel-L2)",
+          rel_l2(grad(avg_pool3x3, dev), ref), TOL["fp32"])
+
+
+def resnet_downstream(dev, gpu: str, r3d_ckpt: str) -> None:
+    """(d) train_ds on configs/action_fine_tune.yaml (partial BN, bs 32,
+    16x112x112, bf16): R3D-18 from (c)'s checkpoint with its graph blocks
+    (K1 3, K2 6, K4 1 per step), then ResNet-50 2D (no kernel), 3 steps
+    each; ResNet-50's validation and best checkpoint, and test_ds's eval
+    forward on it over 8 videos."""
+    import numpy as np
+    from video_graph_ssl_tpu_torch import test_ds
+
+    opts = ["MODEL.BACKBONE", "resnet3d_18", "MODEL.AUG_FLAG", "True"]
+    r = run_downstream(dev, gpu, FT_CONFIG, opts, DS_SHORT, ssl=r3d_ckpt)
+    _hold_counts("(d) R3D-18 fine-tune", r["counts"], _want_counts(
+        DS_SHORT, "finetune", partial_bn=True, graph=True, backbone="resnet3d_18"))
+    del r
+    _free()
+    opts = ["MODEL.BACKBONE", "resnet50", *OPTS_2D]
+    r = run_downstream(dev, gpu, FT_CONFIG, opts, DS_SHORT)
+    _hold_counts("(d) ResNet-50 2D fine-tune", r["counts"], _want_counts(
+        DS_SHORT, "finetune", partial_bn=True, backbone="resnet50"))
+    trainer = r["trainer"]
+    trainer.best_pred = -1.0
+    top1 = trainer.validation(0)
+    best = os.path.join(trainer.saver.experiment_dir, "model_best_state.pth.tar")
+    print(f"  (d) ResNet-50 2D validation: top-1 {top1:.2f}%; {best} written "
+          f"{os.path.exists(best)}")
+    if not os.path.exists(best):
+        raise RuntimeError("(d) model_best_state.pth.tar was not written")
+    del trainer, r
+    _free()
+    scores_path = os.path.join(RUN_DIR, "phase14_scores.npz")
+    t0 = time.perf_counter()
+    rep = test_ds.main(["--device", str(dev), "--config_file", FT_CONFIG, "--checkpoint", best,
+                        "--test_crops", "3", "--test_clips", "2", "--max_videos", "8",
+                        "--save_scores", scores_path, *SYNTHETIC, "TEST.BATCH_SIZE", "8",
+                        *opts])
+    scores = np.load(scores_path)["scores"]
+    print(f"  (d) test_ds (ResNet-50 2D, 8 videos x 2 clips x 3 crops): "
+          f"{time.perf_counter() - t0:.1f} s, top-1 {rep['top1']:.2f}%, scores {scores.shape}")
+    if scores.shape != (8, 101) or not np.isfinite(scores).all():
+        raise RuntimeError(f"(d) test_ds scores {scores.shape}, finite "
+                           f"{bool(np.isfinite(scores).all())}")
+
+
+def phase_resnets(dev, gpu: str) -> None:
+    print("phase 14: the 2D backbones and the 3D ResNets")
+    for dn in DTYPES:
+        kernel_checks(dev, "(a) R3D-18", R3D18_K1, R3D18_K2, R3D_POOLS + R3D_POOLS_224, dn)
+        _free()
+        kernel_checks(dev, "(a) R3D-50", R3D50_K1, R3D50_K2, [], dn)
+        _free()
+    resnet_kernel_times(dev, gpu)
+    _free()
+    print("  (b) small steps, card vs CPU")
+    avg_pool_check(dev)
+    for backbone, opts, size in SMALL_14:
+        small_step_parity(dev, fused=False, backbone=backbone, opts=opts, size=size)
+        _free()
+    print("  (c) GCA MoCo through the trainer, configs/visual_moco.yaml, MODEL.AUG_FLAG True")
+    runs = {"resnet3d_18": run_trainer(dev, gpu, fused=False, backbone="resnet3d_18",
+                                       save=True),
+            "resnet101": run_trainer(dev, gpu, fused=False, bsz=R101_BATCH, size=224,
+                                     backbone="resnet101", opts=OPTS_2D)}
+    if runs["resnet3d_18"]["graph_blocks"] != 3 or runs["resnet101"]["graph_blocks"] != 0:
+        raise RuntimeError(f"graph blocks: R3D-18 {runs['resnet3d_18']['graph_blocks']} "
+                           f"(want 3), ResNet-101 2D {runs['resnet101']['graph_blocks']} "
+                           "(want 0)")
+    print("  (d) train_ds and test_ds")
+    resnet_downstream(dev, gpu, runs["resnet3d_18"]["ckpt"])
+    _free()
+    print("  (e) MODEL.PRETRAIN_PATH with reference-named state_dicts, one per family")
+    reference_pretrain_path(dev, gpu, REFERENCE_FILES_14,
+                            ds_backbones=[f[0] for f in REFERENCE_FILES_14])
+    bsz = {"resnet3d_18": 128, "resnet101": R101_BATCH}
+    print(json.dumps({"resnets": {b: {"ms_per_step": r["ms"],
+                                      "clips_per_s": bsz[b] * 1e3 / r["ms"],
+                                      "peak_gib": r["peak_gib"], "launches": r["counts"]}
+                                  for b, r in runs.items()}, "gpu": gpu}))
 
 
 def main() -> int:
@@ -2833,6 +3074,7 @@ def main() -> int:
     timed(phase_ab, dev, gpu)
     timed(phase_ds_ranks, dev, gpu, ssl, best)
     worst = timed(phase_backbones, dev, gpu)
+    timed(phase_resnets, dev, gpu)
     for k in kernels:   # the I3D pools' checks join K3's and K4's
         kn = {"maxpool_bwd_s1": "K3", "maxpool_bwd_strided": "K4"}.get(k["name"])
         if kn:

@@ -11,6 +11,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from ..memory.build import create_contrast
+from ..models.layers import place
 from ..parallel import dist
 from ..solver.build import make_optimizer
 from .train_state import PretrainState
@@ -32,7 +33,8 @@ def _replicated_ddp(model: nn.Module, device: torch.device, what: str, extra=())
 
 
 def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> PretrainState:
-    """Move ``model`` to ``device`` (channels_last_3d) and build the
+    """Move ``model`` to ``device`` (``layers.place``: channels_last_3d for
+    3D kernels, channels_last for 2D ones) and build the
     optimizer and the regime's memory: for ``moco`` the EMA encoder (a copy
     of ``model``) and the queue, for ``bank`` a bank of ``n_data`` rows (no
     EMA), for ``simsiam`` neither.
@@ -44,7 +46,7 @@ def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> Pre
     statistics are already the global batch's on every rank.  The EMA
     encoder takes no gradient and is not wrapped."""
     device = torch.device(device)
-    model = model.to(device=device, memory_format=torch.channels_last_3d)
+    model = place(model, device)
     ema = None
     if cfg.CONTRAST.MEM_TYPE == "moco":
         # The EMA encoder starts as an exact copy of the query encoder.
@@ -73,7 +75,7 @@ def is_probe_param(name: str) -> bool:
 
 def create_downstream_state(cfg, model: nn.Module, device) -> PretrainState:
     """The fine-tune / linear-probe state: ``model`` (a ``VideoModel``) on
-    ``device`` in channels_last_3d, SGD over all its parameters or, with
+    ``device`` (``layers.place``), SGD over all its parameters or, with
     ``MODEL.LINEAR_PROBE``, over ``new_fc``'s alone, the encoder's taking no
     gradient (so no encoder backward runs); no EMA encoder and no memory.
     The seed is the JAX state's, ``MODEL.SEED + 2``.
@@ -83,7 +85,7 @@ def create_downstream_state(cfg, model: nn.Module, device) -> PretrainState:
     the model is wrapped in ``DistributedDataParallel`` over its trainable
     parameters (``new_fc``'s alone for the probe), as for pretraining."""
     device = torch.device(device)
-    model = model.to(device=device, memory_format=torch.channels_last_3d)
+    model = place(model, device)
     trainable = is_probe_param if bool(cfg.MODEL.LINEAR_PROBE) else None
     if trainable is not None:
         for name, p in model.named_parameters():

@@ -3,11 +3,15 @@ backward (K3/K4) and the SepConv pair backward (K5) at the shapes of the
 bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED True`` step),
 or with ``--size 224 --batch 32`` at those of the 16x224x224 step; with
 ``--backbone I3D`` (or S3DG, InceptionI3d) at that backbone's shapes (I3D:
-TF "SAME" pools, a 4x4 stage 14; no K5 for either).
+TF "SAME" pools, a 4x4 stage 14; no K5 for either); with ``--backbone
+resnet3d_18`` (any 3D ResNet: ``resnet3d_*``, ``resnet_i3d_*``,
+``resnet2p1d_*``) K1/K2 at its graph blocks on stages 2, 3, 4 and K4 at its
+stem pool; a 2D backbone (``resnet18`` .. ``resnet152``, ``bninception``,
+``inception_v3``) runs none of the kernels, and its lines say so.
 
     python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME] \
         [--mem_type moco|simsiam|bank|finetune|probe|eval] [--size 112|224] [--batch B] \
-        [--backbone S3D|S3DG|I3D|InceptionI3d]
+        [--backbone S3D|S3DG|I3D|InceptionI3d|resnet3d_18|resnet101|...]
 
 Run as a file so that ``--root`` (default: the checkout holding this file)
 decides which checkout's ``video_graph_ssl_tpu_torch`` is imported and
@@ -116,15 +120,43 @@ I3D_POOLS = [(n, kn, shape, k, s_, same_pads(shape, k, s_)) for n, kn, shape, k,
        for n, kn, shape, k, s_, _ in POOLS[4:]])]
 # I3D frame sizes at 224x224 (stage 13 keeps 7x7 there)
 I3D_HW_224 = {56: 112, 28: 56, 14: 28, 7: 14, 4: 7}
+# the 3D ResNets (models/resnet3d.py, resnet2p1d.py) and the 2D backbones
+# (models/resnet2d.py, bninception.py, inceptionv3.py) by registry name
+RESNET_DEPTHS = (10, 18, 34, 50, 101, 152, 200)
+RESNETS_3D = tuple([f"resnet3d_{d}" for d in RESNET_DEPTHS]
+                   + [f"resnet_i3d_{d}" for d in (18, 50, 101)]
+                   + [f"resnet2p1d_{d}" for d in RESNET_DEPTHS])
+BACKBONES_2D = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "bninception",
+                "inception_v3")
 # graph blocks per encoder pass, and each kernel's calls per backward pass
 AUG_POINTS, POOLS_S1, POOLS_STRIDED = 3, 9, 4
 # the same per backbone: S3DG and I3D have S3D's (blocks at 5, 9, 14; 9
 # stride-1 and 4 strided pools); tiny3d (the graph-benefit A/B's) has one
-# graph block (aug point 1) and one strided pool, (1, 2, 2) after stage1
+# graph block (aug point 1) and one strided pool, (1, 2, 2) after stage1;
+# a 3D ResNet has blocks on the inputs of stages 2, 3 and 4 and one strided
+# pool, its stem's 3x3x3 / 2; a 2D backbone runs none of the kernels (its
+# pools are the library's, and it builds no graph block)
 BACKBONE_CALLS = {**{name: (AUG_POINTS, POOLS_S1, POOLS_STRIDED)
                      for name in ("S3D", "S3DG", "I3D", "InceptionI3d")},
-                  "tiny3d": (1, 0, 1)}
+                  "tiny3d": (1, 0, 1),
+                  **{name: (3, 0, 1) for name in RESNETS_3D},
+                  **{name: (0, 0, 0) for name in BACKBONES_2D}}
 I3D_NAMES = ("I3D", "InceptionI3d")
+
+
+def resnet_geometry(size: int, batch: int, backbone: str):
+    """(K2_SHAPES, POOLS) of a 3D ResNet's step at 16 x size x size: the
+    7x7x7 / (1, 2, 2) stem (R(2+1)D's (1,7,7) / (1,2,2) + (7,1,1) pair gives
+    the same extents) leaves (16, size/2, size/2, 64), the 3x3x3 / 2 stem
+    pool (padding 1) halves T, H and W, stages 2-4 halve them again; the
+    graph blocks see the inputs of stages 2, 3 and 4, whose channels are
+    64, 128 and 256 times the blocks' expansion (4 from depth 50)."""
+    exp = 4 if int(backbone.rsplit("_", 1)[1]) >= 50 else 1
+    hw = size // 4
+    k2 = [(batch, 8 >> i, hw >> i, hw >> i, (64 << i) * exp) for i in range(3)]
+    pools = [("stem pool", "K4", (batch, 16, size // 2, size // 2, 64), (3, 3, 3), (2, 2, 2),
+              (1, 1, 1))]
+    return k2, pools
 # (encoder passes, passes with a backward) of each regime's step, and of the
 # downstream steps (engine/downstream.py)
 REGIME_PASSES = {"moco": (2, 1), "simsiam": (2, 2), "bank": (1, 1),
@@ -143,7 +175,8 @@ def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
                graph: bool = True, backbone: str = "S3D") -> dict:
     """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
     S3DG, I3D or InceptionI3d, graph blocks at 5, 9, 14 with ``graph``,
-    ``MODEL.AUG_FLAG``; or tiny3d, one block at 1, one strided pool): K1 and
+    ``MODEL.AUG_FLAG``; tiny3d, one block at 1, one strided pool; a 3D
+    ResNet, blocks at 2, 3, 4, one strided pool; a 2D backbone, none): K1 and
     K2 once per block and pass, K2 again (transposed) in each backward,
     K3/K4 in each backward, K5 (with ``TPU.SEPCONV_FUSED``, S3D only) in
     each backward unless ``partial_bn`` freezes the pairs' BNs, which takes
@@ -161,11 +194,17 @@ def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
 def geometry(size: int = 112, batch: int = 128, backbone: str = "S3D"):
     """(K1_SHAPES, K2_SHAPES, POOLS, SEPCONVS) of ``backbone``'s step at 16
     x size x size (112 or 224) and batch ``batch``: S3D's and S3DG's
-    shapes, or I3D's with each pool's TF "SAME" pads for its input; K5's
-    SepConvs for S3D alone (S3DG's biased pairs and I3D's full convs take
-    the standard backward)."""
+    shapes, or I3D's with each pool's TF "SAME" pads for its input, or a 3D
+    ResNet's (:func:`resnet_geometry`); none for a 2D backbone; K5's
+    SepConvs for S3D alone (S3DG's biased pairs and the other backbones'
+    convs take the standard backward)."""
     if size not in (112, 224):
         raise ValueError(f"size {size}: 112 or 224")
+    if backbone in BACKBONES_2D:
+        return [], [], [], []
+    if backbone in RESNETS_3D:
+        k2, pools = resnet_geometry(size, batch, backbone)
+        return [k1_shape(s_) for s_ in k2], k2, pools, []
     i3d = backbone in I3D_NAMES
     scale = I3D_HW_224 if i3d else HW_224
     hw = (lambda v: v) if size == 112 else scale.__getitem__
@@ -277,8 +316,9 @@ def main(argv=None) -> int:
                     help="CONTRAST.MEM_TYPE whose per-step calls are counted")
     ap.add_argument("--size", default=112, type=int, help="frame size: 112 or 224")
     ap.add_argument("--batch", default=128, type=int, help="batch size")
-    ap.add_argument("--backbone", default="S3D", choices=["S3D", "S3DG", *I3D_NAMES],
-                    help="MODEL.BACKBONE whose shapes are timed")
+    ap.add_argument("--backbone", default="S3D",
+                    choices=["S3D", "S3DG", *I3D_NAMES, *RESNETS_3D, *BACKBONES_2D],
+                    help="MODEL.BACKBONE whose shapes are timed (a 2D one has none)")
     args = ap.parse_args(argv)
     k1_shapes, k2_shapes, pools, sepconvs = geometry(args.size, args.batch, args.backbone)
     sys.path.insert(0, os.path.abspath(args.root))

@@ -1,8 +1,15 @@
-"""Model factory (counterpart of ``video_graph_ssl_tpu/models/build.py``)
-for the backbones ported so far (3D, RGB: the reference's exported S3D,
-S3DG, I3D and InceptionI3d, and the test backbone tiny3d): the visual
-pretrain regimes (``CONTRAST.MEM_TYPE`` moco, bank, simsiam) and the
-downstream classifier (``create_video_model``)."""
+"""Model factory (counterpart of ``video_graph_ssl_tpu/models/build.py``):
+the backbones ported so far, the visual pretrain regimes
+(``CONTRAST.MEM_TYPE`` moco, bank, simsiam) and the downstream classifier
+(``create_video_model``).
+
+3D (RGB clips): the reference's exported S3D, S3DG, I3D and InceptionI3d,
+the 3D ResNets ``resnet3d_{10..200}``, the factorized ``resnet_i3d_{18,50,
+101}`` and ``resnet2p1d_{10..200}``, and the test backbone tiny3d.  2D
+(``MODEL.BACKBONE_TYPE 2D``, frames folded into the batch and aggregated
+under ``MODEL.POOLING_TYPE``): ``resnet18`` .. ``resnet152``,
+``bninception`` and ``inception_v3``; a 2D backbone builds no graph block,
+whatever ``MODEL.AUG_FLAG`` says, as in JAX."""
 
 from __future__ import annotations
 
@@ -11,8 +18,13 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from . import resnet2d
+from .bninception import BNINCEPTION_FEATURE_DIM, bninception
 from .i3d import I3D, I3D_FEATURE_DIM
+from .inceptionv3 import INCEPTIONV3_FEATURE_DIM, inception_v3
 from .layers import init_params_
+from .resnet2p1d import RESNET2P1D
+from .resnet3d import RESNET3D, RESNET_I3D
 from .s3d import S3D, S3D_FEATURE_DIM
 from .tiny import TINY3D_FEATURE_DIM, Tiny3D
 from .wrappers import ContrastWrapper, GraphWrapper, SimSiam, VideoModel, VisualEncoder
@@ -21,7 +33,14 @@ MEM_TYPES = ("moco", "bank", "simsiam")
 CMC_NOT_PORTED = ("CROSS.MODALITY {!r} (CMC) is not ported yet: ROADMAP.md, Queue 1, "
                   "item 4b, CMC moco and bank")
 
-# name -> (ctor, feature_dim, default graph-aug points)
+
+def _feature_dim(name: str) -> int:
+    """512 for the basic-block ResNets (depth 10-34), 2048 for the rest."""
+    return 512 if int(name.rsplit("_", 1)[-1]) < 50 else 2048
+
+
+# name -> (ctor, feature_dim, default graph-aug points); the ResNets' aug
+# points are the inputs of stages 2, 3 and 4 (JAX build.py:27-56)
 BACKBONES_3D = {
     "S3D": (S3D, S3D_FEATURE_DIM, (5, 9, 14)),
     # S3D-G: S3D's topology with biased SepConv pairs (JAX build.py:30-31)
@@ -29,10 +48,23 @@ BACKBONES_3D = {
     # the reference's two I3D implementations are one network
     "I3D": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
     "InceptionI3d": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
+    **{name: (ctor, _feature_dim(name), (2, 3, 4))
+       for name, ctor in {**RESNET2P1D, **RESNET3D, **RESNET_I3D}.items()},
     "tiny3d": (Tiny3D, TINY3D_FEATURE_DIM, (1,)),
 }
-NOT_PORTED = ("ROADMAP.md, Queue 1: item 6b for the 2D backbones (BACKBONE_TYPE 2D), "
-              "item 6c for the remaining 3D ones")
+BACKBONES_2D = {
+    "bninception": (bninception, BNINCEPTION_FEATURE_DIM, ()),
+    "inception_v3": (inception_v3, INCEPTIONV3_FEATURE_DIM, ()),
+    "resnet18": (resnet2d.resnet18, 512, ()),
+    "resnet34": (resnet2d.resnet34, 512, ()),
+    "resnet50": (resnet2d.resnet50, 2048, ()),
+    "resnet101": (resnet2d.resnet101, 2048, ()),
+    "resnet152": (resnet2d.resnet152, 2048, ()),
+}
+BACKBONES = {"2D": BACKBONES_2D, "3D": BACKBONES_3D}
+# JAX 3D names not ported yet
+NOT_PORTED_3D = ("i3d_res50_nonlocal",)
+NOT_PORTED = "ROADMAP.md, Queue 1, item 6c: i3d_res50_nonlocal and s3dg_text"
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -58,26 +90,37 @@ def graph_cfg_from(cfg) -> Dict[str, Any]:
                 mask_frame=g.MASK_FRAME, nei_size=g.NEI_SIZE)
 
 
+def _not_ported(btype: str, name: str) -> str:
+    """Why ``btype``/``name`` builds nothing."""
+    other = "3D" if btype == "2D" else "2D"
+    if name in BACKBONES[other]:
+        hint = (f"{name} is a {other} backbone (the 2D ones: ROADMAP.md, Queue 1, item "
+                f"6b): set MODEL.BACKBONE_TYPE {other}")
+    elif name in NOT_PORTED_3D:
+        hint = NOT_PORTED
+    else:
+        hint = f"have {btype}: {sorted(BACKBONES.get(btype, {}))}"
+    return f"backbone {btype}/{name} is not ported: {hint}"
+
+
 def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int]:
-    """The configured 3D backbone (graph blocks with ``MODEL.AUG_FLAG``, K5's
-    backward with ``TPU.SEPCONV_FUSED``) and its feature dim; raises for
-    what is not ported."""
-    name = cfg.MODEL.BACKBONE
-    if cfg.MODEL.BACKBONE_TYPE != "3D" or name not in BACKBONES_3D:
-        raise NotImplementedError(
-            f"backbone {cfg.MODEL.BACKBONE_TYPE}/{name} is not ported yet "
-            f"(have 3D: {sorted(BACKBONES_3D)}; {NOT_PORTED})")
+    """The configured backbone (graph blocks with ``MODEL.AUG_FLAG`` on a 3D
+    one, K5's backward with ``TPU.SEPCONV_FUSED`` on S3D) and its feature
+    dim; raises for what is not ported."""
+    name, btype = cfg.MODEL.BACKBONE, cfg.MODEL.BACKBONE_TYPE
+    if name not in BACKBONES.get(btype, {}):
+        raise NotImplementedError(_not_ported(btype, name))
     if cfg.INPUT.MODALITY != "RGB" or int(cfg.INPUT.NEW_LENGTH) not in (-1, 1):
         raise NotImplementedError("only RGB clips with NEW_LENGTH 1 are ported")
     if cfg.CROSS.MODALITY != "visual":
         raise NotImplementedError(CMC_NOT_PORTED.format(cfg.CROSS.MODALITY))
-    ctor, feat_dim, default_aug = BACKBONES_3D[name]
-    aug = bool(cfg.MODEL.AUG_FLAG)
+    ctor, feat_dim, default_aug = BACKBONES[btype][name]
+    aug = bool(cfg.MODEL.AUG_FLAG) and btype == "3D"
     extra = {"partial_bn": True} if partial_bn else {}
     if bool(cfg.TPU.SEPCONV_FUSED):
         if name != "S3D":
-            # S3DG's biased pairs and I3D's full convs take the standard
-            # backward, as in JAX build.py:153-157
+            # S3DG's biased pairs and the other backbones' convs take the
+            # standard backward, as in JAX build.py:153-157
             raise ValueError(f"TPU.SEPCONV_FUSED only applies to S3D, got {name}")
         extra["fused_sepconv"] = True
     backbone = ctor(
@@ -85,6 +128,11 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
         graph_cfg=graph_cfg_from(cfg) if aug else None,
         dtype=compute_dtype(cfg), **extra)
     return backbone, feat_dim
+
+
+def _encoder_kw(cfg) -> Dict[str, Any]:
+    return dict(dropout=float(cfg.MODEL.DROPOUT), backbone_type=cfg.MODEL.BACKBONE_TYPE,
+                agg_fun=cfg.MODEL.POOLING_TYPE)
 
 
 def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
@@ -97,7 +145,7 @@ def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
     backbone, feat_dim = create_backbone(cfg)
     if mem_type not in MEM_TYPES:
         raise ValueError(f"Unknown CONTRAST.MEM_TYPE: {mem_type}")
-    encoder = VisualEncoder(backbone, float(cfg.MODEL.DROPOUT))
+    encoder = VisualEncoder(backbone, **_encoder_kw(cfg))
     hid_dim = int(cfg.CROSS.FEAT_DIM)
     if mem_type == "simsiam":
         model = GraphWrapper(SimSiam(encoder, feat_dim, hid_dim))
@@ -116,8 +164,7 @@ def create_video_model(cfg, seed: int = None) -> Tuple[VideoModel, int]:
     on the features, ``DATASET.NUM_CLASS`` logits; returns (module,
     backbone feature dim)."""
     backbone, feat_dim = create_backbone(cfg, partial_bn=not bool(cfg.MODEL.NO_PARTIALBN))
-    model = VideoModel(backbone, feat_dim, int(cfg.DATASET.NUM_CLASS),
-                       float(cfg.MODEL.DROPOUT))
+    model = VideoModel(backbone, feat_dim, int(cfg.DATASET.NUM_CLASS), **_encoder_kw(cfg))
     gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED if seed is None else seed))
     init_params_(model, gen)
     with torch.no_grad():

@@ -1,8 +1,10 @@
-"""3D-CNN building blocks (counterpart of ``video_graph_ssl_tpu/models/layers.py``).
+"""CNN building blocks (counterpart of ``video_graph_ssl_tpu/models/layers.py``).
 
-Layout: inside a backbone, activations are ``(B, C, T, H, W)`` tensors in
+Layout: inside a 3D backbone, activations are ``(B, C, T, H, W)`` tensors in
 ``torch.channels_last_3d`` memory, i.e. the JAX package's ``(B, T, H, W, C)``
-bytes; ``x.permute(0, 2, 3, 4, 1)`` is that view for free.
+bytes; ``x.permute(0, 2, 3, 4, 1)`` is that view for free.  Inside a 2D
+backbone they are ``(N, C, H, W)`` in ``torch.channels_last`` (:func:`place`
+puts the parameters in the matching layouts).
 
 Dtypes follow the JAX modules' ``dtype``/``param_dtype`` split: parameters
 and batch statistics are fp32, convolutions run in the module's compute
@@ -16,6 +18,7 @@ exported from the JAX package (``export_pretrain_to_torch``) load strictly.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -140,6 +143,74 @@ def conv3d_same(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     if all(lo == hi for lo, hi in pads):
         return F.conv3d(x, weight, bias, stride, tuple(lo for lo, _ in pads))
     return F.conv3d(F.pad(x, (*pads[2], *pads[1], *pads[0])), weight, bias, stride)
+
+
+def conv(x: torch.Tensor, c: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """The 2D or 3D convolution ``c`` (no bias) on ``x`` in ``dtype``, the
+    JAX modules' compute dtype, with fp32 parameters cast to it."""
+    fn = F.conv3d if isinstance(c, nn.Conv3d) else F.conv2d
+    return fn(x.to(dtype), c.weight.to(dtype), None, c.stride, c.padding)
+
+
+class BasicConv2d(nn.Module):
+    """Conv2d (no bias) + BN (flax momentum 0.9) + ReLU, the unit of
+    BN-Inception and Inception-v3 (JAX ``bninception.BasicConv2d``,
+    ``inceptionv3.ConvBNRelu``) under the reference's ``conv``/``bn``
+    names.  The reference's convs carry a bias, which the name map folds
+    into the BN's running mean (``utils/torch_names.py``)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size=1, stride=1, padding=0,
+                 eps: float = 1e-3, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel_size, stride, padding, bias=False)
+        self.bn = BatchNorm(cout, momentum=0.9, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(conv(x, self.conv, self.dtype)).to(self.dtype))
+
+
+class _BoxAverage3x3(torch.autograd.Function):
+    """``F.avg_pool2d(x, 3, 1, 1)`` (the padding counted, flax's
+    ``count_include_pad``) whose backward is the same average of the
+    cotangent: a stride-1, zero-padded 3x3 box average is its own adjoint.
+    PyTorch's CUDA backward of this pool on a channels-last input with a
+    contiguous cotangent returns wrong gradients (torch 2.11, CUDA 12.8,
+    H100; ``chip_smoke.py`` phase 14 (b) prints its error against the
+    CPU's), so the library's forward serves both directions."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.avg_pool2d(x, 3, 1, 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return F.avg_pool2d(dy, 3, 1, 1)
+
+
+def avg_pool3x3(x: torch.Tensor) -> torch.Tensor:
+    """The 3x3 / 1 average pool, padding 1 counted, of the 2D Inception
+    nets' branch pools (:class:`_BoxAverage3x3`)."""
+    return _BoxAverage3x3.apply(x)
+
+
+class AvgPool3x3(nn.Module):
+    """:func:`avg_pool3x3` as a module (a Sequential's parameter-free slot)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return avg_pool3x3(x)
+
+
+def place(module: nn.Module, device) -> nn.Module:
+    """``module`` on ``device``, its 5-d tensors (3D conv kernels) in
+    ``channels_last_3d`` memory and its 4-d ones (2D conv kernels) in
+    ``channels_last``, the layouts of the activations they meet."""
+    module = module.to(device=device)
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        fmt = {5: torch.channels_last_3d, 4: torch.channels_last}.get(t.dim())
+        if fmt is not None:
+            t.data = t.data.contiguous(memory_format=fmt)
+    return module
 
 
 class BasicConv3d(nn.Module):
@@ -322,7 +393,7 @@ def init_params_(module: nn.Module,
         if isinstance(m, TemporalGraphAug):
             graph.update(id(p) for p in m.parameters())
     for m in module.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv3d, nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             init = fanin_uniform_ if id(m.weight) in graph else lecun_normal_
             init(m.weight, fan_in, generator)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.graph_kernel import global_rows
+from ..ops.pooling import temporal_aggregate
 from ..ops.temporal_graph import stage_seed
 from .heads import PredictionMLP, ProjectHead, ProjectionMLP, l2_normalize
 
@@ -42,17 +43,31 @@ def keyed_dropout(x: torch.Tensor, p: float, seed: int, rows: Rows = None) -> to
 
 
 class VisualEncoder(nn.Module):
-    """3D backbone + feature dropout -> (B, feat_dim).  The dropout runs in
-    train mode only, keyed on the pass's ``graph_seed``."""
+    """Backbone (+ the 2D branch's frame aggregation) + feature dropout ->
+    (B, feat_dim).  A 2D backbone (``backbone_type`` 2D) sees the clips'
+    B x T frames as one batch, its (B, T, D) features are aggregated over T
+    under ``agg_fun`` (``MODEL.POOLING_TYPE``: avg or max), as in JAX
+    ``wrappers.py:84-88``; a 3D backbone ignores ``agg_fun``.  The dropout
+    runs in train mode only, keyed on the pass's ``graph_seed``."""
 
-    def __init__(self, backbone: nn.Module, dropout: float = 0.0):
+    def __init__(self, backbone: nn.Module, dropout: float = 0.0,
+                 backbone_type: str = "3D", agg_fun: str = "avg"):
         super().__init__()
+        if backbone_type not in ("2D", "3D"):
+            raise ValueError(f"Backbone type must be 2D or 3D, got {backbone_type}")
         self.base_model = backbone
         self.dropout = float(dropout)
+        self.backbone_type = backbone_type
+        self.agg_fun = agg_fun
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Rows = None) -> torch.Tensor:
-        feat = self.base_model(x, graph_seed=graph_seed, graph_rows=graph_rows)
+        if self.backbone_type == "2D":
+            b, t = x.shape[:2]
+            feat = self.base_model(x.reshape((b * t,) + tuple(x.shape[2:])))
+            feat = temporal_aggregate(feat.reshape(b, t, -1), self.agg_fun, axis=1)
+        else:
+            feat = self.base_model(x, graph_seed=graph_seed, graph_rows=graph_rows)
         if self.training and self.dropout > 0:
             feat = keyed_dropout(feat, self.dropout, stage_seed(graph_seed, DROPOUT_STAGE),
                                  graph_rows)
@@ -66,8 +81,8 @@ class VideoModel(VisualEncoder):
     ``encode`` the encoder's features."""
 
     def __init__(self, backbone: nn.Module, feat_dim: int, num_classes: int,
-                 dropout: float = 0.0):
-        super().__init__(backbone, dropout)
+                 dropout: float = 0.0, backbone_type: str = "3D", agg_fun: str = "avg"):
+        super().__init__(backbone, dropout, backbone_type, agg_fun)
         self.new_fc = nn.Linear(feat_dim, num_classes)
 
     def encode(self, x: torch.Tensor, graph_seed: int = 0,

@@ -6,6 +6,13 @@
     python -m video_graph_ssl_tpu_torch.profile_step \\
         --config_file configs/visual_simsiam.yaml MODEL.AUG_FLAG True \\
         DATASET.SOURCE synthetic DATALOADER.BATCH_SIZE 32
+    python -m video_graph_ssl_tpu_torch.profile_step \\
+        --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
+        DATASET.SOURCE synthetic MODEL.BACKBONE resnet3d_18   # any 3D ResNet
+    python -m video_graph_ssl_tpu_torch.profile_step \\
+        --config_file configs/visual_moco.yaml DATASET.SOURCE synthetic \\
+        MODEL.BACKBONE resnet101 MODEL.BACKBONE_TYPE 2D DATALOADER.BATCH_SIZE 16 \\
+        INPUT.BASE_SIZE "[224, 224]" INPUT.SCALE_SIZE "[256, 256]"   # a 2D one
     python -m video_graph_ssl_tpu_torch.profile_step --downstream finetune \\
         DATASET.SOURCE synthetic      # configs/action_fine_tune.yaml
     python -m video_graph_ssl_tpu_torch.profile_step --downstream probe \\

@@ -9,8 +9,9 @@ The encoder starts from a pretrain checkpoint of the port's trainer
 (``--ssl_checkpoint`` or ``MODEL.PRETRAIN_PATH``; MoCo, SimSiam or bank) by
 checkpoint surgery, with a fresh ``new_fc``; ``/`` or ``none`` means a
 random encoder.  ``MODEL.PRETRAIN_PATH`` may also name a bare backbone
-state_dict, the reference's S3DG or I3D names included
-(``utils/torch_names.py``): it loads strictly into the backbone.  ``MODEL.LINEAR_PROBE True`` trains ``new_fc`` alone;
+state_dict, the reference's names included (S3DG, I3D, the ResNets,
+BN-Inception, Inception-v3; ``utils/torch_names.py``): it loads strictly
+into the backbone.  ``MODEL.LINEAR_PROBE True`` trains ``new_fc`` alone;
 ``MODEL.PROBE_BN`` then chooses the encoder's BN: ``eval`` (the whole model
 in eval mode) or ``reference`` (the reference's partial-BN train mode:
 ``stem_0``'s BNs live, the rest on running statistics).  Fine-tuning runs
@@ -142,7 +143,7 @@ class Trainer:
         """Checkpoint surgery into ``model`` (reference: train_ds.py:65-84).
         A file that is not a pretrain checkpoint (through
         ``MODEL.PRETRAIN_PATH``: a bare backbone state_dict, the reference's
-        S3DG or I3D names included) loads strictly into the backbone."""
+        names included) loads strictly into the backbone."""
         if not path or str(path) in ("none", "/"):
             return
         if not os.path.exists(path):

@@ -138,8 +138,9 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ``base_model.`` is kept where any key has it.  So a bare backbone, a
     DDP-wrapped one and a whole pretrain checkpoint (heads included, as
     the port's ``Saver`` writes it) all give the backbone's own names
-    (``base.N...``); the reference's S3DG and I3D names are mapped to the
-    port's (``utils/torch_names.py``)."""
+    (``base.N...``, ``layer1.0...``); the reference's names (S3DG, I3D, the
+    ResNets, BN-Inception, Inception-v3) are mapped to the port's
+    (``utils/torch_names.py``)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj["state_dict"] if isinstance(obj, dict) and "state_dict" in obj else obj
     changed = True

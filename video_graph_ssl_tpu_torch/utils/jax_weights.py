@@ -10,13 +10,15 @@ Numpy only (no JAX import): ``params`` and ``batch_stats`` are the JAX
 model's nested dicts with numpy leaves.  The backbones: S3D, S3DG (S3D's
 names, each SepConv conv's bias beside its weight), I3D (JAX ``conv3d_1a``,
 ``conv3d_2b``, ``conv3d_2c`` and the Mixed blocks' ``Unit3D``s -> the
-port's stages 0, 2, 3 and the same branch paths as S3D's) and tiny3d,
+port's stages 0, 2, 3 and the same branch paths as S3D's), the ResNets (2D,
+R3D, resnet_i3d and R(2+1)D: JAX ``layerS_B`` -> ``layerS.B``, the block
+fields to the reference's names), BN-Inception, Inception-v3 and tiny3d,
 told apart by :func:`backbone_of`.  Names are the reference's, the
 same that ``video_graph_ssl_tpu.utils.ckpt_convert.export_pretrain_to_torch``
 writes for S3D: ``model.proj_head.head.{0,2}`` (MoCo, bank) or
 ``model.projection.l{1,2,3}.{0,1}`` and ``model.prediction.{l1.{0,1},l2}``
-(SimSiam).  Layout rules: a flax conv kernel (kt, kh, kw, cin, cout)
-becomes (cout, cin, kt, kh, kw); a Dense kernel (in, out) is transposed; a
+(SimSiam).  Layout rules: a flax conv kernel (*window, cin, cout)
+becomes (cout, cin, *window); a Dense kernel (in, out) is transposed; a
 graph block's Dense becomes a 1x1x1 conv; BN scale/bias/mean/var become
 weight/bias/running_mean/running_var.
 """
@@ -52,7 +54,9 @@ SD = Dict[str, np.ndarray]
 
 
 def _conv_kernel(k) -> np.ndarray:
-    return np.ascontiguousarray(np.transpose(np.asarray(k), (4, 3, 0, 1, 2)))
+    """A flax conv kernel (*window, cin, cout) -> torch's (cout, cin, *window)."""
+    k = np.asarray(k)
+    return np.ascontiguousarray(np.transpose(k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))))
 
 
 def _dense_as_conv(k) -> np.ndarray:
@@ -174,18 +178,179 @@ def tiny3d_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
     return out
 
 
+def _leaf(out: SD, name: str, p: dict, s: dict) -> None:
+    """A JAX conv (``{kernel}``) or BN wrapper (``{bn: ...}``) at ``name``."""
+    if "kernel" in p:
+        out[name + ".weight"] = _conv_kernel(p["kernel"])
+    else:
+        _bn(out, name, p["bn"], s["bn"])
+
+
+# JAX ResNet block fields -> the port's (the reference's) names; a field
+# not listed keeps its name (conv1, bn1, ...)
+_SHORTCUT = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}
+_FBASIC = {**_SHORTCUT, **{k.format(i): v.format(i) for i in (1, 2) for k, v in (
+    ("conv{}_s", "conv{}_1"), ("conv{}_s_bn", "bn{}_1"), ("conv{}_t", "conv{}_2"),
+    ("conv{}_t_bn", "bn{}_2"))}}
+_FBOTTLENECK = {**_SHORTCUT, "conv2_s": "conv2.conv1", "bn2_s": "conv2.bn1",
+                "conv2_t": "conv2.conv2", "bn2_t": "conv2.bn2", "bn3": "bn2"}
+_R2P1D_STEM = {"stem_s": "conv1_s", "stem_bn_s": "bn1_s", "stem_t": "conv1_t",
+               "stem_bn_t": "bn1_t"}
+
+
+def _resnet_block(out: SD, prefix: str, p: dict, s: dict) -> None:
+    """One JAX ResNet block (R3D, resnet_i3d, R(2+1)D or 2D) at ``prefix``."""
+    if "conv1_s" in p:
+        table = _FBASIC
+    elif "conv2_s" in p:
+        table = _FBOTTLENECK
+    else:
+        table = _SHORTCUT
+    for field, sub in p.items():
+        if "spatial" in sub:    # an R(2+1)D pair: its BN after it is bn{i}_t
+            i = field[len("conv"):]
+            out[f"{prefix}.conv{i}_s.weight"] = _conv_kernel(sub["spatial"]["kernel"])
+            _bn(out, f"{prefix}.bn{i}_s", sub["bn_s"]["bn"], s[field]["bn_s"]["bn"])
+            out[f"{prefix}.conv{i}_t.weight"] = _conv_kernel(sub["temporal"]["kernel"])
+        elif field.startswith("bn") and f"conv{field[2:]}" in p and "spatial" in p[
+                f"conv{field[2:]}"]:
+            _bn(out, f"{prefix}.{field}_t", sub["bn"], s[field]["bn"])
+        else:
+            _leaf(out, f"{prefix}.{table.get(field, field)}", sub, s.get(field, {}))
+
+
+def resnet_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
+    """JAX ``ResNet2D``, ``ResNet3D`` (R3D, resnet_i3d) or ``ResNet2Plus1D``
+    variables -> the port's state_dict: torchvision's stem and stage names,
+    or R(2+1)D's ``conv1_s``/``conv1_t`` stem; a stage with a graph block
+    ``graph_aug_S`` is ``layerS.1``, the block ``layerS.0``."""
+    out: SD = {}
+    for field, sub in p.items():
+        if field.startswith("layer"):
+            stage, b = field[len("layer"):].split("_")
+            wrap = ".1" if f"graph_aug_{stage}" in p else ""
+            _resnet_block(out, f"layer{stage}{wrap}.{b}", sub, s[field])
+        elif field.startswith("graph_aug_"):
+            _graph(out, f"layer{field.rsplit('_', 1)[1]}.0", sub, s.get(field, {}),
+                   sub_sample)
+        else:
+            _leaf(out, _R2P1D_STEM.get(field, field), sub, s.get(field, {}))
+    return out
+
+
+# JAX BN-Inception branch modules -> the port's (the reference's) paths
+_BNINC_REGULAR = {"branch1": "branch1", "branch2_reduce": "branch2.0", "branch2": "branch2.1",
+                  "branch3_reduce": "branch3.0", "branch3_mid": "branch3.1",
+                  "branch3": "branch3.2", "branch4": "branch4.1"}
+_BNINC_REDUCE = {"branch1_reduce": "branch1.0", "branch1": "branch1.1",
+                 "branch2_reduce": "branch2.0", "branch2_mid": "branch2.1",
+                 "branch2": "branch2.2"}
+
+
+def _basic2d(out: SD, prefix: str, p: dict, s: dict) -> None:
+    """A JAX conv + BN unit (``{conv, bn}``) -> ``prefix.conv``/``prefix.bn``."""
+    out[prefix + ".conv.weight"] = _conv_kernel(p["conv"]["kernel"])
+    _bn(out, prefix + ".bn", p["bn"], s["bn"])
+
+
+def bninception_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
+    """JAX ``BNInception`` variables -> the port's ``BNInception`` state_dict."""
+    out: SD = {}
+    for name, sub in p.items():
+        if "conv" in sub:
+            _basic2d(out, name, sub, s[name])
+            continue
+        table = _BNINC_REGULAR if "branch4" in sub else _BNINC_REDUCE
+        for branch, path in table.items():
+            _basic2d(out, f"{name}.{path}", sub[branch], s[name][branch])
+    return out
+
+
+# JAX Inception-v3 modules -> the reference's (JAX utils/torch_interop.py
+# _INC3_STEMS, _INC3_BRANCHES, _INC3_BLOCKS)
+_INC3_STEMS = {"conv1a": "Conv2d_1a_3x3", "conv2a": "Conv2d_2a_3x3", "conv2b": "Conv2d_2b_3x3",
+               "conv3b": "Conv2d_3b_1x1", "conv4a": "Conv2d_4a_3x3"}
+_INC3_BRANCHES = {
+    "A": {"b1x1": "branch1x1", "b5_1": "branch5x5_1", "b5_2": "branch5x5_2",
+          "b3_1": "branch3x3dbl_1", "b3_2": "branch3x3dbl_2", "b3_3": "branch3x3dbl_3",
+          "bpool": "branch_pool"},
+    "B": {"b3": "branch3x3", "bd_1": "branch3x3dbl_1", "bd_2": "branch3x3dbl_2",
+          "bd_3": "branch3x3dbl_3"},
+    "C": {"b1x1": "branch1x1", "bpool": "branch_pool",
+          **{f"b7_{i}": f"branch7x7_{i}" for i in range(1, 4)},
+          **{f"bd_{i}": f"branch7x7dbl_{i}" for i in range(1, 6)}},
+    "D": {"b3_1": "branch3x3_1", "b3_2": "branch3x3_2",
+          **{f"b7_{i}": f"branch7x7x3_{i}" for i in range(1, 5)}},
+    "E": {"b1x1": "branch1x1", "b3_1": "branch3x3_1", "b3_2a": "branch3x3_2a",
+          "b3_2b": "branch3x3_2b", "bd_1": "branch3x3dbl_1", "bd_2": "branch3x3dbl_2",
+          "bd_3a": "branch3x3dbl_3a", "bd_3b": "branch3x3dbl_3b", "bpool": "branch_pool"},
+}
+_INC3_FAMILY = {"5b": "A", "5c": "A", "5d": "A", "6a": "B", "6b": "C", "6c": "C",
+                "6d": "C", "6e": "C", "7a": "D", "7b": "E", "7c": "E"}
+
+
+def inception_v3_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
+    """JAX ``InceptionV3`` variables -> the port's ``InceptionV3`` state_dict."""
+    out: SD = {}
+    for name, sub in p.items():
+        if name in _INC3_STEMS:
+            _basic2d(out, _INC3_STEMS[name], sub, s[name])
+            continue
+        key = name[len("mixed_"):]
+        table = _INC3_BRANCHES[_INC3_FAMILY[key]]
+        for field, unit in sub.items():
+            _basic2d(out, f"Mixed_{key}.{table[field]}", unit, s[name][field])
+    return out
+
+
+_RESNET_DEPTHS = {((1, 1, 1, 1), False): 10, ((2, 2, 2, 2), False): 18,
+                  ((3, 4, 6, 3), False): 34, ((3, 4, 6, 3), True): 50,
+                  ((3, 4, 23, 3), True): 101, ((3, 8, 36, 3), True): 152,
+                  ((3, 24, 36, 3), True): 200}
+
+
+def _resnet_name(enc: dict) -> str:
+    """The registry name of a JAX ResNet's variables: the family by its stem
+    and blocks, the depth by its block counts and block type."""
+    layers = tuple(sum(k.startswith(f"layer{s}_") for k in enc) for s in (1, 2, 3, 4))
+    first = enc["layer1_0"]
+    depth = _RESNET_DEPTHS[layers, "conv3" in first]
+    if "stem_s" in enc:
+        return f"resnet2p1d_{depth}"
+    if np.ndim(enc["conv1"]["kernel"]) == 4:
+        return f"resnet{depth}"
+    if "conv1_s" in first or "conv2_s" in first:
+        return f"resnet_i3d_{depth}"
+    return f"resnet3d_{depth}"
+
+
 BACKBONES = {"S3D": s3d_state_dict, "S3DG": s3d_state_dict, "I3D": i3d_state_dict,
-             "InceptionI3d": i3d_state_dict, "tiny3d": tiny3d_state_dict}
+             "InceptionI3d": i3d_state_dict, "tiny3d": tiny3d_state_dict,
+             "bninception": bninception_state_dict,
+             "inception_v3": inception_v3_state_dict,
+             **{f"{family}{d}": resnet_state_dict
+                for family, depths in (("resnet", (18, 34, 50, 101, 152)),
+                                       ("resnet3d_", (10, 18, 34, 50, 101, 152, 200)),
+                                       ("resnet2p1d_", (10, 18, 34, 50, 101, 152, 200)),
+                                       ("resnet_i3d_", (18, 50, 101)))
+                for d in depths}}
 
 
 def backbone_of(enc: dict) -> str:
     """The backbone of a JAX encoder's ``base_model`` variables (params or
     an optimizer trace of them): I3D by its ``conv3d_1a`` tree, S3DG by its
-    conv biases, S3D, else tiny3d."""
+    conv biases, S3D, BN-Inception and Inception-v3 by their blocks, a
+    ResNet by :func:`_resnet_name`, else tiny3d."""
     if "conv3d_1a" in enc:
         return "I3D"
     if "mixed_3b" in enc:
         return "S3DG" if "bias" in enc["stem_0"]["spatial"]["conv"] else "S3D"
+    if "inception3a" in enc:
+        return "bninception"
+    if "mixed_5b" in enc:
+        return "inception_v3"
+    if "layer1_0" in enc:
+        return _resnet_name(enc)
     return "tiny3d"
 
 
@@ -295,9 +460,7 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
     factor = {id(p): g["lr_factor"] for g in opt.param_groups for p in g["params"]}
     for name, p in state.model.named_parameters():
         buf = torch.from_numpy(np.array(traces[name], np.float32) / factor[id(p)])
-        opt.state[p]["momentum_buffer"] = buf.to(p.device).contiguous(
-            memory_format=torch.channels_last_3d if p.dim() == 5
-            else torch.contiguous_format)
+        opt.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(buf)
     contrast = tree.get("contrast") or None
     if (state.contrast is None) != (contrast is None):
         raise KeyError("the JAX state and the port's disagree on a contrast memory")
@@ -361,7 +524,5 @@ def downstream_state_from_jax(tree: dict, state) -> None:
         if id(p) not in factor:
             continue
         buf = torch.from_numpy(np.array(traces[name], np.float32) / factor[id(p)])
-        opt.state[p]["momentum_buffer"] = buf.to(p.device).contiguous(
-            memory_format=torch.channels_last_3d if p.dim() == 5
-            else torch.contiguous_format)
+        opt.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(buf)
     state.step = int(tree["step"])

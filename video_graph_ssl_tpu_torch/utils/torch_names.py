@@ -1,11 +1,11 @@
 """The reference's backbone names -> the port's, without JAX: a state_dict
-of the reference's S3DG (S3DG_Pytorch.py:310-335) or I3D (i3dpt.py:161-262)
-becomes one that the port's ``S3D(temporal_bias=True)`` or ``I3D`` loads
-with ``strict=True``.  The names are those that the JAX package's
-``reference_s3dg_shape_manifest`` and ``reference_i3d_shape_manifest``
-emit and that its ``convert_torch_s3dg`` and ``convert_torch_i3d`` read
-(``utils/torch_interop.py:340-404``, ``:487-543``); the tables below are
-copies of theirs.
+of the reference's S3DG (S3DG_Pytorch.py:310-335), I3D (i3dpt.py:161-262),
+ResNets (2D torchvision, R3D, R(2+1)D, resnet_i3d), BN-Inception or
+Inception-v3 becomes one that the port's backbone of that name loads with
+``strict=True``.  The names are those that the JAX package's
+``reference_*_shape_manifest`` functions emit and that its
+``convert_torch_*`` functions read (``utils/torch_interop.py``); the
+tables below are copies of theirs.
 
 * S3DG: the ``features.N`` Sequential is the port's ``base.N``; a SepConv
   pair ('STConv3d') stores its spatial conv and BN as ``conv``/``bn`` and
@@ -17,13 +17,24 @@ copies of theirs.
   ``batch3d`` are the port's ``conv`` and ``bn``; ``branch_0``,
   ``branch_1.{0,1}``, ``branch_2.{0,1}`` and ``branch_3.1`` are
   ``branch0.0``, ``branch1.{0,1}``, ``branch2.{0,1}`` and ``branch3.1``.
+* The ResNets (``convert_torch_resnet`` 2D and 3D, ``_resnet2p1d``,
+  ``_resnet_i3d``; shortcut type B): the port's modules carry the
+  reference's names (``models/resnet2d.py``, ``resnet3d.py``,
+  ``resnet2p1d.py``), so the map is the identity.
+* BN-Inception and Inception-v3: the names are the port's too, but the
+  reference's convs carry a bias feeding straight into their BN, where the
+  port's (as the JAX package's) have none.  The bias folds into the BN's
+  running mean exactly (``running_mean - bias``; JAX
+  ``_convbn2d_fold_bias``): train-mode BN removes any constant shift, and
+  eval outputs are the same.  The inverse writes zero biases.
 
-The classifier (S3DG's ``features.18``, I3D's ``conv3d_0c_1x1``) is
-dropped, as the reference's encoder wrapper drops it, and so are torch
-BatchNorm's ``num_batches_tracked`` counters, which the port's BN (flax
-semantics, a fixed momentum) has no use for.  Names of any other layout
-pass through unchanged.  :func:`reference_backbone_names` is the inverse:
-the port's backbone names (no graph blocks) -> the reference's.
+The classifier (S3DG's ``features.18``, I3D's ``conv3d_0c_1x1``, the 2D
+nets' and ResNets' ``fc``) is dropped, as the reference's encoder wrapper
+drops it, and so are torch BatchNorm's ``num_batches_tracked`` counters,
+which the port's BN (flax semantics, a fixed momentum) has no use for.
+Names of any other layout pass through unchanged.
+:func:`reference_backbone_names` is the inverse: the port's backbone names
+(no graph blocks) -> the reference's.
 """
 
 from __future__ import annotations
@@ -49,15 +60,26 @@ I3D_BRANCHES = {"branch_0": "branch0.0", "branch_1.0": "branch1.0", "branch_1.1"
                 "branch_2.0": "branch2.0", "branch_2.1": "branch2.1", "branch_3.1": "branch3.1"}
 I3D_FIELDS = {"conv3d": "conv", "batch3d": "bn"}
 I3D_CLASSIFIER = "conv3d_0c_1x1."
+# the ResNets and the 2D Inception nets: the reference's classifier
+FC_CLASSIFIER = "fc."
+# the reference's first conv of each 2D Inception net
+INCEPTION_STEMS = {"bninception": "conv1.conv.", "inception_v3": "Conv2d_1a_3x3.conv."}
+LAYOUTS = ("s3dg", "i3d", "resnet", "bninception", "inception_v3")
 
 
 def layout_of(sd: Dict[str, V]) -> str:
-    """'s3dg' (the reference's S3DG names), 'i3d' (its I3D names) or
-    'port' (anything else)."""
+    """'s3dg' (the reference's S3DG names), 'i3d' (its I3D names),
+    'resnet' (any ResNet's), 'bninception', 'inception_v3' or 'port'
+    (anything else)."""
     if any(k.startswith("features.0.conv2.") for k in sd):
         return "s3dg"
     if any(k.startswith("conv3d_1a_7x7.") for k in sd):
         return "i3d"
+    for layout, stem in INCEPTION_STEMS.items():
+        if any(k.startswith(stem) for k in sd):
+            return layout
+    if any(k.startswith("layer1.") for k in sd):
+        return "resnet"
     return "port"
 
 
@@ -85,12 +107,29 @@ def _i3d_name(key: str) -> str:
     return f"{base}.{I3D_FIELDS[field]}.{leaf}"
 
 
+def _fold_conv_biases(sd: Dict[str, V]) -> Dict[str, V]:
+    """BN-Inception / Inception-v3: each ``X.conv.bias`` folded into
+    ``X.bn.running_mean`` and dropped."""
+    out = {k: v for k, v in sd.items() if not k.endswith(".conv.bias")}
+    for k, bias in sd.items():
+        if k.endswith(".conv.bias"):
+            mean = k[:-len("conv.bias")] + "bn.running_mean"
+            out[mean] = sd[mean] - bias
+    return out
+
+
 def port_backbone_names(sd: Dict[str, V]) -> Dict[str, V]:
     """``sd`` under the port's backbone names: the reference's S3DG or I3D
-    names mapped, their classifier dropped; any other layout unchanged."""
+    names mapped, a ResNet's kept, a 2D Inception net's conv biases folded;
+    their classifier and BN counters dropped; any other layout
+    unchanged."""
     layout = layout_of(sd)
     if layout == "port":
         return dict(sd)
+    if layout not in ("s3dg", "i3d"):
+        sd = {k: v for k, v in sd.items()
+              if not k.startswith(FC_CLASSIFIER) and not k.endswith(".num_batches_tracked")}
+        return sd if layout == "resnet" else _fold_conv_biases(sd)
     name, classifier = ((_s3dg_name, S3DG_CLASSIFIER) if layout == "s3dg"
                         else (_i3d_name, I3D_CLASSIFIER))
     return {name(k): v for k, v in sd.items()
@@ -98,11 +137,20 @@ def port_backbone_names(sd: Dict[str, V]) -> Dict[str, V]:
 
 
 def reference_backbone_names(sd: Dict[str, V], layout: str) -> Dict[str, V]:
-    """The port's S3DG (``layout`` 's3dg') or I3D ('i3d') backbone names
-    (without graph blocks) -> the reference's: the inverse of
-    :func:`port_backbone_names`."""
-    if layout not in ("s3dg", "i3d"):
-        raise ValueError(f"layout {layout!r}: 's3dg' or 'i3d'")
+    """The port's backbone names (without graph blocks) of ``layout`` (one
+    of :data:`LAYOUTS`) -> the reference's: the inverse of
+    :func:`port_backbone_names`; BN-Inception's and Inception-v3's convs
+    get zero biases."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
+    if layout == "resnet":
+        return dict(sd)
+    if layout in INCEPTION_STEMS:
+        out = dict(sd)
+        for k, v in sd.items():
+            if k.endswith(".conv.weight"):
+                out[k[:-len("weight")] + "bias"] = v.new_zeros(v.shape[0])
+        return out
     stage_of = {v: k for k, v in S3D_STAGE_INDEX.items()}
     unit_of = {v: k for k, v in I3D_UNITS.items()}
     branch_of = {v: k for k, v in I3D_BRANCHES.items()}

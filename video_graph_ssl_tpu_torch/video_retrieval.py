@@ -45,6 +45,7 @@ from .data.pipeline import to_device
 from .data.transforms_device import N_CROPS
 from .engine.downstream import make_feature_step
 from .models.build import create_visual_model
+from .models.layers import place
 from .parallel import dist
 from .test_ds import crops_of
 from .train_video_contrast_dis import add_dist_args, launch, resolve_device
@@ -218,7 +219,7 @@ def load_encoder(config, checkpoint: str, device) -> torch.nn.Module:
     """The pretrain model on ``device``, loaded strictly from a checkpoint of
     the port's pretrain trainer when one is given."""
     model, _ = create_visual_model(config)
-    model = model.to(device=device, memory_format=torch.channels_last_3d)
+    model = place(model, device)
     if checkpoint:
         sd, meta = load_params_only(checkpoint)
         model.load_state_dict(sd, strict=True)
