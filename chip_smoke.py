@@ -84,8 +84,8 @@ Phases (each raises on failure; the script then exits non-zero):
    at least one of those bounds; where the host has two or more cards,
    bf16 (b) again with one rank per card over NCCL; (c) the same two ranks
    with ``TPU.SHUFFLE_BN True``: finite losses, bit-equal ranks; (d) then a
-   ``Trainer`` with ``TPU.SEPCONV_FUSED True`` on those ranks must raise
-   ``NotImplementedError``.
+   ``Trainer`` with ``TPU.SEPCONV_FUSED True`` on those ranks must build
+   (phase 15 trains it).
 9. the SimSiam (GCA-S) and memory-bank regimes: (a) a small SimSiam step
    and a small bank step (one negative draw made on the CPU) on the card
    against the same steps on the CPU, at 8 clips; three readings of the
@@ -208,6 +208,40 @@ Phases (each raises on failure; the script then exits non-zero):
    ``MODEL.PRETRAIN_PATH`` into both pretrain encoders and into
    ``train_ds``, each taking a step.  The phase ends with a ``resnets``
    JSON line.
+15. K5 across ranks, the solver options and the input modalities: (a) the
+   staged K5 (the wrapper's three C entries, ``vgs_sepconv_bwd_stage1..3``)
+   against the one C call of all three stages (``vgs_sepconv_bwd``), bit
+   for bit, and against the plain version within ``TOL_K5``, at the 18
+   pairs of the bs-128 and bs-32 16x112x112 steps, fp32 and bf16; both per
+   encoder pass in bf16 at bs 128 (CUDA events, device time, wrapper host
+   time), and the memory the pass's outputs hold (the one call's outputs are views
+   of its scratch); (b) two rank processes sharing the card over gloo, 16
+   rows each of a bs-32 batch, at the stage-5, 9 and 14 pairs, fp32 and
+   bf16: each rank's dx rows, and the sums over the ranks of dWs, dWt and
+   the BN sums, within ``TOL_K5`` of one process's K5 over the whole batch,
+   two reductions per call; (c) the fused GCA MoCo step (``TPU.SEPCONV_FUSED
+   True``, S3D, graph on, 3 steps): one NCCL rank against no group, bit for
+   bit (bs 128, bf16, ``cudnn.deterministic``); two gloo ranks bit-equal,
+   K1-K5 at their per-step counts (K5 18), host ms and peak memory per
+   rank, in fp32 at bs 32 within ``TOL_RANKS_FUSED`` of one process (sum-form BN)
+   with a per-rank-BN control above a bound, and in bf16 at bs 128; (d) the
+   fine-tune with ``MODEL.NO_PARTIALBN True TPU.SEPCONV_FUSED True`` from a
+   pretrain checkpoint on the same two ranks (K5 18 per step), bf16, and
+   fp32 within ``TOL_FUSED_FT`` of one process with its control; (e) three
+   fine-tune steps (S3D, bs 32, 16x112x112, bf16, graph on) for SGD with
+   and without ``SOLVER.USE_TRICK``, Adam, AdamW, LARS with and without the
+   trick, and Adam with ``SOLVER.CLIP_GRADIENT``, finite losses and K1-K4
+   counts, then one update of each from fixed gradients on the card against
+   the CPU within 1e-6 (rel-L2); (f) Flow (``NEW_LENGTH 5``, 10 channels)
+   and RGBDiff (18 channels in, 15 after the difference) fine-tune steps at
+   full S3D width through the fused downstream step, K1-K4 at S3D's counts;
+   the stem's forward and backward at 3 and 10 input channels (CUDA
+   events); an RGB pretrain state inflated by ``inflate_first_conv`` loads
+   strictly into the Flow model.
+
+``python3 chip_smoke.py --only phase_fused_ranks`` (development) runs the
+build and the named phase functions alone, without the kernel record and
+the result line.
 
 Each phase prints its wall seconds.  Times are CUDA events around one
 call, the median of 20 calls (10 for K5; ``kernel_times.event_ms``).  ``bound``
@@ -1327,7 +1361,8 @@ def rank_run(opts: list, config: str = CONFIG, per_rank: bool = False,
     ``config`` + ``opts`` (``train_ds``'s from the pretrain checkpoint
     ``ssl`` where one is given, else the pretrain trainer's); ``per_rank``:
     the control, BN per rank; ``try_fused``: then build a
-    ``TPU.SEPCONV_FUSED True`` trainer, which must raise at world size 2."""
+    ``TPU.SEPCONV_FUSED True`` trainer, which builds at world size 2 (phase
+    15 trains it)."""
     return {"config": config, "opts": opts, "per_rank": per_rank, "try_fused": try_fused,
             "ssl": ssl}
 
@@ -1347,10 +1382,11 @@ def make_trainer(run: dict, device: str, run_dir: str):
 
 def _rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: list,
                run_dir: str) -> None:
-    """One rank of phase 8, 9 (d) or 12, in its own process (on cuda:0 over
-    gloo, on cuda:rank over NCCL): each of ``runs`` in turn, each a
-    ``rank_run`` on a new trainer, or ``{"eval_tools": (best, ssl, dtype)}``
-    for phase 12 (c)'s ``eval_tools``."""
+    """One rank of phase 8, 9 (d), 12 or 15, in its own process (on cuda:0
+    over gloo, on cuda:rank over NCCL): each of ``runs`` in turn, each a
+    ``rank_run`` on a new trainer, ``{"eval_tools": (best, ssl, dtype)}``
+    for phase 12 (c)'s ``eval_tools``, or ``{"k5_pairs": dtype}`` for phase
+    15 (b)'s ``k5_rank_pairs``."""
     from video_graph_ssl_tpu_torch.parallel import dist, sync_bn
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
@@ -1366,6 +1402,9 @@ def _rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: l
             if "eval_tools" in run:
                 results.append(eval_tools(device, run_dir, f"rank{rank}", *run["eval_tools"]))
                 continue
+            if "k5_pairs" in run:
+                results.append(k5_rank_pairs(device, rank, world, run["k5_pairs"]))
+                continue
             trainer = make_trainer(run, device, run_dir)
             res = drive_steps(trainer,
                               bn_mode=sync_bn.per_rank_bn if run["per_rank"] else None)
@@ -1374,11 +1413,13 @@ def _rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: l
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
-            if run["try_fused"]:   # 8 (d): the fused step at world size 2
+            if run["try_fused"]:   # 8 (d): the fused step at world size 2 builds
                 res["fused_error"] = None
                 try:
-                    Trainer(load_config(run["config"], run["opts"] + ["TPU.SEPCONV_FUSED", "True"]),
-                            device=device, run_dir=run_dir)
+                    fused = Trainer(load_config(run["config"],
+                                                run["opts"] + ["TPU.SEPCONV_FUSED", "True"]),
+                                    device=device, run_dir=run_dir)
+                    del fused
                 except NotImplementedError as e:
                     res["fused_error"] = str(e)
             results.append(res)
@@ -1594,17 +1635,17 @@ def phase_ranks(dev, gpu: str) -> None:
         del one
     finally:
         torch.backends.cudnn.deterministic = False
-    # (c) ShuffleBN, and (d) the fused step at world size 2 must raise
+    # (c) ShuffleBN, and (d) the fused step's trainer builds at world size 2
     tag = "(c) two ranks, ShuffleBN, bfloat16, global bs 128"
     print(f"  {tag}: 64 rows per rank, {RANK_STEPS} steps")
     ranks, = shuffled
     hold_ranks(tag, ranks, gpu, SHARED)
     for r, res in enumerate(ranks):
         msg = res["fused_error"]
-        print(f"  (d) rank {r}: TPU.SEPCONV_FUSED True at world size 2 raised "
-              f"NotImplementedError: {msg}")
-        if msg is None or "ROADMAP" not in msg:
-            raise RuntimeError("TPU.SEPCONV_FUSED True at world size 2 did not raise")
+        print(f"  (d) rank {r}: the TPU.SEPCONV_FUSED True trainer at world size 2 "
+              f"{'builds' if msg is None else 'raised: ' + msg} (phase 15 trains it)")
+        if msg is not None:
+            raise RuntimeError(f"TPU.SEPCONV_FUSED True at world size 2 raised: {msg}")
     print("phase 8 errors against one process: " + json.dumps(errors))
 
 
@@ -3037,6 +3078,385 @@ def phase_resnets(dev, gpu: str) -> None:
                                   for b, r in runs.items()}, "gpu": gpu}))
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: K5 across ranks (its BN sums summed over the ranks between its
+# three stages), the solver options and the input modalities.
+FUSED = ["TPU.SEPCONV_FUSED", "True"]
+# the pairs of stages 5, 9 and 14 (Mixed_3b, 4c, 5b) in the bs-32 step
+K5_RANK_PAIRS = [row for row in SEPCONVS_112_32 if row[0].split()[0] in ("3b", "4c", "5b")]
+# (c): the fused MoCo step's fp32 run on two ranks against one process is
+# held to phase 8's bounds but for step 3's update norm: by step 3 the
+# amplified rounding has grown further along the fused pairs' fp32
+# statistics than along cuDNN's BN.  Readings on an H100 80GB HBM3 (700 W),
+# deterministic: keys 1.1e-4, 4.8e-3, 0.139; losses 3.3e-5, 2.6e-2, 2.2e-2;
+# update_1 2.5e-2, update_1_norm 6.1e-3, update_3 0.913, update_3_norm
+# 0.254; ema_bn 7.9e-3 (phase 8's unfused step: 8.9e-5 .. 5.8e-2 and 0.97
+# at update_3).
+TOL_RANKS_FUSED = {**TOL_RANKS["float32"], "update_3_norm": 0.5}
+# (d): the fused fine-tune (every pair's BNs live) in fp32 on two ranks
+# against one process (sum-form BN); at initialisation all BNs live amplify
+# the summation order as in phase 8's MoCo step, so the bounds are phase 8's
+# fp32 ones for the updates and BN statistics and a blow-up bound for the
+# losses, which sit near ln 101 whatever the update.  Readings on an H100
+# 80GB HBM3 (700 W), ranks / control: losses 2.1e-7, 3.2e-4, 2.2e-4 /
+# 4.9e-4, 2.8e-4, 3.8e-4; update_1 0.101 / 1.52, update_1_norm 1.4e-2 /
+# 9.9e-2, update_3 0.803 / 1.51, update_3_norm 0.132 / 6.0e-2; bn 1.7e-2 /
+# 5.3e-2.  The same fine-tune without K5 reads update_1 9.9e-2, update_3
+# 0.844, bn 1.6e-2 (printed beside it): the amplification is BN's, not K5's.
+TOL_FUSED_FT = {"loss_1": 1e-4, "loss_2": 1e-2, "loss_3": 1e-2, "update_1": 0.2,
+                "update_1_norm": 5e-2, "update_3": 1.5, "update_3_norm": 0.2, "bn": 5e-2}
+# (e): SOLVER.OPTIMIZER_NAME, USE_TRICK, CLIP_GRADIENT (and BASE_LR for Adam)
+SOLVER_RUNS = [("SGD", False, None), ("SGD", True, None), ("Adam", False, None),
+               ("AdamW", False, None), ("LARS", False, None), ("LARS", True, None),
+               ("Adam", False, 1.0)]
+TOL_UPDATE = 1e-6
+# (f): stacked frames per time step and the clips' channels
+MODALITY_RUNS = [("Flow", 5, 10), ("RGBDiff", 5, 18)]
+
+
+def k5_rank_pairs(device: str, rank: int, world: int, dn: str) -> list:
+    """15 (b): the staged K5 on this rank's rows of each pair of
+    ``K5_RANK_PAIRS`` (inputs of the global batch drawn from one seed on
+    every rank), its BN sums summed over the ranks between the stages;
+    per pair (dx, dWs, dWt, dgamma1, dbeta1, dgamma2, dbeta2) on the CPU and
+    the reductions the calls made."""
+    from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
+    from video_graph_ssl_tpu_torch.parallel import sync_bn
+
+    out = []
+    for i, (_, bthw, c, f) in enumerate(K5_RANK_PAIRS):
+        g = torch.Generator(device=device).manual_seed(1500 + i)
+        x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, gy, dt = sepconv_inputs(
+            (*bthw, c, f), device, DTYPES[dn], g)
+        b = bthw[0]
+        rows = slice(rank * b // world, (rank + 1) * b // world)
+        count = torch.full((f,), float(math.prod(bthw)), device=device)
+        local = (x[rows], ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, gy[rows], dt)
+        r0 = sb.reduces
+        got = sb.sepconv_bwd(*local, count=count, reduce=sync_bn.all_reduce_sums)
+        res = {"grads": _cpu(got), "reduces": sb.reduces - r0}
+        if dn == "bf16":   # every rank makes the same calls, so the collectives pair up
+
+            def call():
+                sb.sepconv_bwd(*local, count=count, reduce=sync_bn.all_reduce_sums)
+
+            # CUDA events only: torch.profiler in a rank process sharing the
+            # card records no kernel on some runs
+            res["ms"] = event_ms(call, iters=10)
+        out.append(res)
+    return out
+
+
+def staged_k5(dev) -> None:
+    """15 (a): the staged call (the wrapper's three C entries) against the
+    one call of all three stages, bit for bit, and against the plain
+    version, at the 18 pairs of the bs-128 and bs-32 16x112x112 steps in
+    both dtypes; the two per encoder pass (bs 128, bf16): CUDA-event ms and
+    the memory the pass's gradients hold."""
+    from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
+    from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
+
+    names = ["dx", "dWs", "dWt", "dg1", "db1", "dg2", "db2"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    equal, worst = 0, {dn: 0.0 for dn in DTYPES}
+    for tag, pairs in (("bs 128", SEPCONVS), ("bs 32", SEPCONVS_112_32)):
+        for (name, bthw, c, f), (dn, dt) in itertools.product(pairs, DTYPES.items()):
+            args = sepconv_inputs((*bthw, c, f), dev, dt, g)
+            s0 = sb.stage_calls
+            staged = sb.sepconv_bwd(*args)
+            if sb.stage_calls - s0 != 3:
+                raise RuntimeError(f"K5 {name}: {sb.stage_calls - s0} stage calls, want 3")
+            one = sb.sepconv_bwd_one_call(*args)
+            bad = [n for n, a, b in zip(names, staged, one) if not torch.equal(a, b)]
+            if bad:
+                raise RuntimeError(f"K5 {tag} {name} {dn}: staged != one call at {bad}")
+            equal += 1
+            want = fs.bwd_reference(*args)
+            for n, a, r in zip(names, staged, want):
+                err = rel_l2(a, r)
+                worst[dn] = max(worst[dn], err)
+                if not err <= TOL_K5[dn]:
+                    raise RuntimeError(f"K5 {tag} {name} {dn} {n}: rel-L2 {err:.3e} above "
+                                       f"{TOL_K5[dn]}")
+            del args, staged, one, want
+    print(f"  (a) staged K5 == one call, bit for bit, at {equal} pair x dtype x batch cases "
+          f"(18 pairs, bs 128 and 32, fp32 and bf16); against the plain version worst "
+          f"rel-L2 fp32 {worst['fp32']:.3e} (tol {TOL_K5['fp32']}), bf16 "
+          f"{worst['bf16']:.3e} (tol {TOL_K5['bf16']})")
+    args = [sepconv_inputs((*bthw, c, f), dev, torch.bfloat16, g)
+            for _, bthw, c, f in SEPCONVS]
+    ms = {"staged": 0.0, "one call": 0.0}
+    dev_ms = {"staged": 0.0, "one call": 0.0}
+    for a in args:
+        for key, fn in (("staged", sb.sepconv_bwd), ("one call", sb.sepconv_bwd_one_call)):
+            ms[key] += event_ms(lambda: fn(*a), iters=10)
+            dev_ms[key] += device_us(lambda: fn(*a), PATTERNS["K5"], iters=10) / 1e3
+    host = {key: host_us(lambda: fn(*args[0])) for key, fn in
+            (("staged", sb.sepconv_bwd), ("one call", sb.sepconv_bwd_one_call))}
+    held = {}
+    for key, fn in (("one call", sb.sepconv_bwd_one_call), ("staged", sb.sepconv_bwd)):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = [fn(*a) for a in args]
+        torch.cuda.synchronize()
+        held[key] = ((torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+                     (torch.cuda.memory_allocated() - base) / 2 ** 20)
+        del grads
+    print(f"  (a) K5 per encoder pass (18 pairs, bs 128, 16x112x112, bf16; CUDA events, "
+          f"median of 10 per pair): staged {ms['staged']:.3f} ms, one call "
+          f"{ms['one call']:.3f} ms; device "
+          f"(torch.profiler) staged {dev_ms['staged']:.3f} ms, one call "
+          f"{dev_ms['one call']:.3f} ms; wrapper host time per call at {SEPCONVS[0][0]}: "
+          f"staged {host['staged']:.1f} us, one call {host['one call']:.1f} us")
+    for key, (peak, kept) in held.items():
+        print(f"  (a) K5 memory over one pass, {key}: peak {peak:.1f} MiB above the inputs, "
+              f"{kept:.1f} MiB held by the 18 calls' outputs")
+    if not held["staged"][1] < held["one call"][1]:
+        raise RuntimeError(f"K5: the staged outputs hold {held['staged'][1]:.1f} MiB, the "
+                           f"one call's {held['one call'][1]:.1f} MiB (its scratch)")
+    del args
+
+
+def hold_k5_ranks(dev, results: list) -> None:
+    """15 (b): each rank's dx rows, and the sums over the ranks of dWs, dWt
+    and the BN sums, against one process's staged K5 over the whole batch."""
+    from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
+
+    names = ["dx", "dWs", "dWt", "dg1", "db1", "dg2", "db2"]
+    for dn, ranks in zip(DTYPES, results):
+        for i, (name, bthw, c, f) in enumerate(K5_RANK_PAIRS):
+            g = torch.Generator(device=dev).manual_seed(1500 + i)
+            one = _cpu(sb.sepconv_bwd(*sepconv_inputs((*bthw, c, f), dev, DTYPES[dn], g)))
+            b, world = bthw[0], len(ranks)
+            errs = {}
+            for j, n in enumerate(names):
+                if n == "dx":
+                    errs[n] = max(rel_l2(r[i]["grads"][0], one[0][k * b // world:
+                                                                  (k + 1) * b // world])
+                                  for k, r in enumerate(ranks))
+                else:
+                    errs[n] = rel_l2(sum(r[i]["grads"][j].double() for r in ranks), one[j])
+            reduces = [r[i]["reduces"] for r in ranks]
+            if dn == "bf16":
+                whole = sepconv_inputs((*bthw, c, f), dev, DTYPES[dn],
+                                       torch.Generator(device=dev).manual_seed(1500 + i))
+                one_ms = event_ms(lambda: sb.sepconv_bwd(*whole), iters=10)
+                print(f"  (b) K5 {name} bf16 per call: ranks " + ", ".join(
+                    f"{r[i]['ms']:.4f} ms" for r in ranks)
+                      + f"; one process over the whole batch {one_ms:.4f} ms")
+                del whole
+            print(f"  (b) K5 {name} {bthw} {c}->{f} {dn}, {world} ranks of {b // world} rows: "
+                  + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                  + f"; reductions per rank {reduces}")
+            if reduces != [2] * world:
+                raise RuntimeError(f"K5 {name}: reductions {reduces}, want 2 per rank")
+            for n, e in errs.items():
+                check(f"(b) K5 {name} {dn} {n} ranks vs one process (rel-L2)", e, TOL_K5[dn])
+
+
+def solver_update(dev, c) -> float:
+    """15 (e): one optimizer update of ``c``'s S3D VideoModel from fixed
+    gradients, on the card and on the CPU from the same weights and
+    gradients (the trainers' order: clip, lr, step): rel-L2 of the card's
+    update against the CPU's."""
+    from video_graph_ssl_tpu_torch.models.build import create_video_model
+    from video_graph_ssl_tpu_torch.models.layers import place
+    from video_graph_ssl_tpu_torch.solver.build import (clip_by_global_norm_, grad_clip_norm,
+                                                        make_optimizer, set_learning_rate)
+
+    updates = []
+    for d in (torch.device("cpu"), dev):
+        model = place(create_video_model(c)[0], d)
+        p0 = [p.detach().cpu().double() for p in model.parameters()]
+        g = torch.Generator().manual_seed(7)
+        for p in model.parameters():
+            p.grad = torch.empty_like(p).copy_(torch.randn(p.shape, generator=g).to(d))
+        opt = make_optimizer(c, model)
+        if grad_clip_norm(c) is not None:
+            clip_by_global_norm_(model.parameters(), grad_clip_norm(c))
+        set_learning_rate(opt, float(c.SOLVER.BASE_LR))
+        opt.step()
+        updates.append(torch.cat([(p.detach().cpu().double() - q).flatten()
+                                  for p, q in zip(model.parameters(), p0)]))
+        del model, opt
+    return rel_l2(updates[1], updates[0])
+
+
+def solver_options(dev, gpu: str, ssl: str) -> None:
+    """15 (e): three fine-tune steps per solver option (S3D, bs 32,
+    16x112x112, bf16, graph on), and its update on the card against the
+    CPU."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    for name, trick, clip in SOLVER_RUNS:
+        opts = ["MODEL.AUG_FLAG", "True", "SOLVER.OPTIMIZER_NAME", name,
+                "SOLVER.USE_TRICK", str(trick),
+                "SOLVER.CLIP_GRADIENT", "none" if clip is None else str(clip)]
+        if name in ("Adam", "AdamW"):
+            opts += ["SOLVER.BASE_LR", "0.001"]
+        r = run_downstream(dev, gpu, FT_CONFIG, opts, DS_SHORT, ssl)
+        _hold_counts(f"(e) {name}", r["counts"], _want_counts(DS_SHORT, "finetune",
+                                                              partial_bn=True, graph=True))
+        opt = r["trainer"].state.optimizer
+        labels = sorted({g_.get("label", "") for g_ in opt.param_groups})
+        del r
+        _free()
+        err = solver_update(dev, load_config(FT_CONFIG, SYNTHETIC + opts))
+        check(f"(e) {name} trick {trick} clip {clip}: card update vs CPU (rel-L2)", err,
+              TOL_UPDATE)
+        print(f"  (e) {name} ({type(opt).__name__}), groups {labels}")
+        _free()
+
+
+def modality_steps(dev, gpu: str) -> None:
+    """15 (f): Flow and RGBDiff fine-tune steps at full S3D width (graph on,
+    bs 32, 16x112x112, bf16) through the fused downstream step on uint8
+    clips of their channel counts; an inflated RGB pretrain state in the
+    Flow model; the stem's time at 10 input channels against 3."""
+    from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
+    from video_graph_ssl_tpu_torch.engine.downstream import make_fused_downstream_step
+    from video_graph_ssl_tpu_torch.models.build import create_video_model, create_visual_model
+    from video_graph_ssl_tpu_torch.train_ds import bn_train_of
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+    from video_graph_ssl_tpu_torch.utils.inflate import inflate_first_conv
+
+    want = _want_counts(DS_SHORT, "finetune", partial_bn=True, graph=True)
+    stems = {}
+    for modality, nl, chans in MODALITY_RUNS:
+        c = load_config(FT_CONFIG, SYNTHETIC + ["MODEL.AUG_FLAG", "True", "INPUT.MODALITY",
+                                                modality, "INPUT.NEW_LENGTH", str(nl)])
+        state = create_downstream_state(c, create_video_model(c)[0], dev)
+        step = make_fused_downstream_step(c, bn_train_of(c))
+        canvas = [int(s) for s in c.INPUT.SCALE_SIZE]
+        g = torch.Generator(device=dev).manual_seed(16)
+        clips = torch.randint(0, 256, (32, 16, *canvas, chans), generator=g, device=dev,
+                              dtype=torch.uint8)
+        labels = torch.randint(0, int(c.DATASET.NUM_CLASS), (32,), generator=g, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ms, losses = [], []
+        for _ in range(DS_SHORT):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, clips, labels, 0.01)["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        stem = state.model.base_model.base[0]
+        print(f"  (f) {modality} NEW_LENGTH {nl} ({chans} channels per clip, stem "
+              f"{tuple(stem.conv_s.weight.shape)}): step host ms {[round(x, 1) for x in ms]}, "
+              f"losses {[round(x, 4) for x in losses]}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {gpu}; kernel "
+              f"calls {counts}")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"(f) {modality}: non-finite loss {losses}")
+        _hold_counts(f"(f) {modality}", counts, want)
+        stems[stem.conv_s.weight.shape[1]] = stem
+        del state, step, clips
+        _free()
+    # the stem (SepConv3d 7x7x7 / 2, 64 channels, in the compute dtype) at 3
+    # input channels and at Flow's 10: forward and backward, CUDA events
+    rgb = load_config(FT_CONFIG, SYNTHETIC + ["MODEL.AUG_FLAG", "True"])
+    stems[3] = create_video_model(rgb)[0].base_model.base[0]
+    for cin in (3, 10):
+        stem = stems[cin].to(dev).train()
+        x = torch.randn(32, cin, 16, 112, 112, device=dev).contiguous(memory_format=CL)
+
+        def fwd_bwd():
+            stem.zero_grad(set_to_none=True)
+            stem(x).float().sum().backward()
+
+        print(f"  (f) stem at {cin} input channels (bs 32, 16x112x112, "
+              f"{str(stem.dtype).split('.')[-1]}): forward + backward "
+              f"{event_ms(fwd_bwd, iters=10):.3f} ms (CUDA events) on {gpu}")
+        del x
+    # an RGB pretrain state, inflated, loads strictly into the Flow model
+    flow = load_config(CONFIG, SYNTHETIC + ["MODEL.AUG_FLAG", "True", "INPUT.MODALITY", "Flow",
+                                            "INPUT.NEW_LENGTH", "5"])
+    rgb_sd = create_visual_model(load_config(CONFIG, SYNTHETIC + ["MODEL.AUG_FLAG", "True"])
+                                 )[0].state_dict()
+    model, _ = create_visual_model(flow)
+    model.load_state_dict(inflate_first_conv(rgb_sd, 10), strict=True)
+    print("  (f) an RGB S3D pretrain state inflated to 10 input channels loads strictly into "
+          "the Flow model")
+
+
+def phase_fused_ranks(dev, gpu: str) -> None:
+    """Phase 15 (a)-(f)."""
+    print("phase 15: K5 across ranks, the solver options, the input modalities")
+    staged_k5(dev)
+    _free()
+    ssl = write_pretrain_checkpoint(dev, "phase15_pretrain", ["MODEL.AUG_FLAG", "True"])
+    _free()
+    moco_fp32 = rank_opts(32, "float32") + FUSED
+    moco_bf16 = rank_opts(128, "bfloat16") + FUSED
+    ft = SYNTHETIC + ["MODEL.AUG_FLAG", "True", "MODEL.NO_PARTIALBN", "True", *FUSED]
+    ft_want = _want_counts(RANK_STEPS, "finetune", fused=True, partial_bn=False, graph=True)
+    # (d)'s fp32 comparison without K5, for reference (not gated)
+    ft_unfused = SYNTHETIC + ["MODEL.AUG_FLAG", "True", "MODEL.NO_PARTIALBN", "True",
+                              "TPU.COMPUTE_DTYPE", "float32"]
+    print(f"  (c) NCCL at world size 1 against no group: the fused MoCo step, bs 128, "
+          f"16x112x112, bf16, graph on, {RANK_STEPS} steps, cudnn.deterministic")
+    grouped = nccl_one_rank("(c) fused MoCo", rank_run(moco_bf16))
+    _hold_counts("(c) fused MoCo", grouped["counts"], _want_counts(fused=True))
+    del grouped
+    _free()
+    print("  (b)-(d) two ranks sharing the card (gloo): K5 at the stage-5, 9 and 14 pairs "
+          "(bs 32, 16 rows each); the fused MoCo step (fp32 bs 32 with its per-rank-BN "
+          "control, bf16 bs 128); the fused fine-tune with MODEL.NO_PARTIALBN (bf16, then "
+          "fp32 with its control)")
+    runs = [{"k5_pairs": dn} for dn in DTYPES]
+    runs += [rank_run(moco_fp32), rank_run(moco_fp32, per_rank=True), rank_run(moco_bf16),
+             rank_run(ft + ["TPU.COMPUTE_DTYPE", "bfloat16"], FT_CONFIG, ssl=ssl),
+             rank_run(ft + ["TPU.COMPUTE_DTYPE", "float32"], FT_CONFIG, ssl=ssl),
+             rank_run(ft + ["TPU.COMPUTE_DTYPE", "float32"], FT_CONFIG, per_rank=True,
+                      ssl=ssl),
+             rank_run(ft_unfused, FT_CONFIG, ssl=ssl)]
+    results = spawn_ranks(runs)
+    hold_k5_ranks(dev, results[:2])
+    errors = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        tag = "(c) two ranks, fused MoCo, float32, global bs 32"
+        ranks, control, bf16 = results[2:5]
+        hold_ranks(tag, ranks, gpu, SHARED, _want_counts(fused=True))
+        one = one_process_twice(moco_fp32, tag, gpu)
+        errors["moco float32"] = hold_to_one_process(tag, ranks, one, 32, TOL_RANKS_FUSED)
+        errors["moco float32 control"] = control_fails(tag, control, one, 32,
+                                                       TOL_RANKS_FUSED)
+        del one
+        _free()
+        hold_ranks("(c) two ranks, fused MoCo, bfloat16, global bs 128", bf16, gpu, SHARED,
+                   _want_counts(fused=True))
+        ft_bf16, ft_fp32, ft_control = results[5:8]
+        hold_ranks("(d) two ranks, fused fine-tune, bfloat16, global bs 32", ft_bf16, gpu,
+                   SHARED, ft_want)
+        tag = "(d) two ranks, fused fine-tune, float32, global bs 32"
+        hold_ranks(tag, ft_fp32, gpu, SHARED, ft_want)
+        one = one_process_twice(ft + ["TPU.COMPUTE_DTYPE", "float32"], tag, gpu, FT_CONFIG,
+                                ssl)
+        errors["finetune float32"] = hold_ds_to_one_process(tag, ft_fp32, ft_control, one,
+                                                            TOL_FUSED_FT)
+        del one
+        _free()
+        one = one_process_twice(ft_unfused, "(d) the same without TPU.SEPCONV_FUSED", gpu,
+                                FT_CONFIG, ssl)
+        unfused = ds_rank_errors(results[8][0], one)
+        errors["finetune float32 without K5"] = unfused
+        print("  (d) the same fp32 fine-tune without TPU.SEPCONV_FUSED, ranks vs one process "
+              "(for reference): " + ", ".join(f"{k} {v:.3e}" for k, v in unfused.items()))
+        del one
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del results
+    _free()
+    print("phase 15 errors against one process: " + json.dumps(errors))
+    solver_options(dev, gpu, ssl)
+    modality_steps(dev, gpu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3064,6 +3484,14 @@ def main() -> int:
         print(f"  ({fn.__name__}: {time.perf_counter() - t:.1f} s)")
         return out
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        # development: the named phase functions alone (e.g. --only
+        # phase_fused_ranks); no kernel record and no result line
+        for name in sys.argv[2].split(","):
+            timed(globals()[name], dev, gpu)
+        print(f"phases {sys.argv[2]}: {time.perf_counter() - t0:.1f} s")
+        return 0
+
     kernels = [timed(phase_k1, dev), timed(phase_k2, dev), *timed(phase_pools, dev),
                timed(phase_k5, dev)]
     counts, synthetic_ms = timed(phase_slice, dev, gpu)
@@ -3075,6 +3503,7 @@ def main() -> int:
     timed(phase_ds_ranks, dev, gpu, ssl, best)
     worst = timed(phase_backbones, dev, gpu)
     timed(phase_resnets, dev, gpu)
+    timed(phase_fused_ranks, dev, gpu)
     for k in kernels:   # the I3D pools' checks join K3's and K4's
         kn = {"maxpool_bwd_s1": "K3", "maxpool_bwd_strided": "K4"}.get(k["name"])
         if kn:

@@ -146,11 +146,16 @@ def shuffle_worker(rank, world, opts, state_dict, x, perm, seed):
                                             for k, v in model.state_dict().items()}}
 
 
-def step_worker(rank, world, opts, state_dict, queue, clips, lrs, fused, perm=None):
+def step_worker(rank, world, opts, state_dict, queue, clips, lrs, fused, perm=None,
+                bn_mode=None):
     """``len(lrs)`` pretrain steps of this rank on its rows of ``clips``:
     ``make_fused_pretrain_step`` on raw uint8 clips when ``fused``, else
     ``make_moco_step`` on pre-augmented ones (ShuffleBN with ``perm`` when
-    given).  Returns the metrics of each step and the final state."""
+    given); ``bn_mode`` (a ``sync_bn`` mode) is entered on the query and EMA
+    models for the steps.  Returns the metrics of each step, the state
+    after the first step (``after_1``) and the final state."""
+    import contextlib
+
     from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
     from video_graph_ssl_tpu_torch.engine.pretrain import (make_fused_pretrain_step,
                                                            make_moco_step)
@@ -166,8 +171,15 @@ def step_worker(rank, world, opts, state_dict, queue, clips, lrs, fused, perm=No
                               shuffle_bn=perm is not None,
                               permutation=lambda s, n: torch.from_numpy(perm))
     local = torch.from_numpy(clips[rows(rank, world, clips.shape[0])])
-    metrics = [{k: float(v) for k, v in step(state, local, lr).items()} for lr in lrs]
-    return {"metrics": metrics, "state": state_arrays(state)}
+    metrics, after_1 = [], None
+    with contextlib.ExitStack() as modes:
+        if bn_mode is not None:
+            for m in (state.model, state.ema_model):
+                modes.enter_context(bn_mode(m))
+        for lr in lrs:
+            metrics.append({k: float(v) for k, v in step(state, local, lr).items()})
+            after_1 = after_1 or state_arrays(state)
+    return {"metrics": metrics, "state": state_arrays(state), "after_1": after_1}
 
 
 def regime_worker(rank, world, opts, state_dict, memory, clips, index, lrs, draws=None,
@@ -208,7 +220,9 @@ def regime_worker(rank, world, opts, state_dict, memory, clips, index, lrs, draw
 
 def fused_guard_worker(rank, world):
     """TPU.SEPCONV_FUSED at this world size: the step builder's and the
-    fused SepConv's errors (None where nothing raised)."""
+    fused SepConv's errors (None where nothing raised), and the pair's
+    output, input gradient and running mean after one train-mode step on
+    this rank's rows of a global batch of 2 * world clips."""
     from video_graph_ssl_tpu_torch.engine.pretrain import make_fused_pretrain_step
     from video_graph_ssl_tpu_torch.models.layers import SepConv3d
 
@@ -218,14 +232,75 @@ def fused_guard_worker(rank, world):
         out["builder"] = None
     except NotImplementedError as e:
         out["builder"] = str(e)
+    torch.manual_seed(0)
     layer = SepConv3d(8, 8, 3, 1, 1, dtype=torch.float32, fused_bwd=True).train()
+    x = torch.randn(2 * world, 8, 4, 6, 6)[rows(rank, world, 2 * world)].requires_grad_()
     try:
-        layer(torch.randn(2, 8, 4, 6, 6))
+        y = layer(x)
+        y.square().sum().backward()
         out["layer"] = None
+        out["y"], out["dx"] = y.detach().numpy(), x.grad.numpy()
     except NotImplementedError as e:
         out["layer"] = str(e)
     out["running_mean"] = layer.bn_s.running_mean.numpy().copy()
     return out
+
+
+def _pair_layer(args):
+    """SepConv3d(C, F, 3, 1, 1) with TPU.SEPCONV_FUSED, fp32, holding the
+    JAX-layout numpy weights ``args[1:]`` (ws, wt, g1, b1, g2, b2)."""
+    from video_graph_ssl_tpu_torch.models.layers import SepConv3d
+
+    _, ws, wt, g1, b1, g2, b2 = args
+    layer = SepConv3d(ws.shape[-2], ws.shape[-1], 3, 1, 1, dtype=torch.float32,
+                      fused_bwd=True).train()
+    with torch.no_grad():
+        for conv, k in ((layer.conv_s, ws), (layer.conv_t, wt)):
+            conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(
+                np.transpose(k, (4, 3, 0, 1, 2)))))
+        for bn, g, b in ((layer.bn_s, g1, b1), (layer.bn_t, g2, b2)):
+            bn.weight.copy_(torch.from_numpy(g))
+            bn.bias.copy_(torch.from_numpy(b))
+    return layer
+
+
+def fused_pair_run(layer, x, gout, bn_mode=None):
+    """One train-mode pass of the fused pair ``layer`` on JAX-layout clips
+    ``x`` (b, T, H, W, C) and, when ``gout`` is given, its backward: the
+    output, running statistics and gradients as JAX-layout numpy
+    arrays.  ``bn_mode``: a ``sync_bn`` mode entered for the pass (without
+    ``gout``, under ``no_grad``, as ShuffleBN's key pass)."""
+    import contextlib
+
+    xt = torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 4, 1, 2, 3))))
+    xt.requires_grad_(gout is not None)
+    with bn_mode(layer) if bn_mode else contextlib.nullcontext(), \
+            torch.set_grad_enabled(gout is not None):
+        y = layer(xt)
+    out = {"y": np.transpose(y.detach().numpy(), (0, 2, 3, 4, 1)),
+           "stats": [b.numpy().copy() for bn in (layer.bn_s, layer.bn_t)
+                     for b in (bn.running_mean, bn.running_var)]}
+    if gout is not None:
+        (y * torch.from_numpy(np.ascontiguousarray(np.transpose(gout, (0, 4, 1, 2, 3))))
+         ).sum().backward()
+        out["dx"] = np.transpose(xt.grad.numpy(), (0, 2, 3, 4, 1))
+        out["dws"] = np.transpose(layer.conv_s.weight.grad.numpy(), (2, 3, 4, 1, 0))
+        out["dwt"] = np.transpose(layer.conv_t.weight.grad.numpy(), (2, 3, 4, 1, 0))
+        out["dbn"] = [p.grad.numpy().copy() for bn in (layer.bn_s, layer.bn_t)
+                      for p in (bn.weight, bn.bias)]
+    return out
+
+
+def fused_pair_worker(rank, world, args, gout, per_rank=False):
+    """The fused pair of ``args`` (JAX-layout numpy: x, ws, wt, g1, b1, g2,
+    b2) on this rank's rows of x and of the cotangent ``gout``;
+    ``per_rank``: a no-grad pass under ``sync_bn.per_rank_bn`` instead."""
+    from video_graph_ssl_tpu_torch.parallel import sync_bn
+
+    r = rows(rank, world, args[0].shape[0])
+    if per_rank:
+        return fused_pair_run(_pair_layer(args), args[0][r], None, sync_bn.per_rank_bn)
+    return fused_pair_run(_pair_layer(args), args[0][r], gout[r])
 
 
 def several_worker(rank, world, calls):
@@ -234,14 +309,17 @@ def several_worker(rank, world, calls):
     return [fn(rank, world, *args) for fn, args in calls]
 
 
-def ds_step_worker(rank, world, opts, state_dict, clips, labels, lrs, fused):
+def ds_step_worker(rank, world, opts, state_dict, clips, labels, lrs, fused, bn_mode=None):
     """``len(lrs)`` downstream train steps of this rank on its rows of
     ``clips`` and ``labels``: ``make_fused_downstream_step`` on raw uint8
     clips when ``fused`` (then also this rank's augmented clips of the first
     step), else ``make_downstream_train_step`` on pre-augmented ones.  The
     ``VideoModel`` of ``port_cfg(opts)`` starts from ``state_dict`` where
-    given, else from ``MODEL.SEED``.  Returns each step's metrics, the final
+    given, else from ``MODEL.SEED``; ``bn_mode`` (a ``sync_bn`` mode) is
+    entered on it for the steps.  Returns each step's metrics, the final
     state and whether the state is in ``DistributedDataParallel``."""
+    import contextlib
+
     from video_graph_ssl_tpu_torch.data.transforms_device import make_batch_augment_fn
     from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
     from video_graph_ssl_tpu_torch.engine.downstream import (TRAIN_AUGMENT_STREAM,
@@ -266,7 +344,8 @@ def ds_step_worker(rank, world, opts, state_dict, clips, labels, lrs, fused):
                                                      (r.start, clips.shape[0])).numpy()
     else:
         step = make_downstream_train_step(bn_train)
-    metrics = [{k: float(v) for k, v in step(state, local, y, lr).items()} for lr in lrs]
+    with bn_mode(state.model) if bn_mode else contextlib.nullcontext():
+        metrics = [{k: float(v) for k, v in step(state, local, y, lr).items()} for lr in lrs]
     return {"metrics": metrics, "state": state_arrays(state), "augmented": augmented,
             "ddp": state.ddp is not None}
 

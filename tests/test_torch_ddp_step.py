@@ -15,8 +15,8 @@ are processes, ``tests/_torch_dist_util.py``).
 * ShuffleBN: two ranks with an injected permutation take three finite steps
   and hold bit-equal states; its key pass is held to JAX's in
   ``tests/test_torch_parallel.py``.
-* ``TPU.SEPCONV_FUSED True`` at world size 2 raises, naming the ROADMAP item,
-  before any BN runs; at world size 1 it builds.
+* ``TPU.SEPCONV_FUSED True`` builds and takes a step at world size 1 and 2,
+  the pair's running statistics the same on both ranks.
 * The trainer's CLI as two gloo ranks (``--device cpu --dist-backend gloo
   --world_size 2 --rank R --dist-url file://...``), 2 steps: only rank 0
   writes, one checkpoint, and it equals the one-process CLI's to 1e-5.
@@ -150,15 +150,16 @@ def test_shuffle_bn_step_on_two_ranks(tmp_path):
 
 @pytest.mark.parametrize("world", [1, 2])
 def test_sepconv_fused_across_ranks_raises(tmp_path, world):
+    """The calls that raised before K5 ran across ranks now build and take
+    a step: at world size 2 the pair's statistics are the global batch's,
+    the same on both ranks (``tests/test_torch_fused_ranks.py`` holds them
+    to one process and to JAX)."""
     ranks = du.run_ranks(du.fused_guard_worker, world, tmp_path)
     for r in ranks:
-        if world == 1:
-            assert r["builder"] is None and r["layer"] is None
-        else:
-            for msg in (r["builder"], r["layer"]):
-                assert msg is not None and "ROADMAP.md" in msg and "K5 across ranks" in msg
-            # raised before the pair's BN ran
-            np.testing.assert_array_equal(r["running_mean"], np.zeros(8, np.float32))
+        assert r["builder"] is None and r["layer"] is None
+        assert np.all(np.isfinite(r["dx"])) and np.any(r["running_mean"] != 0)
+        np.testing.assert_array_equal(r["running_mean"], ranks[0]["running_mean"])
+    assert sum(r["y"].shape[0] for r in ranks) == 2 * world
 
 
 TRAIN = ["MODEL.BACKBONE", "tiny3d", "MODEL.AUG_FLAG", "True", "DATASET.NUM_CLASS", "4",

@@ -12,11 +12,12 @@
   confusion matrix, ``--save_scores``), then ``video_retrieval`` on the
   pretrain checkpoint; the surgery copies the encoder and keeps ``new_fc``.
 * SIGTERM during ``train_ds`` writes ``checkpoint_preempt``.
-* A bad ``MODEL.PROBE_BN``, a CMC checkpoint, a non-pretrain checkpoint and
-  ``TPU.SEPCONV_FUSED`` with ``MODEL.NO_PARTIALBN`` at a world size above 1
-  raise.
+* A bad ``MODEL.PROBE_BN``, a CMC checkpoint and a non-pretrain checkpoint
+  raise; ``TPU.SEPCONV_FUSED`` with ``MODEL.NO_PARTIALBN`` (S3D) trains one
+  step through torchrun's launcher and builds at a world size above 1.
 """
 
+import glob
 import importlib.util
 import json
 import os
@@ -37,6 +38,7 @@ from video_graph_ssl_tpu.models import create_visual_model as jax_visual_model
 from video_graph_ssl_tpu_torch import test_ds, train_ds, video_retrieval
 from video_graph_ssl_tpu_torch import train_video_contrast_dis as pretrain
 from video_graph_ssl_tpu_torch.engine.build import create_downstream_state
+from video_graph_ssl_tpu_torch.engine.downstream import make_fused_downstream_step
 from video_graph_ssl_tpu_torch.models.build import create_video_model, create_visual_model
 from video_graph_ssl_tpu_torch.utils.checkpoint import load_params_only, transfer_encoder_params
 from video_graph_ssl_tpu_torch.utils.jax_weights import (load_downstream_weights,
@@ -213,26 +215,36 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="PROBE_BN"):
         train_ds.Trainer(bad, device="cpu", run_dir=str(tmp_path))
     config = pretrain.load_config(DS[1], TINY)
-    # K5 across ranks (TPU.SEPCONV_FUSED with MODEL.NO_PARTIALBN) is refused
-    # before the model is built: under the torchrun environment, through the
-    # launcher, which joins the group and leaves it after the refusal, and at
-    # world size 2
-    fused = ["TPU.SEPCONV_FUSED", "True", "MODEL.NO_PARTIALBN", "True"]
+    # K5 across ranks (TPU.SEPCONV_FUSED with MODEL.NO_PARTIALBN) builds and
+    # trains: under the torchrun environment, through the launcher, which
+    # joins the group (one gloo rank here), takes a step and leaves it; and
+    # at world size 2 the model and the step build (two ranks train in
+    # tests/test_torch_fused_ranks.py)
+    fused = ["TPU.SEPCONV_FUSED", "True", "MODEL.NO_PARTIALBN", "True", "MODEL.BACKBONE",
+             "S3D", "MODEL.AUG_FLAG", "False", "INPUT.VIDEO_LENGTH", "8",
+             "INPUT.SCALE_SIZE", "[36, 36]", "INPUT.BASE_SIZE", "[32, 32]",
+             "INPUT.CROP_SIZE", "[32, 32]", "SOLVER.MAX_EPOCHS", "1"]
     calls = []
+    init, destroy = dist.init_distributed, torch.distributed.destroy_process_group
     with monkeypatch.context() as m:
-        for var, value in zip(dist.TORCHRUN_VARS, ("0", "2", "localhost", "29500")):
+        for var, value in zip(dist.TORCHRUN_VARS,
+                              ("0", "1", "localhost", str(pretrain._free_port()))):
             m.setenv(var, value)
-        m.setattr(dist, "init_distributed", lambda backend, *a: calls.append(backend))
-        m.setattr(dist, "world_size", lambda: 2)
-        m.setattr(torch.distributed, "destroy_process_group", lambda: calls.append("left"))
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            train_ds.main([*DS, "--device", "cpu", "--dist-backend", "gloo", *fused])
+        m.setattr(dist, "init_distributed",
+                  lambda backend, *a: (calls.append(backend), init(backend, *a)))
+        m.setattr(torch.distributed, "destroy_process_group",
+                  lambda: (calls.append("left"), destroy()))
+        m.chdir(tmp_path)
+        train_ds.main([*DS, "--device", "cpu", "--dist-backend", "gloo", "--max_steps", "1",
+                       *fused])
     assert calls == ["gloo", "left"]
+    assert glob.glob(str(tmp_path / "run" / "**" / "metrics.jsonl"), recursive=True)
     with monkeypatch.context() as m:
         m.setattr(dist, "world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            train_ds.Trainer(pretrain.load_config(DS[1], TINY + fused), device="cpu",
-                             run_dir=str(tmp_path))
+        fused_cfg = pretrain.load_config(DS[1], TINY + fused)
+        assert callable(make_fused_downstream_step(fused_cfg))
+        model, _ = create_video_model(fused_cfg)
+        assert sum(getattr(s, "fused", False) for s in model.modules()) == 18
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_ds.Trainer(pretrain.load_config(DS[1], TINY), device="cuda",
                          run_dir=str(tmp_path))

@@ -25,7 +25,11 @@
 //      dWt = sum a (x) dy2 over rows and temporal taps;
 //   3. dy1 (elementwise); dx = conv_s^T(dy1); dWs = sum x (x) dy1.
 // A prep launch first lays the weights out for the products (w1..w4 in
-// the compute dtype) and builds the BN constants.  The TPU kernels
+// the compute dtype) and builds the BN constants.  Each sweep is a stage
+// with its own C entry (vgs_sepconv_bwd_stage1..3; vgs_sepconv_bwd runs
+// all three): ranks that each hold rows of one batch sum each stage's two
+// BN sums over the ranks between the stages, and stages 2 and 3 then
+// start from the means of the global batch (bn_means_kernel).  The TPU kernels
 // recomputed y1, a and y2 in every sweep to keep them out of HBM.  On the
 // H100 the intermediates go to device memory in the compute dtype instead
 // (y1, a, y2 -> dy2 in place, dz1 -> dy1 in place): rounding a stored
@@ -313,6 +317,19 @@ bn_sums_kernel(const float* __restrict__ partial, int tiles, int N, float count,
     sums[idx] = buf[0];
     means[idx] = buf[0] / count;
   }
+}
+
+// means[i] = sums[i] / count[0] for i < n (n = 2 * N): the means of a call
+// whose ranks each hold rows of one batch, from the [2][N] sums over every
+// rank and the global row count.  The division is fp32, as jnp.mean
+// divides by the row count converted to fp32, and as bn_sums_kernel and
+// parallel/sync_bn.py divide; count is the ranks' exact counts summed in
+// fp32 (exact below 2^24 rows).
+__global__ void __launch_bounds__(kThreads)
+bn_means_kernel(const float* __restrict__ sums, const float* __restrict__ count, int n,
+                float* __restrict__ means) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) means[i] = sums[i] / count[0];
 }
 
 // The BN train backward, elementwise over (rows, N):
@@ -648,9 +665,24 @@ struct Params {   // fp32 PyTorch-layout inputs of the prep launch
   const float *ws, *wt, *g1, *b1, *g2, *b2, *mu1, *var1, *mu2, *var2;
 };
 
+// Stages first..last of one call, in order on one stream (the launches of
+// stages 1-3 are the three sweeps and their prep):
+//   1. prep; y1, a; y2 with its per-tile partials -> S_g2, S_gx2 (and their
+//      means over this call's rows);
+//   2. dy2; da -> dz1 with its partials -> S_g1, S_gx1 (and means); dWt;
+//   3. dy1; dx; dWs.
+// The one-call entry runs 1..3.  A caller whose ranks each hold rows of one
+// batch runs each stage on its own and, between them, sums the stage's two
+// BN sums over the ranks: then stages 2 and 3 start by rewriting the means
+// from those sums (`reduced`, [2][F]) and the global row count (`gcount`,
+// one fp32 on the device).  With reduced == nullptr a stage launches the
+// same kernels as the one call.  dWs, dWt and the BN sums [4][F] (S_g1,
+// S_gx1, S_g2, S_gx2) go to `out` at the plan's offsets, the rest of the
+// scratch to f32.
 template <typename T>
-int run(const T* x, const T* g, GView gv, const Params& in, float eps, float* f32,
-        T* act, T* dx, const SepPlan& p, cudaStream_t st) {
+int run(int first, int last, const T* x, const T* g, GView gv, const Params& in, float eps,
+        float* f32, float* out, T* act, T* dx, const SepPlan& p, const float* reduced,
+        const float* gcount, cudaStream_t st) {
   const int C = (int)p.C, F = (int)p.F;
   T *w1 = act + p.o_w1, *w2 = act + p.o_w2, *w3 = act + p.o_w3, *w4 = act + p.o_w4;
   T* y1 = act + p.o_y1;
@@ -659,8 +691,8 @@ int run(const T* x, const T* g, GView gv, const Params& in, float eps, float* f3
   T* dz1 = act + p.o_dz1;   // dz1, then dy1 in place
   float *bn1 = f32 + p.o_bn1, *bn2 = f32 + p.o_bn2, *m1 = f32 + p.o_m1, *m2 = f32 + p.o_m2;
   float *part = f32 + p.o_part, *wpart = f32 + p.o_wpart;
-  float *dws = f32 + p.o_dws, *dwt = f32 + p.o_dwt;
-  float *s1 = f32 + p.o_sums, *s2 = s1 + 2 * F;   // [2][F] each: S_g, S_gx
+  float *dws = out + p.o_dws, *dwt = out + p.o_dwt;
+  float *s1 = out + p.o_sums, *s2 = s1 + 2 * F;   // [2][F] each: S_g, S_gx
   const Rows rows{(int)p.T, (int)p.H, (int)p.W, (int)(p.B * p.T * p.H * p.W)};
   const long long elems = (long long)rows.m * F;
   const float count = (float)rows.m;
@@ -668,52 +700,67 @@ int run(const T* x, const T* g, GView gv, const Params& in, float eps, float* f3
   const GView dense = make_view(rows.nt, rows.nh, rows.nw,   // a [rows][F] scratch
                                 (long long)rows.nt * rows.nh * rows.nw * F,
                                 (long long)rows.nh * rows.nw * F, (long long)rows.nw * F, F, 1, 1);
+  const bool s1_on = first <= 1 && 1 <= last, s2_on = first <= 2 && 2 <= last,
+             s3_on = first <= 3 && 3 <= last;
+  // stages 2 and 3: the means of the sums over every rank
+  auto global_means = [&](float* means) -> int {
+    if (reduced == nullptr) return 0;
+    bn_means_kernel<<<blocks_for(2LL * F), kThreads, 0, st>>>(reduced, gcount, 2 * F, means);
+    return (int)cudaGetLastError();
+  };
 
-  const long long prep_elems = 18LL * C * F + 6LL * F * F + 8LL * F;
-  sep_prep_kernel<T><<<(unsigned)std::min<long long>(blocks_for(prep_elems), 1024), kThreads, 0,
-                       st>>>(in.ws, in.wt, in.g1, in.b1, in.g2, in.b2, in.mu1, in.var1,
-                             in.mu2, in.var2, eps, C, F, w1, w2, w3, w4, bn1, bn2);
-  VGS_CHECK();
+  if (s1_on) {
+    const long long prep_elems = 18LL * C * F + 6LL * F * F + 8LL * F;
+    sep_prep_kernel<T><<<(unsigned)std::min<long long>(blocks_for(prep_elems), 1024), kThreads,
+                         0, st>>>(in.ws, in.wt, in.g1, in.b1, in.g2, in.b2, in.mu1, in.var1,
+                                  in.mu2, in.var2, eps, C, F, w1, w2, w3, w4, bn1, bn2);
+    VGS_CHECK();
+  }
 
   if (p.tc) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       const int bnf = (int)p.bn_f, bnc = (int)p.bn_c;
       const unsigned ew_blocks =
           (unsigned)(((long long)(F / 8) * p.ew_rows + 255) / 256);
-      // sweep 1
-      VGS_TRY(launch_conv(kY1, bnf, mtiles, conv_args(x, w1, C, F, rows, spatial_taps(1),
-                                                      bn1, nullptr, dense, y1, a, nullptr),
-                          st));
-      VGS_TRY(launch_conv(kY2, bnf, mtiles, conv_args(a, w2, F, F, rows, temporal_taps(1),
-                                                      bn2, g, gv, y2, nullptr, part), st));
-      bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s2, m2);
-      VGS_CHECK();
-      // sweep 2
-      tc::bn_bwd_vec_kernel<true><<<ew_blocks, 256, 0, st>>>(
-          y2, g, gv, bn2, m2, F, rows.m, (int)p.ew_rows, y2);
-      VGS_CHECK();
-      VGS_TRY(launch_conv(kDA, bnf, mtiles, conv_args(y2, w3, F, F, rows, temporal_taps(-1),
-                                                      bn1, y1, dense, dz1, nullptr, part),
-                          st));
-      bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s1, m1);
-      VGS_CHECK();
-      VGS_TRY(launch_wgrad(true, (int)p.wbm_t, (int)p.wbn_t, (int)p.splits_t, (int)p.rps_t,
-                           a, F, y2, F, rows, wpart, st));
-      split_sum_kernel<<<blocks_for(3LL * F * F), kThreads, 0, st>>>(
-          wpart, (int)p.splits_t, 3, F, F, dwt);
-      VGS_CHECK();
-      // sweep 3
-      tc::bn_bwd_vec_kernel<false><<<ew_blocks, 256, 0, st>>>(
-          y1, dz1, dense, bn1, m1, F, rows.m, (int)p.ew_rows, dz1);
-      VGS_CHECK();
-      VGS_TRY(launch_conv(kDX, bnc, mtiles, conv_args(dz1, w4, F, C, rows, spatial_taps(-1),
-                                                      nullptr, nullptr, dense, dx, nullptr,
-                                                      nullptr), st));
-      VGS_TRY(launch_wgrad(false, (int)p.wbm_s, (int)p.wbn_s, (int)p.splits_s, (int)p.rps_s,
-                           x, C, dz1, F, rows, wpart, st));
-      split_sum_kernel<<<blocks_for(9LL * C * F), kThreads, 0, st>>>(
-          wpart, (int)p.splits_s, 9, C, F, dws);
-      VGS_CHECK();
+      if (s1_on) {   // sweep 1
+        VGS_TRY(launch_conv(kY1, bnf, mtiles, conv_args(x, w1, C, F, rows, spatial_taps(1),
+                                                        bn1, nullptr, dense, y1, a, nullptr),
+                            st));
+        VGS_TRY(launch_conv(kY2, bnf, mtiles, conv_args(a, w2, F, F, rows, temporal_taps(1),
+                                                        bn2, g, gv, y2, nullptr, part), st));
+        bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s2, m2);
+        VGS_CHECK();
+      }
+      if (s2_on) {   // sweep 2
+        VGS_TRY(global_means(m2));
+        tc::bn_bwd_vec_kernel<true><<<ew_blocks, 256, 0, st>>>(
+            y2, g, gv, bn2, m2, F, rows.m, (int)p.ew_rows, y2);
+        VGS_CHECK();
+        VGS_TRY(launch_conv(kDA, bnf, mtiles, conv_args(y2, w3, F, F, rows, temporal_taps(-1),
+                                                        bn1, y1, dense, dz1, nullptr, part),
+                            st));
+        bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s1, m1);
+        VGS_CHECK();
+        VGS_TRY(launch_wgrad(true, (int)p.wbm_t, (int)p.wbn_t, (int)p.splits_t, (int)p.rps_t,
+                             a, F, y2, F, rows, wpart, st));
+        split_sum_kernel<<<blocks_for(3LL * F * F), kThreads, 0, st>>>(
+            wpart, (int)p.splits_t, 3, F, F, dwt);
+        VGS_CHECK();
+      }
+      if (s3_on) {   // sweep 3
+        VGS_TRY(global_means(m1));
+        tc::bn_bwd_vec_kernel<false><<<ew_blocks, 256, 0, st>>>(
+            y1, dz1, dense, bn1, m1, F, rows.m, (int)p.ew_rows, dz1);
+        VGS_CHECK();
+        VGS_TRY(launch_conv(kDX, bnc, mtiles, conv_args(dz1, w4, F, C, rows, spatial_taps(-1),
+                                                        nullptr, nullptr, dense, dx, nullptr,
+                                                        nullptr), st));
+        VGS_TRY(launch_wgrad(false, (int)p.wbm_s, (int)p.wbn_s, (int)p.splits_s,
+                             (int)p.rps_s, x, C, dz1, F, rows, wpart, st));
+        split_sum_kernel<<<blocks_for(9LL * C * F), kThreads, 0, st>>>(
+            wpart, (int)p.splits_s, 9, C, F, dws);
+        VGS_CHECK();
+      }
       return 0;
     } else {
       return (int)cudaErrorInvalidValue;   // the tc route is bf16 only
@@ -722,25 +769,26 @@ int run(const T* x, const T* g, GView gv, const Params& in, float eps, float* f3
 
   const dim3 grid_f(mtiles, (F + BN - 1) / BN);
   const dim3 grid_c(mtiles, (C + BN - 1) / BN);
-  // sweep 1
-  conv_taps_kernel<T, kY1><<<grid_f, kThreads, 0, st>>>(
-      x, w1, C, F, rows, spatial_taps(1), bn1, nullptr, dense, y1, a, nullptr);
-  VGS_CHECK();
-  conv_taps_kernel<T, kY2><<<grid_f, kThreads, 0, st>>>(
-      a, w2, F, F, rows, temporal_taps(1), bn2, g, gv, y2, nullptr, part);
-  VGS_CHECK();
-  bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s2, m2);
-  VGS_CHECK();
-  // sweep 2
-  bn_bwd_kernel<T, true><<<blocks_for(elems), kThreads, 0, st>>>(
-      y2, g, gv, bn2, m2, F, elems, y2);
-  VGS_CHECK();
-  conv_taps_kernel<T, kDA><<<grid_f, kThreads, 0, st>>>(
-      y2, w3, F, F, rows, temporal_taps(-1), bn1, y1, dense, dz1, nullptr, part);
-  VGS_CHECK();
-  bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s1, m1);
-  VGS_CHECK();
-  {
+  if (s1_on) {   // sweep 1
+    conv_taps_kernel<T, kY1><<<grid_f, kThreads, 0, st>>>(
+        x, w1, C, F, rows, spatial_taps(1), bn1, nullptr, dense, y1, a, nullptr);
+    VGS_CHECK();
+    conv_taps_kernel<T, kY2><<<grid_f, kThreads, 0, st>>>(
+        a, w2, F, F, rows, temporal_taps(1), bn2, g, gv, y2, nullptr, part);
+    VGS_CHECK();
+    bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s2, m2);
+    VGS_CHECK();
+  }
+  if (s2_on) {   // sweep 2
+    VGS_TRY(global_means(m2));
+    bn_bwd_kernel<T, true><<<blocks_for(elems), kThreads, 0, st>>>(
+        y2, g, gv, bn2, m2, F, elems, y2);
+    VGS_CHECK();
+    conv_taps_kernel<T, kDA><<<grid_f, kThreads, 0, st>>>(
+        y2, w3, F, F, rows, temporal_taps(-1), bn1, y1, dense, dz1, nullptr, part);
+    VGS_CHECK();
+    bn_sums_kernel<<<2 * F, kThreads, 0, st>>>(part, mtiles, F, count, s1, m1);
+    VGS_CHECK();
     const dim3 grid((F + BM - 1) / BM, (F + BN - 1) / BN, 3 * (int)p.splits_t);
     wgrad_taps_kernel<T><<<grid, kThreads, 0, st>>>(
         a, F, y2, F, rows, temporal_taps(1), (int)p.splits_t, (int)p.rps_t, wpart);
@@ -749,14 +797,14 @@ int run(const T* x, const T* g, GView gv, const Params& in, float eps, float* f3
         wpart, (int)p.splits_t, 3, F, F, dwt);
     VGS_CHECK();
   }
-  // sweep 3
-  bn_bwd_kernel<T, false><<<blocks_for(elems), kThreads, 0, st>>>(
-      y1, dz1, dense, bn1, m1, F, elems, dz1);
-  VGS_CHECK();
-  conv_taps_kernel<T, kDX><<<grid_c, kThreads, 0, st>>>(
-      dz1, w4, F, C, rows, spatial_taps(-1), nullptr, nullptr, dense, dx, nullptr, nullptr);
-  VGS_CHECK();
-  {
+  if (s3_on) {   // sweep 3
+    VGS_TRY(global_means(m1));
+    bn_bwd_kernel<T, false><<<blocks_for(elems), kThreads, 0, st>>>(
+        y1, dz1, dense, bn1, m1, F, elems, dz1);
+    VGS_CHECK();
+    conv_taps_kernel<T, kDX><<<grid_c, kThreads, 0, st>>>(
+        dz1, w4, F, C, rows, spatial_taps(-1), nullptr, nullptr, dense, dx, nullptr, nullptr);
+    VGS_CHECK();
     const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, 9 * (int)p.splits_s);
     wgrad_taps_kernel<T><<<grid, kThreads, 0, st>>>(
         x, C, dz1, F, rows, spatial_taps(1), (int)p.splits_s, (int)p.rps_s, wpart);
@@ -766,6 +814,32 @@ int run(const T* x, const T* g, GView gv, const Params& in, float eps, float* f3
     VGS_CHECK();
   }
   return 0;
+}
+
+int dispatch(int first, int last, const void* x, const void* g, const void* ws,
+             const void* wt, const void* g1, const void* b1, const void* g2, const void* b2,
+             const void* mu1, const void* var1, const void* mu2, const void* var2, void* f32,
+             void* out, void* act, void* dx, const long long* plan, long long g_sb,
+             long long g_cs, long long g_st, long long g_sh, long long g_sw, int g_vec,
+             float eps, const void* reduced, const void* gcount, void* stream) {
+  SepPlan p;
+  memcpy(&p, plan, sizeof p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* q) { return static_cast<const float*>(q); };
+  const Params in{f(ws), f(wt), f(g1), f(b1), f(g2), f(b2), f(mu1), f(var1), f(mu2), f(var2)};
+  float* buf = static_cast<float*>(f32);
+  float* o = static_cast<float*>(out);
+  const GView gv =
+      make_view((int)p.T, (int)p.H, (int)p.W, g_sb, g_st, g_sh, g_sw, g_cs, g_vec);
+  if (p.is_bf16) {
+    using bf = __nv_bfloat16;
+    return run<bf>(first, last, static_cast<const bf*>(x), static_cast<const bf*>(g), gv, in,
+                   eps, buf, o, static_cast<bf*>(act), static_cast<bf*>(dx), p, f(reduced),
+                   f(gcount), st);
+  }
+  return run<float>(first, last, static_cast<const float*>(x), static_cast<const float*>(g),
+                    gv, in, eps, buf, o, static_cast<float*>(act), static_cast<float*>(dx), p,
+                    f(reduced), f(gcount), st);
 }
 
 }  // namespace
@@ -781,7 +855,7 @@ extern "C" int vgs_sepconv_plan_fields() { return (int)(sizeof(SepPlan) / sizeof
 // means, partials; the outputs dWs (F, C, 1, 3, 3), dWt (F, F, 3, 1, 1)
 // and the BN sums [4][F] = S_g1, S_gx1, S_g2, S_gx2), act the compute-dtype
 // buffer (w1..w4, y1, a, y2, dz1), at the plan's offsets; dx (B, T, H, W,
-// C) in the compute dtype.
+// C) in the compute dtype.  All three stages, no reduce between them.
 extern "C" int vgs_sepconv_bwd(const void* x, const void* g, const void* ws, const void* wt,
                                const void* g1, const void* b1, const void* g2,
                                const void* b2, const void* mu1, const void* var1,
@@ -789,19 +863,30 @@ extern "C" int vgs_sepconv_bwd(const void* x, const void* g, const void* ws, con
                                void* dx, const long long* plan, long long g_sb,
                                long long g_cs, long long g_st, long long g_sh,
                                long long g_sw, int g_vec, float eps, void* stream) {
-  SepPlan p;
-  memcpy(&p, plan, sizeof p);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* q) { return static_cast<const float*>(q); };
-  const Params in{f(ws), f(wt), f(g1), f(b1), f(g2), f(b2), f(mu1), f(var1), f(mu2), f(var2)};
-  float* buf = static_cast<float*>(f32);
-  const GView gv =
-      make_view((int)p.T, (int)p.H, (int)p.W, g_sb, g_st, g_sh, g_sw, g_cs, g_vec);
-  if (p.is_bf16) {
-    using bf = __nv_bfloat16;
-    return run<bf>(static_cast<const bf*>(x), static_cast<const bf*>(g), gv, in, eps,
-                   buf, static_cast<bf*>(act), static_cast<bf*>(dx), p, st);
-  }
-  return run<float>(static_cast<const float*>(x), static_cast<const float*>(g), gv, in,
-                    eps, buf, static_cast<float*>(act), static_cast<float*>(dx), p, st);
+  return dispatch(1, 3, x, g, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, f32, f32, act, dx,
+                  plan, g_sb, g_cs, g_st, g_sh, g_sw, g_vec, eps, nullptr, nullptr, stream);
 }
+
+// One stage of the call above, with the arguments of vgs_sepconv_bwd and
+// two buffers more: out (fp32) takes dWs, dWt and the BN sums at their plan
+// offsets (f32 keeps the rest of the scratch); reduced ([2][F] fp32, or
+// null) holds the previous stage's two sums over every rank (stage 2: S_g2,
+// S_gx2; stage 3: S_g1, S_gx1) and gcount (one fp32) the global row count.
+// Every stage reads the buffers the earlier ones wrote, so a call runs
+// stages 1, 2, 3 in order on one stream, with the same plan and buffers.
+#define VGS_STAGE_ENTRY(NAME, S)                                                           \
+  extern "C" int NAME(const void* x, const void* g, const void* ws, const void* wt,        \
+                      const void* g1, const void* b1, const void* g2, const void* b2,      \
+                      const void* mu1, const void* var1, const void* mu2,                  \
+                      const void* var2, void* f32, void* out, void* act, void* dx,         \
+                      const long long* plan, long long g_sb, long long g_cs,               \
+                      long long g_st, long long g_sh, long long g_sw, int g_vec,           \
+                      float eps, const void* reduced, const void* gcount, void* stream) { \
+    return dispatch(S, S, x, g, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, f32, out,   \
+                    act, dx, plan, g_sb, g_cs, g_st, g_sh, g_sw, g_vec, eps, reduced,      \
+                    gcount, stream);                                                       \
+  }
+VGS_STAGE_ENTRY(vgs_sepconv_bwd_stage1, 1)
+VGS_STAGE_ENTRY(vgs_sepconv_bwd_stage2, 2)
+VGS_STAGE_ENTRY(vgs_sepconv_bwd_stage3, 3)
+#undef VGS_STAGE_ENTRY

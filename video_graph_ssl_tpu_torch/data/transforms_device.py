@@ -19,6 +19,14 @@ colour jitter in one of the 24 op orders (one order per group of clips, as
 in the JAX package), grayscale, separable Gaussian blur, horizontal flip,
 normalise.  Works on the clips' device in the compute dtype.
 
+Stacked clips (``INPUT.NEW_LENGTH`` > 1) carry C = 3 x new_length (RGB,
+RGBDiff) or 2 x new_length (Flow) channels.  Where C is a multiple of 3 the
+colour ops see each group of 3 as a frame, with one set of factors for the
+whole stack (JAX ``ssl_augment_cf``); otherwise (Flow) they are skipped.
+Normalisation tiles the 3-channel statistics over RGB groups, or takes
+their mean for every Flow channel (:func:`expand_stats`), and the ``train``
+chain's flip of a Flow clip inverts its x-flow channels in pixel space.
+
 The downstream chains work on (N, T, H, W, C) float32 pixels, as the JAX
 ones do, and return float32.  The ``train`` chain's draws (a MultiScaleCrop
 size pair and one of 13 offsets, a flip) are likewise apart from their
@@ -253,14 +261,39 @@ def _blur(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ntchw,nhk->ntckw", x, bh)
 
 
+def expand_stats(vals: Sequence[float], n_channels: int) -> Tuple[float, ...]:
+    """Per-channel statistics for a clip of ``n_channels`` stacked
+    channels (JAX ``expand_stats``): as given for as many channels, tiled
+    over groups when their count divides it, else their mean for every
+    channel (Flow's 2 x new_length)."""
+    vals = tuple(float(v) for v in vals)
+    if n_channels == len(vals):
+        return vals
+    if n_channels % len(vals) == 0:
+        return vals * (n_channels // len(vals))
+    m = sum(vals) / len(vals)
+    return (m,) * n_channels
+
+
+def flow_flip(x: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip of Flow pixels (N, T, H, W, C) in [0, 255]: the x-flow
+    channels (even indices of the x/y interleave) are inverted, as flipping
+    reverses horizontal motion (JAX ``random_horizontal_flip(is_flow=True)``)."""
+    x = x.flip(3)
+    inverted = 255.0 - x[..., 0::2]
+    out = x.clone()
+    out[..., 0::2] = inverted
+    return out
+
+
 def apply_ssl_augment(clips: torch.Tensor, p: SSLParams, out_hw: Tuple[int, int],
                       mean: Sequence[float], std: Sequence[float],
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(B, V, T, H, W, 3) uint8 (or float pixels) -> (B, V, T, oh, ow, 3) in
-    ``dtype``, normalised."""
+    """(B, V, T, H, W, C) uint8 (or float pixels) -> (B, V, T, oh, ow, C) in
+    ``dtype``, normalised.  C = 3 groups (C = 3g) take the colour ops per
+    group of 3 with the clip's factors; other C (Flow) none."""
     b, v, t, H, W, c = clips.shape
-    if c != 3:
-        raise NotImplementedError("the SSL chain is ported for RGB clips only")
+    groups = c // 3 if c % 3 == 0 else 0
     n = b * v
     oh, ow = out_hw
     x = clips.reshape(n, t, H, W, c).permute(0, 1, 4, 2, 3).to(dtype)
@@ -270,20 +303,26 @@ def apply_ssl_augment(clips: torch.Tensor, p: SSLParams, out_hw: Tuple[int, int]
     x = torch.einsum("nyh,ntchw->ntcyw", wy, x)
     x = torch.einsum("nxw,ntcyw->ntcyx", wx, x)
 
-    groups = p.perm_ids.tolist()
-    per = p.group_rows or n // len(groups)
-    spans = [(max(g * per - p.row0, 0), min((g + 1) * per - p.row0, n), pid)
-             for g, pid in enumerate(groups)]
-    jittered = torch.cat([
-        _jitter_chain(JITTER_PERMS[pid], x[lo:hi],
-                      *(_bc(f[lo:hi]) for f in (p.fb, p.fc, p.fs, p.fh)))
-        for lo, hi, pid in spans if lo < hi])
-    x = torch.where(_bc(p.jitter), jittered, x)
-    x = torch.where(_bc(p.gray), _gray(x), x)
+    if groups:
+        # each group of 3 channels a frame: (n, T, 3g, ...) -> (n, T g, 3, ...)
+        x = x.reshape(n, t * groups, 3, oh, ow)
+        jitter_groups = p.perm_ids.tolist()
+        per = p.group_rows or n // len(jitter_groups)
+        spans = [(max(g * per - p.row0, 0), min((g + 1) * per - p.row0, n), pid)
+                 for g, pid in enumerate(jitter_groups)]
+        jittered = torch.cat([
+            _jitter_chain(JITTER_PERMS[pid], x[lo:hi],
+                          *(_bc(f[lo:hi]) for f in (p.fb, p.fc, p.fs, p.fh)))
+            for lo, hi, pid in spans if lo < hi])
+        x = torch.where(_bc(p.jitter), jittered, x)
+        x = torch.where(_bc(p.gray), _gray(x), x)
     x = torch.where(_bc(p.blur), _blur(x, p.sigma), x)
     x = torch.where(_bc(p.flip), x.flip(-1), x)
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device).reshape(1, 1, c, 1, 1) * 255.0
-    s = torch.tensor(std, dtype=torch.float32, device=x.device).reshape(1, 1, c, 1, 1) * 255.0
+    x = x.reshape(n, t, c, oh, ow)
+    m = torch.tensor(expand_stats(mean, c), dtype=torch.float32,
+                     device=x.device).reshape(1, 1, c, 1, 1) * 255.0
+    s = torch.tensor(expand_stats(std, c), dtype=torch.float32,
+                     device=x.device).reshape(1, 1, c, 1, 1) * 255.0
     x = ((x.float() - m) / s).to(dtype)
     return x.permute(0, 1, 3, 4, 2).reshape(b, v, t, oh, ow, c)
 
@@ -349,12 +388,11 @@ def msc_boxes(p: TrainParams, canvas_hw: Tuple[int, int], pairs) -> torch.Tensor
 
 
 def _normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
-    """(x - 255 mean) / (255 std) over the trailing channel dim."""
+    """(x - 255 mean) / (255 std) over the trailing channel dim, the
+    statistics expanded to its channels (:func:`expand_stats`)."""
     c = x.shape[-1]
-    if len(mean) != c:
-        raise NotImplementedError(f"{c}-channel clips: the chains are ported for RGB")
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device) * 255.0
-    s = torch.tensor(std, dtype=torch.float32, device=x.device) * 255.0
+    m = torch.tensor(expand_stats(mean, c), dtype=torch.float32, device=x.device) * 255.0
+    s = torch.tensor(expand_stats(std, c), dtype=torch.float32, device=x.device) * 255.0
     return (x - m) / s
 
 
@@ -369,14 +407,16 @@ def _resize_boxes(x: torch.Tensor, box: torch.Tensor, out_hw, antialias: bool = 
 
 
 def apply_train_augment(clips: torch.Tensor, p: TrainParams, out_hw: Tuple[int, int],
-                        mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
+                        mean: Sequence[float], std: Sequence[float],
+                        is_flow: bool = False) -> torch.Tensor:
     """(N, T, H, W, C) uint8 -> (N, T, oh, ow, C) float32: MultiScaleCrop
-    (bilinear, no antialias), horizontal flip, normalise (JAX
+    (bilinear, no antialias), horizontal flip (``is_flow``: with the x-flow
+    channels inverted, :func:`flow_flip`), normalise (JAX
     ``train_augment``)."""
     H, W = clips.shape[2:4]
     pairs = msc_crop_pairs(H, W, out_hw)
     x = _resize_boxes(clips.float(), msc_boxes(p, (H, W), pairs), out_hw)
-    x = torch.where(p.flip.reshape(-1, 1, 1, 1, 1), x.flip(3), x)
+    x = torch.where(p.flip.reshape(-1, 1, 1, 1, 1), flow_flip(x) if is_flow else x.flip(3), x)
     return _normalize(x, mean, std)
 
 
@@ -460,7 +500,8 @@ def make_batch_augment_fn(cfg, kind: str) -> Callable:
                                   len(msc_crop_pairs(h, w, out_hw)), flip_p)
             if total != b:
                 p = p.rows(row0, row0 + b)
-            return apply_train_augment(clips, p, out_hw, mean, std)
+            return apply_train_augment(clips, p, out_hw, mean, std,
+                                       is_flow=cfg.INPUT.MODALITY == "Flow")
 
         return train_fn
 

@@ -37,7 +37,6 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..data.transforms_device import make_batch_augment_fn
-from ..models.layers import FUSED_ACROSS_RANKS
 from ..parallel import dist
 from ..solver.build import grad_clip_norm
 from .pretrain import GRAPH_STREAM, _sgd, batch_rows, topk_accuracy
@@ -75,13 +74,7 @@ def make_downstream_train_step(bn_train: bool = True, clip_norm=None) -> Callabl
 def make_fused_downstream_step(cfg, bn_train: bool = True) -> Callable:
     """step(state, raw_clips (b, T, H, W, C) uint8, labels (b,), lr) ->
     metrics, with the ``train`` augmentation drawn on the clips' device
-    from the step's own stream (a rank's rows of the global batch's draw).
-    At a world size above 1 it refuses, before any BN runs, a model whose
-    SepConv pairs would train through K5 (``TPU.SEPCONV_FUSED`` with
-    ``MODEL.NO_PARTIALBN`` in train mode)."""
-    if (cfg.TPU.SEPCONV_FUSED and cfg.MODEL.NO_PARTIALBN and bn_train
-            and dist.world_size() > 1):
-        raise NotImplementedError(FUSED_ACROSS_RANKS)
+    from the step's own stream (a rank's rows of the global batch's draw)."""
     inner = make_downstream_train_step(bn_train, grad_clip_norm(cfg))
     augment = make_batch_augment_fn(cfg, "train")
 

@@ -49,10 +49,9 @@ from ..memory.build import criterion_by_name
 from ..memory.criterion import nce_softmax_loss
 from ..memory.moco import moco_enqueue, moco_logits
 from ..models.build import CMC_NOT_PORTED
-from ..models.layers import FUSED_ACROSS_RANKS
 from ..parallel import dist
 from ..parallel.shuffle_bn import shuffle_bn_keys
-from ..solver.build import grad_clip_norm, set_learning_rate
+from ..solver.build import clip_by_global_norm_, grad_clip_norm, set_learning_rate
 from .train_state import PretrainState, ema_update
 
 GRAPH_STREAM, AUGMENT_STREAM, SHUFFLE_STREAM = 1, 2, 3
@@ -146,7 +145,7 @@ def _sgd(state: PretrainState, loss: torch.Tensor, lr: float, clip_norm) -> None
         loss.backward()
     with record_function("optimizer"):
         if clip_norm is not None:
-            torch.nn.utils.clip_grad_norm_(state.model.parameters(), clip_norm)
+            clip_by_global_norm_(state.model.parameters(), clip_norm)
         set_learning_rate(opt, lr)
         opt.step()
 
@@ -239,8 +238,6 @@ def make_fused_pretrain_step(cfg) -> Callable:
     """step(state, raw_clips (b, 2, T, H, W, C) uint8, lr, index=None) ->
     metrics, with the SSL augmentation drawn on the clips' device from the
     step seed; ``index`` (b,), the clips' dataset indices, feeds the bank."""
-    if cfg.TPU.SEPCONV_FUSED and dist.world_size() > 1:
-        raise NotImplementedError(FUSED_ACROSS_RANKS)
     inner = make_pretrain_step(cfg)
     augment = make_batch_augment_fn(cfg, "ssl")
 

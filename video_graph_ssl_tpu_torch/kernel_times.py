@@ -230,8 +230,9 @@ def pool_output(x, k, s, p):
 
 
 PATTERNS = {"K1": r"adjacency|sim_partial", "K2": r"propagate", "K3/K4": r"maxpool_bwd",
-            "K5": r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|bn_bwd_kernel|"
-                  r"bn_bwd_vec_kernel|split_sum_kernel|sep_prep_kernel|sep_tc_p[1-6]_"}
+            "K5": r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|bn_means_kernel|"
+                  r"bn_bwd_kernel|bn_bwd_vec_kernel|split_sum_kernel|sep_prep_kernel|"
+                  r"sep_tc_p[1-6]_"}
 
 
 def device_us(fn, pattern: str, iters: int = 50) -> float:

@@ -96,10 +96,11 @@ class BNInception(nn.Module):
 
     feature_dim = BNINCEPTION_FEATURE_DIM
 
-    def __init__(self, partial_bn: bool = False, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, partial_bn: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 in_channels: int = 3):
         super().__init__()
         kw = dict(eps=EPS, dtype=dtype)
-        self.conv1 = BasicConv2d(3, 64, 7, 2, 3, **kw)
+        self.conv1 = BasicConv2d(in_channels, 64, 7, 2, 3, **kw)
         self.conv2 = BasicConv2d(64, 64, **kw)
         self.conv3 = BasicConv2d(64, 192, 3, 1, 1, **kw)
         cin = 192

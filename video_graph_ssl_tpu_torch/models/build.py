@@ -3,13 +3,19 @@ the backbones ported so far, the visual pretrain regimes
 (``CONTRAST.MEM_TYPE`` moco, bank, simsiam) and the downstream classifier
 (``create_video_model``).
 
-3D (RGB clips): the reference's exported S3D, S3DG, I3D and InceptionI3d,
+3D: the reference's exported S3D, S3DG, I3D and InceptionI3d,
 the 3D ResNets ``resnet3d_{10..200}``, the factorized ``resnet_i3d_{18,50,
 101}`` and ``resnet2p1d_{10..200}``, and the test backbone tiny3d.  2D
 (``MODEL.BACKBONE_TYPE 2D``, frames folded into the batch and aggregated
 under ``MODEL.POOLING_TYPE``): ``resnet18`` .. ``resnet152``,
 ``bninception`` and ``inception_v3``; a 2D backbone builds no graph block,
-whatever ``MODEL.AUG_FLAG`` says, as in JAX."""
+whatever ``MODEL.AUG_FLAG`` says, as in JAX.
+
+``INPUT.MODALITY`` RGB, Flow or RGBDiff with ``INPUT.NEW_LENGTH`` stacked
+frames per time step (-1: 1 for RGB, 5 otherwise) sets the stem's input
+channels: 3 x new_length for RGB and for RGBDiff (after the difference of
+its new_length + 1 groups), 2 x new_length for Flow (JAX infers them from
+the input)."""
 
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..data.build import resolve_new_length
 from . import resnet2d
 from .bninception import BNINCEPTION_FEATURE_DIM, bninception
 from .i3d import I3D, I3D_FEATURE_DIM
@@ -90,6 +97,18 @@ def graph_cfg_from(cfg) -> Dict[str, Any]:
                 mask_frame=g.MASK_FRAME, nei_size=g.NEI_SIZE)
 
 
+MODALITIES = ("RGB", "Flow", "RGBDiff")
+
+
+def input_channels(cfg) -> int:
+    """The backbone's input channels: 2 per stacked frame for Flow, 3 for
+    RGB and RGBDiff (the latter after :func:`wrappers.rgb_diff`)."""
+    modality = cfg.INPUT.MODALITY
+    if modality not in MODALITIES:
+        raise ValueError(f"INPUT.MODALITY must be one of {MODALITIES}, got {modality}")
+    return (2 if modality == "Flow" else 3) * resolve_new_length(cfg)
+
+
 def _not_ported(btype: str, name: str) -> str:
     """Why ``btype``/``name`` builds nothing."""
     other = "3D" if btype == "2D" else "2D"
@@ -110,13 +129,13 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
     name, btype = cfg.MODEL.BACKBONE, cfg.MODEL.BACKBONE_TYPE
     if name not in BACKBONES.get(btype, {}):
         raise NotImplementedError(_not_ported(btype, name))
-    if cfg.INPUT.MODALITY != "RGB" or int(cfg.INPUT.NEW_LENGTH) not in (-1, 1):
-        raise NotImplementedError("only RGB clips with NEW_LENGTH 1 are ported")
     if cfg.CROSS.MODALITY != "visual":
         raise NotImplementedError(CMC_NOT_PORTED.format(cfg.CROSS.MODALITY))
     ctor, feat_dim, default_aug = BACKBONES[btype][name]
     aug = bool(cfg.MODEL.AUG_FLAG) and btype == "3D"
     extra = {"partial_bn": True} if partial_bn else {}
+    if input_channels(cfg) != 3:
+        extra["in_channels"] = input_channels(cfg)
     if bool(cfg.TPU.SEPCONV_FUSED):
         if name != "S3D":
             # S3DG's biased pairs and the other backbones' convs take the
@@ -132,7 +151,7 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
 
 def _encoder_kw(cfg) -> Dict[str, Any]:
     return dict(dropout=float(cfg.MODEL.DROPOUT), backbone_type=cfg.MODEL.BACKBONE_TYPE,
-                agg_fun=cfg.MODEL.POOLING_TYPE)
+                agg_fun=cfg.MODEL.POOLING_TYPE, modality=cfg.INPUT.MODALITY)
 
 
 def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:

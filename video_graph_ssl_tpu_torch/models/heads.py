@@ -28,6 +28,13 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / norm.clamp_min(eps)
 
 
+def jax_fc(linear: nn.Linear) -> nn.Linear:
+    """Marks a layer the JAX package names ``fc``: the TSN trick groups it
+    with the classifier (``solver/build.py:label_params_trick``)."""
+    linear.jax_fc = True
+    return linear
+
+
 class ProjectHead(nn.Module):
     """Linear or 2-layer MLP + L2 normalise; reference names
     ``head.0`` / ``head.2``."""
@@ -35,7 +42,7 @@ class ProjectHead(nn.Module):
     def __init__(self, in_dim: int, feat_dim: int = 128, head_type: str = "mlp"):
         super().__init__()
         if head_type == "linear":
-            self.head = nn.Sequential(nn.Linear(in_dim, feat_dim))
+            self.head = nn.Sequential(jax_fc(nn.Linear(in_dim, feat_dim)))
         elif head_type == "mlp":
             self.head = nn.Sequential(nn.Linear(in_dim, in_dim), nn.ReLU(),
                                       nn.Linear(in_dim, feat_dim))
@@ -50,7 +57,7 @@ class _DenseBNReLU(nn.Sequential):
     """Linear (``0``) + BN (``1``, fp32) + optional ReLU on (B, C)."""
 
     def __init__(self, in_dim: int, out_dim: int, relu: bool = True):
-        super().__init__(nn.Linear(in_dim, out_dim),
+        super().__init__(jax_fc(nn.Linear(in_dim, out_dim)),
                          BatchNorm(out_dim, HEAD_BN_MOMENTUM, HEAD_BN_EPS,
                                    dtype=torch.float32))
         self.relu = relu

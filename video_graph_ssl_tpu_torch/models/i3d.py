@@ -73,11 +73,12 @@ class I3D(StagedBackbone):
 
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
-                 dtype: torch.dtype = torch.bfloat16, partial_bn: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, partial_bn: bool = False,
+                 in_channels: int = 3):
         super().__init__()
         kw = dict(dtype=dtype)
         stem = [
-            Unit3D(3, 64, 7, 2, **kw),
+            Unit3D(in_channels, 64, 7, 2, **kw),
             MaxPool3d((1, 3, 3), (1, 2, 2), "SAME"),
             Unit3D(64, 64, 1, **kw),
             Unit3D(64, 192, 3, **kw),

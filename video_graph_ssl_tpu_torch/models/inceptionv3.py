@@ -140,10 +140,11 @@ class InceptionV3(nn.Module):
 
     feature_dim = INCEPTIONV3_FEATURE_DIM
 
-    def __init__(self, partial_bn: bool = False, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, partial_bn: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 in_channels: int = 3):
         super().__init__()
         kw = dict(dtype=dtype)
-        self.Conv2d_1a_3x3 = _cbr(3, 32, 3, 2, **kw)
+        self.Conv2d_1a_3x3 = _cbr(in_channels, 32, 3, 2, **kw)
         self.Conv2d_2a_3x3 = _cbr(32, 32, 3, **kw)
         self.Conv2d_2b_3x3 = _cbr(32, 64, 3, padding=1, **kw)
         self.Conv2d_3b_1x1 = _cbr(64, 80, **kw)

@@ -30,13 +30,6 @@ from ..ops import fused_sepconv, maxpool
 from ..parallel import dist, sync_bn
 
 
-# K5's batch statistics and BN sums are reduced within one call of all three
-# sweeps, so they cannot span ranks yet
-FUSED_ACROSS_RANKS = ("TPU.SEPCONV_FUSED True is not ported across ranks (K5 would need "
-                      "its BN sums all-reduced between its sweeps): ROADMAP.md, Queue 1, "
-                      "item 3b, K5 across ranks")
-
-
 def _triple(v) -> Tuple[int, int, int]:
     if isinstance(v, (tuple, list)):
         assert len(v) == 3
@@ -77,6 +70,7 @@ class BatchNorm(nn.Module):
     JAX package's sharded step does, and every rank's running statistics
     take the same global update; ``per_rank`` (set only by
     ``sync_bn.per_rank_bn``, for ShuffleBN's key pass) keeps them local.
+    :meth:`global_batch` says which of the two a train-mode pass takes.
 
     ``frozen`` (partial BN, :func:`freeze_bn_`): train mode normalises with
     the running statistics and leaves them as they are, as eval mode does;
@@ -98,6 +92,12 @@ class BatchNorm(nn.Module):
         self.sum_form = False
         self.frozen = False
 
+    def global_batch(self) -> bool:
+        """Whether train mode takes its statistics through the global-batch
+        sums (ranks, or ``sync_bn.sum_form_bn``) rather than this rank's
+        rows alone."""
+        return not self.per_rank and (self.sum_form or dist.world_size() > 1)
+
     def forward(self, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
         if channel_dim not in (1, x.dim() - 1, -1):
@@ -110,7 +110,7 @@ class BatchNorm(nn.Module):
         pd = torch.float64 if x.dtype == torch.float64 else torch.float32
         w, b = self.weight.to(pd), self.bias.to(pd)
         live = self.training and not self.frozen
-        if live and not self.per_rank and (self.sum_form or dist.world_size() > 1):
+        if live and self.global_batch():
             y, mean, var = sync_bn.SyncBatchNormFn.apply(x, w, b, self.eps, None)
             with torch.no_grad():
                 m = self.momentum
@@ -239,7 +239,10 @@ class SepConv3d(nn.Module):
     ``fused_bwd`` (``TPU.SEPCONV_FUSED``) routes a (k, s, p) == (3, 1, 1)
     instance through ``ops/fused_sepconv.py``: in train mode the pair is one
     autograd function whose backward is the three-sweep kernel K5 on CUDA
-    tensors, with flax's fast-variance batch statistics.  Eval mode, and
+    tensors, with flax's fast-variance batch statistics, taken over the
+    global batch when the pair's BNs take theirs there (ranks, or
+    ``sync_bn.sum_form_bn``; ShuffleBN's key pass keeps each rank's own,
+    ``sync_bn.per_rank_bn``).  Eval mode, and
     other shapes (the k=7 stem), take the standard path, which in eval mode
     is the same running-statistics composition.  So does a pair whose BNs
     are frozen (partial BN) in train mode: K5 computes the backward of
@@ -281,12 +284,10 @@ class SepConv3d(nn.Module):
         return x
 
     def _fused_train(self, x: torch.Tensor) -> torch.Tensor:
-        if dist.world_size() > 1:
-            raise NotImplementedError(FUSED_ACROSS_RANKS)
         bs, bt = self.bn_s, self.bn_t
         out, (mu1, var1, mu2, var2) = fused_sepconv.fused_sepconv_train(
             x, self.conv_s.weight, self.conv_t.weight, bs.weight, bs.bias,
-            bt.weight, bt.bias, self.dtype)
+            bt.weight, bt.bias, self.dtype, sync=bs.global_batch())
         with torch.no_grad():   # flax momentum, biased variance
             for bn, mu, var in ((bs, mu1, var1), (bt, mu2, var2)):
                 m = bn.momentum

@@ -109,10 +109,10 @@ class ResNet2D(nn.Module):
     stem's ``bn1`` stays live (JAX ``ResNet2D``)."""
 
     def __init__(self, block: str, layers: Sequence[int], partial_bn: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
         super().__init__()
         block_cls = BasicBlock2d if block == "basic" else Bottleneck2d
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.feature_dim = make_layers(self, block_cls, layers, dtype)[-1]
         self.dtype = dtype

@@ -103,9 +103,12 @@ class ResNet2Plus1D(ResNetStages):
 
     def __init__(self, layers: Sequence[int], block_type: str = "basic",
                  aug_points: Tuple[int, ...] = (), graph_cfg: Optional[Dict[str, Any]] = None,
-                 partial_bn: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 partial_bn: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 in_channels: int = 3):
         super().__init__()
-        self.conv1_s = nn.Conv3d(3, STEM_MID, (1, 7, 7), (1, 2, 2), (0, 3, 3), bias=False)
+        # the stem's mid width is the RGB stem's whatever the input (JAX
+        # resnet2p1d.py:142)
+        self.conv1_s = nn.Conv3d(in_channels, STEM_MID, (1, 7, 7), (1, 2, 2), (0, 3, 3), bias=False)
         self.bn1_s = _bn(STEM_MID)
         self.conv1_t = nn.Conv3d(STEM_MID, 64, (7, 1, 1), 1, (3, 0, 0), bias=False)
         self.bn1_t = _bn(64)

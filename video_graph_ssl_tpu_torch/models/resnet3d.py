@@ -212,9 +212,9 @@ class ResNet3D(ResNetStages):
 
     def __init__(self, block: str, layers: Sequence[int], aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None, partial_bn: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
         super().__init__()
-        self.conv1 = nn.Conv3d(3, 64, 7, (1, 2, 2), 3, bias=False)
+        self.conv1 = nn.Conv3d(in_channels, 64, 7, (1, 2, 2), 3, bias=False)
         self.bn1 = _bn(64)
         self._stages(BLOCKS[block], layers, aug_points, graph_cfg, partial_bn, dtype)
 

@@ -140,12 +140,12 @@ class S3D(StagedBackbone):
                  graph_cfg: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  fused_sepconv: bool = False, partial_bn: bool = False,
-                 temporal_bias: bool = False):
+                 temporal_bias: bool = False, in_channels: int = 3):
         super().__init__()
         kw = dict(dtype=dtype)
         skw = dict(temporal_bias=temporal_bias, **kw)
         stem = [
-            SepConv3d(3, 64, 7, 2, 3, **skw),
+            SepConv3d(in_channels, 64, 7, 2, 3, **skw),
             MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
             BasicConv3d(64, 64, 1, **kw),
             SepConv3d(64, 192, 3, 1, 1, **skw),

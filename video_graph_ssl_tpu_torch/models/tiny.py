@@ -20,9 +20,10 @@ TINY3D_FEATURE_DIM = 64
 class Tiny3D(nn.Module):
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
-                 dtype: torch.dtype = torch.bfloat16, partial_bn: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, partial_bn: bool = False,
+                 in_channels: int = 3):
         super().__init__()
-        self.stage0 = BasicConv3d(3, 16, 3, 2, 1, dtype=dtype)
+        self.stage0 = BasicConv3d(in_channels, 16, 3, 2, 1, dtype=dtype)
         self.aug_points = tuple(int(i) for i in aug_points)
         if 1 in self.aug_points:
             self.graph_aug_1 = TemporalGraphAug(16, dtype=dtype,

@@ -31,6 +31,15 @@ Rows = Optional[Tuple[int, int]]
 DROPOUT_STAGE = 16
 
 
+def rgb_diff(x: torch.Tensor, n_channels: int = 3) -> torch.Tensor:
+    """RGBDiff (JAX ``rgb_diff``): clips (..., C (new_length + 1)) of
+    channel-stacked frame groups -> (..., C new_length), each group minus
+    the one before it (the dataset loads the extra group)."""
+    groups = x.reshape(tuple(x.shape[:-1]) + (-1, n_channels))
+    d = groups[..., 1:, :] - groups[..., :-1, :]
+    return d.reshape(tuple(x.shape[:-1]) + (-1,))
+
+
 def keyed_dropout(x: torch.Tensor, p: float, seed: int, rows: Rows = None) -> torch.Tensor:
     """Dropout of rate ``p`` whose keep mask is drawn from ``seed`` (with
     ``rows``, those rows of the global batch's draw), so a step's mask is
@@ -48,10 +57,12 @@ class VisualEncoder(nn.Module):
     B x T frames as one batch, its (B, T, D) features are aggregated over T
     under ``agg_fun`` (``MODEL.POOLING_TYPE``: avg or max), as in JAX
     ``wrappers.py:84-88``; a 3D backbone ignores ``agg_fun``.  The dropout
-    runs in train mode only, keyed on the pass's ``graph_seed``."""
+    runs in train mode only, keyed on the pass's ``graph_seed``.  Under
+    ``modality`` RGBDiff the clips' stacked frame groups become their
+    differences first (:func:`rgb_diff`, JAX ``wrappers.py:73-74``)."""
 
     def __init__(self, backbone: nn.Module, dropout: float = 0.0,
-                 backbone_type: str = "3D", agg_fun: str = "avg"):
+                 backbone_type: str = "3D", agg_fun: str = "avg", modality: str = "RGB"):
         super().__init__()
         if backbone_type not in ("2D", "3D"):
             raise ValueError(f"Backbone type must be 2D or 3D, got {backbone_type}")
@@ -59,9 +70,12 @@ class VisualEncoder(nn.Module):
         self.dropout = float(dropout)
         self.backbone_type = backbone_type
         self.agg_fun = agg_fun
+        self.modality = modality
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Rows = None) -> torch.Tensor:
+        if self.modality == "RGBDiff":
+            x = rgb_diff(x)
         if self.backbone_type == "2D":
             b, t = x.shape[:2]
             feat = self.base_model(x.reshape((b * t,) + tuple(x.shape[2:])))
@@ -81,8 +95,9 @@ class VideoModel(VisualEncoder):
     ``encode`` the encoder's features."""
 
     def __init__(self, backbone: nn.Module, feat_dim: int, num_classes: int,
-                 dropout: float = 0.0, backbone_type: str = "3D", agg_fun: str = "avg"):
-        super().__init__(backbone, dropout, backbone_type, agg_fun)
+                 dropout: float = 0.0, backbone_type: str = "3D", agg_fun: str = "avg",
+                 modality: str = "RGB"):
+        super().__init__(backbone, dropout, backbone_type, agg_fun, modality)
         self.new_fc = nn.Linear(feat_dim, num_classes)
 
     def encode(self, x: torch.Tensor, graph_seed: int = 0,

@@ -54,6 +54,11 @@ SIGNATURES = {
     # compute-dtype buffer, dx, plan (int64 array), g's five strides,
     # g_vec, eps, stream
     "vgs_sepconv_bwd": (_P,) * 16 + (_L,) * 5 + (_I, _F, _P),
+    # one stage of it (1, 2, 3): the same arguments with the fp32 output
+    # buffer after the f32 one, and the reduced sums and global count
+    # (null on one process) before the stream
+    **{f"vgs_sepconv_bwd_stage{s}": (_P,) * 17 + (_L,) * 5 + (_I, _F, _P, _P, _P)
+       for s in (1, 2, 3)},
     # fields of the plan array vgs_sepconv_bwd reads
     "vgs_sepconv_plan_fields": (),
 }

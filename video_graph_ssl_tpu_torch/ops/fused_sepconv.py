@@ -25,6 +25,17 @@ squares in fp32, variance clamped at 0), and the BN arithmetic runs in fp32
 for every compute dtype, as in the JAX module, so the running statistics of
 the fused path match JAX's fused path.
 
+``sync`` (the mode of the pair's ``BatchNorm``s: ranks, or
+``sync_bn.sum_form_bn`` on one process) takes both BNs over the global
+batch, as the JAX package's fused pair does under a multi-device mesh: the
+forward sums count, sum y and sum y^2 in fp32 over the ranks of the default
+group (one all-reduce per BN, as ``SyncBatchNormFn``), and the backward
+sums each of its two pairs of BN sums over the ranks between its sweeps
+(``bwd_reference`` split at its sums; the kernel in three stages) and
+divides them by the global row count.  The weight and BN-parameter
+gradients stay the rank's own sums, for ``DistributedDataParallel`` to
+average.
+
 Tensors are ``(B, C, T, H, W)`` (the backbone's ``channels_last_3d``
 activations) and the weights keep PyTorch's layout: ``ws (F, C, 1, 3, 3)``,
 ``wt (F, F, 3, 1, 1)``; BN parameters and statistics are ``(F,)``.
@@ -37,6 +48,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sync_bn
 from . import sepconv_bwd
 
 EPS = 1e-3  # BN epsilon of the S3D family
@@ -65,19 +77,42 @@ def _stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mu, torch.clamp(mu2 - mu * mu, min=0.0)
 
 
+def _global_stats(y: torch.Tensor, reduce: bool):
+    """The fast-variance statistics over every rank's rows (``reduce``: of
+    the default group) from count, sum y and sum y^2 in fp32; returns (mu,
+    var, count), count an (F,) fp32 tensor of the global row count."""
+    yf = y.float()
+    stats = torch.stack([yf.sum(dim=_DIMS), (yf * yf).sum(dim=_DIMS),
+                         torch.full_like(yf[0, :, 0, 0, 0], float(yf.numel() // yf.shape[1]))])
+    del yf
+    if reduce:
+        sync_bn.all_reduce_sums(stats)
+    count = stats[2]
+    mu = stats[0] / count
+    return mu, torch.clamp(stats[1] / count - mu * mu, min=0.0), count
+
+
 def bn_relu(y: torch.Tensor, mu, var, gamma, beta, dtype) -> torch.Tensor:
     z = (y - _bc(mu)) * _bc(torch.rsqrt(var + EPS) * gamma) + _bc(beta)
     return torch.clamp(z, min=0.0).to(dtype)
 
 
-def sepconv_fwd_core(x, ws, wt, g1, b1, g2, b2, dtype):
-    """Forward returning (out, (mu1, var1, mu2, var2))."""
+def sepconv_fwd_core(x, ws, wt, g1, b1, g2, b2, dtype, sync: bool = False,
+                     reduce: bool = False):
+    """Forward returning (out, (mu1, var1, mu2, var2)), and with ``sync``
+    the global row count as well: (out, stats, count).  ``reduce``: the
+    statistics are summed over the ranks of the default group."""
     y1 = conv_s(x.to(dtype), ws.to(dtype))
-    mu1, var1 = _stats(y1)
+    if sync:
+        mu1, var1, count = _global_stats(y1, reduce)
+    else:
+        mu1, var1 = _stats(y1)
     a = bn_relu(y1.float(), mu1, var1, g1, b1, dtype)
     y2 = conv_t(a, wt.to(dtype))
-    mu2, var2 = _stats(y2)
+    mu2, var2 = _global_stats(y2, reduce)[:2] if sync else _stats(y2)
     out = bn_relu(y2.float(), mu2, var2, g2, b2, dtype)
+    if sync:
+        return out, (mu1, var1, mu2, var2), count
     return out, (mu1, var1, mu2, var2)
 
 
@@ -111,14 +146,31 @@ def _dw_spatial(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)[:, :, None]
 
 
-def bwd_reference(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype):
+def _means(s_g, s_gx, n, reduce):
+    """(mean of S_g, mean of S_gx) over n rows; with ``reduce``, of the sums
+    over every rank (a copy of the local ones, summed in place)."""
+    if reduce is None:
+        return s_g / n, s_gx / n
+    total = torch.stack([s_g, s_gx])
+    reduce(total)
+    return total[0] / n, total[1] / n
+
+
+def bwd_reference(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype,
+                  count=None, reduce=None):
     """Plain PyTorch version of the three sweeps (the kernel's oracle).
 
     Returns (dx, dWs, dWt, dgamma1, dbeta1, dgamma2, dbeta2); the cast
     points are the JAX ``_bwd_reference``'s: y1, y2 and every conv output
     in the compute dtype, a, dy2 and dy1 cast to it before the products,
-    dz1 kept in it, BN arithmetic and all sums in fp32."""
-    n = x.shape[0] * x.shape[2] * x.shape[3] * x.shape[4]
+    dz1 kept in it, BN arithmetic and all sums in fp32.
+
+    ``reduce`` (with ``count``, the global row count as an fp32 tensor):
+    the split at the two sums, as the kernel's stages split; each pair of
+    sums (S_g2, S_gx2, then S_g1, S_gx1) is summed over the ranks by
+    ``reduce(t)`` (in place on a [2][F] tensor) and divided by ``count``
+    for the next sweep, while the returned BN gradients stay this rank's."""
+    n = x.shape[0] * x.shape[2] * x.shape[3] * x.shape[4] if count is None else count
     rs1 = torch.rsqrt(var1 + EPS)
     rs2 = torch.rsqrt(var2 + EPS)
 
@@ -132,7 +184,8 @@ def bwd_reference(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype):
     gf = g.float()
     dz2 = torch.where(z2 > 0, gf, 0.0)
     s_g2, s_gx2 = _bn_bwd_terms(dz2, xhat2)
-    dy2 = _bc(g2 * rs2) * (dz2 - _bc(s_g2 / n) - xhat2 * _bc(s_gx2 / n))
+    m_g2, m_gx2 = _means(s_g2, s_gx2, n, reduce)
+    dy2 = _bc(g2 * rs2) * (dz2 - _bc(m_g2) - xhat2 * _bc(m_gx2))
 
     dy2c = dy2.to(dtype)
     dwt = _dw_temporal(a, dy2c)
@@ -143,7 +196,8 @@ def bwd_reference(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype):
     s_g1, s_gx1 = _bn_bwd_terms(dz1, xhat1)
     # dz1 is kept in the compute dtype (the sums above use it unrounded)
     dz1 = dz1.to(dtype).float()
-    dy1 = _bc(g1 * rs1) * (dz1 - _bc(s_g1 / n) - xhat1 * _bc(s_gx1 / n))
+    m_g1, m_gx1 = _means(s_g1, s_gx1, n, reduce)
+    dy1 = _bc(g1 * rs1) * (dz1 - _bc(m_g1) - xhat1 * _bc(m_gx1))
 
     dy1c = dy1.to(dtype)
     dws = _dw_spatial(x.to(dtype), dy1c)
@@ -155,15 +209,19 @@ def bwd_reference(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype):
 
 
 class FusedSepConvTrain(torch.autograd.Function):
-    """``apply(x, ws, wt, g1, b1, g2, b2, dtype)`` -> (out, mu1, var1, mu2,
-    var2).  The statistics carry no gradient: they feed the running-stat
-    updates only.  The backward is K5 on CUDA tensors and
-    :func:`bwd_reference` on CPU tensors."""
+    """``apply(x, ws, wt, g1, b1, g2, b2, dtype, sync)`` -> (out, mu1, var1,
+    mu2, var2).  The statistics carry no gradient: they feed the
+    running-stat updates only.  The backward is K5 on CUDA tensors and
+    :func:`bwd_reference` on CPU tensors; with ``sync`` both take the BN
+    means over the global batch, reducing over the ranks when the default
+    group spans more than one process."""
 
     @staticmethod
-    def forward(ctx, x, ws, wt, g1, b1, g2, b2, dtype):
-        out, stats = sepconv_fwd_core(x, ws, wt, g1, b1, g2, b2, dtype)
-        ctx.save_for_backward(x, ws, wt, g1, b1, g2, b2, *stats)
+    def forward(ctx, x, ws, wt, g1, b1, g2, b2, dtype, sync=False):
+        ctx.reduce = bool(sync) and sync_bn.across_ranks(None)
+        res = sepconv_fwd_core(x, ws, wt, g1, b1, g2, b2, dtype, sync, ctx.reduce)
+        out, stats = res[:2]
+        ctx.save_for_backward(x, ws, wt, g1, b1, g2, b2, *stats, *res[2:])
         ctx.dtype = dtype
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
@@ -171,14 +229,19 @@ class FusedSepConvTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, *_stat_grads):
         args = ctx.saved_tensors
+        args, count = (args[:11], args[11]) if len(args) == 12 else (args, None)
+        reduce = sync_bn.all_reduce_sums if ctx.reduce else None
         if args[0].device.type == "cpu":
-            grads = bwd_reference(*args, g, ctx.dtype)
-        else:
+            grads = bwd_reference(*args, g, ctx.dtype, count, reduce)
+        elif reduce is None:
             grads = sepconv_bwd.sepconv_bwd(*args, g, ctx.dtype)
-        return (*grads, None)
+        else:
+            grads = sepconv_bwd.sepconv_bwd(*args, g, ctx.dtype, count, reduce)
+        return (*grads, None, None)
 
 
-def fused_sepconv_train(x, ws, wt, g1, b1, g2, b2, dtype):
-    """Train-mode SepConv pair: (out, (mu1, var1, mu2, var2))."""
-    out, *stats = FusedSepConvTrain.apply(x, ws, wt, g1, b1, g2, b2, dtype)
+def fused_sepconv_train(x, ws, wt, g1, b1, g2, b2, dtype, sync: bool = False):
+    """Train-mode SepConv pair: (out, (mu1, var1, mu2, var2)); ``sync``:
+    the statistics and the backward's BN means over the global batch."""
+    out, *stats = FusedSepConvTrain.apply(x, ws, wt, g1, b1, g2, b2, dtype, sync)
     return out, tuple(stats)

@@ -6,6 +6,9 @@ Counterpart of ``video_graph_ssl_tpu/ops/pallas/sepconv_bwd.py`` (K5) and
 pad 1).  :func:`sepconv_bwd` takes CUDA tensors only; its plain version is
 ``ops/fused_sepconv.py:bwd_reference``, which ``FusedSepConvTrain`` runs
 for CPU tensors.  Arguments and outputs are those of ``bwd_reference``.
+A call runs the kernel's three stages (``vgs_sepconv_bwd_stage1..3``, one
+per sweep); ranks that each hold rows of one batch pass a ``reduce`` that
+sums each stage's two BN sums over the ranks before the next stage.
 
 :func:`plan` is the launch of one call as a pure function of the shape:
 its route (``tc``, the tensor-core products of ``csrc/sepconv_bwd_tc.cuh``,
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +34,10 @@ from . import _build, fused_sepconv
 # all routes, and the tensor-core route alone.
 launches = 0
 launches_tc = 0
+# C entries those calls launched (three stages each), and the cross-rank
+# reductions of their BN sums (two per call on ranks, none on one process)
+stage_calls = 0
+reduces = 0
 # cotangents that reached the kernel in another dtype than the compute
 # dtype and were converted (copied) first; any layout is read in place.
 g_copies = 0
@@ -400,17 +407,27 @@ def _check_fields() -> None:
                            f"wrapper {len(C_FIELDS)}")
 
 
-def sepconv_bwd(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype):
-    """One kernel call: (dx, dWs, dWt, dgamma1, dbeta1, dgamma2, dbeta2)."""
-    global launches, launches_tc, g_copies
+class _Call(NamedTuple):
+    """One call's plan, operands and buffers: ``head`` are the C entries'
+    arguments up to the f32 scratch, ``tail`` those after dx up to eps."""
+    plan: Plan
+    head: tuple
+    tail: tuple
+    buf: torch.Tensor      # fp32 scratch
+    act: torch.Tensor      # compute-dtype scratch
+    dx: torch.Tensor
+    keep: tuple            # operands that must outlive the launches
+
+
+def _setup(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype) -> _Call:
+    global g_copies
     _check(x, ws, wt, g, dtype)
     b, c, t, h, w = x.shape
     f = ws.shape[0]
     p, c_plan = _cached_plan(b, t, h, w, c, f, dtype)
-    tc = p.route == "tc"
     dev = x.device
     xc = _as(x, dtype).contiguous(memory_format=_CL)
-    if tc and xc.data_ptr() % 16:
+    if p.route == "tc" and xc.data_ptr() % 16:
         xc = xc.clone(memory_format=_CL)
     if g.dtype != dtype:
         g_copies += 1
@@ -419,20 +436,83 @@ def sepconv_bwd(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype):
     buf = torch.empty(p.f32_size, dtype=torch.float32, device=dev)
     act = torch.empty(p.act_size, dtype=dtype, device=dev)
     dx = torch.empty((b, c, t, h, w), dtype=dtype, device=dev, memory_format=_CL)
-
-    lib = _build.library()
     _check_fields()
-    code = lib.vgs_sepconv_bwd(
-        xc.data_ptr(), gc.data_ptr(), *(v.data_ptr() for v in params), buf.data_ptr(),
-        act.data_ptr(), dx.data_ptr(), c_plan, *gc.stride(), int(vector_loads(gc)),
-        fused_sepconv.EPS,
-        torch.cuda.current_stream(dev).cuda_stream)
+    head = (xc.data_ptr(), gc.data_ptr(), *(v.data_ptr() for v in params), buf.data_ptr())
+    tail = (c_plan, *gc.stride(), int(vector_loads(gc)), fused_sepconv.EPS)
+    return _Call(p, head, tail, buf, act, dx, (xc, gc, params))
+
+
+def _outputs(call: _Call, out: torch.Tensor, x, ws, wt, g1, b1, g2, b2):
+    """(dx, dWs, dWt, dgamma1, dbeta1, dgamma2, dbeta2) from the call's dx
+    and its fp32 outputs ``out`` (dWs, dWt and the BN sums at the plan's
+    offsets)."""
+    b, c, t, h, w = x.shape
+    f = ws.shape[0]
+    o_ws, o_wt, o_s = call.plan.f32_offsets[:3]   # dws, dwt, sums: S_g1, S_gx1, S_g2, S_gx2
+    dws = out.as_strided((f, c, 1, 3, 3), (9 * c, 9, 9, 3, 1), o_ws)
+    dwt = out.as_strided((f, f, 3, 1, 1), (3 * f, 3, 1, 1, 1), o_wt)
+    s_g1, s_gx1, s_g2, s_gx2 = out.as_strided((4, f), (f, 1), o_s).unbind(0)
+    return (_as(call.dx, x.dtype), _as(dws, ws.dtype), _as(dwt, wt.dtype),
+            _as(s_gx1, g1.dtype), _as(s_g1, b1.dtype), _as(s_gx2, g2.dtype),
+            _as(s_g2, b2.dtype))
+
+
+def sepconv_bwd(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype,
+                count: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable[[torch.Tensor], None]] = None):
+    """One kernel call, its three stages in turn: (dx, dWs, dWt, dgamma1,
+    dbeta1, dgamma2, dbeta2).
+
+    ``reduce`` (ranks that each hold rows of one batch, with ``count`` the
+    global row count, an fp32 CUDA tensor whose first element is read):
+    sums a [2][F] fp32 tensor over the ranks in place, on the current
+    stream.  Between stages 1 and 2 it takes a copy of S_g2, S_gx2, between
+    2 and 3 of S_g1, S_gx1, and the next stage's BN backward uses their
+    means over the global batch.  The returned dgamma and dbeta stay this
+    rank's own sums (``DistributedDataParallel`` averages them, as
+    ``parallel/sync_bn.py`` leaves them).  Without ``reduce`` the stages
+    launch the kernels of :func:`sepconv_bwd_one_call`, in its order."""
+    global launches, launches_tc, stage_calls, reduces
+    if (reduce is None) != (count is None):
+        raise ValueError("sepconv_bwd: reduce and count go together")
+    call = _setup(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype)
+    p = call.plan
+    f = ws.shape[0]
+    # dWs, dWt and the BN sums in a buffer of their own, so the scratch is
+    # freed when the call returns
+    out = torch.empty(p.f32_offsets[3], dtype=torch.float32, device=x.device)
+    sums = out[p.f32_offsets[2]:p.f32_offsets[2] + 4 * f].view(4, f)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _build.library()
+    entries = (lib.vgs_sepconv_bwd_stage1, lib.vgs_sepconv_bwd_stage2,
+               lib.vgs_sepconv_bwd_stage3)
+    reduced = None
+    for stage, entry in enumerate(entries, 1):
+        if reduce is not None and stage > 1:
+            # stage 2 takes S_g2, S_gx2 over every rank, stage 3 S_g1, S_gx1
+            reduced = sums[2:4].clone() if stage == 2 else sums[0:2].clone()
+            reduce(reduced)
+            reduces += 1
+        code = entry(*call.head, out.data_ptr(), call.act.data_ptr(), call.dx.data_ptr(),
+                     *call.tail, 0 if reduced is None else reduced.data_ptr(),
+                     0 if count is None else count.data_ptr(), stream)
+        _build.check(code, f"vgs_sepconv_bwd_stage{stage}")
+        stage_calls += 1
+    launches += 1
+    launches_tc += p.route == "tc"
+    return _outputs(call, out, x, ws, wt, g1, b1, g2, b2)
+
+
+def sepconv_bwd_one_call(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype):
+    """The same function through the one C entry that runs all three
+    stages with no reduce between them (``vgs_sepconv_bwd``): the staged
+    call on one process must equal it bit for bit (``chip_smoke.py``)."""
+    global launches, launches_tc
+    call = _setup(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype)
+    code = _build.library().vgs_sepconv_bwd(
+        *call.head, call.act.data_ptr(), call.dx.data_ptr(), *call.tail,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "vgs_sepconv_bwd")
     launches += 1
-    launches_tc += tc
-    o_ws, o_wt, o_s = p.f32_offsets[:3]   # dws, dwt, sums: S_g1, S_gx1, S_g2, S_gx2
-    dws = buf.as_strided((f, c, 1, 3, 3), (9 * c, 9, 9, 3, 1), o_ws)
-    dwt = buf.as_strided((f, f, 3, 1, 1), (3 * f, 3, 1, 1, 1), o_wt)
-    s_g1, s_gx1, s_g2, s_gx2 = buf.as_strided((4, f), (f, 1), o_s).unbind(0)
-    return (_as(dx, x.dtype), _as(dws, ws.dtype), _as(dwt, wt.dtype), _as(s_gx1, g1.dtype),
-            _as(s_g1, b1.dtype), _as(s_gx2, g2.dtype), _as(s_g2, b2.dtype))
+    launches_tc += call.plan.route == "tc"
+    return _outputs(call, call.buf, x, ws, wt, g1, b1, g2, b2)

@@ -39,8 +39,17 @@ def _reduce_dims(x: torch.Tensor) -> List[int]:
     return [0] + list(range(2, x.dim()))
 
 
-def _across_ranks(group) -> bool:
+def across_ranks(group=None) -> bool:
+    """Whether ``group`` (None: the default group) spans more than one
+    process."""
     return dist.is_initialized() and dist.get_world_size(group) > 1
+
+
+def all_reduce_sums(t: torch.Tensor, group=None) -> None:
+    """Sum ``t`` (fp32 sums, on the current stream) over the ranks of
+    ``group`` in place: this module's forward and backward statistics, and
+    the fused SepConv pair's (``ops/fused_sepconv.py``, K5's stages)."""
+    dist.all_reduce(t, group=group)
 
 
 def _bc(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -62,9 +71,9 @@ class SyncBatchNormFn(torch.autograd.Function):
         stats = torch.stack([xf.sum(dims), (xf * xf).sum(dims),
                              torch.full_like(weight, float(x.numel() // x.shape[1]))])
         del xf
-        ctx.reduce = _across_ranks(group)
+        ctx.reduce = across_ranks(group)
         if ctx.reduce:
-            dist.all_reduce(stats, group=group)
+            all_reduce_sums(stats, group)
         count = stats[2]
         gmean = stats[0] / count
         gvar = (stats[1] / count - gmean * gmean).clamp_min(0.0)
@@ -85,7 +94,7 @@ class SyncBatchNormFn(torch.autograd.Function):
         sums = torch.stack([dyf.sum(dims), (dyf * xhat).sum(dims)])
         dweight, dbias = sums[1].clone(), sums[0].clone()
         if ctx.reduce:
-            dist.all_reduce(sums, group=ctx.group)
+            all_reduce_sums(sums, ctx.group)
         mdy, mdyx = sums[0] / count, sums[1] / count
         dx = (dyf - _bc(mdy, x) - xhat * _bc(mdyx, x)) * _bc(weight * invstd, x)
         return dx.to(x.dtype), dweight, dbias, None, None
