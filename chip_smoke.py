@@ -238,6 +238,25 @@ Phases (each raises on failure; the script then exits non-zero):
    the stem's forward and backward at 3 and 10 input channels (CUDA
    events); an RGB pretrain state inflated by ``inflate_first_conv`` loads
    strictly into the Flow model.
+16. CMC (``CROSS.MODALITY cross``: two full S3D stacks with graph blocks at
+   5, 9, 14, ``model_2`` on the clips' temporal differences): (a) K1-K4
+   against their plain versions at the inputs ``model_2`` gives them (its
+   forward and backward on the temporal differences of 128 augmented
+   synthetic clips at 16x112x112, each call's inputs recorded), fp32 and
+   bf16: K1's draw and closed-form backward and K2 both ways within phases
+   2-3's bounds, K3/K4 exact; (b) small CMC MoCo and bank steps (S3D, graph
+   at 5 and 9, 8 clips of 8x32x32, fp32) card against CPU within phase 9's
+   bounds; (c) the trainer at full width: CMC MoCo (bs 128, bf16, NCE_K
+   16384) 5 steps with a checkpoint, 3 steps with ``TPU.SEPCONV_FUSED
+   True``, the CMC bank (K 65536 over 240,000 rows per modality) 5 steps:
+   ms/step, peak memory, the per-step kernel calls against
+   ``kernel_times.step_calls(cmc=True)`` and, for MoCo, the recorded
+   prediction (K1 12, K2 18, K3 18, K4 8; K5 36 fused), both memories'
+   rows written; (d) CMC MoCo on one NCCL rank against no group, bit for
+   bit, and on two gloo ranks sharing the card (fp32, bs 32) against one
+   process within phase 8's bounds beside a per-rank-BN control; (e)
+   ``train_ds`` from (c)'s checkpoint: the surgery takes ``model_1``'s
+   encoder bit for bit, 3 fine-tune steps at the fine-tune's kernel counts.
 
 ``python3 chip_smoke.py --only phase_fused_ranks`` (development) runs the
 build and the named phase functions alone, without the kernel record and
@@ -835,10 +854,16 @@ def phase_k5(dev) -> dict:
                 raise RuntimeError(f"K5 {name} {dn}: two calls differ")
             del args, first, second
     rows, sums, bys = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, unfused_ms=0.0), set()
+    # the kernels' device time per pass, the staged call (the wrapper) and
+    # the one call of all three stages: here, before any process group,
+    # since torch.profiler drops device events after those phases
+    dev_ms = {"staged": 0.0, "one call": 0.0}
     for name, bthw, c, f in SEPCONVS:
         args = sepconv_inputs((*bthw, c, f), dev, torch.bfloat16, g)
         unfused = _unfused_bwd(args, dev)
         tk = event_ms(lambda: sb.sepconv_bwd(*args), iters=10)
+        for key, fn in (("staged", sb.sepconv_bwd), ("one call", sb.sepconv_bwd_one_call)):
+            dev_ms[key] += device_us(lambda: fn(*args), PATTERNS["K5"], iters=10) / 1e3
         tp = event_ms(lambda: fs.bwd_reference(*args), iters=10)
         tu = event_ms(unfused, iters=10)
         bm, by = _sep_bound((*bthw, c, f), "bf16")
@@ -855,6 +880,9 @@ def phase_k5(dev) -> dict:
     print(f"  K5 all 18 SepConvs of a pass, bf16: kernel {sums['ms']:.3f} ms  "
           f"plain {sums['plain_ms']:.2f} ms  unfused {sums['unfused_ms']:.3f} ms  "
           f"bound {sums['bound_ms']:.3f} ms")
+    print(f"  K5 all 18 SepConvs of a pass, bf16, device (torch.profiler, mean of 10 "
+          f"calls per pair): staged {dev_ms['staged']:.3f} ms, one call "
+          f"{dev_ms['one call']:.3f} ms")
     # the wrapper's host time: 100 calls at 5b b2 without a sync
     name, bthw, c, f = next(r for r in SEPCONVS if r[0] == "5b b2")
     args = sepconv_inputs((*bthw, c, f), dev, torch.bfloat16, g)
@@ -1351,7 +1379,7 @@ def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
 def _want_counts(n: int = RANK_STEPS, mem_type: str = "moco", fused: bool = False,
                  **kw) -> dict:
     """Each kernel's wrapper calls in n steps of ``mem_type`` (``kw``:
-    ``step_calls``'s ``partial_bn`` and ``graph``)."""
+    ``step_calls``'s ``partial_bn``, ``graph`` and ``cmc``)."""
     return {k: v * n for k, v in step_calls(mem_type, fused, **kw).items()}
 
 
@@ -1495,8 +1523,10 @@ def rank_errors(got: dict, ref: dict, bsz: int) -> dict:
     relative error of each step's loss, rel-L2 of the parameter update after
     step 1 and after the last step and the relative error of its norm, and
     the largest rel-L2 of the EMA encoder's BN statistics."""
-    def keys(res, i):
-        return res["state"]["contrast"]["queue"][i * bsz:(i + 1) * bsz]
+    def keys(res, i):   # CMC: both streams' keys, queue_1's rows then queue_2's
+        c = res["state"]["contrast"]
+        return torch.cat([c[q][i * bsz:(i + 1) * bsz]
+                          for q in ("queue", "queue_1", "queue_2") if q in c])
 
     errs = {f"keys_{i + 1}": rel_l2(keys(got, i), keys(ref, i)) for i in range(RANK_STEPS)}
     errs.update({f"loss_{i + 1}": abs(a - b) / abs(b)
@@ -3186,11 +3216,9 @@ def staged_k5(dev) -> None:
     args = [sepconv_inputs((*bthw, c, f), dev, torch.bfloat16, g)
             for _, bthw, c, f in SEPCONVS]
     ms = {"staged": 0.0, "one call": 0.0}
-    dev_ms = {"staged": 0.0, "one call": 0.0}
     for a in args:
         for key, fn in (("staged", sb.sepconv_bwd), ("one call", sb.sepconv_bwd_one_call)):
             ms[key] += event_ms(lambda: fn(*a), iters=10)
-            dev_ms[key] += device_us(lambda: fn(*a), PATTERNS["K5"], iters=10) / 1e3
     host = {key: host_us(lambda: fn(*args[0])) for key, fn in
             (("staged", sb.sepconv_bwd), ("one call", sb.sepconv_bwd_one_call))}
     held = {}
@@ -3206,9 +3234,8 @@ def staged_k5(dev) -> None:
         del grads
     print(f"  (a) K5 per encoder pass (18 pairs, bs 128, 16x112x112, bf16; CUDA events, "
           f"median of 10 per pair): staged {ms['staged']:.3f} ms, one call "
-          f"{ms['one call']:.3f} ms; device "
-          f"(torch.profiler) staged {dev_ms['staged']:.3f} ms, one call "
-          f"{dev_ms['one call']:.3f} ms; wrapper host time per call at {SEPCONVS[0][0]}: "
+          f"{ms['one call']:.3f} ms (device time: phase 5); wrapper host time per call at "
+          f"{SEPCONVS[0][0]}: "
           f"staged {host['staged']:.1f} us, one call {host['one call']:.1f} us")
     for key, (peak, kept) in held.items():
         print(f"  (a) K5 memory over one pass, {key}: peak {peak:.1f} MiB above the inputs, "
@@ -3457,6 +3484,330 @@ def phase_fused_ranks(dev, gpu: str) -> None:
     modality_steps(dev, gpu)
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: CMC (CROSS.MODALITY cross), two-modality MoCo and bank: two full
+# S3D stacks with graph blocks at 5, 9, 14, model_2 on the clips' temporal
+# differences, at the configs/visual_moco.yaml geometry (bs 128,
+# 16x112x112, bf16, NCE_K 16384); the bank at phase 9's (K 65536 over
+# 240,000 rows per modality, crossentropy).
+CMC_OPTS = ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic", "CROSS.MODALITY", "cross"]
+CMC_RUNS = {
+    "moco": CMC_OPTS + ["DATALOADER.BATCH_SIZE", "128"],
+    "bank": CMC_OPTS + ["CONTRAST.MEM_TYPE", "bank", "CONTRAST.NCE_K", "65536",
+                        "DATASET.NUM_CLASS", str(KINETICS_CLIPS // 4),
+                        "DATALOADER.BATCH_SIZE", "128"],
+}
+# the launches per step recorded before the first chip run (PERF.md §6):
+# twice the visual MoCo step's, one encoder stack each
+CMC_PREDICTED = {"graph_adjacency": 12, "gcn_propagate": 18, "maxpool_bwd_s1": 18,
+                 "maxpool_bwd_strided": 8, "sepconv_bwd": 0}
+CMC_PREDICTED_FUSED = {**CMC_PREDICTED, "sepconv_bwd": 36}
+CMC_STEPS = 5          # (c): 2 warm-up, 3 timed
+
+
+def model2_kernel_inputs(dev, dn: str) -> list:
+    """model_2 of a full-width CMC model (dn compute) forward and backward on
+    the temporal differences of one augmented synthetic batch of 128 clips
+    (view 1, as the query pass sees it), every K1, K2 and K3/K4 call's
+    inputs recorded: [(kernel, args)]."""
+    from video_graph_ssl_tpu_torch.data.build import build_video_contrastive_loader
+    from video_graph_ssl_tpu_torch.data.pipeline import to_device
+    from video_graph_ssl_tpu_torch.data.transforms_device import make_batch_augment_fn
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+    from video_graph_ssl_tpu_torch.models.layers import place
+    from video_graph_ssl_tpu_torch.models.wrappers import temporal_diff
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    gk, gp, mp, _ = _counters()
+    dtype = {"fp32": "float32", "bf16": "bfloat16"}[dn]
+    c = load_config(CONFIG, CMC_RUNS["moco"] + ["TPU.COMPUTE_DTYPE", dtype])
+    loader, _ = build_video_contrastive_loader(c)
+    epoch = loader.epoch(0)
+    raw = to_device(next(epoch)["clips"], dev)
+    epoch.close()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        x = temporal_diff(make_batch_augment_fn(c, "ssl")(gen, raw)[:, 0])
+    xf = x.float()
+    print(f"  (a) {dn}: model_2's input, the temporal differences of 128 augmented clips "
+          f"{tuple(x.shape)} {x.dtype}: mean {float(xf.mean()):+.4f}, std "
+          f"{float(xf.std()):.4f}, share below 0 {float((xf < 0).float().mean()):.3f}")
+    model = place(create_visual_model(c)[0], dev).train()
+    records = []
+    k1, k2, pool = gk.adjacency_fwd_kernel, gp._launch, mp._launch
+
+    def rec_k1(q, k, theta, u, seed, temperature, sample, nei_size, u_out=None, rows=None):
+        records.append(("K1", (q.detach().clone(), k.detach().clone(), theta, u, seed,
+                               temperature, sample, nei_size, rows)))
+        return k1(q, k, theta, u, seed, temperature, sample, nei_size, u_out=u_out, rows=rows)
+
+    def rec_k2(adj, xx, transpose):
+        records.append(("K2", (adj.detach().clone(), xx.detach().clone(), transpose)))
+        return k2(adj, xx, transpose)
+
+    def rec_pool(xx, y, dy, k, s_, p):
+        kn = "K3" if tuple(s_) == (1, 1, 1) else "K4"
+        records.append((kn, (xx.detach().clone(), y.detach().clone(), dy.detach().clone(),
+                             k, s_, p)))
+        return pool(xx, y, dy, k, s_, p)
+
+    gk.adjacency_fwd_kernel, gp._launch, mp._launch = rec_k1, rec_k2, rec_pool
+    try:
+        f2 = model.model_2(x, graph_seed=17)
+        g = torch.randn(f2.shape, device=dev, generator=gen)
+        (f2.float() * g).sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        gk.adjacency_fwd_kernel, gp._launch, mp._launch = k1, k2, pool
+    del model, f2, raw, x, xf
+    return records
+
+
+def cmc_kernel_checks(dev) -> dict:
+    """(a) K1-K4 against their plain versions at the inputs model_2 gives
+    them (``model2_kernel_inputs``), fp32 and bf16: K1's draw and its
+    closed-form backward within phase 2's bounds, K2 both ways within phase
+    3's, K3/K4 exact.  Returns each kernel's largest |kernel - plain|."""
+    from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
+    from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+    from video_graph_ssl_tpu_torch.ops import maxpool as mp
+
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    for dn in DTYPES:
+        records = model2_kernel_inputs(dev, dn)
+        n = {kn: sum(r[0] == kn for r in records) for kn in worst}
+        print(f"  (a) {dn}: model_2's kernel calls in one forward + backward: {n} (want K1 3, "
+              f"K2 6, K3 9, K4 4)")
+        if n != {"K1": 3, "K2": 6, "K3": 9, "K4": 4}:
+            raise RuntimeError(f"(a) {dn}: model_2 called the kernels {n} times")
+        g = torch.Generator(device=dev).manual_seed(13)
+        for kn, args in records:
+            if kn == "K1":
+                q, k, theta, _, seed, temp, sample, nei, rows = args
+                tag = f"(a) model_2 K1 {tuple(q.shape)} {dn}"
+                u_out = torch.empty(q.shape[0], q.shape[1], q.shape[1], device=dev)
+                adj = gk.adjacency_fwd_kernel(q, k, theta, None, seed, temp, sample, nei,
+                                              u_out=u_out, rows=rows)[0]
+                ref = gk._adjacency_fwd_plain(q, k, theta, u_out, seed, temp, sample, nei)[0]
+                check(f"{tag} Philox draw, adj vs plain on u_out", rel_err(adj, ref),
+                      TOL_SAMPLED)
+                worst["K1"] = max(worst["K1"], max_abs(adj, ref))
+                gout = torch.randn(adj.shape, device=dev, generator=g)
+                qa, ka = q.clone().requires_grad_(), k.clone().requires_grad_()
+                got = torch.autograd.grad((gk.GraphAdjacencyFn.apply(
+                    gk.adjacency_fwd_kernel, qa, ka, theta, u_out, seed, temp, sample,
+                    nei) * gout).sum(), (qa, ka))
+                qb, kb = q.clone().requires_grad_(), k.clone().requires_grad_()
+                want = torch.autograd.grad((gk.graph_adjacency_plain(
+                    qb, kb, theta, seed, temp, sample, u_out, nei) * gout).sum(), (qb, kb))
+                for name, a, b in zip(("dq", "dk"), got, want):
+                    check(f"{tag} {name} (rel)", float((a.float() - b.float()).abs().max()
+                                                       / b.float().abs().max().clamp_min(1e-30)),
+                          TOL_GRAD[dn])
+            elif kn == "K2":
+                adj, x, tr = args
+                out, ref = gp._launch(adj, x, tr), gp.propagate_plain(adj, x, transpose=tr)
+                check(f"(a) model_2 K2 {tuple(x.shape)} transpose={tr} {dn}", rel_err(out, ref),
+                      TOL[dn])
+                worst["K2"] = max(worst["K2"], max_abs(out, ref))
+            else:
+                x, y, dy, k, s_, p = args
+                err = max_abs(mp._launch(x, y, dy, k, s_, p),
+                              mp.max_pool3d_bwd_plain(x, y, dy, k, s_, p))
+                b_, c_, t, h, w = x.shape
+                check(f"(a) model_2 {kn} {(b_, t, h, w, c_)} k{tuple(k)} s{tuple(s_)} {dn} "
+                      "(max abs)", err, 0.0)
+                worst[kn] = max(worst[kn], err)
+        del records
+        _free()
+    return worst
+
+
+def small_cmc_step(mem_type: str, d, b: int = 8) -> tuple:
+    """One CMC step of ``mem_type`` on a small S3D model (graph blocks at 5
+    and 9, fp32, sampler none, 8x32x32 clips; at 32x32 stage 14 sees 1x1
+    frames) on device ``d`` from the seeded initial state and a seeded
+    batch of ``b`` clips; the bank takes one negative draw, made on the CPU.
+    (loss, the memories' rows the step wrote, the parameter update.)"""
+    from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+    from video_graph_ssl_tpu_torch.engine.pretrain import make_cmc_bank_step, make_pretrain_step
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    n_data, K = 64, 64
+    c = load_config(CONFIG, CMC_OPTS + [
+        "GRAPH.AUG_POINTS", "[5, 9]", "GRAPH.SAMPLER", "none", "TPU.COMPUTE_DTYPE", "float32",
+        "CONTRAST.MEM_TYPE", mem_type, "CONTRAST.NCE_K", str(K), "CONTRAST.NCE_T", "1.0"])
+    g = torch.Generator().manual_seed(3)
+    clips = torch.randn(b, 2, 8, 32, 32, 3, generator=g)
+    index = torch.randperm(n_data, generator=g)[:b]
+    idx = torch.randint(0, n_data, (b, K + 1), generator=g)
+    model, _ = create_visual_model(c)
+    state = create_pretrain_state(c, model, d, n_data=n_data)
+    p0 = [p.detach().cpu().double() for p in state.model.parameters()]
+    if mem_type == "bank":
+        step = make_cmc_bank_step(K, 1.0, float(c.CONTRAST.NCE_M), "crossentropy",
+                                  draw=lambda *a: idx.to(d))
+    else:
+        step = make_pretrain_step(c)
+    loss = float(step(state, clips.to(d), 0.06, index.to(d))["loss"])
+    delta = torch.cat([(p.detach().cpu().double() - q).flatten()
+                       for p, q in zip(state.model.parameters(), p0)])
+    rows = index if mem_type == "bank" else torch.arange(b)
+    names = ("memory_1", "memory_2") if mem_type == "bank" else ("queue_1", "queue_2")
+    written = torch.cat([getattr(state.contrast, n).cpu()[rows] for n in names])
+    return loss, written, delta
+
+
+def small_cmc_parity(dev) -> None:
+    """(b) the small CMC steps, card (kernels) against CPU (plain versions),
+    within phase 9's bounds."""
+    for mem_type in ("moco", "bank"):
+        print(f"  (b) small S3D+graph CMC {mem_type} step (8x8x32x32, fp32), card vs CPU")
+        lc, wc, dc = small_cmc_step(mem_type, torch.device("cpu"))
+        lg, wg, dg = small_cmc_step(mem_type, dev)
+        tag = f"(b) small CMC {mem_type}"
+        check(f"{tag}: loss", abs(lc - lg) / max(1.0, abs(lc)), 1e-4)
+        what = "both banks' rows of the batch" if mem_type == "bank" else "both queues' keys"
+        check(f"{tag}: {what}", rel_err(wg, wc), 1e-3)
+        check(f"{tag}: parameter update (rel-L2)", float((dg - dc).norm() / dc.norm()), 1e-1)
+
+
+def run_cmc(gpu: str, mem_type: str, n: int = CMC_STEPS, opts=(), save: bool = False) -> dict:
+    """n CMC trainer steps of ``mem_type`` at full width (CMC_RUNS + ``opts``;
+    2 warm-up, the rest timed) from synthetic clips through the Loader: the
+    K1-K5 counts of exactly those steps against the recorded prediction and
+    ``kernel_times.step_calls``, finite losses, both memories, ms/step and
+    peak memory; with ``save`` a checkpoint through the trainer's Saver."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+
+    c = load_config(CONFIG, CMC_RUNS[mem_type] + list(opts))
+    fused = bool(c.TPU.SEPCONV_FUSED)
+    trainer = Trainer(c, max_steps=n, device="cuda", run_dir=RUN_DIR)
+    state = trainer.state
+    geometry = (f"bs {c.DATALOADER.BATCH_SIZE}, 16x{c.INPUT.BASE_SIZE[0]}x"
+                f"{c.INPUT.BASE_SIZE[1]}, {c.TPU.COMPUTE_DTYPE}, NCE_K {c.CONTRAST.NCE_K}, "
+                f"SEPCONV_FUSED {fused}")
+    names = ("queue_1", "queue_2") if mem_type == "moco" else ("memory_1", "memory_2")
+    shapes = [tuple(getattr(state.contrast, m).shape) for m in names]
+    print(f"  (c) CMC {mem_type} trainer, two full S3D stacks: {geometry}; memories {names} "
+          f"{shapes}")
+    before = [getattr(state.contrast, m).clone() for m in names]
+    epoch = trainer.train_loader.epoch(0)
+    batches = [(trainer.to_device(b), trainer.index_of(b)) for b in itertools.islice(epoch, n)]
+    epoch.close()
+    n = len(batches)
+    lr = trainer.lr_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, losses = [], []
+    for clips, index in batches:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(clips, lr, index)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (ms, loss) in enumerate(zip(step_ms, losses)):
+        print(f"  step {i} ({'warm-up' if i < 2 else 'timed'}): {ms:.1f} ms, loss {loss:.4f}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"CMC {mem_type}: non-finite loss {losses}")
+    want = step_calls(mem_type, fused, cmc=True)
+    per_step = {k: v // n for k, v in counts.items()}
+    print(f"  (c) kernel calls in the {n} steps: {counts}; per step {per_step} "
+          f"(kernel_times.step_calls {want})")
+    if counts != {k: v * n for k, v in want.items()}:
+        raise RuntimeError(f"CMC {mem_type}: kernel calls {counts} != {n} x {want}")
+    if mem_type == "moco":
+        predicted = CMC_PREDICTED_FUSED if fused else CMC_PREDICTED
+        if per_step != predicted:
+            raise RuntimeError(f"CMC MoCo: kernel calls per step {per_step} != the recorded "
+                               f"prediction {predicted}")
+        print(f"  (c) per step equal to the recorded prediction {predicted}")
+    for m, b in zip(names, before):
+        moved = int((getattr(state.contrast, m) != b).any(dim=1).sum())
+        print(f"  (c) {m}: {moved} rows written in {n} steps")
+        if moved != n * int(c.DATALOADER.BATCH_SIZE):
+            raise RuntimeError(f"CMC {mem_type}: {m} took {moved} rows in {n} steps")
+    timed = step_ms[2:]
+    mean_ms = sum(timed) / len(timed)
+    bsz = int(c.DATALOADER.BATCH_SIZE)
+    print(f"slice CMC {mem_type} ({geometry}): {mean_ms:.1f} ms/step, "
+          f"{bsz / mean_ms * 1e3:.1f} clips/s (mean of {len(timed)} timed steps), "
+          f"max_memory_allocated {peak:.2f} GiB on {gpu}")
+    ckpt = (trainer.saver.save_checkpoint(state, 1, filename="checkpoint_1.pth.tar")
+            if save else None)
+    del trainer, state, batches, metrics, before
+    _free()
+    return {"ms": mean_ms, "peak_gib": peak, "counts": per_step, "ckpt": ckpt}
+
+
+def cmc_ranks(gpu: str) -> None:
+    """(d) CMC MoCo across ranks: one NCCL rank against no group, bit for
+    bit (bs 128, bf16); two gloo rank processes sharing the card (fp32, bs
+    32: both streams' keys, losses, updates and the EMA stacks' BN against
+    one process with the ranks' BN function, every error within phase 8's
+    bounds) beside a per-rank-BN control that must exceed one of them."""
+    nccl_one_rank("(d) CMC MoCo", rank_run(CMC_RUNS["moco"]))
+    tag = "(d) two ranks, CMC MoCo, float32, global bs 32"
+    opts = rank_opts(32, "float32") + ["CROSS.MODALITY", "cross"]
+    print(f"  {tag}: 16 rows per rank, 16x112x112, {RANK_STEPS} steps, TF32 off, "
+          "cudnn.deterministic")
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = one_process_twice(opts, tag, gpu)
+        ranks, control = spawn_ranks([rank_run(opts), rank_run(opts, per_rank=True)])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    hold_ranks(tag, ranks, gpu, SHARED, _want_counts(cmc=True))
+    errors = {"float32": hold_to_one_process(tag, ranks, one, 32, TOL_RANKS["float32"]),
+              "float32 control": control_fails(tag, control, one, 32, TOL_RANKS["float32"])}
+    print("phase 16 (d) errors against one process: " + json.dumps(errors))
+    del one, ranks, control
+    _free()
+
+
+def cmc_fine_tune(dev, gpu: str, ckpt: str) -> None:
+    """(e) train_ds from the CMC checkpoint just written: the surgery puts
+    model_1's encoder into the fine-tune model (bit for bit), which takes
+    DS_SHORT steps with K1-K4 at the fine-tune's counts."""
+    r = run_downstream(dev, gpu, FT_CONFIG, ["MODEL.AUG_FLAG", "True"], DS_SHORT, ssl=ckpt)
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
+    enc = {k[len("base_model."):]: v for k, v in r["before"].items()
+           if k.startswith("base_model.")}
+    bad = [k for k, v in enc.items()
+           if not torch.equal(v, sd[f"model_1.model.encoder.base_model.{k}"])]
+    print(f"  (e) fine-tune from the CMC checkpoint: {len(enc)} encoder tensors, {len(bad)} "
+          "differ from model_1's (want 0, bit for bit)")
+    if bad:
+        raise RuntimeError(f"(e) the surgery did not take model_1's encoder: {bad[:5]}")
+    _hold_counts("(e) CMC fine-tune", r["counts"],
+                 _want_counts(DS_SHORT, "finetune", partial_bn=True))
+    del r
+    _free()
+
+
+def phase_cmc(dev, gpu: str) -> dict:
+    print("phase 16: CMC (CROSS.MODALITY cross), two-modality MoCo and bank")
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    worst = part("a", cmc_kernel_checks, dev)
+    part("b", small_cmc_parity, dev)
+    moco = part("c moco", run_cmc, gpu, "moco", save=True)
+    part("c moco fused", run_cmc, gpu, "moco", n=3, opts=FUSED)
+    part("c bank", run_cmc, gpu, "bank")
+    part("d", cmc_ranks, gpu)
+    part("e", cmc_fine_tune, dev, gpu, moco["ckpt"])
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3504,10 +3855,12 @@ def main() -> int:
     worst = timed(phase_backbones, dev, gpu)
     timed(phase_resnets, dev, gpu)
     timed(phase_fused_ranks, dev, gpu)
-    for k in kernels:   # the I3D pools' checks join K3's and K4's
-        kn = {"maxpool_bwd_s1": "K3", "maxpool_bwd_strided": "K4"}.get(k["name"])
+    cmc = timed(phase_cmc, dev, gpu)
+    for k in kernels:   # the I3D pools' and model_2's checks join the kernels'
+        kn = {"graph_adjacency": "K1", "gcn_propagate": "K2", "maxpool_bwd_s1": "K3",
+              "maxpool_bwd_strided": "K4"}.get(k["name"])
         if kn:
-            k["max_abs_err"] = max(k["max_abs_err"], worst[kn])
+            k["max_abs_err"] = max(k["max_abs_err"], worst.get(kn, 0.0), cmc[kn])
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

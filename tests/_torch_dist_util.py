@@ -90,17 +90,19 @@ def port_cfg(opts=()):
 
 def state_arrays(state) -> dict:
     """The pretrain state as numpy arrays: params and buffers, the EMA (MoCo),
-    the queue and pointer (MoCo) or the bank's memory, the step."""
+    the queue and pointer (MoCo) or the bank's memory (CMC: both queues and
+    the pointer, or both memories), the step."""
     out = {f"model.{k}": v.detach().cpu().numpy().copy()
            for k, v in state.model.state_dict().items()}
     if state.ema_model is not None:
         out.update({f"ema.{k}": v.detach().cpu().numpy().copy()
                     for k, v in state.ema_model.state_dict().items()})
-    if hasattr(state.contrast, "queue"):
-        out["queue"] = state.contrast.queue.cpu().numpy().copy()
-        out["ptr"] = np.asarray(state.contrast.ptr)
-    elif state.contrast is not None:
-        out["memory"] = state.contrast.memory.cpu().numpy().copy()
+    if state.contrast is not None:
+        from video_graph_ssl_tpu_torch.memory.build import contrast_fields
+
+        for name, v in contrast_fields(state.contrast).items():
+            out[name] = (v.cpu().numpy().copy() if isinstance(v, torch.Tensor)
+                         else np.asarray(v))
     out["step"] = np.asarray(state.step)
     return out
 
@@ -216,6 +218,35 @@ def regime_worker(rank, world, opts, state_dict, memory, clips, index, lrs, draw
     local, idx = torch.from_numpy(clips[r]), torch.from_numpy(index[r])
     metrics = [{k: float(v) for k, v in step(state, local, lr, idx).items()} for lr in lrs]
     return {"metrics": metrics, "state": state_arrays(state)}
+
+
+def cmc_worker(rank, world, opts, clips, index, lrs):
+    """``len(lrs)`` fused CMC steps (``CROSS.MODALITY cross`` with ``opts``)
+    of this rank on its rows of the raw uint8 ``clips`` and ``index``, from
+    the seeded initial state; the bank's negatives drawn by the step
+    (``engine.pretrain.bank_draw``) and recorded.  Returns each step's
+    metrics, the final state and the draws."""
+    from video_graph_ssl_tpu_torch.engine import pretrain
+    from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+
+    c = port_cfg(["CROSS.MODALITY", "cross", *opts])
+    state = create_pretrain_state(c, create_visual_model(c)[0], "cpu", n_data=N_DATA)
+    draws, bank_draw = [], pretrain.bank_draw
+
+    def recorded(*a):
+        draws.append(bank_draw(*a).numpy().copy())
+        return torch.from_numpy(draws[-1])
+
+    pretrain.bank_draw = recorded
+    try:
+        step = pretrain.make_fused_pretrain_step(c)
+    finally:
+        pretrain.bank_draw = bank_draw
+    r = rows(rank, world, clips.shape[0])
+    local, idx = torch.from_numpy(clips[r]), torch.from_numpy(index[r])
+    metrics = [{k: float(v) for k, v in step(state, local, lr, idx).items()} for lr in lrs]
+    return {"metrics": metrics, "state": state_arrays(state), "draws": draws}
 
 
 def fused_guard_worker(rank, world):

@@ -280,10 +280,13 @@ def test_create_video_model_options():
     fused = create_video_model(c)[0]
     seps = [m for m in fused.modules() if isinstance(m, layers.SepConv3d) and m.fused]
     assert len(seps) == 18 and all(m.bn_s.frozen for m in seps)
+    # the downstream classifier ignores CROSS.MODALITY, as in JAX: a CMC
+    # config builds the one-encoder VideoModel (fine-tuned from model_1)
     cmc = ds_cfg("S3D", aug=())
     cmc.CROSS.MODALITY = "visual+audio"
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        create_video_model(cmc)
+    plain = ds_cfg("S3D", aug=())
+    assert sorted(create_video_model(cmc)[0].state_dict()) == sorted(
+        create_video_model(plain)[0].state_dict())
     other = ds_cfg("S3D", aug=())
     other.MODEL.BACKBONE = "resnet50"
     with pytest.raises(NotImplementedError, match="not ported"):

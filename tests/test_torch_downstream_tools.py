@@ -12,8 +12,8 @@
   confusion matrix, ``--save_scores``), then ``video_retrieval`` on the
   pretrain checkpoint; the surgery copies the encoder and keeps ``new_fc``.
 * SIGTERM during ``train_ds`` writes ``checkpoint_preempt``.
-* A bad ``MODEL.PROBE_BN``, a CMC checkpoint and a non-pretrain checkpoint
-  raise; ``TPU.SEPCONV_FUSED`` with ``MODEL.NO_PARTIALBN`` (S3D) trains one
+* A bad ``MODEL.PROBE_BN`` and a non-pretrain checkpoint raise; a CMC
+  checkpoint gives ``model_1``'s encoder; ``TPU.SEPCONV_FUSED`` with ``MODEL.NO_PARTIALBN`` (S3D) trains one
   step through torchrun's launcher and builds at a world size above 1.
 """
 
@@ -177,7 +177,13 @@ def test_surgery_copies_the_encoder_and_keeps_new_fc(tmp_path, monkeypatch):
                              device="cpu", run_dir=str(tmp_path / "ds"))
         for k, v in t.state.model.state_dict().items():
             assert torch.equal(v, fresh.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    # a CMC checkpoint: model_1's encoder (tests/test_torch_cmc_tools.py)
+    enc = {k: v for k, v in sd.items() if k.startswith("model.encoder.base_model.")}
+    transfer_encoder_params({f"model_{i}.{k}": v + i for i in (1, 2) for k, v in enc.items()},
+                            fresh)
+    for k, v in fresh.base_model.state_dict().items():
+        assert torch.equal(v, enc[f"model.encoder.base_model.{k}"] + 1), k
+    with pytest.raises(KeyError, match="not a pretrain checkpoint"):
         transfer_encoder_params({"model_1.encoder.base_model.stage0.conv.weight":
                                  torch.zeros(1)}, fresh)
     with pytest.raises(KeyError, match="not a pretrain checkpoint"):

@@ -25,6 +25,9 @@ package on the CPU, fp32 (tiny3d + a graph block, B = 4, 4x16x16 clips).
   round trip and resume bit for bit, for both regimes.
 * The trainer's entry point in both regimes on the CPU: steps, the
   checkpoint's layout, a warm start with no EMA encoder.
+* The builders dispatch on ``CONTRAST.MEM_TYPE`` and, under CMC
+  (``CROSS.MODALITY`` other than visual), build the two-stack model, memory
+  and step (``tests/test_torch_cmc*.py`` hold them against JAX).
 """
 
 import copy
@@ -469,10 +472,13 @@ def test_create_visual_model_dispatch(tiny_cfg):
     torch.testing.assert_close(bank.memory.norm(dim=1), torch.ones(N_DATA))
     with pytest.raises(ValueError, match="n_data"):
         create_contrast(c)
+    # CMC (any CROSS.MODALITY but visual) builds its two stacks and memories
     c.CROSS.MODALITY = "audio"
-    for build in (create_visual_model, create_contrast, make_pretrain_step):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            build(c)
+    model, _ = create_visual_model(c)
+    assert {k.split(".")[0] for k in model.state_dict()} == {"model_1", "model_2"}
+    banks = create_contrast(c, n_data=N_DATA)
+    assert banks.memory_1.shape == banks.memory_2.shape == (N_DATA, hid)
+    assert make_pretrain_step(c).__qualname__.startswith("make_cmc_bank_step")
 
 
 # --------------------------------------------------------------------------- #

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
-from ..memory.build import create_contrast
+from ..memory.build import contrast_fields, create_contrast
 from ..models.layers import place
 from ..parallel import dist
 from ..solver.build import make_optimizer
@@ -37,7 +37,8 @@ def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> Pre
     3D kernels, channels_last for 2D ones) and build the
     optimizer and the regime's memory: for ``moco`` the EMA encoder (a copy
     of ``model``) and the queue, for ``bank`` a bank of ``n_data`` rows (no
-    EMA), for ``simsiam`` neither.
+    EMA), for ``simsiam`` neither; under CMC the EMA copy holds both stacks
+    and the memory is two queues or two banks.
 
     Under a process group every rank built the same model and memory from
     ``MODEL.SEED``: that is checked once (rank 0's broadcast against each
@@ -55,7 +56,7 @@ def create_pretrain_state(cfg, model: nn.Module, device, n_data: int = 0) -> Pre
             p.requires_grad_(False)
     contrast = create_contrast(cfg, device, n_data)
     memory = [] if contrast is None else [
-        contrast.queue if hasattr(contrast, "queue") else contrast.memory]
+        v for v in contrast_fields(contrast).values() if isinstance(v, torch.Tensor)]
     ddp = _replicated_ddp(model, device, "the initial parameters, BN statistics and memory",
                           memory)
     return PretrainState(

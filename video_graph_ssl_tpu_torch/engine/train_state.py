@@ -19,8 +19,8 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from ..memory.bank import BankState
-from ..memory.moco import MocoState
+from ..memory.bank import BankState, CmcBankState
+from ..memory.moco import CmcMocoState, MocoState
 
 
 @dataclass
@@ -28,7 +28,7 @@ class PretrainState:
     model: nn.Module                 # query encoder (+ heads), trained
     ema_model: Optional[nn.Module]   # MoCo momentum encoder, no grads; else None
     optimizer: torch.optim.Optimizer
-    contrast: Optional[Union[MocoState, BankState]]   # None for SimSiam
+    contrast: Optional[Union[MocoState, BankState, CmcMocoState, CmcBankState]]  # SimSiam: None
     seed: int                        # base of the per-step graph/augment seeds
     step: int = 0
     ddp: Optional[nn.Module] = None  # the query model in DistributedDataParallel
@@ -42,7 +42,8 @@ class PretrainState:
         """Per-step seed of one random stream (1: graph noise and the
         features' dropout, 2: the SSL augmentation, 3: ShuffleBN's
         permutation, 4: the bank's negative draw, 5: graph noise of
-        SimSiam's second view, 13: the downstream ``train`` augmentation),
+        SimSiam's second view, 6: graph noise and dropout of CMC's second
+        stack, 13: the downstream ``train`` augmentation),
         the same for every pass of a step and on every rank."""
         return ((self.seed * 1_000_003 + self.step) * 31 + stream) \
             & 0x7FFF_FFFF_FFFF_FFFF

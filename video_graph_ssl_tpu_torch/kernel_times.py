@@ -10,7 +10,7 @@ stem pool; a 2D backbone (``resnet18`` .. ``resnet152``, ``bninception``,
 ``inception_v3``) runs none of the kernels, and its lines say so.
 
     python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME] \
-        [--mem_type moco|simsiam|bank|finetune|probe|eval] [--size 112|224] [--batch B] \
+        [--mem_type moco|simsiam|bank|finetune|probe|eval] [--cmc] [--size 112|224] [--batch B] \
         [--backbone S3D|S3DG|I3D|InceptionI3d|resnet3d_18|resnet101|...]
 
 Run as a file so that ``--root`` (default: the checkout holding this file)
@@ -36,7 +36,10 @@ step; default moco), as :func:`step_calls` counts them: a MoCo step runs
 two encoder passes (key and query) and one backward, a SimSiam step two
 passes and two backwards (one per view), a bank step one of each; a
 fine-tune step one of each, a linear-probe step and an eval forward one
-pass and no backward (the probe's encoder takes no gradient).  K5's line
+pass and no backward (the probe's encoder takes no gradient).  With
+``--cmc`` (``CROSS.MODALITY cross``, moco or bank) every pass and backward
+runs through CMC's two stacks at the same shapes (``model_2`` on the
+temporal differences), so each count and each per-step time doubles.  K5's line
 counts the ``TPU.SEPCONV_FUSED True`` step with ``MODEL.NO_PARTIALBN
 True``: under partial BN no pair runs K5.
 
@@ -172,7 +175,7 @@ def gpu_line() -> str:
 
 
 def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
-               graph: bool = True, backbone: str = "S3D") -> dict:
+               graph: bool = True, backbone: str = "S3D", cmc: bool = False) -> dict:
     """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
     S3DG, I3D or InceptionI3d, graph blocks at 5, 9, 14 with ``graph``,
     ``MODEL.AUG_FLAG``; tiny3d, one block at 1, one strided pool; a 3D
@@ -180,8 +183,14 @@ def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
     K2 once per block and pass, K2 again (transposed) in each backward,
     K3/K4 in each backward, K5 (with ``TPU.SEPCONV_FUSED``, S3D only) in
     each backward unless ``partial_bn`` freezes the pairs' BNs, which takes
-    them off K5."""
+    them off K5.  ``cmc``: CMC's step (moco or bank), whose passes and
+    backward run through two encoder stacks, each with its own graph blocks
+    and pools: every count doubles."""
+    if cmc and mem_type not in ("moco", "bank"):
+        raise ValueError(f"CMC runs moco or bank, not {mem_type}")
     passes, grads = REGIME_PASSES[mem_type]
+    stacks = 2 if cmc else 1
+    passes, grads = passes * stacks, grads * stacks
     aug_points, pools_s1, pools_strided = BACKBONE_CALLS[backbone]
     blocks = aug_points if graph else 0
     sepconvs = len(SEPCONVS) if backbone == "S3D" else 0
@@ -197,7 +206,9 @@ def geometry(size: int = 112, batch: int = 128, backbone: str = "S3D"):
     shapes, or I3D's with each pool's TF "SAME" pads for its input, or a 3D
     ResNet's (:func:`resnet_geometry`); none for a 2D backbone; K5's
     SepConvs for S3D alone (S3DG's biased pairs and the other backbones'
-    convs take the standard backward)."""
+    convs take the standard backward).  CMC's two stacks each see these
+    shapes (``model_2``'s temporal differences keep the clips' shape), so a
+    CMC step runs each of them twice as often (:func:`step_calls`)."""
     if size not in (112, 224):
         raise ValueError(f"size {size}: 112 or 224")
     if backbone in BACKBONES_2D:
@@ -235,22 +246,31 @@ PATTERNS = {"K1": r"adjacency|sim_partial", "K2": r"propagate", "K3/K4": r"maxpo
                   r"sep_tc_p[1-6]_"}
 
 
-def device_us(fn, pattern: str, iters: int = 50) -> float:
-    """Device time per call of the kernels whose names match ``pattern``."""
+def device_us(fn, pattern: str, iters: int = 50, sessions: int = 3) -> float:
+    """Device time per call of the kernels whose names match ``pattern``.
+
+    ``torch.profiler`` at times records no device event in a session, above
+    all in a process that has run a process group; such a session is
+    repeated, up to ``sessions`` in all.  If none records a matching kernel,
+    the time is :func:`event_ms`'s (CUDA events, wrapper included) and a
+    line says so."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and re.search(pattern, e.name)]
-    if not kernels:
-        raise RuntimeError(f"the profiler recorded no kernel matching {pattern!r}")
-    return sum(e.time_range.elapsed_us() for e in kernels) / iters
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and re.search(pattern, e.name)]
+        if kernels:
+            return sum(e.time_range.elapsed_us() for e in kernels) / iters
+    print(f"  device_us: the profiler recorded no kernel matching {pattern!r} in {sessions} "
+          f"sessions; CUDA events (wrapper included) give this time instead")
+    return event_ms(fn, iters) * 1e3
 
 
 def host_us(fn, iters: int = 100) -> float:
@@ -315,6 +335,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="label printed in every line")
     ap.add_argument("--mem_type", default="moco", choices=sorted(REGIME_PASSES),
                     help="CONTRAST.MEM_TYPE whose per-step calls are counted")
+    ap.add_argument("--cmc", action="store_true",
+                    help="count CMC's step (CROSS.MODALITY cross): two encoder stacks")
     ap.add_argument("--size", default=112, type=int, help="frame size: 112 or 224")
     ap.add_argument("--batch", default=128, type=int, help="batch size")
     ap.add_argument("--backbone", default="S3D",
@@ -384,8 +406,9 @@ def main(argv=None) -> int:
                           "pass_device_ms": pass_us[kn] / 1e3, "dtype": "bf16", "gpu": gpu}))
     # per step of the regime: K1 and K2 per encoder pass, K2 transposed and
     # K3-K5 per backward (K5 only with TPU.SEPCONV_FUSED True)
-    passes, grads = REGIME_PASSES[args.mem_type]
-    calls = step_calls(args.mem_type, fused=True, backbone=args.backbone)
+    stacks = 2 if args.cmc else 1
+    passes, grads = (n * stacks for n in REGIME_PASSES[args.mem_type])
+    calls = step_calls(args.mem_type, fused=True, backbone=args.backbone, cmc=args.cmc)
     per_step = {"K1": (calls["graph_adjacency"], pass_us["K1"] * passes),
                 "K2": (calls["gcn_propagate"],
                        pass_us["K2"] * passes + pass_us["K2 transpose"] * grads),
@@ -394,6 +417,7 @@ def main(argv=None) -> int:
                 "K5 (SEPCONV_FUSED)": (calls["sepconv_bwd"], pass_us["K5"] * grads)}
     for kn, (n, us) in per_step.items():
         print(json.dumps({"tag": tag, "kernel": kn, "mem_type": args.mem_type,
+                          "cmc": args.cmc,
                           "geometry": f"{args.backbone}, bs {args.batch}, "
                                       f"16x{args.size}x{args.size}",
                           "calls_per_step": n, "step_device_ms": us / 1e3,

@@ -13,6 +13,10 @@ uniform weights); ``bank_logits(alias=...)`` draws from
 the tables built with numpy as in JAX and drawn with torch.  The gather
 and the bmm
 are plain PyTorch, as JAX computes them in XLA outside any Pallas kernel.
+
+CMC's dual bank (``CmcBankState``) holds one memory per modality: one
+negative draw serves both, each modality's features scored against the
+other modality's rows, and both memories take the EMA update.
 """
 
 from __future__ import annotations
@@ -130,4 +134,46 @@ def bank_update(state: BankState, all_x: torch.Tensor, all_y: torch.Tensor,
     updated = l2_normalize(w_pos * m + all_x.detach().to(state.memory.dtype) * (1.0 - m),
                            dim=-1)
     state.memory.index_copy_(0, y, updated)
+    return state
+
+
+@dataclass
+class CmcBankState:
+    """CMC's two banks (JAX ``CmcBankState``)."""
+    memory_1: torch.Tensor   # (n_data, dim) modality 1's rows
+    memory_2: torch.Tensor   # (n_data, dim) modality 2's rows
+
+
+def init_cmc_bank(n_data: int, dim: int, generator: Optional[torch.Generator] = None,
+                  device="cpu") -> CmcBankState:
+    """Two random L2-normalised banks, drawn in turn on the CPU from
+    ``generator``."""
+    m1 = torch.randn((n_data, dim), generator=generator, dtype=torch.float32)
+    m2 = torch.randn((n_data, dim), generator=generator, dtype=torch.float32)
+    return CmcBankState(memory_1=l2_normalize(m1, dim=-1).to(device),
+                        memory_2=l2_normalize(m2, dim=-1).to(device))
+
+
+def cmc_bank_logits(state: CmcBankState, x1: torch.Tensor, x2: torch.Tensor,
+                    y: torch.Tensor, K: int, T: float,
+                    generator: Optional[torch.Generator] = None,
+                    idx: Optional[torch.Tensor] = None, rows: Rows = None):
+    """(logits1, logits2, labels): one draw of negatives (``idx`` where
+    given, else :func:`draw_indices` from ``generator``, a rank's ``rows``
+    of the global draw), slot 0 each clip's own row ``y``; ``x1`` against
+    ``memory_2``'s rows, ``x2`` against ``memory_1``'s."""
+    if idx is None:
+        idx = draw_indices(generator, state.memory_1.shape[0], x1.shape[0], K, rows)
+    logits1, labels = bank_logits(BankState(state.memory_2), x1, y, K, T, idx=idx)
+    logits2, _ = bank_logits(BankState(state.memory_1), x2, y, K, T, idx=idx)
+    return logits1, logits2, labels
+
+
+@torch.no_grad()
+def cmc_bank_update(state: CmcBankState, all_x1: torch.Tensor, all_x2: torch.Tensor,
+                    all_y: torch.Tensor, m: float) -> CmcBankState:
+    """Both memories' EMA row update with the features of every rank, in
+    place (:func:`bank_update`)."""
+    bank_update(BankState(state.memory_1), all_x1, all_y, m)
+    bank_update(BankState(state.memory_2), all_x2, all_y, m)
     return state

@@ -15,7 +15,17 @@ whatever ``MODEL.AUG_FLAG`` says, as in JAX.
 frames per time step (-1: 1 for RGB, 5 otherwise) sets the stem's input
 channels: 3 x new_length for RGB and for RGBDiff (after the difference of
 its new_length + 1 groups), 2 x new_length for Flow (JAX infers them from
-the input)."""
+the input).
+
+``CROSS.MODALITY`` other than ``visual`` (CMC, moco or bank) builds
+``CmcWrapper``: two encoder + head stacks of the same config, the second on
+the clips' temporal differences.
+
+The TPU layouts: ``TPU.REMAT``/``TPU.REMAT_POLICY`` and ``TPU.STEM_S2D`` are
+validated as JAX validates them (the same ``ValueError``s); a valid
+``TPU.REMAT True`` raises ``NotImplementedError`` until ROADMAP item 7b ports
+it, and a valid ``TPU.STEM_S2D`` other than off raises by name (the port
+builds the standard stem, the same function)."""
 
 from __future__ import annotations
 
@@ -34,11 +44,16 @@ from .resnet2p1d import RESNET2P1D
 from .resnet3d import RESNET3D, RESNET_I3D
 from .s3d import S3D, S3D_FEATURE_DIM
 from .tiny import TINY3D_FEATURE_DIM, Tiny3D
-from .wrappers import ContrastWrapper, GraphWrapper, SimSiam, VideoModel, VisualEncoder
+from .wrappers import (CmcWrapper, ContrastWrapper, GraphWrapper, SimSiam, VideoModel,
+                       VisualEncoder)
 
 MEM_TYPES = ("moco", "bank", "simsiam")
-CMC_NOT_PORTED = ("CROSS.MODALITY {!r} (CMC) is not ported yet: ROADMAP.md, Queue 1, "
-                  "item 4b, CMC moco and bank")
+CMC_MEM_TYPES = ("moco", "bank")
+REMAT_NOT_PORTED = ("TPU.REMAT True (TPU.REMAT_POLICY {}) is not ported yet: ROADMAP.md, "
+                    "Queue 1, item 7b, TPU.REMAT as torch.utils.checkpoint; set TPU.REMAT "
+                    "False")
+STEM_S2D_NOT_PORTED = ("TPU.STEM_S2D {!r} is not ported: the space-to-depth stem is a TPU "
+                       "layout of the standard stem's function; set TPU.STEM_S2D off")
 
 
 def _feature_dim(name: str) -> int:
@@ -122,15 +137,52 @@ def _not_ported(btype: str, name: str) -> str:
     return f"backbone {btype}/{name} is not ported: {hint}"
 
 
+def stem_s2d_mode(cfg, name: str) -> str:
+    """``TPU.STEM_S2D`` as JAX reads it (``models/build.py:encoder_cfg_from``):
+    "" (off, false, 0, none, ""), "full" (true, 1, full) or "spatial";
+    anything else, or an S2D stem off S3D/S3DG, raises JAX's ValueError."""
+    s2d = str(cfg.TPU.STEM_S2D).lower()
+    if s2d in ("true", "1", "full"):
+        s2d = "full"
+    elif s2d in ("false", "0", "off", "none", ""):
+        s2d = ""
+    if s2d:
+        if s2d not in ("full", "spatial"):
+            raise ValueError(f"TPU.STEM_S2D must be off|full|spatial, "
+                             f"got {cfg.TPU.STEM_S2D}")
+        if name not in ("S3D", "S3DG"):
+            raise ValueError(f"TPU.STEM_S2D only applies to S3D/S3DG, got {name}")
+    return s2d
+
+
+def resolve_remat(cfg, name: str):
+    """``TPU.REMAT`` x ``TPU.REMAT_POLICY`` as JAX reads them
+    (``models/build.py:_resolve_remat``): False when off, True for
+    ``block``, "conv_saved" (S3D/S3DG only); anything else raises JAX's
+    ValueError."""
+    if not bool(cfg.TPU.REMAT):
+        return False
+    policy = str(cfg.TPU.REMAT_POLICY)
+    if policy == "block":
+        return True
+    if policy == "conv_saved":
+        if name not in ("S3D", "S3DG"):
+            raise ValueError(f"TPU.REMAT_POLICY=conv_saved only applies to S3D/S3DG, "
+                             f"got {name}")
+        return "conv_saved"
+    raise ValueError(f"TPU.REMAT_POLICY must be block|conv_saved, got {policy}")
+
+
 def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int]:
     """The configured backbone (graph blocks with ``MODEL.AUG_FLAG`` on a 3D
     one, K5's backward with ``TPU.SEPCONV_FUSED`` on S3D) and its feature
-    dim; raises for what is not ported."""
+    dim; raises for what is not ported, and JAX's ValueErrors for the TPU
+    layouts JAX refuses, in JAX's order (``TPU.STEM_S2D``, then
+    ``TPU.SEPCONV_FUSED``, then ``TPU.REMAT``)."""
     name, btype = cfg.MODEL.BACKBONE, cfg.MODEL.BACKBONE_TYPE
     if name not in BACKBONES.get(btype, {}):
         raise NotImplementedError(_not_ported(btype, name))
-    if cfg.CROSS.MODALITY != "visual":
-        raise NotImplementedError(CMC_NOT_PORTED.format(cfg.CROSS.MODALITY))
+    s2d = stem_s2d_mode(cfg, name)
     ctor, feat_dim, default_aug = BACKBONES[btype][name]
     aug = bool(cfg.MODEL.AUG_FLAG) and btype == "3D"
     extra = {"partial_bn": True} if partial_bn else {}
@@ -142,6 +194,11 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
             # standard backward, as in JAX build.py:153-157
             raise ValueError(f"TPU.SEPCONV_FUSED only applies to S3D, got {name}")
         extra["fused_sepconv"] = True
+    remat = resolve_remat(cfg, name)
+    if remat:
+        raise NotImplementedError(REMAT_NOT_PORTED.format(cfg.TPU.REMAT_POLICY))
+    if s2d:
+        raise NotImplementedError(STEM_S2D_NOT_PORTED.format(cfg.TPU.STEM_S2D))
     backbone = ctor(
         aug_points=(tuple(cfg.GRAPH.AUG_POINTS) or default_aug) if aug else (),
         graph_cfg=graph_cfg_from(cfg) if aug else None,
@@ -154,25 +211,49 @@ def _encoder_kw(cfg) -> Dict[str, Any]:
                 agg_fun=cfg.MODEL.POOLING_TYPE, modality=cfg.INPUT.MODALITY)
 
 
-def create_visual_model(cfg, seed: int = None) -> Tuple[GraphWrapper, int]:
+def is_cmc(cfg) -> bool:
+    """CMC (two modalities): ``CROSS.MODALITY`` other than ``visual``."""
+    return cfg.CROSS.MODALITY != "visual"
+
+
+# CMC's second stack is initialised from its own generator, seeded this far
+# from the first's
+CMC_STACK_SEED = 1_000_003
+
+
+def create_visual_model(cfg, seed: int = None) -> Tuple[torch.nn.Module, int]:
     """The SSL pretraining model, initialised on the CPU from
     ``MODEL.SEED`` (or ``seed``); returns (module, backbone feature dim).
     ``simsiam`` builds SimSiam's two-view model (hid_dim
     ``CROSS.FEAT_DIM``), ``moco`` and ``bank`` the encoder + projection
-    head."""
+    head; under CMC (``CROSS.MODALITY`` other than ``visual``, moco or bank
+    only, as in JAX) a ``CmcWrapper`` of two such stacks, each with its own
+    backbone and graph blocks, ``model_1`` initialised as the visual model
+    of the same seed and ``model_2`` from a generator of its own."""
     mem_type = cfg.CONTRAST.MEM_TYPE
     backbone, feat_dim = create_backbone(cfg)
+    hid_dim = int(cfg.CROSS.FEAT_DIM)
+    seed = int(cfg.MODEL.SEED if seed is None else seed)
+    if is_cmc(cfg):
+        if mem_type not in CMC_MEM_TYPES:
+            raise ValueError(f"CROSS.MODALITY={cfg.CROSS.MODALITY!r} (CMC) supports "
+                             f"moco/bank memories, not {mem_type!r}")
+        stacks = []
+        for i, b in enumerate((backbone, create_backbone(cfg)[0])):
+            stack = GraphWrapper(ContrastWrapper(VisualEncoder(b, **_encoder_kw(cfg)),
+                                                 feat_dim, hid_dim, cfg.CROSS.HEAD_TYPE))
+            init_params_(stack, torch.Generator().manual_seed(seed + i * CMC_STACK_SEED))
+            stacks.append(stack)
+        return CmcWrapper(*stacks), feat_dim
     if mem_type not in MEM_TYPES:
         raise ValueError(f"Unknown CONTRAST.MEM_TYPE: {mem_type}")
     encoder = VisualEncoder(backbone, **_encoder_kw(cfg))
-    hid_dim = int(cfg.CROSS.FEAT_DIM)
     if mem_type == "simsiam":
         model = GraphWrapper(SimSiam(encoder, feat_dim, hid_dim))
     else:
         model = GraphWrapper(ContrastWrapper(encoder, feat_dim, hid_dim,
                                              cfg.CROSS.HEAD_TYPE))
-    gen = torch.Generator().manual_seed(int(cfg.MODEL.SEED if seed is None else seed))
-    init_params_(model, gen)
+    init_params_(model, torch.Generator().manual_seed(seed))
     return model, feat_dim
 
 

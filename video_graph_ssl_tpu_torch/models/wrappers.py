@@ -3,7 +3,9 @@ encoder -> projection head (MoCo, bank) or SimSiam's two-view model, under
 the reference's ``GraphWrapper`` names (``model.encoder.base_model.*``,
 ``model.proj_head.head.*``; SimSiam: ``model.projection.*``,
 ``model.prediction.*``); the downstream classifier ``VideoModel`` under the
-reference's ``VideoModelWrapper`` names (``base_model.*``, ``new_fc.*``).
+reference's ``VideoModelWrapper`` names (``base_model.*``, ``new_fc.*``);
+CMC's two stacks under ``model_1.*`` and ``model_2.*`` (``CmcWrapper``, the
+names of JAX ``export_cmc_pretrain_to_torch``).
 
 Clips arrive as ``(B, T, H, W, C)``; ``graph_seed`` keys the graph-block
 noise of one pass, and ``graph_rows`` (row0, global B), on a rank holding
@@ -38,6 +40,14 @@ def rgb_diff(x: torch.Tensor, n_channels: int = 3) -> torch.Tensor:
     groups = x.reshape(tuple(x.shape[:-1]) + (-1, n_channels))
     d = groups[..., 1:, :] - groups[..., :-1, :]
     return d.reshape(tuple(x.shape[:-1]) + (-1,))
+
+
+def temporal_diff(x: torch.Tensor) -> torch.Tensor:
+    """CMC's second modality (JAX ``temporal_diff``): the clips' (B, T, H, W,
+    C) adjacent-frame differences along T, front-padded with the first
+    difference, so the output has the input's shape."""
+    d = x[:, 1:] - x[:, :-1]
+    return torch.cat([d[:, :1], d], dim=1)
 
 
 def keyed_dropout(x: torch.Tensor, p: float, seed: int, rows: Rows = None) -> torch.Tensor:
@@ -171,3 +181,32 @@ class GraphWrapper(nn.Module):
     def encode(self, x: torch.Tensor, graph_seed: int = 0,
                graph_rows: Rows = None) -> torch.Tensor:
         return self.model.encoder(x, graph_seed=graph_seed, graph_rows=graph_rows)
+
+
+class CmcWrapper(nn.Module):
+    """The two-modality CMC model (JAX ``CmcWrapper``): two full encoder +
+    head stacks (``GraphWrapper``s), ``model_1`` on the RGB clips and
+    ``model_2`` on their temporal differences (:func:`temporal_diff`, taken
+    on the clips as given, before the backbone's cast to the compute dtype).
+    ``forward`` gives the L2-normalised pair (f1, f2).
+
+    ``graph_seed`` is a pair, one per stack: flax folds each module's path
+    into its graph key, so the two stacks' graph blocks (and dropouts) draw
+    different noise."""
+
+    def __init__(self, model_1: GraphWrapper, model_2: GraphWrapper):
+        super().__init__()
+        self.model_1 = model_1
+        self.model_2 = model_2
+
+    def forward(self, x: torch.Tensor, graph_seed: Sequence[int] = (0, 1),
+                graph_rows: Rows = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        s1, s2 = graph_seed
+        f1 = self.model_1(x, graph_seed=s1, graph_rows=graph_rows)
+        f2 = self.model_2(temporal_diff(x), graph_seed=s2, graph_rows=graph_rows)
+        return f1, f2
+
+    def encode(self, x: torch.Tensor, graph_seed: int = 0,
+               graph_rows: Rows = None) -> torch.Tensor:
+        """The RGB stack's encoder features (what downstream consumes)."""
+        return self.model_1.encode(x, graph_seed=graph_seed, graph_rows=graph_rows)

@@ -2,7 +2,8 @@
 
     python -m video_graph_ssl_tpu_torch.profile_step \\
         --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
-        DATASET.SOURCE synthetic [CONTRAST.MEM_TYPE bank CONTRAST.NCE_K 65536]
+        DATASET.SOURCE synthetic [CONTRAST.MEM_TYPE bank CONTRAST.NCE_K 65536] \\
+        [CROSS.MODALITY cross]   # CMC: two encoder stacks, moco or bank
     python -m video_graph_ssl_tpu_torch.profile_step \\
         --config_file configs/visual_simsiam.yaml MODEL.AUG_FLAG True \\
         DATASET.SOURCE synthetic DATALOADER.BATCH_SIZE 32
@@ -27,9 +28,10 @@ traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities)
 and prints: the step time (host clock around synchronised steps, untraced
 and traced), the device-busy share (union of kernel intervals over wall
 time), device time by kernel class and by phase of the step (the spans of
-the regime ``CONTRAST.MEM_TYPE`` or of the downstream step:
-``engine/pretrain.py:REGIME_PHASES``),
-for the bank the device time of its gather and logits, the top kernels and
+the regime ``CONTRAST.MEM_TYPE`` (``cmc_moco`` or ``cmc_bank`` under CMC) or
+of the downstream step: ``engine/pretrain.py:REGIME_PHASES``),
+for the bank (CMC's too: both memories' gathers) the device time of its
+gather and logits, the top kernels and
 aten ops by device time, and ``max_memory_allocated``.  Needs a CUDA
 device; it never measures on the CPU.
 """
@@ -51,7 +53,7 @@ from .ops import gcn_propagate as gp
 from .ops import graph_kernel as gk
 from .ops import maxpool as mp
 from .ops import sepconv_bwd as sb
-from .engine.pretrain import PHASES, REGIME_PHASES
+from .engine.pretrain import PHASES, REGIME_PHASES, regime_of
 from .train_video_contrast_dis import Trainer, load_config
 
 DOWNSTREAM_CONFIGS = {"finetune": "configs/action_fine_tune.yaml",
@@ -204,7 +206,7 @@ def main(argv=None) -> None:
         if k5_product(e.name):
             by_product[k5_product(e.name)] += us
 
-    mem_type = args.downstream or cfg.CONTRAST.MEM_TYPE
+    mem_type = args.downstream or regime_of(cfg)
     phases = REGIME_PHASES["downstream" if args.downstream else mem_type]
     print(f"device: {torch.cuda.get_device_name(0)}; regime {mem_type}; batch {bsz}; "
           f"{args.steps} traced steps after {args.warmup} warm-up; max_memory_allocated "
@@ -247,7 +249,7 @@ def main(argv=None) -> None:
               f"{name[:110]}")
     ops = [a for a in prof.key_averages(group_by_input_shape=True)
            if a.key.startswith("aten::") and _self_device_us(a) > 0]
-    if mem_type == "bank":
+    if mem_type in ("bank", "cmc_bank"):
         # the gather of the (B, K+1) rows and the bmm of the logits, forward
         # and backward: ops whose input shapes hold the K+1 dimension
         kp1 = int(cfg.CONTRAST.NCE_K) + 1

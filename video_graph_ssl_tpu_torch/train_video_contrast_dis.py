@@ -11,7 +11,13 @@ The regime is ``CONTRAST.MEM_TYPE``: ``moco`` (GCA-M with
 ``MODEL.AUG_FLAG True``), ``simsiam`` (``configs/visual_simsiam.yaml``;
 GCA-S with the graph on) or ``bank`` (the instance-discrimination memory
 bank, ``CROSS.CRITERION`` crossentropy or NCE, one row per clip of the
-dataset).  ``CROSS.MODALITY`` other than ``visual`` (CMC) is not ported.
+dataset).  ``CROSS.MODALITY`` other than ``visual`` (e.g. ``cross``) trains
+CMC under moco or bank: two encoder + head stacks, the second on the clips'
+temporal differences, each scored against the other's memory::
+
+    python -m video_graph_ssl_tpu_torch.train_video_contrast_dis \\
+        --config_file configs/visual_moco.yaml MODEL.AUG_FLAG True \\
+        CROSS.MODALITY cross DATASET.SOURCE synthetic --max_steps 5
 
 Data comes from ``build_video_contrastive_loader`` (synthetic clips, JPEG
 frame folders or a shard store, ``python -m
@@ -48,6 +54,7 @@ the log; every rank reads a resumed checkpoint.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import socket
@@ -64,12 +71,13 @@ from .data.pipeline import to_device
 from .engine.build import create_pretrain_state
 from .engine.pretrain import make_fused_pretrain_step
 from .models.build import create_visual_model
+from .models.wrappers import VisualEncoder
 from .parallel import dist
 from .solver.build import make_lr_scheduler
 from .utils.checkpoint import load_checkpoint_state
 from .utils.meters import AverageMeter
 from .utils.summary import creat_saver
-from .utils.torch_names import port_backbone_names
+from .utils.torch_names import detect_kind, port_backbone_names, rgb_stack
 
 # --profile_dir traces steps 5 to 10 (both included) of the first epoch
 PROFILE_STEPS = (5, 10)
@@ -135,7 +143,9 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ``state_dict`` envelope goes, the wrapper prefixes ``module.`` /
     ``encoder.`` / ``base_model.`` / ``model.`` are stripped while every key
     has one, then the subtree under ``encoder.base_model.`` or
-    ``base_model.`` is kept where any key has it.  So a bare backbone, a
+    ``base_model.`` is kept where any key has it.  A CMC checkpoint
+    (``model_1.``/``model_2.`` roots, ``torch_names.detect_kind``) gives its
+    RGB stack's backbone.  So a bare backbone, a
     DDP-wrapped one and a whole pretrain checkpoint (heads included, as
     the port's ``Saver`` writes it) all give the backbone's own names
     (``base.N...``, ``layer1.0...``); the reference's names (S3DG, I3D, the
@@ -143,6 +153,9 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
     (``utils/torch_names.py``)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj["state_dict"] if isinstance(obj, dict) and "state_dict" in obj else obj
+    with contextlib.suppress(ValueError):   # a bare backbone has no wrapper roots
+        if detect_kind(sd) == "cmc_pretrain":
+            sd = rgb_stack(sd)
     changed = True
     while changed:
         changed = False
@@ -205,7 +218,8 @@ class Trainer:
     def _load_pretrain_backbone(self) -> None:
         """MODEL.PRETRAIN_PATH: a reference-named backbone state_dict, loaded
         strictly into the encoder's backbone and then into the EMA encoder's,
-        which starts as a copy (reference: visual_wrappers.py:137-146)."""
+        which starts as a copy (reference: visual_wrappers.py:137-146); under
+        CMC into both stacks' backbones, as in JAX."""
         path = str(self.cfg.MODEL.PRETRAIN_PATH)
         if not self.cfg.MODEL.PRETRAINED or path in ("", "none", "/"):
             return
@@ -213,8 +227,10 @@ class Trainer:
             raise RuntimeError(f"=> no pretrain backbone found at '{path}'")
         sd = load_backbone_state_dict(path)
         for model in (self.state.model, self.state.ema_model):
-            if model is not None:   # the bank and SimSiam have no EMA encoder
-                model.model.encoder.base_model.load_state_dict(sd, strict=True)
+            if model is None:   # the bank and SimSiam have no EMA encoder
+                continue
+            for enc in (m for m in model.modules() if isinstance(m, VisualEncoder)):
+                enc.base_model.load_state_dict(sd, strict=True)
         self._log(f"=> initialized backbone from '{path}' (MODEL.PRETRAIN_PATH)")
 
     def _resume(self) -> None:

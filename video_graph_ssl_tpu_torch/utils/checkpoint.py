@@ -6,8 +6,9 @@ A checkpoint is one ``torch.save`` file holding a dict in the reference's
 layout (lib/utils/saver.py:20-43, tools/train_video_contrast_dis.py:271-287):
 ``epoch``, ``state_dict`` (parameters and BN statistics, reference names),
 ``optimizer`` (the SGD momentum buffers), ``contrast`` (the MoCo queue and
-ptr, or the bank's ``memory``; none for SimSiam), ``model_ema`` (MoCo only)
-and ``best_pred``; plus ``step`` and ``seed``, from which
+ptr, or the bank's ``memory``; CMC's ``queue_1``, ``queue_2`` and ``ptr``, or
+``memory_1`` and ``memory_2``, JAX's names; none for SimSiam), ``model_ema``
+(MoCo only) and ``best_pred``; plus ``step`` and ``seed``, from which
 :meth:`PretrainState.step_seed` derives each step's graph and augmentation
 seeds, so a resumed run continues the same random streams.  The metadata
 (``epoch``, ``best_pred``, ``step`` and any extra keys) is also written to
@@ -23,7 +24,8 @@ A downstream checkpoint is the same file over a ``VideoModel``: its
 ``model_ema``; :func:`load_checkpoint_state` restores it (JAX
 ``load_checkpoint_any``: the port writes single files only).
 :func:`transfer_encoder_params` is the SSL -> downstream surgery (JAX
-``load_params_only`` + ``transfer_encoder_params``).
+``load_params_only`` + ``transfer_encoder_params``); from a CMC checkpoint it
+takes ``model_1``'s (the RGB stack's) encoder, as JAX does.
 """
 
 from __future__ import annotations
@@ -34,18 +36,18 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..memory.build import contrast_fields
+
 META_KEYS = ("epoch", "best_pred", "step")
 SSL_ENCODER = "model.encoder.base_model."
-CMC_NOT_PORTED = ("a CMC pretrain checkpoint ('model_1' encoder) is not ported yet: "
-                  "ROADMAP.md, Queue 1, item 4b, CMC moco and bank")
+# the RGB stack's encoder in a CMC checkpoint
+CMC_ENCODER = "model_1." + SSL_ENCODER
 
 
 def _contrast(contrast) -> Optional[Dict[str, Any]]:
     if contrast is None:
         return None
-    if hasattr(contrast, "queue"):
-        return {"queue": contrast.queue, "ptr": int(contrast.ptr)}
-    return {"memory": contrast.memory}
+    return {k: int(v) if k == "ptr" else v for k, v in contrast_fields(contrast).items()}
 
 
 def checkpoint_payload(state, epoch: int, best_pred: float = 0.0) -> Dict[str, Any]:
@@ -100,14 +102,24 @@ def load_checkpoint_state(path: str, state) -> Dict[str, Any]:
     state.optimizer.load_state_dict(payload["optimizer"])
     contrast = payload.get("contrast")
     if contrast is not None:
-        if hasattr(state.contrast, "queue"):
-            state.contrast.queue.copy_(contrast["queue"])
-            state.contrast.ptr = int(contrast["ptr"])
-        else:
-            state.contrast.memory.copy_(contrast["memory"])
+        restore_contrast(state.contrast, contrast, path)
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
     return payload["meta"]
+
+
+def restore_contrast(live, saved: Dict[str, Any], what: str) -> None:
+    """Copy a saved memory (JAX's field names) into the live one, in place;
+    the field names must match (a CMC memory does not take a visual one)."""
+    fields = contrast_fields(live)
+    if set(saved) != set(fields):
+        raise KeyError(f"{what}: contrast holds {sorted(saved)}, the configured memory "
+                       f"{sorted(fields)}")
+    for name, v in fields.items():
+        if name == "ptr":
+            live.ptr = int(saved[name])
+        else:
+            v.copy_(torch.as_tensor(saved[name]))
 
 
 def load_params_only(path: str):
@@ -118,16 +130,16 @@ def load_params_only(path: str):
 
 def transfer_encoder_params(ssl_state_dict: Dict[str, torch.Tensor], model) -> None:
     """Checkpoint surgery: load the encoder of a port pretrain checkpoint's
-    ``state_dict`` (MoCo, SimSiam or bank: ``model.encoder.base_model.*``)
-    into ``model``'s ``base_model``, strictly, keeping its fresh
-    ``new_fc``; the projection heads are dropped (the checkpoint's EMA
-    encoder and memory are not in its ``state_dict``)."""
-    if any(k.startswith("model_1.") for k in ssl_state_dict):
-        raise NotImplementedError(CMC_NOT_PORTED)
-    enc = {k[len(SSL_ENCODER):]: v for k, v in ssl_state_dict.items()
-           if k.startswith(SSL_ENCODER)}
+    ``state_dict`` (MoCo, SimSiam or bank: ``model.encoder.base_model.*``;
+    CMC: ``model_1``'s, ``model_1.model.encoder.base_model.*``) into
+    ``model``'s ``base_model``, strictly, keeping its fresh ``new_fc``; the
+    projection heads and CMC's second stack are dropped (the checkpoint's
+    EMA encoder and memory are not in its ``state_dict``)."""
+    prefix = (CMC_ENCODER if any(k.startswith("model_1.") for k in ssl_state_dict)
+              else SSL_ENCODER)
+    enc = {k[len(prefix):]: v for k, v in ssl_state_dict.items() if k.startswith(prefix)}
     if not enc:
-        raise KeyError(f"no '{SSL_ENCODER}*' entries: not a pretrain checkpoint")
+        raise KeyError(f"no '{prefix}*' entries: not a pretrain checkpoint")
     model.base_model.load_state_dict(enc, strict=True)
 
 

@@ -6,6 +6,12 @@
 ``export_downstream_to_torch``) and a JAX downstream ``TrainState`` -> the
 port's downstream state (:func:`downstream_state_from_jax`).
 
+A JAX CMC tree (``params['model_1']``, ``params['model_2']``: JAX
+``CmcWrapper``) maps to the port's ``CmcWrapper`` under
+``model_{1,2}.<GraphWrapper names>``, the names of JAX
+``export_cmc_pretrain_to_torch``; its dual queue or bank (``queue_1``,
+``queue_2``, ``ptr``; ``memory_1``, ``memory_2``) carries over by name.
+
 Numpy only (no JAX import): ``params`` and ``batch_stats`` are the JAX
 model's nested dicts with numpy leaves.  The backbones: S3D, S3DG (S3D's
 names, each SepConv conv's bias beside its weight), I3D (JAX ``conv3d_1a``,
@@ -30,6 +36,8 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+
+from .checkpoint import restore_contrast
 
 _S3D_STAGES = {
     "stem_0": (0, "sep"), "stem_2": (2, "basic"), "stem_3": (3, "sep"),
@@ -371,11 +379,27 @@ def simsiam_heads_state_dict(p: dict, s: dict) -> SD:
     return out
 
 
+CMC_STACKS = ("model_1", "model_2")
+
+
+def _root(params: dict) -> str:
+    """The first encoder stack of a JAX pretrain tree: ``model``, or CMC's
+    ``model_1``."""
+    return CMC_STACKS[0] if CMC_STACKS[0] in params else "model"
+
+
 def pretrain_state_dict(params: dict, batch_stats: dict, backbone: str = None,
                         head_type: str = "mlp", graph_sub_sample: bool = True) -> SD:
     """JAX ``GraphWrapper`` variables (contrastive or SimSiam, told apart by
     their heads) -> the port's ``GraphWrapper`` state_dict, as numpy
-    arrays; ``backbone`` defaults to :func:`backbone_of` the params."""
+    arrays; JAX ``CmcWrapper`` variables (``model_1``, ``model_2``) -> the
+    port's ``CmcWrapper``'s, each stack's names under its own prefix;
+    ``backbone`` defaults to :func:`backbone_of` the params."""
+    if _root(params) != "model":
+        return {f"{stack}.{k}": v for stack in CMC_STACKS
+                for k, v in pretrain_state_dict(
+                    {"model": params[stack]}, {"model": batch_stats[stack]}, backbone,
+                    head_type, graph_sub_sample).items()}
     mp, ms = params["model"], batch_stats["model"]
     backbone = backbone or backbone_of(mp["encoder"]["base_model"])
     enc = BACKBONES[backbone](mp["encoder"]["base_model"],
@@ -420,16 +444,17 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
     ``PretrainState``: params and BN statistics, the EMA params and EMA BN
     statistics (MoCo), the SGD momentum traces as ``momentum_buffer``s, the
     contrast memory (the MoCo queue and its pointer, or the bank's rows;
-    SimSiam has none) and the step.  The backbone, head and graph naming are
-    read off the two states.
+    CMC's two of either; SimSiam has none) and the step.  The backbone,
+    head and graph naming are read off the two states.
 
     The JAX optimizer scales a bias gradient by ``SOLVER.BIAS_LR_FACTOR``
     *before* ``optax.trace`` (JAX ``solver/build.py:163-168``); the port
     puts the factor in the bias group's lr instead (``solver/build.py``), so
     a JAX trace is the group's ``lr_factor`` times the port's buffer and is
     divided by it here."""
-    backbone = backbone_of(tree["params"]["model"]["encoder"]["base_model"])
-    head = "linear" if "fc" in tree["params"]["model"].get("proj_head", {}) else "mlp"
+    top = tree["params"][_root(tree["params"])]
+    backbone = backbone_of(top["encoder"]["base_model"])
+    head = "linear" if "fc" in top.get("proj_head", {}) else "mlp"
     want = set(state.model.state_dict())
     for sub_sample in (True, False):
         names = dict(backbone=backbone, head_type=head, graph_sub_sample=sub_sample)
@@ -464,11 +489,9 @@ def pretrain_state_from_jax(tree: dict, state) -> None:
     contrast = tree.get("contrast") or None
     if (state.contrast is None) != (contrast is None):
         raise KeyError("the JAX state and the port's disagree on a contrast memory")
-    if contrast is not None and "queue" in contrast:
-        state.contrast.queue.copy_(torch.from_numpy(np.array(contrast["queue"])))
-        state.contrast.ptr = int(contrast["ptr"])
-    elif contrast is not None:
-        state.contrast.memory.copy_(torch.from_numpy(np.array(contrast["memory"])))
+    if contrast is not None:
+        restore_contrast(state.contrast, {k: np.array(v) for k, v in contrast.items()},
+                         "the JAX state")
     state.step = int(tree["step"])
 
 

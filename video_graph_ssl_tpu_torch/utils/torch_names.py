@@ -35,6 +35,12 @@ which the port's BN (flax semantics, a fixed momentum) has no use for.
 Names of any other layout pass through unchanged.
 :func:`reference_backbone_names` is the inverse: the port's backbone names
 (no graph blocks) -> the reference's.
+
+:func:`detect_kind` tells a whole checkpoint's layout by its roots (JAX
+``ckpt_convert.detect_kind``): a pretrain wrapper's (``model.``), CMC's two
+stacks (``model_1.``, ``model_2.``) or a downstream classifier's
+(``base_model.``); :func:`rgb_stack` takes a CMC checkpoint's first (RGB)
+stack, as the JAX surgery does.
 """
 
 from __future__ import annotations
@@ -81,6 +87,30 @@ def layout_of(sd: Dict[str, V]) -> str:
     if any(k.startswith("layer1.") for k in sd):
         return "resnet"
     return "port"
+
+
+def detect_kind(sd: Dict[str, V]) -> str:
+    """'pretrain' (``model.`` roots), 'cmc_pretrain' (``model_1.`` and
+    ``model_2.``) or 'downstream' (``base_model.``), through a DDP
+    ``module.`` prefix; raises for any other layout."""
+    roots = {k.split(".")[0] for k in sd}
+    if roots == {"module"}:
+        roots = {k.split(".")[1] for k in sd}
+    if "model" in roots:
+        return "pretrain"
+    if {"model_1", "model_2"} <= roots:
+        return "cmc_pretrain"
+    if "base_model" in roots:
+        return "downstream"
+    raise ValueError(f"unrecognized checkpoint layout; roots={sorted(roots)}")
+
+
+def rgb_stack(sd: Dict[str, V]) -> Dict[str, V]:
+    """A CMC checkpoint's ``model_1`` stack under a pretrain wrapper's names
+    (``model.*``; a ``module.`` prefix dropped first)."""
+    if all(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    return {k[len("model_1."):]: v for k, v in sd.items() if k.startswith("model_1.")}
 
 
 def _s3dg_name(key: str) -> str:
