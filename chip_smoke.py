@@ -1074,6 +1074,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
     mean_ms = sum(timed) / len(timed)
     from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
     graph_blocks = sum(isinstance(m, TemporalGraphAug) for m in state.model.modules())
+    nonlocal_blocks = sum(type(m).__name__ == "NonLocalBlock3D" for m in state.model.modules())
     print(f"slice ({backbone}, SEPCONV_FUSED {fused}, 16x{size}x{size}): {mean_ms:.1f} "
           f"ms/step, {bsz / mean_ms * 1e3:.1f} clips/s (mean of 3 timed steps, bs {bsz}, "
           f"peak {peak:.1f} GiB) on {gpu}")
@@ -1083,7 +1084,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
     gc.collect()
     torch.cuda.empty_cache()
     return {"counts": counts, "ms": mean_ms, "peak_gib": peak, "ckpt": ckpt,
-            "graph_blocks": graph_blocks}
+            "graph_blocks": graph_blocks, "nonlocal_blocks": nonlocal_blocks}
 
 
 def phase_slice(dev, gpu: str) -> dict:
@@ -2270,7 +2271,8 @@ def kernel_checks(dev, tag: str, k1_shapes, k2_shapes, pools, dn: str,
     closed-form backward, the draw at clip offset ``clip0`` (a rank's
     clips) equal bit for bit to those rows of the draw over clip0 + B
     clips; K2 both ways and its autograd; each pool (``POOLS``' rows) exact
-    and against torch's own pool backward."""
+    and against torch's own pool backward.  Returns each kernel's largest
+    |kernel - plain| (K1: its adjacency on given and on drawn noise)."""
     import torch.nn.functional as F
     from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
     from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
@@ -2279,6 +2281,7 @@ def kernel_checks(dev, tag: str, k1_shapes, k2_shapes, pools, dn: str,
 
     dt = DTYPES[dn]
     g = torch.Generator(device=dev).manual_seed(11)
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     for b, t, d in k1_shapes:
         kt = f"{tag} K1 ({b},{t},{d}) {dn}"
         theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
@@ -2289,16 +2292,17 @@ def kernel_checks(dev, tag: str, k1_shapes, k2_shapes, pools, dn: str,
                               gk.adjacency_fwd_kernel(q, k, theta, None, 0, 1.0, False, 0),
                               gk._adjacency_fwd_plain(q, k, theta, None, 0, 1.0, False, 0)):
             check(f"{kt} sample=False {name}", rel_err(x, y), TOL["fp32"])
-        check(f"{kt} sample=True, given u",
-              rel_err(gk.adjacency_fwd_kernel(q, k, theta, u, 0, 1.0, True, 0)[0],
-                      gk._adjacency_fwd_plain(q, k, theta, u, 0, 1.0, True, 0)[0]), TOL_SAMPLED)
+        given = (gk.adjacency_fwd_kernel(q, k, theta, u, 0, 1.0, True, 0)[0],
+                 gk._adjacency_fwd_plain(q, k, theta, u, 0, 1.0, True, 0)[0])
+        check(f"{kt} sample=True, given u", rel_err(*given), TOL_SAMPLED)
         rows = (clip0, clip0 + b) if clip0 else None
         u_out = torch.empty(b, t, t, device=dev)
         drawn = gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0, u_out=u_out,
                                         rows=rows)[0]
+        plain = gk._adjacency_fwd_plain(q, k, theta, u_out, 7, 1.0, True, 0)[0]
         check(f"{kt} Philox draw at clip {clip0}, adj vs plain on u_out",
-              rel_err(drawn, gk._adjacency_fwd_plain(q, k, theta, u_out, 7, 1.0, True, 0)[0]),
-              TOL_SAMPLED)
+              rel_err(drawn, plain), TOL_SAMPLED)
+        worst["K1"] = max(worst["K1"], max_abs(*given), max_abs(drawn, plain))
         if clip0:
             # the draw over clip0 + b clips, of which these are the last b
             qf, kf = (torch.cat([x.new_zeros(clip0, t, d), x]) for x in (q, k))
@@ -2328,9 +2332,9 @@ def kernel_checks(dev, tag: str, k1_shapes, k2_shapes, pools, dn: str,
         x = torch.randn(shape, device=dev, generator=g).to(dt)
         adj = torch.rand(b, t, t, device=dev, generator=g).to(dt)
         for tr in (False, True):
-            check(f"{kt} transpose={tr}", rel_err(gp._launch(adj, x, transpose=tr),
-                                                  gp.propagate_plain(adj, x, transpose=tr)),
-                  TOL[dn])
+            out, ref = gp._launch(adj, x, transpose=tr), gp.propagate_plain(adj, x, transpose=tr)
+            check(f"{kt} transpose={tr}", rel_err(out, ref), TOL[dn])
+            worst["K2"] = max(worst["K2"], max_abs(out, ref))
         gout = torch.randn(shape, device=dev, generator=g).to(dt)
         xa, aa = x.clone().requires_grad_(), adj.clone().requires_grad_()
         dx_k, da_k = torch.autograd.grad(
@@ -2348,11 +2352,13 @@ def kernel_checks(dev, tag: str, k1_shapes, k2_shapes, pools, dn: str,
         dy = torch.randn(y.shape, device=dev, generator=g).to(dt).contiguous(memory_format=CL)
         dx = mp._launch(x, y, dy, k, s, p)
         kt = f"{tag} {kn} {name} {shape} {dn}"
-        check(f"{kt} vs plain (max abs)", max_abs(dx, mp.max_pool3d_bwd_plain(x, y, dy, k, s, p)),
-              0.0)
+        err = max_abs(dx, mp.max_pool3d_bwd_plain(x, y, dy, k, s, p))
+        check(f"{kt} vs plain (max abs)", err, 0.0)
+        worst[kn] = max(worst[kn], err)
         check(f"{kt} vs torch", rel_err(dx, torch.ops.aten.max_pool3d_with_indices_backward(
             dy, x, list(k), list(s), list(p), [1, 1, 1], False, idx)), TOL_POOL_LIB[dn])
         del x, y, idx, dy, dx
+    return worst
 
 
 def phase_ab(dev, gpu: str) -> None:
@@ -2774,18 +2780,20 @@ def inception_i3d_step(dev) -> None:
     _free()
 
 
-def i3d_downstream(dev, gpu: str, ssl: str) -> None:
-    """(d) train_ds on configs/action_fine_tune.yaml with I3D (partial BN)
-    from (c)'s I3D checkpoint, whose graph blocks it keeps (``MODEL.AUG_FLAG
-    True``): 3 steps (K3 9, K4 4, K1 3, K2 6 per step), a validation, then
-    test_ds on its best checkpoint over 8 videos."""
+def i3d_downstream(dev, gpu: str, ssl: str, backbone: str = "I3D",
+                   phase: str = "phase13") -> None:
+    """(d) train_ds on configs/action_fine_tune.yaml with ``backbone`` (I3D;
+    partial BN) from (c)'s checkpoint, whose graph blocks it keeps
+    (``MODEL.AUG_FLAG True``): 3 steps (I3D: K3 9, K4 4, K1 3, K2 6 per
+    step; ``kernel_times.step_calls``), a validation, then test_ds on its
+    best checkpoint over 8 videos."""
     import numpy as np
     from video_graph_ssl_tpu_torch import test_ds
 
-    opts = I3D_OPTS + ["MODEL.AUG_FLAG", "True"]
+    opts = ["MODEL.BACKBONE", backbone, "MODEL.AUG_FLAG", "True"]
     r = run_downstream(dev, gpu, FT_CONFIG, opts, DS_SHORT, ssl=ssl)
-    _hold_counts("(d) I3D fine-tune", r["counts"], _want_counts(
-        DS_SHORT, "finetune", partial_bn=True, graph=True, backbone="I3D"))
+    _hold_counts(f"(d) {backbone} fine-tune", r["counts"], _want_counts(
+        DS_SHORT, "finetune", partial_bn=True, graph=True, backbone=backbone))
     trainer = r["trainer"]
     trainer.best_pred = -1.0
     top1 = trainer.validation(0)
@@ -2795,14 +2803,15 @@ def i3d_downstream(dev, gpu: str, ssl: str) -> None:
         raise RuntimeError("(d) model_best_state.pth.tar was not written")
     del trainer, r
     _free()
-    scores_path = os.path.join(RUN_DIR, "phase13_scores.npz")
+    scores_path = os.path.join(RUN_DIR, f"{phase}_scores.npz")
     t0 = time.perf_counter()
     rep = test_ds.main(["--device", str(dev), "--config_file", FT_CONFIG, "--checkpoint", best,
                         "--test_crops", "3", "--test_clips", "2", "--max_videos", "8",
                         "--save_scores", scores_path, *SYNTHETIC, "TEST.BATCH_SIZE", "8",
                         *opts])
     scores = np.load(scores_path)["scores"]
-    print(f"  (d) test_ds (I3D, 8 videos x 2 clips x 3 crops): {time.perf_counter() - t0:.1f} s, "
+    print(f"  (d) test_ds ({backbone}, 8 videos x 2 clips x 3 crops): "
+          f"{time.perf_counter() - t0:.1f} s, "
           f"top-1 {rep['top1']:.2f}%, scores {scores.shape}")
     if scores.shape != (8, 101) or not np.isfinite(scores).all():
         raise RuntimeError(f"(d) test_ds scores {scores.shape}, finite "
@@ -2940,8 +2949,10 @@ REFERENCE_FILES_14 = [
 R101_BATCH = 16   # 16 clips of 16 frames: 256 frames of 224x224 per view
 
 
-def resnet_kernel_times(dev, gpu: str) -> None:
-    """(a) times in bf16 at R3D-18's and R3D-50's shapes: per call, the
+def resnet_kernel_times(dev, gpu: str, k1_shapes=None, k2_shapes=None, pools=None,
+                        key: str = "resnet_kernels") -> None:
+    """(a) times in bf16 at R3D-18's and R3D-50's shapes (or the shapes
+    given, under ``key``): per call, the
     CUDA-event ms (median of 20), the bound, the plain version's ms and the
     library call's (K2: ``torch.bmm``; K4: torch's own pool backward; K1:
     none).  The kernels' device-only time at these shapes is
@@ -2967,14 +2978,17 @@ def resnet_kernel_times(dev, gpu: str) -> None:
               f"library {'%.4f ms' % tl if tl is not None else 'none'}  "
               f"bound {bm:.4f} ms ({by}) on {gpu}")
 
-    for b, t, d in R3D18_K1 + R3D50_K1:
+    if k1_shapes is None:
+        k1_shapes, k2_shapes = R3D18_K1 + R3D50_K1, R3D18_K2 + R3D50_K2
+        pools = R3D_POOLS + R3D_POOLS_224
+    for b, t, d in k1_shapes:
         theta = torch.from_numpy(hop_weight_matrix(t, 3, 0.5)).to(dev)
         q, k = ((torch.randn(b, t, d, device=dev, generator=g) / d ** 0.25).to(bf)
                 for _ in "qk")
         row("K1", (b, t, d), lambda: gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0),
             lambda: gk._adjacency_fwd_plain(q, k, theta, None, 7, 1.0, True, 0), None,
             2 * q.numel() * 2 + 4 * t * t + 3 * 4 * b * t * t, 2 * b * t * t * d)
-    for shape in R3D18_K2 + R3D50_K2:
+    for shape in k2_shapes:
         b, t = shape[:2]
         x = torch.randn(shape, device=dev, generator=g).to(bf)
         adj = torch.rand(b, t, t, device=dev, generator=g).to(bf)
@@ -2982,7 +2996,7 @@ def resnet_kernel_times(dev, gpu: str) -> None:
             lambda: gp.propagate_plain(adj, x), lambda: torch.bmm(adj, x.view(b, t, -1)),
             (2 * x.numel() + adj.numel()) * 2, 2 * t * x.numel())
         del x, adj
-    for name, kn, shape, k, s_, p in R3D_POOLS + R3D_POOLS_224:
+    for name, kn, shape, k, s_, p in pools:
         import torch.nn.functional as F
         x = _ncdhw(shape, dev, bf, g)
         y, idx = F.max_pool3d(x, k, s_, p, return_indices=True)
@@ -2998,7 +3012,7 @@ def resnet_kernel_times(dev, gpu: str) -> None:
             f"{plan.h_strip} rows, {plan.blocks} blocks, {plan.smem_bytes} B]")
         del x, y, idx, dy
         _free()
-    print(json.dumps({"resnet_kernels": rows, "gpu": gpu}))
+    print(json.dumps({key: rows, "gpu": gpu}))
 
 
 def avg_pool_check(dev) -> None:
@@ -3808,6 +3822,275 @@ def phase_cmc(dev, gpu: str) -> dict:
     return worst
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: i3d_res50_nonlocal (GCA MoCo with K1, K2 and K4), the text-video
+# S3DGText (K3 and K4 in its video tower) and the reference-checkpoint
+# converter.  i3d_res50_nonlocal at bs 128, 16x112x112: T = 2 at all three
+# graph blocks (x (128, 2, 28, 28, 256), (128, 2, 14, 14, 512), (128, 2, 7,
+# 7, 1024)), the stem pool on (128, 8, 56, 56, 64) and the temporal pool
+# (3, 1, 1) / (2, 1, 1) on layer1's (128, 4, 28, 28, 256)
+I3DNON = "i3d_res50_nonlocal"
+I3DNON_K1, I3DNON_K2, I3DNON_POOLS, _ = geometry(112, 128, I3DNON)
+# S3DGText at full width on its own input: 32 frames of 224x224, the S2D
+# stem, embd 512, 66,250 words of 300 dims, 16 words a sentence
+TEXT_FRAMES, TEXT_SIZE, TEXT_EMBD, TEXT_VOCAB, TEXT_WORDS = 32, 224, 512, 66250, 16
+TEXT_BATCH = 8          # clips per video-tower call
+TEXT_SENTENCES = 4096   # sentences per text-tower call
+TEXT_ITERS = 5
+
+
+def text_state_dict(seed: int = 19) -> dict:
+    """A MIL-NCE-named S3DGText state dict (the manifest's names and shapes,
+    seeded values; ``module.`` and BN counters, as torch saves one)."""
+    from video_graph_ssl_tpu_torch.models.s3dg_text import reference_s3dg_text_shape_manifest
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, shape in reference_s3dg_text_shape_manifest(TEXT_EMBD, True, TEXT_VOCAB).items():
+        if k.endswith("running_var") or (k.endswith(".weight") and len(shape) == 1):
+            v = torch.rand(shape, generator=gen) + 0.5
+        elif len(shape) >= 2:
+            v = torch.randn(shape, generator=gen) / math.sqrt(math.prod(shape[1:]))
+        else:
+            v = 0.05 * torch.randn(shape, generator=gen)
+        sd[f"module.{k}"] = v
+        if k.endswith("running_mean"):
+            sd[f"module.{k[:-len('running_mean')]}num_batches_tracked"] = torch.tensor(7)
+    return sd
+
+
+def text_model(dtype: torch.dtype, sd: dict):
+    """S3DGText (S2D stem, embd 512, 66,250 words) in compute ``dtype`` on
+    the CPU with ``sd`` loaded strictly (``milnce_names``)."""
+    from video_graph_ssl_tpu_torch.models.s3dg_text import S3DGText, milnce_names
+
+    model = S3DGText(TEXT_EMBD, num_text_embeddings=TEXT_VOCAB, dtype=dtype)
+    model.load_state_dict(milnce_names(sd), strict=True)
+    return model
+
+
+def text_kernel_checks(dev, sd: dict) -> dict:
+    """(a) K3 and K4 at S3DGText's pools on its own input: the video tower's
+    train-mode forward and backward on TEXT_BATCH clips of 32x224x224, fp32
+    and bf16, every K3/K4 call's inputs recorded (9 branch pools, 4 TF
+    "SAME" stage pools), each call against the plain version, exactly.
+    Returns the largest difference per kernel."""
+    from video_graph_ssl_tpu_torch.models.layers import place
+    from video_graph_ssl_tpu_torch.ops import maxpool as mp
+
+    worst = {"K3": 0.0, "K4": 0.0}
+    launch = mp._launch
+    for dn, dt in DTYPES.items():
+        model = place(text_model(dt, sd), dev).train()
+        g = torch.Generator(device=dev).manual_seed(21)
+        x = torch.randn(TEXT_BATCH, TEXT_FRAMES, TEXT_SIZE, TEXT_SIZE, 3, device=dev,
+                        generator=g)
+        records = []
+
+        def rec(xx, y, dy, k, s_, p):
+            kn = "K3" if tuple(s_) == (1, 1, 1) else "K4"
+            records.append((kn, xx.detach().clone(), y.detach().clone(), dy.detach().clone(),
+                            k, s_, p))
+            return launch(xx, y, dy, k, s_, p)
+
+        mp._launch = rec
+        try:
+            emb = model.encode_video(x)
+            (emb * torch.randn(emb.shape, device=dev, generator=g)).sum().backward()
+            torch.cuda.synchronize()
+        finally:
+            mp._launch = launch
+        n = {kn: sum(r[0] == kn for r in records) for kn in worst}
+        print(f"  (a) S3DGText video tower {dn}, {TEXT_BATCH}x{TEXT_FRAMES}x{TEXT_SIZE}x"
+              f"{TEXT_SIZE}: K3/K4 calls in one backward {n} (want K3 9, K4 4)")
+        if n != {"K3": 9, "K4": 4}:
+            raise RuntimeError(f"(a) S3DGText {dn}: K3/K4 calls {n}")
+        del model, emb, x
+        for kn, xx, y, dy, k, s_, p in records:
+            err = max_abs(launch(xx, y, dy, k, s_, p), mp.max_pool3d_bwd_plain(xx, y, dy, k, s_, p))
+            b_, c_, t, h, w = xx.shape
+            check(f"(a) S3DGText {kn} {(b_, t, h, w, c_)} k{tuple(k)} s{tuple(s_)} {dn} "
+                  "(max abs)", err, 0.0)
+            worst[kn] = max(worst[kn], err)
+        del records
+        _free()
+    return worst
+
+
+def nonlocal_kernel_checks(dev, gpu: str) -> dict:
+    """(a) K1, K2 and K4 against their plain versions at i3d_res50_nonlocal's
+    graph blocks and pools (bs 128, 16x112x112), fp32 and bf16, within
+    phases 2-4's bounds; their times in bf16."""
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    for dn in DTYPES:
+        w = kernel_checks(dev, f"(a) {I3DNON}", I3DNON_K1, I3DNON_K2, I3DNON_POOLS, dn)
+        worst = {k: max(v, w[k]) for k, v in worst.items()}
+        _free()
+    resnet_kernel_times(dev, gpu, I3DNON_K1, I3DNON_K2, I3DNON_POOLS, key="i3dnon_kernels")
+    _free()
+    return worst
+
+
+def nonlocal_trainer(dev, gpu: str) -> dict:
+    """(c) GCA MoCo with i3d_res50_nonlocal through the trainer
+    (configs/visual_moco.yaml, MODEL.AUG_FLAG True: bs 128, 16x112x112,
+    bf16, NCE_K 16384, graph blocks at 2, 3, 4): 3 graph blocks and 2
+    non-local blocks built, the launches of the 5 steps exactly
+    ``step_calls``' (K1 6, K2 9, K3 0, K4 2 a step); a checkpoint for (d)."""
+    run = run_trainer(dev, gpu, fused=False, backbone=I3DNON, save=True)
+    print(f"  (c) {I3DNON}: {run['graph_blocks']} graph blocks, {run['nonlocal_blocks']} "
+          f"non-local blocks; launches in 5 steps {run['counts']}")
+    if (run["graph_blocks"], run["nonlocal_blocks"]) != (3, 2):
+        raise RuntimeError(f"(c) {I3DNON}: {run['graph_blocks']} graph blocks, "
+                           f"{run['nonlocal_blocks']} non-local blocks (want 3, 2)")
+    _hold_counts(f"(c) {I3DNON}", run["counts"], _want_counts(5, "moco", backbone=I3DNON))
+    return run
+
+
+def text_run(dev, gpu: str, sd: dict) -> dict:
+    """(e) S3DGText at full width from the MIL-NCE-named state dict: the
+    eval video embeddings of TEXT_BATCH clips of 32x224x224 (bf16) in
+    clips/s, the text embeddings of TEXT_SENTENCES sentences in
+    sentences/s; then both towers in fp32 on the card against the CPU on a
+    small input (2 clips of 16x64x64, 4 sentences)."""
+    from video_graph_ssl_tpu_torch.models.layers import place
+
+    model = place(text_model(torch.bfloat16, sd), dev).eval()
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(TEXT_BATCH, TEXT_FRAMES, TEXT_SIZE, TEXT_SIZE, 3, device=dev, generator=g)
+    ids = torch.randint(1, TEXT_VOCAB, (TEXT_SENTENCES, TEXT_WORDS), device=dev, generator=g)
+    ids[:, TEXT_WORDS // 2:] *= (torch.rand(TEXT_SENTENCES, 1, device=dev, generator=g)
+                                 < 0.5).long()    # half the sentences padded at 8 words
+
+    def per_s(fn, n):
+        with torch.no_grad():
+            for _ in range(2):
+                out = fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TEXT_ITERS):
+                out = fn()
+            torch.cuda.synchronize()
+        return n * TEXT_ITERS / (time.perf_counter() - t0), out
+
+    clips_s, emb = per_s(lambda: model.encode_video(x), TEXT_BATCH)
+    sent_s, temb = per_s(lambda: model.text_module(ids), TEXT_SENTENCES)
+    print(f"  (e) S3DGText eval, bf16: video tower {clips_s:.1f} clips/s ({TEXT_BATCH} clips of "
+          f"{TEXT_FRAMES}x{TEXT_SIZE}x{TEXT_SIZE} a call), text tower {sent_s:.0f} sentences/s "
+          f"({TEXT_SENTENCES} of {TEXT_WORDS} words a call) on {gpu}")
+    for name, e, n in (("video", emb, TEXT_BATCH), ("text", temb, TEXT_SENTENCES)):
+        if tuple(e.shape) != (n, TEXT_EMBD) or not bool(torch.isfinite(e).all()):
+            raise RuntimeError(f"(e) S3DGText {name} embeddings {tuple(e.shape)}, finite "
+                               f"{bool(torch.isfinite(e).all())}")
+    del model, x, emb, temb
+    _free()
+    cpu = text_model(torch.float32, sd).eval()
+    card = place(text_model(torch.float32, sd), dev).eval()
+    small = torch.randn(2, 16, 64, 64, 3, generator=torch.Generator().manual_seed(23))
+    small_ids = torch.tensor([[5, 9, 1, 0], [7, 0, 0, 0], [3, 3, 3, 3], [0, 0, 0, 0]])
+    with torch.no_grad():
+        want = cpu(small, small_ids)
+        got = card(small.to(dev), small_ids.to(dev))
+    for key in ("video_embedding", "text_embedding"):
+        check(f"(e) S3DGText fp32 {key}, card vs CPU (rel-L2)",
+              rel_l2(got[key].cpu(), want[key]), 1e-4)
+    del cpu, card
+    _free()
+    return {"video_clips_per_s": clips_s, "text_sentences_per_s": sent_s}
+
+
+def converter_on_card(dev, gpu: str) -> None:
+    """(f) ``convert_checkpoint`` on the card: a reference S3D MoCo payload
+    built in the run (the reference's ``GraphWrapper`` names with seeded
+    values, ``module.``, BN counters and the classifier, a 16,384-row
+    memory, epoch 5) becomes a port checkpoint on the card; train_ds takes
+    2 fine-tune steps from it, its encoder bit for bit the payload's; the
+    export back to the reference's names equals the payload, bit for
+    bit."""
+    import torch.nn.functional as F
+    from video_graph_ssl_tpu_torch import convert_checkpoint as cc
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+    from video_graph_ssl_tpu_torch.utils.checkpoint import META_KEYS, mismatches
+
+    opts = SYNTHETIC + ["MODEL.AUG_FLAG", "False"]
+    c = load_config(CONFIG, opts)
+    names = create_visual_model(c)[0].state_dict()
+    gen = torch.Generator().manual_seed(24)
+    sd = {k: (torch.rand(v.shape, generator=gen) + 0.5 if "running_var" in k
+              else 0.1 * torch.randn(v.shape, generator=gen)) for k, v in names.items()}
+    extra = {k[:-len("running_mean")] + "num_batches_tracked": torch.tensor(9)
+             for k in sd if k.endswith("running_mean")}
+    extra["model.encoder.base_model.fc.0.weight"] = torch.zeros(400, 1024, 1, 1, 1)
+    extra["model.encoder.base_model.fc.0.bias"] = torch.zeros(400)
+    queue = F.normalize(torch.randn(int(c.CONTRAST.NCE_K), int(c.CROSS.FEAT_DIM),
+                                    generator=gen), dim=1)
+    src = os.path.join(RUN_DIR, "reference_s3d_moco.pth.tar")
+    torch.save({"epoch": 5, "state_dict": {f"module.{k}": v for k, v in {**sd, **extra}.items()},
+                "contrast": {"memory": queue}, "optimizer": {"state": {}}}, src)
+    t0 = time.perf_counter()
+    out = cc.main(["--config_file", CONFIG, *opts, "--torch_ckpt", src])
+    print(f"  (f) converted on the card in {time.perf_counter() - t0:.1f} s: {out}")
+    payload = torch.load(out, map_location="cpu", weights_only=True)
+    bad = mismatches(payload["state_dict"], sd) + mismatches(payload["model_ema"], sd)
+    if bad or not torch.equal(payload["contrast"]["queue"], queue) or payload["epoch"] != 5:
+        raise RuntimeError(f"(f) the converted checkpoint differs from the payload: {bad[:5]}")
+    print(f"  (f) {len(sd)} tensors ({len(extra)} counters and classifier entries dropped), "
+          f"the EMA copy and the {tuple(queue.shape)} queue equal the payload's, epoch 5; "
+          f"notes {json.dumps({k: v for k, v in payload['meta'].items() if k not in META_KEYS})}")
+    r = run_downstream(dev, gpu, FT_CONFIG, ["MODEL.AUG_FLAG", "False"], 2, ssl=out)
+    enc = {k[len("base_model."):]: v for k, v in r["before"].items()
+           if k.startswith("base_model.")}
+    diff = [k for k, v in enc.items() if not torch.equal(v, sd[f"model.encoder.base_model.{k}"])]
+    print(f"  (f) train_ds from the converted checkpoint: {len(enc)} encoder tensors, "
+          f"{len(diff)} differ from the payload's (want 0, bit for bit)")
+    if diff:
+        raise RuntimeError(f"(f) train_ds did not take the converted encoder: {diff[:5]}")
+    del r
+    _free()
+    back = cc.main(["--config_file", CONFIG, *opts, "--checkpoint", out, "--to_torch",
+                    os.path.join(RUN_DIR, "reference_s3d_moco_back.pth.tar")])
+    ref = torch.load(back, map_location="cpu", weights_only=True)
+    bad = mismatches(ref["state_dict"], sd) + mismatches(ref["model_ema"], sd)
+    if bad or not torch.equal(ref["contrast"]["memory"], queue) or ref["epoch"] != 5:
+        raise RuntimeError(f"(f) the export back differs from the payload: {bad[:5]}")
+    print(f"  (f) exported back to the reference's names: state_dict, model_ema and memory "
+          "equal the payload's, bit for bit")
+
+
+def phase_nonlocal_text(dev, gpu: str) -> dict:
+    print("phase 17: i3d_res50_nonlocal, the text-video S3DGText and the reference-checkpoint "
+          "converter")
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    worst = part("a i3d_res50_nonlocal", nonlocal_kernel_checks, dev, gpu)
+    sd = text_state_dict()
+    for kn, v in part("a S3DGText", text_kernel_checks, dev, sd).items():
+        worst[kn] = max(worst[kn], v)
+    print("  (b) small steps, card vs CPU")
+    part("b", small_step_parity, dev, fused=False, backbone=I3DNON)
+    print("  (c) GCA MoCo through the trainer, configs/visual_moco.yaml, MODEL.AUG_FLAG True")
+    run = part("c", nonlocal_trainer, dev, gpu)
+    print(f"  (d) train_ds and test_ds with {I3DNON} from (c)'s checkpoint")
+    part("d", i3d_downstream, dev, gpu, run["ckpt"], backbone=I3DNON, phase="phase17")
+    _free()
+    print(f"  (e) S3DGText at full width ({sum(not k.endswith('num_batches_tracked') for k in sd)}"
+          " MIL-NCE-named tensors loaded strictly)")
+    text = part("e", text_run, dev, gpu, sd)
+    print("  (f) the reference-checkpoint converter on the card")
+    part("f", converter_on_card, dev, gpu)
+    print(json.dumps({"nonlocal_text": {
+        I3DNON: {"ms_per_step": run["ms"], "clips_per_s": 128e3 / run["ms"],
+                 "peak_gib": run["peak_gib"], "launches": run["counts"]},
+        "S3DGText": text}, "worst": worst, "gpu": gpu}))
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3856,11 +4139,13 @@ def main() -> int:
     timed(phase_resnets, dev, gpu)
     timed(phase_fused_ranks, dev, gpu)
     cmc = timed(phase_cmc, dev, gpu)
-    for k in kernels:   # the I3D pools' and model_2's checks join the kernels'
+    nonlocal_text = timed(phase_nonlocal_text, dev, gpu)
+    for k in kernels:   # the I3D pools', model_2's and phase 17's checks join the kernels'
         kn = {"graph_adjacency": "K1", "gcn_propagate": "K2", "maxpool_bwd_s1": "K3",
               "maxpool_bwd_strided": "K4"}.get(k["name"])
         if kn:
-            k["max_abs_err"] = max(k["max_abs_err"], worst.get(kn, 0.0), cmc[kn])
+            k["max_abs_err"] = max(k["max_abs_err"], worst.get(kn, 0.0), cmc[kn],
+                                   nonlocal_text[kn])
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

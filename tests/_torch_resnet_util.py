@@ -15,10 +15,14 @@ in float64; in bf16 and fp32 runs the pin and the port's BN round alike.
 The graph blocks' relaxed-Bernoulli noise is JAX's: :func:`capture_jax_noise`
 records each draw by its frame count T (the three ResNet aug points see T/2,
 T/4 and T/8 frames), :func:`inject_noise` hands the port's graph block of T
-frames that draw.
+frames that draw.  Where the blocks share T (``i3d_res50_nonlocal``: T = 2
+at all three) the draws are keyed by the JAX block's name instead
+(``blocks``), and the port's blocks, called in stage order, take them in
+that order.
 """
 
 import contextlib
+import functools
 
 import flax.linen
 import jax
@@ -33,12 +37,14 @@ from video_graph_ssl_tpu.engine import create_pretrain_state as jax_state
 from video_graph_ssl_tpu.engine import make_pretrain_step
 from video_graph_ssl_tpu.engine.downstream import make_downstream_train_step as jax_ds_step
 from video_graph_ssl_tpu.models import bninception as jax_bninception
+from video_graph_ssl_tpu.models import i3dnon as jax_i3dnon
 from video_graph_ssl_tpu.models import create_video_model as jax_create_video
 from video_graph_ssl_tpu.models import create_visual_model as jax_create
 from video_graph_ssl_tpu.models import inceptionv3 as jax_inceptionv3
 from video_graph_ssl_tpu.models import resnet2d as jax_resnet2d
 from video_graph_ssl_tpu.models import resnet2p1d as jax_resnet2p1d
 from video_graph_ssl_tpu.models import resnet3d as jax_resnet3d
+from video_graph_ssl_tpu.models import s3dg_text as jax_s3dg_text
 from video_graph_ssl_tpu.ops import temporal_graph as jtg
 from video_graph_ssl_tpu_torch.engine.build import create_downstream_state, create_pretrain_state
 from video_graph_ssl_tpu_torch.engine.downstream import make_downstream_train_step
@@ -52,7 +58,8 @@ from video_graph_ssl_tpu_torch.utils.jax_weights import (backbone_of, downstream
 
 torch.set_num_threads(1)
 TOL = 1e-4
-JAX_MODULES = (jax_resnet2d, jax_resnet3d, jax_resnet2p1d, jax_bninception, jax_inceptionv3)
+JAX_MODULES = (jax_resnet2d, jax_resnet3d, jax_resnet2p1d, jax_bninception, jax_inceptionv3,
+               jax_i3dnon, jax_s3dg_text)
 
 
 class _LinenBnFollowsInput:
@@ -140,34 +147,37 @@ def port_model(c, params, stats):
     return model
 
 
-def capture_jax_noise(monkeypatch) -> dict:
+def capture_jax_noise(monkeypatch, by_block: bool = False) -> dict:
     """Record every relaxed-Bernoulli uniform draw of the JAX graph blocks,
-    keyed by the block's frame count."""
+    keyed by the block's frame count (or, ``by_block``, its name)."""
     drawn = {}
     orig = jtg.relaxed_bernoulli_sample
 
-    def record(u):
-        drawn[u.shape[1]] = np.array(u)
+    def record(tag, u):
+        drawn[u.shape[1] if tag is None else tag] = np.array(u)
 
     def capture(key, probs, temperature, eps=1e-6):
         u = jax.random.uniform(key, probs.shape, jnp.float32, minval=eps, maxval=1.0 - eps)
-        jax.debug.callback(record, u)
+        tag = flax.linen.module._context.module_stack[-1].name if by_block else None
+        jax.debug.callback(functools.partial(record, tag), u)
         return orig(key, probs, temperature, eps)
 
     monkeypatch.setattr(jtg, "relaxed_bernoulli_sample", capture)
     return drawn
 
 
-def inject_noise(monkeypatch, drawn: dict) -> list:
-    """The port's graph block of T frames takes JAX's draw of T frames;
-    returns the frame counts of the sampling calls, in order."""
+def inject_noise(monkeypatch, drawn: dict, blocks=None) -> list:
+    """The port's graph block of T frames takes JAX's draw of T frames, or
+    with ``blocks`` (JAX block names in stage order) the n-th sampling call
+    takes the draw of ``blocks[n % len(blocks)]``; returns the keys of the
+    sampling calls, in order."""
     seen = []
     orig = ttg.graph_adjacency
 
     def inject(q, k, theta, seed=0, sample=False, u=None, **kw):
         if sample:
-            seen.append(q.shape[1])
-            u = torch.from_numpy(drawn[q.shape[1]]).to(q.device)
+            seen.append(blocks[len(seen) % len(blocks)] if blocks else q.shape[1])
+            u = torch.from_numpy(drawn[seen[-1]]).to(q.device)
         return orig(q, k, theta, seed=seed, sample=sample, u=u, **kw)
 
     monkeypatch.setattr(ttg, "graph_adjacency", inject)
@@ -187,12 +197,19 @@ def eval_parity(c, shape):
     return feat.numpy(), np.asarray(feat_ref), proj.numpy(), np.asarray(proj_ref), params
 
 
-def train_parity(c, shape, monkeypatch, floor_rel=1e-9):
+def _zero_grad(name: str, zero_grad) -> bool:
+    return any(name.endswith(z) for z in zero_grad)
+
+
+def train_parity(c, shape, monkeypatch, floor_rel=1e-9, blocks=None, zero_grad=()):
     """Train mode in float64 (the JAX BN pin lifted), JAX's graph noise
-    injected: asserts the output, every parameter gradient and every BN
-    statistic within TOL; returns the port model."""
+    injected (``blocks``: :func:`inject_noise`): asserts the output, every
+    parameter gradient and every BN statistic within TOL; returns the port
+    model.  A parameter named with a suffix in ``zero_grad`` has a zero
+    gradient in exact arithmetic, and each package's is its own rounding:
+    both are held below 1e-3 of the largest gradient instead."""
     x, gout, params, stats = setup(c, shape)
-    drawn = capture_jax_noise(monkeypatch)
+    drawn = capture_jax_noise(monkeypatch, by_block=blocks is not None)
     with jax.enable_x64(), jax_bn_follows_input():
         jmodel, _ = jax_create(c)
 
@@ -206,7 +223,7 @@ def train_parity(c, shape, monkeypatch, floor_rel=1e-9):
         (_, (out_ref, new_stats)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
             params, jnp.asarray(x, jnp.float64))
         out_ref, grads, new_stats = np.asarray(out_ref), np_tree(grads), np_tree(new_stats)
-    seen = inject_noise(monkeypatch, drawn)
+    seen = inject_noise(monkeypatch, drawn, blocks)
     model = port_model(c, params, stats).train()
     out = model(torch.from_numpy(x).double())
     (out * torch.from_numpy(gout)).sum().backward()
@@ -218,8 +235,12 @@ def train_parity(c, shape, monkeypatch, floor_rel=1e-9):
     assert len(named) == len([k for k in ref if "running" not in k])
     # a gradient below 1e-9 of the largest one is cancellation noise in
     # both packages; it is held to that floor (test_torch_models_grads.py)
-    floor = floor_rel * max(np.linalg.norm(ref[n]) for n in named)
+    top = max(np.linalg.norm(ref[n]) for n in named)
+    floor = floor_rel * top
     for name, p in named.items():
+        if _zero_grad(name, zero_grad):
+            assert max(float(p.grad.norm()), np.linalg.norm(ref[name])) < 1e-3 * top, name
+            continue
         diff = np.linalg.norm(p.grad.numpy().astype(np.float64) - ref[name])
         assert diff < TOL * max(np.linalg.norm(ref[name]), floor), name
     ref_sd = pretrain_state_dict(params, new_stats)
@@ -257,19 +278,24 @@ def downstream_lockstep(c, shape, seed=4):
                   and not torch.equal(v, tstate.model.state_dict()[k]))
 
 
-def moco_lockstep(c, shape, monkeypatch):
+def moco_lockstep(c, shape, monkeypatch, blocks=None, tweak=lambda p: p, zero_grad=()):
     """One GCA MoCo step of JAX's and the port's from one state in float64
-    (the JAX BN pin lifted, JAX's graph noise injected, the graph blocks'
-    q/k kernels scaled as in :func:`setup`): loss, every parameter, the EMA
-    encoder and the queue within TOL."""
+    (the JAX BN pin lifted, JAX's graph noise injected (``blocks``:
+    :func:`inject_noise`), the graph blocks' q/k kernels scaled as in
+    :func:`setup`, then ``tweak`` applied to the params and the EMA params):
+    loss, every parameter, the EMA encoder and the queue within TOL.  A
+    parameter with a zero gradient in exact arithmetic (a suffix in
+    ``zero_grad``, as in :func:`train_parity`) moves by its package's
+    rounding alone: each package's move is held below 1e-3 of the largest
+    move of any tensor instead."""
     clips = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
     b = shape[0]
-    drawn = capture_jax_noise(monkeypatch)
+    drawn = capture_jax_noise(monkeypatch, by_block=blocks is not None)
     with jax.enable_x64(), jax_bn_follows_input():
         jmodel, _ = jax_create(c)
         state, tx = jax_state(c, jmodel, jnp.asarray(clips[:2, 0]), n_data=32)
-        state = state.replace(params=scale_embeds(state.params),
-                              ema_params=scale_embeds(state.ema_params))
+        state = state.replace(params=tweak(scale_embeds(state.params)),
+                              ema_params=tweak(scale_embeds(state.ema_params)))
         model, _ = create_visual_model(c)
         load_pretrain_weights(model, np_tree(state.params), np_tree(state.batch_stats))
         tstate = create_pretrain_state(c, model, "cpu")
@@ -281,7 +307,9 @@ def moco_lockstep(c, shape, monkeypatch):
         refs = {"model": pretrain_state_dict(np_tree(state.params), np_tree(state.batch_stats)),
                 "ema": pretrain_state_dict(np_tree(state.ema_params),
                                            np_tree(state.ema_batch_stats))}
-    inject_noise(monkeypatch, drawn)
+    inject_noise(monkeypatch, drawn, blocks)
+    before = {name: {k: v.detach().double().numpy().copy() for k, v in m.state_dict().items()}
+              for name, m in (("model", tstate.model), ("ema", tstate.ema_model))}
     tm = make_moco_step(float(c.CONTRAST.NCE_T), float(c.CONTRAST.ALPHA))(
         tstate, torch.from_numpy(clips).double(), 0.1)
     assert np.isfinite(jloss)
@@ -295,7 +323,12 @@ def moco_lockstep(c, shape, monkeypatch):
         # a tensor below 1e-9 of the largest is zero in exact arithmetic
         # (a BN bias whose update cancels): held to that floor
         floor = 1e-9 * max(np.linalg.norm(v) for v in ref.values())
+        top = max(np.linalg.norm(ref[k] - before[name][k]) for k in ref)
         for k in ref:
+            if _zero_grad(k, zero_grad):
+                moves = [np.linalg.norm(v[k] - before[name][k]) for v in (ours, ref)]
+                assert max(moves) < 1e-3 * top, f"{name}: {k}"
+                continue
             diff = np.linalg.norm(ours[k] - ref[k])
             assert diff < TOL * max(np.linalg.norm(ref[k]), floor), f"{name}: {k}"
     return drawn

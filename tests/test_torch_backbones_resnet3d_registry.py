@@ -15,10 +15,15 @@
 * The registry builds every 3D ResNet name for moco, bank, simsiam and
   ``create_video_model`` with JAX's feature dim and aug points (2, 3, 4),
   graph blocks on those stages' inputs under ``MODEL.AUG_FLAG``;
-  ``TPU.SEPCONV_FUSED`` raises ``ValueError``; ``i3d_res50_nonlocal``
-  raises ``NotImplementedError`` naming ROADMAP's item 6c.  (The parameter
-  init is skipped here: construction is what is tested, and the init of
-  129M parameters takes 9 s a model.)
+  ``TPU.SEPCONV_FUSED`` raises ``ValueError``.  ``i3d_res50_nonlocal``
+  builds for every regime too, with JAX's feature dim and aug points and
+  its non-local blocks on layer2.1 and layer2.3, and the port's 3D registry
+  holds every name of JAX's.  (The parameter init is skipped here:
+  construction is what is tested, and the init of 129M parameters takes
+  9 s a model.)
+* ``jax_weights.backbone_of`` tells JAX's ``I3DResNetNonLocal`` tree from
+  ``resnet3d_50``'s (the same field names) both ways, and
+  ``kernel_times.step_calls`` counts its MoCo step: K1 6, K2 9, K3 0, K4 2.
 """
 
 import numpy as np
@@ -108,9 +113,68 @@ def test_registry_builds_every_3d_resnet(name, monkeypatch):
         build.create_visual_model(c)
 
 
-def test_nonlocal_i3d_is_not_ported():
-    assert "i3d_res50_nonlocal" in JAX_BACKBONES_3D
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        build.create_visual_model(make_cfg("i3d_res50_nonlocal"))
-    # every other JAX 3D name builds
-    assert set(JAX_BACKBONES_3D) - set(build.BACKBONES_3D) == {"i3d_res50_nonlocal"}
+def test_nonlocal_i3d_builds_for_every_regime(monkeypatch):
+    monkeypatch.setattr(build, "init_params_", lambda *a, **k: None)
+    name = "i3d_res50_nonlocal"
+    _, jax_dim, jax_aug = JAX_BACKBONES_3D[name]
+    nonlocal_blocks = ["layer2.1.1.non_local", "layer2.1.3.non_local"]
+    for mem_type, cross in (("moco", "visual"), ("bank", "visual"), ("simsiam", "visual"),
+                            ("moco", "cross")):
+        c = make_cfg(name, aug=(), mem_type=mem_type)
+        c.MODEL.AUG_FLAG = True
+        c.CROSS.MODALITY = cross
+        model, dim = build.create_visual_model(c)
+        stacks = ([model.model_1, model.model_2] if cross == "cross" else [model])
+        for stack in stacks:
+            base = stack.model.encoder.base_model
+            assert dim == jax_dim == base.feature_dim == 2048
+            assert base.aug_points == tuple(jax_aug) == (2, 3, 4)
+            graphs = [n for n, m in base.named_modules() if isinstance(m, TemporalGraphAug)]
+            assert graphs == ["layer2.0", "layer3.0", "layer4.0"]
+            nls = [n for n, m in base.named_modules() if type(m).__name__ == "NonLocalBlock3D"]
+            assert nls == nonlocal_blocks
+    c = make_cfg(name)
+    c.DATASET.NUM_CLASS = 8
+    video, vdim = build.create_video_model(c)
+    assert vdim == jax_dim and video.new_fc.in_features == vdim
+    assert [n for n, m in video.base_model.named_modules()
+            if type(m).__name__ == "NonLocalBlock3D"] == ["layer2.1.non_local",
+                                                          "layer2.3.non_local"]
+    c.TPU.SEPCONV_FUSED = True
+    with pytest.raises(ValueError, match="SEPCONV_FUSED"):
+        build.create_visual_model(c)
+    # every JAX 3D name builds in the port
+    assert set(build.BACKBONES_3D) == set(JAX_BACKBONES_3D)
+    assert not hasattr(build, "NOT_PORTED_3D")
+
+
+def test_backbone_of_tells_nonlocal_i3d_from_resnet3d_50():
+    import jax
+    import jax.numpy as jnp
+
+    from video_graph_ssl_tpu.models import i3dnon as jax_i3dnon
+    from video_graph_ssl_tpu.models import resnet3d as jax_resnet3d
+    from video_graph_ssl_tpu_torch.kernel_times import step_calls
+    from video_graph_ssl_tpu_torch.utils.jax_weights import backbone_of
+
+    x = jax.ShapeDtypeStruct((1, 16, 32, 32, 3), jnp.float32)
+
+    def tree(model):
+        return jax.eval_shape(lambda v: model.init({"params": jax.random.key(0)}, v),
+                              x)["params"]
+
+    nl = tree(jax_i3dnon.I3DResNetNonLocal(layers=(3, 4, 6, 3)))
+    r50 = tree(jax_resnet3d.ResNet3D(block="bottleneck", layers=(3, 4, 6, 3)))
+    assert set(nl) == set(r50)          # the same field names at the top
+    assert backbone_of(nl) == "i3d_res50_nonlocal"
+    assert backbone_of(r50) == "resnet3d_50"
+    # either mark alone: the non-local child, or the (5, 7, 7) stem
+    no_nl = {**nl, "layer2_1": {k: v for k, v in nl["layer2_1"].items() if k != "nonlocal"}}
+    assert backbone_of(no_nl) == "i3d_res50_nonlocal"
+    assert backbone_of({**r50, "layer2_1": nl["layer2_1"]}) == "i3d_res50_nonlocal"
+    assert step_calls("moco", backbone="i3d_res50_nonlocal") == {
+        "graph_adjacency": 6, "gcn_propagate": 9, "maxpool_bwd_s1": 0,
+        "maxpool_bwd_strided": 2, "sepconv_bwd": 0}
+    assert step_calls("finetune", partial_bn=True, backbone="i3d_res50_nonlocal") == {
+        "graph_adjacency": 3, "gcn_propagate": 6, "maxpool_bwd_s1": 0,
+        "maxpool_bwd_strided": 2, "sepconv_bwd": 0}

@@ -6,12 +6,14 @@ or with ``--size 224 --batch 32`` at those of the 16x224x224 step; with
 TF "SAME" pools, a 4x4 stage 14; no K5 for either); with ``--backbone
 resnet3d_18`` (any 3D ResNet: ``resnet3d_*``, ``resnet_i3d_*``,
 ``resnet2p1d_*``) K1/K2 at its graph blocks on stages 2, 3, 4 and K4 at its
-stem pool; a 2D backbone (``resnet18`` .. ``resnet152``, ``bninception``,
-``inception_v3``) runs none of the kernels, and its lines say so.
+stem pool; with ``--backbone i3d_res50_nonlocal`` K1/K2 at its blocks (T = 2
+at all three) and K4 at its stem pool and its temporal pool; a 2D backbone
+(``resnet18`` .. ``resnet152``, ``bninception``, ``inception_v3``) runs none
+of the kernels, and its lines say so.
 
     python video_graph_ssl_tpu_torch/kernel_times.py [--root DIR] [--tag NAME] \
         [--mem_type moco|simsiam|bank|finetune|probe|eval] [--cmc] [--size 112|224] [--batch B] \
-        [--backbone S3D|S3DG|I3D|InceptionI3d|resnet3d_18|resnet101|...]
+        [--backbone S3D|S3DG|I3D|InceptionI3d|resnet3d_18|i3d_res50_nonlocal|resnet101|...]
 
 Run as a file so that ``--root`` (default: the checkout holding this file)
 decides which checkout's ``video_graph_ssl_tpu_torch`` is imported and
@@ -137,12 +139,16 @@ AUG_POINTS, POOLS_S1, POOLS_STRIDED = 3, 9, 4
 # stride-1 and 4 strided pools); tiny3d (the graph-benefit A/B's) has one
 # graph block (aug point 1) and one strided pool, (1, 2, 2) after stage1;
 # a 3D ResNet has blocks on the inputs of stages 2, 3 and 4 and one strided
-# pool, its stem's 3x3x3 / 2; a 2D backbone runs none of the kernels (its
-# pools are the library's, and it builds no graph block)
+# pool, its stem's 3x3x3 / 2; i3d_res50_nonlocal the same blocks and two
+# strided pools, the stem's and the temporal one after layer1; a 2D
+# backbone runs none of the kernels (its pools are the library's, and it
+# builds no graph block)
+I3DNON = "i3d_res50_nonlocal"
 BACKBONE_CALLS = {**{name: (AUG_POINTS, POOLS_S1, POOLS_STRIDED)
                      for name in ("S3D", "S3DG", "I3D", "InceptionI3d")},
                   "tiny3d": (1, 0, 1),
                   **{name: (3, 0, 1) for name in RESNETS_3D},
+                  I3DNON: (3, 0, 2),
                   **{name: (0, 0, 0) for name in BACKBONES_2D}}
 I3D_NAMES = ("I3D", "InceptionI3d")
 
@@ -159,6 +165,21 @@ def resnet_geometry(size: int, batch: int, backbone: str):
     k2 = [(batch, 8 >> i, hw >> i, hw >> i, (64 << i) * exp) for i in range(3)]
     pools = [("stem pool", "K4", (batch, 16, size // 2, size // 2, 64), (3, 3, 3), (2, 2, 2),
               (1, 1, 1))]
+    return k2, pools
+
+
+def i3dnon_geometry(size: int, batch: int):
+    """(K2_SHAPES, POOLS) of ``i3d_res50_nonlocal``'s step at 16 x size x
+    size: the (5, 7, 7) / 2 stem leaves (8, size/2, size/2, 64), the 3x3x3 /
+    2 stem pool (padding 1) (4, size/4, size/4), layer1 256 channels, whose
+    temporal pool (3, 1, 1) / (2, 1, 1), pads (1, 0, 0), halves T to 2;
+    stages 2-4 stride H and W only, so the graph blocks see T = 2 at size/4,
+    size/8 and size/16 with 256, 512 and 1024 channels."""
+    q = size // 4
+    k2 = [(batch, 2, q >> i, q >> i, 256 << i) for i in range(3)]
+    pools = [("stem pool", "K4", (batch, 8, size // 2, size // 2, 64), (3, 3, 3), (2, 2, 2),
+              (1, 1, 1)),
+             ("layer1 pool", "K4", (batch, 4, q, q, 256), (3, 1, 1), (2, 1, 1), (1, 0, 0))]
     return k2, pools
 # (encoder passes, passes with a backward) of each regime's step, and of the
 # downstream steps (engine/downstream.py)
@@ -179,7 +200,8 @@ def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
     """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
     S3DG, I3D or InceptionI3d, graph blocks at 5, 9, 14 with ``graph``,
     ``MODEL.AUG_FLAG``; tiny3d, one block at 1, one strided pool; a 3D
-    ResNet, blocks at 2, 3, 4, one strided pool; a 2D backbone, none): K1 and
+    ResNet, blocks at 2, 3, 4, one strided pool; i3d_res50_nonlocal, the
+    same blocks and two strided pools; a 2D backbone, none): K1 and
     K2 once per block and pass, K2 again (transposed) in each backward,
     K3/K4 in each backward, K5 (with ``TPU.SEPCONV_FUSED``, S3D only) in
     each backward unless ``partial_bn`` freezes the pairs' BNs, which takes
@@ -204,7 +226,8 @@ def geometry(size: int = 112, batch: int = 128, backbone: str = "S3D"):
     """(K1_SHAPES, K2_SHAPES, POOLS, SEPCONVS) of ``backbone``'s step at 16
     x size x size (112 or 224) and batch ``batch``: S3D's and S3DG's
     shapes, or I3D's with each pool's TF "SAME" pads for its input, or a 3D
-    ResNet's (:func:`resnet_geometry`); none for a 2D backbone; K5's
+    ResNet's (:func:`resnet_geometry`), or i3d_res50_nonlocal's
+    (:func:`i3dnon_geometry`); none for a 2D backbone; K5's
     SepConvs for S3D alone (S3DG's biased pairs and the other backbones'
     convs take the standard backward).  CMC's two stacks each see these
     shapes (``model_2``'s temporal differences keep the clips' shape), so a
@@ -213,8 +236,9 @@ def geometry(size: int = 112, batch: int = 128, backbone: str = "S3D"):
         raise ValueError(f"size {size}: 112 or 224")
     if backbone in BACKBONES_2D:
         return [], [], [], []
-    if backbone in RESNETS_3D:
-        k2, pools = resnet_geometry(size, batch, backbone)
+    if backbone in RESNETS_3D or backbone == I3DNON:
+        k2, pools = (i3dnon_geometry(size, batch) if backbone == I3DNON
+                     else resnet_geometry(size, batch, backbone))
         return [k1_shape(s_) for s_ in k2], k2, pools, []
     i3d = backbone in I3D_NAMES
     scale = I3D_HW_224 if i3d else HW_224
@@ -340,7 +364,7 @@ def main(argv=None) -> int:
     ap.add_argument("--size", default=112, type=int, help="frame size: 112 or 224")
     ap.add_argument("--batch", default=128, type=int, help="batch size")
     ap.add_argument("--backbone", default="S3D",
-                    choices=["S3D", "S3DG", *I3D_NAMES, *RESNETS_3D, *BACKBONES_2D],
+                    choices=["S3D", "S3DG", *I3D_NAMES, *RESNETS_3D, I3DNON, *BACKBONES_2D],
                     help="MODEL.BACKBONE whose shapes are timed (a 2D one has none)")
     args = ap.parse_args(argv)
     k1_shapes, k2_shapes, pools, sepconvs = geometry(args.size, args.batch, args.backbone)

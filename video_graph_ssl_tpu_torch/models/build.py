@@ -5,7 +5,9 @@ the backbones ported so far, the visual pretrain regimes
 
 3D: the reference's exported S3D, S3DG, I3D and InceptionI3d,
 the 3D ResNets ``resnet3d_{10..200}``, the factorized ``resnet_i3d_{18,50,
-101}`` and ``resnet2p1d_{10..200}``, and the test backbone tiny3d.  2D
+101}`` and ``resnet2p1d_{10..200}``, ``i3d_res50_nonlocal`` (non-local
+blocks on layer2.1 and layer2.3), and the test backbone tiny3d: every name
+of JAX's ``BACKBONES_3D``.  2D
 (``MODEL.BACKBONE_TYPE 2D``, frames folded into the batch and aggregated
 under ``MODEL.POOLING_TYPE``): ``resnet18`` .. ``resnet152``,
 ``bninception`` and ``inception_v3``; a 2D backbone builds no graph block,
@@ -38,6 +40,7 @@ from ..data.build import resolve_new_length
 from . import resnet2d
 from .bninception import BNINCEPTION_FEATURE_DIM, bninception
 from .i3d import I3D, I3D_FEATURE_DIM
+from .i3dnon import I3DNON_FEATURE_DIM, i3d_res50_nonlocal
 from .inceptionv3 import INCEPTIONV3_FEATURE_DIM, inception_v3
 from .layers import init_params_
 from .resnet2p1d import RESNET2P1D
@@ -70,6 +73,7 @@ BACKBONES_3D = {
     # the reference's two I3D implementations are one network
     "I3D": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
     "InceptionI3d": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
+    "i3d_res50_nonlocal": (i3d_res50_nonlocal, I3DNON_FEATURE_DIM, (2, 3, 4)),
     **{name: (ctor, _feature_dim(name), (2, 3, 4))
        for name, ctor in {**RESNET2P1D, **RESNET3D, **RESNET_I3D}.items()},
     "tiny3d": (Tiny3D, TINY3D_FEATURE_DIM, (1,)),
@@ -84,9 +88,6 @@ BACKBONES_2D = {
     "resnet152": (resnet2d.resnet152, 2048, ()),
 }
 BACKBONES = {"2D": BACKBONES_2D, "3D": BACKBONES_3D}
-# JAX 3D names not ported yet
-NOT_PORTED_3D = ("i3d_res50_nonlocal",)
-NOT_PORTED = "ROADMAP.md, Queue 1, item 6c: i3d_res50_nonlocal and s3dg_text"
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -130,8 +131,6 @@ def _not_ported(btype: str, name: str) -> str:
     if name in BACKBONES[other]:
         hint = (f"{name} is a {other} backbone (the 2D ones: ROADMAP.md, Queue 1, item "
                 f"6b): set MODEL.BACKBONE_TYPE {other}")
-    elif name in NOT_PORTED_3D:
-        hint = NOT_PORTED
     else:
         hint = f"have {btype}: {sorted(BACKBONES.get(btype, {}))}"
     return f"backbone {btype}/{name} is not ported: {hint}"

@@ -201,8 +201,13 @@ class ResNetStages(nn.Module):
             if stage in self.aug_points:
                 graph, layer = layer[0], layer[1]
                 x = to_ncdhw(graph(to_bthwc(x), seed=stage_seed(seed, stage), rows=rows))
-            x = layer(x)
+            x = self._after_stage(stage, layer(x))
         return x.float().mean(dim=(2, 3, 4))
+
+    def _after_stage(self, stage: int, x: torch.Tensor) -> torch.Tensor:
+        """What runs between ``layer{stage}`` and the next stage's graph
+        block: nothing here (``i3dnon``'s temporal pool after layer1)."""
+        return x
 
 
 class ResNet3D(ResNetStages):

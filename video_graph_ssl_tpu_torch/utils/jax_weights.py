@@ -19,7 +19,10 @@ names, each SepConv conv's bias beside its weight), I3D (JAX ``conv3d_1a``,
 port's stages 0, 2, 3 and the same branch paths as S3D's), the ResNets (2D,
 R3D, resnet_i3d and R(2+1)D: JAX ``layerS_B`` -> ``layerS.B``, the block
 fields to the reference's names), BN-Inception, Inception-v3 and tiny3d,
-told apart by :func:`backbone_of`.  Names are the reference's, the
+told apart by :func:`backbone_of`, and i3d_res50_nonlocal (R3D's field
+names, its non-local blocks at ``layerS.B.non_local``).  The text-video
+``S3DGText`` maps on its own (:func:`s3dg_text_state_dict`, the MIL-NCE
+names).  Names are the reference's, the
 same that ``video_graph_ssl_tpu.utils.ckpt_convert.export_pretrain_to_torch``
 writes for S3D: ``model.proj_head.head.{0,2}`` (MoCo, bank) or
 ``model.projection.l{1,2,3}.{0,1}`` and ``model.prediction.{l1.{0,1},l2}``
@@ -206,8 +209,17 @@ _R2P1D_STEM = {"stem_s": "conv1_s", "stem_bn_s": "bn1_s", "stem_t": "conv1_t",
                "stem_bn_t": "bn1_t"}
 
 
+def _nonlocal(out: SD, prefix: str, p: dict, s: dict) -> None:
+    """A JAX ``NonLocalBlock3D``: its four Dense as Linears, ``w_bn``."""
+    for name in ("theta", "phi", "g", "w_out"):
+        _dense(out, f"{prefix}.{name}", p[name])
+    _bn(out, f"{prefix}.w_bn", p["w_bn"]["bn"], s["w_bn"]["bn"])
+
+
 def _resnet_block(out: SD, prefix: str, p: dict, s: dict) -> None:
-    """One JAX ResNet block (R3D, resnet_i3d, R(2+1)D or 2D) at ``prefix``."""
+    """One JAX ResNet block (R3D, resnet_i3d, R(2+1)D, 2D or i3dnon's
+    inflated bottleneck, its non-local block at ``non_local``) at
+    ``prefix``."""
     if "conv1_s" in p:
         table = _FBASIC
     elif "conv2_s" in p:
@@ -215,7 +227,9 @@ def _resnet_block(out: SD, prefix: str, p: dict, s: dict) -> None:
     else:
         table = _SHORTCUT
     for field, sub in p.items():
-        if "spatial" in sub:    # an R(2+1)D pair: its BN after it is bn{i}_t
+        if field == "nonlocal":
+            _nonlocal(out, f"{prefix}.non_local", sub, s.get(field, {}))
+        elif "spatial" in sub:    # an R(2+1)D pair: its BN after it is bn{i}_t
             i = field[len("conv"):]
             out[f"{prefix}.conv{i}_s.weight"] = _conv_kernel(sub["spatial"]["kernel"])
             _bn(out, f"{prefix}.bn{i}_s", sub["bn_s"]["bn"], s[field]["bn_s"]["bn"])
@@ -228,8 +242,8 @@ def _resnet_block(out: SD, prefix: str, p: dict, s: dict) -> None:
 
 
 def resnet_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
-    """JAX ``ResNet2D``, ``ResNet3D`` (R3D, resnet_i3d) or ``ResNet2Plus1D``
-    variables -> the port's state_dict: torchvision's stem and stage names,
+    """JAX ``ResNet2D``, ``ResNet3D`` (R3D, resnet_i3d), ``ResNet2Plus1D`` or
+    ``I3DResNetNonLocal`` variables -> the port's state_dict: torchvision's stem and stage names,
     or R(2+1)D's ``conv1_s``/``conv1_t`` stem; a stage with a graph block
     ``graph_aug_S`` is ``layerS.1``, the block ``layerS.0``."""
     out: SD = {}
@@ -317,9 +331,24 @@ _RESNET_DEPTHS = {((1, 1, 1, 1), False): 10, ((2, 2, 2, 2), False): 18,
                   ((3, 24, 36, 3), True): 200}
 
 
+I3DNON = "i3d_res50_nonlocal"
+
+
+def _is_i3dnon(enc: dict) -> bool:
+    """JAX ``I3DResNetNonLocal`` variables, whose field names are R3D's: by
+    the non-local block in ``layer2_1`` or the (5, 7, 7) stem kernel (R3D's
+    is 7x7x7, R(2+1)D's a pair)."""
+    stem = enc.get("conv1", {}).get("kernel")
+    return ("nonlocal" in enc.get("layer2_1", {})
+            or (stem is not None and tuple(np.shape(stem)[:3]) == (5, 7, 7)))
+
+
 def _resnet_name(enc: dict) -> str:
     """The registry name of a JAX ResNet's variables: the family by its stem
-    and blocks, the depth by its block counts and block type."""
+    and blocks, the depth by its block counts and block type; I3D-ResNet-50
+    with non-local blocks by :func:`_is_i3dnon`."""
+    if _is_i3dnon(enc):
+        return I3DNON
     layers = tuple(sum(k.startswith(f"layer{s}_") for k in enc) for s in (1, 2, 3, 4))
     first = enc["layer1_0"]
     depth = _RESNET_DEPTHS[layers, "conv3" in first]
@@ -335,7 +364,7 @@ def _resnet_name(enc: dict) -> str:
 BACKBONES = {"S3D": s3d_state_dict, "S3DG": s3d_state_dict, "I3D": i3d_state_dict,
              "InceptionI3d": i3d_state_dict, "tiny3d": tiny3d_state_dict,
              "bninception": bninception_state_dict,
-             "inception_v3": inception_v3_state_dict,
+             "inception_v3": inception_v3_state_dict, I3DNON: resnet_state_dict,
              **{f"{family}{d}": resnet_state_dict
                 for family, depths in (("resnet", (18, 34, 50, 101, 152)),
                                        ("resnet3d_", (10, 18, 34, 50, 101, 152, 200)),
@@ -365,6 +394,41 @@ def backbone_of(enc: dict) -> str:
 def _dense(out: SD, name: str, d: dict) -> None:
     out[name + ".weight"] = np.ascontiguousarray(np.asarray(d["kernel"]).T)
     out[name + ".bias"] = np.asarray(d["bias"])
+
+
+def _stconv_text(out: SD, prefix: str, p: dict, s: dict) -> None:
+    """A JAX ``s3dg_text.STConv`` (``conv1``/``bn1`` [``conv2``/``bn2``],
+    flax BatchNorm unwrapped) at ``prefix``."""
+    for i in (1, 2):
+        if f"conv{i}" in p:
+            out[f"{prefix}.conv{i}.weight"] = _conv_kernel(p[f"conv{i}"]["kernel"])
+            _bn(out, f"{prefix}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+
+
+def s3dg_text_state_dict(params: dict, batch_stats: dict) -> SD:
+    """JAX ``S3DGText`` variables (``encode_video``, ``text_module``) -> the
+    port's ``S3DGText`` state_dict, the MIL-NCE names (the inverse of JAX
+    ``convert_torch_s3dg_text``)."""
+    out: SD = {}
+    p, s = params["encode_video"], batch_stats.get("encode_video", {})
+    for name, sub in p.items():
+        if name in ("gating", "fc"):
+            _dense(out, f"{name}.fc" if name == "gating" else name,
+                   sub["fc"] if name == "gating" else sub)
+        elif name.startswith("mixed_"):
+            for branch, bp in sub.items():
+                if branch.startswith("gating_"):
+                    _dense(out, f"{name}.{branch}.fc", bp["fc"])
+                else:
+                    _stconv_text(out, f"{name}.{branch}", bp, s[name][branch])
+        else:
+            _stconv_text(out, name, sub, s[name])
+    if "text_module" in params:
+        t = params["text_module"]
+        out["text_module.word_embd.weight"] = np.asarray(t["word_embd"]["embedding"])
+        for fc in ("fc1", "fc2"):
+            _dense(out, f"text_module.{fc}", t[fc])
+    return out
 
 
 def simsiam_heads_state_dict(p: dict, s: dict) -> SD:
