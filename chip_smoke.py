@@ -257,6 +257,25 @@ Phases (each raises on failure; the script then exits non-zero):
    process within phase 8's bounds beside a per-rank-BN control; (e)
    ``train_ds`` from (c)'s checkpoint: the surgery takes ``model_1``'s
    encoder bit for bit, 3 fine-tune steps at the fine-tune's kernel counts.
+17. ``i3d_res50_nonlocal``, the text-video ``S3DGText`` and the
+   reference-checkpoint converter (``phase_nonlocal_text``).
+18. ``TPU.REMAT``, the export and Grad-CAM (``phase_remat_export_cam``):
+   (a) 3 GCA MoCo steps of the trainer (S3D, graph at 5, 9, 14, bs 8,
+   16x112x112, fp32, cuDNN deterministic) under ``block`` and
+   ``conv_saved``, and ``block`` with ``TPU.SEPCONV_FUSED``, against the
+   same steps without remat, bit for bit (losses, gradients, parameters, BN
+   statistics, queue, EMA), K1-K5 at their exact counts (a recompute
+   reruns forwards, not the backward kernels); (b) the trainer at the main
+   path's geometry (bs 128, bf16) under off, ``block`` and ``conv_saved``:
+   ms/step and peak memory, both recompute peaks below off's; (c) the GCA
+   S3D encoder of (a)'s checkpoint exported by ``export_model`` at batch 2
+   and with a symbolic batch (fp32): K1/K2 against their plain versions at
+   the export's shapes, each artifact against the live model (< 1e-4) with
+   K1 3 and K2 3 launches per call, then both loaded in a fresh process
+   that imports torch and the port's ops alone, bit for bit; K1's and K2's
+   forwards through the launcher, the registered operator and the wrapper
+   (CUDA events, host us); (d) Grad-CAM of an S3D classifier (fp32) on the
+   card against the CPU, within 1e-3, head self-check below 1e-4.
 
 ``python3 chip_smoke.py --only phase_fused_ranks`` (development) runs the
 build and the named phase functions alone, without the kernel record and
@@ -4091,6 +4110,279 @@ def phase_nonlocal_text(dev, gpu: str) -> dict:
     return worst
 
 
+REMAT = {"off": [], "block": ["TPU.REMAT", "True", "TPU.REMAT_POLICY", "block"],
+         "conv_saved": ["TPU.REMAT", "True", "TPU.REMAT_POLICY", "conv_saved"]}
+REMAT_STEPS = 3
+REMAT_SMALL_BS = 8
+EXPORT_BATCH = 2
+CAM_VIDEOS = 2
+TOL_CAM = 1e-3
+TOL_HEAD = 1e-4
+TOL_EXPORT = 1e-4   # the JAX tool's live-against-artifact bound
+# a fresh interpreter loads artifacts with torch and the port's ops alone
+# (TF32 off and cuDNN deterministic, as in this process) and writes each
+# one's features and K1/K2 launches (arguments: path, input, output, ...)
+EXPORT_LOAD = """
+import json, sys, numpy as np, torch
+from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp, graph_kernel as gk
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+for path, raw_in, feats_out in zip(*[iter(sys.argv[1:])] * 3):
+    fn = torch.export.load(path).module()
+    raw = torch.from_numpy(np.load(raw_in)).cuda()
+    with torch.no_grad():
+        fn(raw)
+        torch.cuda.synchronize()
+        gk.launches = gp.launches = 0
+        out = fn(raw)
+        torch.cuda.synchronize()
+    np.save(feats_out, out.cpu().numpy())
+    print(json.dumps({"graph_adjacency": gk.launches, "gcn_propagate": gp.launches}))
+"""
+
+
+def remat_small_run(policy: str, fused: bool, ckpt: str = None) -> dict:
+    """REMAT_STEPS GCA MoCo steps of the trainer (S3D, graph at 5, 9, 14,
+    16x112x112, bs REMAT_SMALL_BS, fp32) under ``policy``; ``drive_steps``'
+    record plus the gradients of the last step, and with ``ckpt`` the
+    checkpoint the Saver writes after the steps."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+
+    c = load_config(CONFIG, ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic",
+                             "DATALOADER.BATCH_SIZE", str(REMAT_SMALL_BS),
+                             "TPU.COMPUTE_DTYPE", "float32", "TPU.SEPCONV_FUSED", str(fused),
+                             *REMAT[policy]])
+    trainer = Trainer(c, max_steps=REMAT_STEPS, device="cuda", run_dir=RUN_DIR)
+    run = drive_steps(trainer, REMAT_STEPS)
+    run["grads"] = {n: p.grad.detach().cpu().clone()
+                    for n, p in trainer.state.model.named_parameters()}
+    if ckpt:
+        run["ckpt"] = trainer.saver.save_checkpoint(trainer.state, 1, filename=ckpt)
+    del trainer
+    _free()
+    return run
+
+
+def remat_same_step(gpu: str) -> str:
+    """(a): off, block and conv_saved, and block with TPU.SEPCONV_FUSED
+    against off with it, bit for bit (losses, parameters after step 1 and
+    3, BN running statistics, queue and pointer, EMA encoder, last
+    gradients), K1-K5 at their exact counts; returns the path of off's
+    checkpoint."""
+    from video_graph_ssl_tpu_torch.graph_benefit import reproducible_fp32
+    from video_graph_ssl_tpu_torch.utils.checkpoint import mismatches
+
+    with reproducible_fp32():
+        for fused, policies in ((False, ("off", "block", "conv_saved")), (True, ("off", "block"))):
+            runs = {}
+            for policy in policies:
+                save = "phase18_off.pth.tar" if (policy, fused) == ("off", False) else None
+                run = runs[policy] = remat_small_run(policy, fused, save)
+                tag = f"phase 18 (a) {policy}, SEPCONV_FUSED {fused}"
+                _hold_counts(tag, run["counts"], _want_counts(REMAT_STEPS, fused=fused))
+                print(f"  {tag}: losses {run['losses']}, host ms {[f'{m:.1f}' for m in run['ms']]}"
+                      f", peak {run['peak_gib']:.2f} GiB, kernel calls {run['counts']}")
+                if policy == "off":
+                    continue
+                off = runs["off"]
+                bad = (([] if run["losses"] == off["losses"] else ["losses"])
+                       + mismatches(run["after_1"], off["after_1"], "after_1")
+                       + mismatches(run["state"], off["state"], "state")
+                       + mismatches(run["grads"], off["grads"], "grads"))
+                if bad:
+                    raise RuntimeError(f"{tag} differs from off at {bad[:8]}")
+                print(f"  {tag}: losses, gradients, parameters, BN statistics, queue and EMA "
+                      "equal off's bit for bit")
+            if not fused:
+                ckpt = runs["off"]["ckpt"]
+    return ckpt
+
+
+def remat_full_width(dev, gpu: str) -> dict:
+    """(b): the trainer at the main path's geometry (S3D + graph, bs 128,
+    16x112x112, bf16) under off, block and conv_saved: ms/step and peak
+    memory; both recomputes must hold less."""
+    runs = {p: run_trainer(dev, gpu, fused=False, opts=REMAT[p]) for p in REMAT}
+    out = {p: {"ms_per_step": r["ms"], "peak_gib": r["peak_gib"]} for p, r in runs.items()}
+    for p in ("block", "conv_saved"):
+        print(f"  REMAT {p}: {out[p]['ms_per_step']:.1f} ms/step against "
+              f"{out['off']['ms_per_step']:.1f}, peak {out[p]['peak_gib']:.2f} GiB against "
+              f"{out['off']['peak_gib']:.2f} GiB on {gpu}")
+        if not out[p]["peak_gib"] < out["off"]["peak_gib"]:
+            raise RuntimeError(f"REMAT {p}: peak {out[p]['peak_gib']:.2f} GiB is not below "
+                               f"off's {out['off']['peak_gib']:.2f} GiB")
+    return out
+
+
+def op_dispatch_times(dev, gpu: str) -> dict:
+    """K1's and K2's forwards at the step's shapes (bf16, K1 sampled) three
+    ways: the launcher, the registered operator and the module-level
+    wrapper (the training path: the operator inside the autograd
+    function), CUDA-event ms and host us per call."""
+    from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
+    from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf, out = torch.bfloat16, {}
+    for b, t, d in K1_SHAPES:
+        q = torch.randn(b, t, d, device=dev, generator=g).to(bf)
+        k = torch.randn(b, t, d, device=dev, generator=g).to(bf)
+        theta = torch.rand(t, t, device=dev, generator=g)
+        ways = {"launcher": lambda: gk.adjacency_fwd_kernel(q, k, theta, None, 7, 1.0, True, 0),
+                "operator": lambda: gk.adjacency_fwd_op(q, k, theta, None, 7, 1.0, True, 0),
+                "wrapper": lambda: gk.graph_adjacency(q, k, theta, 7, 1.0, True)}
+        out[f"K1 {(b, t, d)}"] = {w: {"ms": event_ms(f), "host_us": host_us(f)}
+                                  for w, f in ways.items()}
+    for shape in K2_SHAPES:
+        b, t = shape[:2]
+        x = torch.randn(shape, device=dev, generator=g).to(bf)
+        adj = torch.rand(b, t, t, device=dev, generator=g).to(bf)
+        ways = {"launcher": lambda: gp._launch(adj, x, False),
+                "operator": lambda: gp.propagate_op(adj, x, False),
+                "wrapper": lambda: gp.gcn_propagate(adj, x)}
+        out[f"K2 {tuple(shape)}"] = {w: {"ms": event_ms(f), "host_us": host_us(f)}
+                                     for w, f in ways.items()}
+    for key, ways in out.items():
+        print(f"  {key}: " + ", ".join(f"{w} {v['ms']:.4f} ms ({v['host_us']:.1f} us host)"
+                                       for w, v in ways.items()) + f" on {gpu}")
+    return out
+
+
+def export_on_card(dev, gpu: str, ckpt: str) -> dict:
+    """(c): the GCA S3D encoder of ``ckpt`` exported by the tool at --batch
+    2 and with --poly (fp32): K1/K2 against their plain versions at the
+    export's shapes; each artifact loaded here against the live model
+    (< TOL_EXPORT) with one call's K1/K2 launches; then both loaded in one
+    fresh process, whose launches and features must equal this process's
+    bit for bit."""
+    import subprocess
+
+    import numpy as np
+    from video_graph_ssl_tpu_torch import export_model
+    from video_graph_ssl_tpu_torch.graph_benefit import reproducible_fp32
+    from video_graph_ssl_tpu_torch.kernel_times import geometry
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    k1_shapes, k2_shapes = geometry(112, EXPORT_BATCH)[:2]
+    worst = kernel_checks(dev, "phase 18 (c)", k1_shapes, k2_shapes, [], "fp32")
+    want = {"graph_adjacency": 3, "gcn_propagate": 3}
+    opts = ["MODEL.AUG_FLAG", "True", "TPU.COMPUTE_DTYPE", "float32"]
+    live, _, _ = export_model.build_infer_fn(load_config(CONFIG, opts), "encoder", ckpt, dev)
+    out, fresh_args, here = {}, [], {}
+    for name, shape in (("batch2", ["--batch", str(EXPORT_BATCH)]), ("poly", ["--poly"])):
+        directory = os.path.join(RUN_DIR, f"export_{name}")
+        t0 = time.perf_counter()
+        manifest = export_model.main(["--config_file", CONFIG, "--checkpoint", ckpt,
+                                      "--output", directory, "--skip_validate", *shape, *opts])
+        seconds = time.perf_counter() - t0
+        path = os.path.join(directory, "encoder.pt2")
+        b = EXPORT_BATCH + (1 if name == "poly" else 0)
+        raw = torch.randint(0, 256, (b, *manifest["input"]["shape"][1:]), dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(9))
+        with reproducible_fp32(), torch.no_grad():
+            fn = torch.export.load(path).module()
+            fn(raw.to(dev))
+            torch.cuda.synchronize()
+            reset_counts()
+            here[name] = fn(raw.to(dev)).cpu()
+            torch.cuda.synchronize()
+            counts = {k: read_counts()[k] for k in want}
+            err = max_abs(here[name], live(raw.to(dev)).cpu())
+        _hold_counts(f"phase 18 (c) {name}: one artifact call", counts, want)
+        check(f"phase 18 (c) {name}: max|live - artifact|", err, TOL_EXPORT)
+        if not (here[name].shape == (b, manifest["output"]["dim"])
+                and bool(here[name].isfinite().all())):
+            raise RuntimeError(f"phase 18 (c) {name}: features {tuple(here[name].shape)}")
+        np.save(os.path.join(directory, "raw.npy"), raw.numpy())
+        fresh_args += [path, os.path.join(directory, "raw.npy"),
+                       os.path.join(directory, "fresh.npy")]
+        print(f"  (c) {name}: exported in {seconds:.1f} s, {manifest['bytes'] / 1e6:.1f} MB; "
+              f"batch {b}: K1 {counts['graph_adjacency']}, K2 {counts['gcn_propagate']} "
+              "launches per artifact call")
+        out[name] = {"live_err": err, "bytes": manifest["bytes"], "export_s": seconds}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOAD, *fresh_args], cwd=REPO,
+                          env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 18 (c): the fresh process failed:\n{proc.stderr}")
+    lines = proc.stdout.strip().splitlines()[-2:]
+    for name, line in zip(("batch2", "poly"), lines):
+        _hold_counts(f"phase 18 (c) {name}: the fresh process's call", json.loads(line), want)
+        fresh = torch.from_numpy(np.load(os.path.join(RUN_DIR, f"export_{name}", "fresh.npy")))
+        if not torch.equal(fresh, here[name]):
+            raise RuntimeError(f"phase 18 (c) {name}: the fresh process's features differ by "
+                               f"{max_abs(fresh, here[name]):.3e}")
+    print(f"  (c) a fresh process ({time.perf_counter() - t0:.1f} s) loads both artifacts "
+          f"with torch and the port's ops alone: {lines}, features equal this process's "
+          "bit for bit")
+    return {"worst": worst, **out}
+
+
+def cam_on_card(dev, gpu: str) -> dict:
+    """(d): Grad-CAM of an S3D classifier (graph at 5, 9, 14, 112x112,
+    fp32) on the card and on the CPU from the same weights and clips."""
+    import copy
+
+    from video_graph_ssl_tpu_torch import cam
+    from video_graph_ssl_tpu_torch.graph_benefit import reproducible_fp32
+    from video_graph_ssl_tpu_torch.models.build import create_video_model
+    from video_graph_ssl_tpu_torch.models.layers import place
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    c = load_config(FT_CONFIG, ["TPU.COMPUTE_DTYPE", "float32", "MODEL.AUG_FLAG", "True",
+                                *SYNTHETIC])
+    model, _ = create_video_model(c)
+    t, crop = int(c.INPUT.VIDEO_LENGTH), tuple(int(s) for s in c.INPUT.CROP_SIZE)
+    scale = tuple(int(s) for s in c.INPUT.SCALE_SIZE)
+    raw = torch.randint(0, 256, (CAM_VIDEOS, t, *scale, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(12))
+    got, on_cpu = {}, copy.deepcopy(model)
+    for name, d, m in (("cpu", torch.device("cpu"), on_cpu), ("gpu", dev, place(model, dev))):
+        fn = cam.build_cam_fn(c, m, "S3D", "mixed_5c", (t, *crop))
+        with reproducible_fp32():
+            t0 = time.perf_counter()
+            maps, logits, head_err = fn(m, raw.to(d), 1)
+            got[name] = (maps.cpu(), logits.cpu(), head_err, time.perf_counter() - t0)
+        check(f"phase 18 (d) {name} head_err", head_err, TOL_HEAD)
+    (cm, cl, _, cs), (gm, gl, gerr, gs) = got["cpu"], got["gpu"]
+    err = max_abs(gm, cm)
+    check("phase 18 (d) max|cam_gpu - cam_cpu|", err, TOL_CAM)
+    if not (gm.shape == (CAM_VIDEOS, t, *crop) and float(gm.min()) >= 0.0
+            and float(gm.max()) <= 1.0 + 1e-6):
+        raise RuntimeError(f"phase 18 (d): CAM {tuple(gm.shape)} in [{float(gm.min())}, "
+                           f"{float(gm.max())}]")
+    print(f"  (d) CAMs of {CAM_VIDEOS} videos at {t}x{crop[0]}x{crop[1]}: card against CPU "
+          f"{err:.3e} (<= {TOL_CAM}), logits {rel_err(gl, cl):.3e}, head_err {gerr:.3e}; "
+          f"{gs:.2f} s on the card, {cs:.2f} s on the CPU")
+    return {"cam_err": err, "head_err": gerr}
+
+
+def phase_remat_export_cam(dev, gpu: str) -> dict:
+    print("phase 18: TPU.REMAT on the GCA MoCo step, the model export and Grad-CAM")
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    print(f"  (a) the same step: {REMAT_STEPS} steps at bs {REMAT_SMALL_BS}, 16x112x112, fp32, "
+          "cuDNN deterministic")
+    ckpt = part("a", remat_same_step, gpu)
+    print("  (b) REMAT at full width (S3D + graph, bs 128, 16x112x112, bf16)")
+    full = part("b", remat_full_width, dev, gpu)
+    print("  (c) the GCA S3D encoder exported (configs/visual_moco.yaml, MODEL.AUG_FLAG True, "
+          "(a)'s weights, fp32), and K1/K2 through their operators")
+    exported = part("c", export_on_card, dev, gpu, ckpt)
+    dispatch = part("c dispatch", op_dispatch_times, dev, gpu)
+    print("  (d) Grad-CAM, S3D classifier, card against CPU")
+    cams = part("d", cam_on_card, dev, gpu)
+    print(json.dumps({"remat_export_cam": {"remat": full, "export": exported,
+                                           "dispatch": dispatch, "cam": cams, "gpu": gpu}}))
+    return exported["worst"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4140,12 +4432,13 @@ def main() -> int:
     timed(phase_fused_ranks, dev, gpu)
     cmc = timed(phase_cmc, dev, gpu)
     nonlocal_text = timed(phase_nonlocal_text, dev, gpu)
-    for k in kernels:   # the I3D pools', model_2's and phase 17's checks join the kernels'
+    exported = timed(phase_remat_export_cam, dev, gpu)
+    for k in kernels:   # the I3D pools', model_2's, phase 17's and 18's checks join the kernels'
         kn = {"graph_adjacency": "K1", "gcn_propagate": "K2", "maxpool_bwd_s1": "K3",
               "maxpool_bwd_strided": "K4"}.get(k["name"])
         if kn:
             k["max_abs_err"] = max(k["max_abs_err"], worst.get(kn, 0.0), cmc[kn],
-                                   nonlocal_text[kn])
+                                   nonlocal_text[kn], exported[kn])
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

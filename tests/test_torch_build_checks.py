@@ -5,9 +5,9 @@ The same configs go through both packages' builders
 (``create_visual_model`` and ``create_video_model``): where JAX raises a
 ``ValueError`` (``video_graph_ssl_tpu/models/build.py:_resolve_remat`` and
 ``encoder_cfg_from``), the port raises the same class with the same
-message, in JAX's order; where JAX builds, the port builds too, except for
-a valid ``TPU.REMAT True``, which raises ``NotImplementedError`` naming
-ROADMAP item 7b, and a valid ``TPU.STEM_S2D`` other than off, which raises
+message, in JAX's order; where JAX builds, the port builds too (a valid
+``TPU.REMAT True`` with the backbone's ``remat`` set as JAX's encoder sets
+it), except for a valid ``TPU.STEM_S2D`` other than off, which raises
 ``NotImplementedError`` naming ``TPU.STEM_S2D`` (the port builds the
 standard stem only, the same function).
 """
@@ -76,18 +76,23 @@ def test_refused_like_jax(builders, name, backbone, tpu):
     assert type(got.value) is type(want) and str(got.value) == str(want)
 
 
-# valid TPU.REMAT True: JAX builds (jax.checkpoint), the port names item 7b
+# valid TPU.REMAT True: JAX builds (jax.checkpoint), and so does the port
+# (torch.utils.checkpoint), its backbone's remat the JAX encoder's
 REMAT_VALID = [("S3D", "block"), ("S3D", "conv_saved"), ("S3DG", "conv_saved"),
                ("tiny3d", "block"), ("resnet3d_10", "block")]
 
 
 @pytest.mark.parametrize("backbone,policy", REMAT_VALID)
-def test_remat_true_names_item_7b(backbone, policy):
+def test_remat_true_builds_in_both(backbone, policy):
     c = _cfg(backbone, REMAT=True, REMAT_POLICY=policy)
     for jax_build, port_build in BUILDERS:
         assert _jax_error(jax_build, c) is None
-        with pytest.raises(NotImplementedError, match=r"TPU.REMAT.*item 7b"):
-            port_build(c)
+        jax_model, _ = jax_build(c)
+        want = jax_model.encoder_cfg["remat"]
+        assert want == (True if policy == "block" else policy)
+        model, _ = port_build(c)
+        encoder = model if hasattr(model, "new_fc") else model.model.encoder
+        assert encoder.base_model.remat == want
 
 
 # valid TPU.STEM_S2D values: off and its aliases build in both; an S2D stem

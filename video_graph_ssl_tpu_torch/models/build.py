@@ -24,10 +24,12 @@ the input).
 the clips' temporal differences.
 
 The TPU layouts: ``TPU.REMAT``/``TPU.REMAT_POLICY`` and ``TPU.STEM_S2D`` are
-validated as JAX validates them (the same ``ValueError``s); a valid
-``TPU.REMAT True`` raises ``NotImplementedError`` until ROADMAP item 7b ports
-it, and a valid ``TPU.STEM_S2D`` other than off raises by name (the port
-builds the standard stem, the same function)."""
+validated as JAX validates them (the same ``ValueError``s).  A valid
+``TPU.REMAT True`` reaches every 3D backbone as ``remat`` (``models/
+remat.py``; tiny3d and ``i3d_res50_nonlocal`` take it unread, and the 2D
+backbones never see it, as in JAX); a valid ``TPU.STEM_S2D`` other than
+off raises by name (the port builds the standard stem, the same
+function)."""
 
 from __future__ import annotations
 
@@ -52,9 +54,6 @@ from .wrappers import (CmcWrapper, ContrastWrapper, GraphWrapper, SimSiam, Video
 
 MEM_TYPES = ("moco", "bank", "simsiam")
 CMC_MEM_TYPES = ("moco", "bank")
-REMAT_NOT_PORTED = ("TPU.REMAT True (TPU.REMAT_POLICY {}) is not ported yet: ROADMAP.md, "
-                    "Queue 1, item 7b, TPU.REMAT as torch.utils.checkpoint; set TPU.REMAT "
-                    "False")
 STEM_S2D_NOT_PORTED = ("TPU.STEM_S2D {!r} is not ported: the space-to-depth stem is a TPU "
                        "layout of the standard stem's function; set TPU.STEM_S2D off")
 
@@ -174,10 +173,11 @@ def resolve_remat(cfg, name: str):
 
 def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int]:
     """The configured backbone (graph blocks with ``MODEL.AUG_FLAG`` on a 3D
-    one, K5's backward with ``TPU.SEPCONV_FUSED`` on S3D) and its feature
-    dim; raises for what is not ported, and JAX's ValueErrors for the TPU
-    layouts JAX refuses, in JAX's order (``TPU.STEM_S2D``, then
-    ``TPU.SEPCONV_FUSED``, then ``TPU.REMAT``)."""
+    one, K5's backward with ``TPU.SEPCONV_FUSED`` on S3D, recompute units
+    with ``TPU.REMAT`` on a 3D one) and its feature dim; raises for what is
+    not ported, and JAX's ValueErrors for the TPU layouts JAX refuses, in
+    JAX's order (``TPU.STEM_S2D``, then ``TPU.SEPCONV_FUSED``, then
+    ``TPU.REMAT``)."""
     name, btype = cfg.MODEL.BACKBONE, cfg.MODEL.BACKBONE_TYPE
     if name not in BACKBONES.get(btype, {}):
         raise NotImplementedError(_not_ported(btype, name))
@@ -194,8 +194,8 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
             raise ValueError(f"TPU.SEPCONV_FUSED only applies to S3D, got {name}")
         extra["fused_sepconv"] = True
     remat = resolve_remat(cfg, name)
-    if remat:
-        raise NotImplementedError(REMAT_NOT_PORTED.format(cfg.TPU.REMAT_POLICY))
+    if btype == "3D":
+        extra["remat"] = remat
     if s2d:
         raise NotImplementedError(STEM_S2D_NOT_PORTED.format(cfg.TPU.STEM_S2D))
     backbone = ctor(

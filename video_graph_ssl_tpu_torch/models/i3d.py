@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import remat
 from .layers import BasicConv3d, InceptionBlock, MaxPool3d, conv3d_same
 from .s3d import _MIXED_SPECS, S3D_FEATURE_DIM, StagedBackbone, mixed_stages
 
@@ -74,7 +75,7 @@ class I3D(StagedBackbone):
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16, partial_bn: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: remat.Policy = False):
         super().__init__()
         kw = dict(dtype=dtype)
         stem = [
@@ -87,4 +88,4 @@ class I3D(StagedBackbone):
         stages, cins = mixed_stages(
             stem, lambda idx, cin: I3DMixed(cin, *_MIXED_SPECS[idx], **kw),
             MaxPool3d(3, 2, "SAME"), MaxPool3d(2, 2, "SAME"))
-        self._finish(stages, cins, aug_points, graph_cfg, dtype, partial_bn)
+        self._finish(stages, cins, aug_points, graph_cfg, dtype, partial_bn, remat)

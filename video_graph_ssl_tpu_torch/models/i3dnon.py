@@ -148,7 +148,9 @@ class I3DResNetNonLocal(ResNetStages):
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None, partial_bn: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3, remat=False):
+        # remat (TPU.REMAT) is taken and not read, as JAX's I3DResNetNonLocal
+        # carries it unread (i3dnon.py:152)
         super().__init__()
         self.conv1 = nn.Conv3d(in_channels, 64, (5, 7, 7), 2, (2, 3, 3), bias=False)
         self.bn1 = _bn(64)

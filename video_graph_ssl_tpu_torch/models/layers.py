@@ -28,6 +28,7 @@ from torch import nn
 
 from ..ops import fused_sepconv, maxpool
 from ..parallel import dist, sync_bn
+from . import remat
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -98,6 +99,17 @@ class BatchNorm(nn.Module):
         rows alone."""
         return not self.per_rank and (self.sum_form or dist.world_size() > 1)
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``running = m * running + (1 - m) * batch``; nothing in a
+        recompute (``models/remat.py``), which repeats the batch statistics
+        of a forward that already took them."""
+        if remat.recomputing():
+            return
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+
     def forward(self, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
         if channel_dim not in (1, x.dim() - 1, -1):
@@ -112,19 +124,12 @@ class BatchNorm(nn.Module):
         live = self.training and not self.frozen
         if live and self.global_batch():
             y, mean, var = sync_bn.SyncBatchNormFn.apply(x, w, b, self.eps, None)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var.float(), alpha=1.0 - m)
+            self.update_running(mean.float(), var.float())
         elif live:
             y, mean, invstd = torch.native_batch_norm(
                 x, w, b, None, None, True, 0.0, self.eps)
-            with torch.no_grad():
-                var = invstd.double().pow(-2) - self.eps
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var.clamp_min(0.0).float(),
-                                              alpha=1.0 - m)
+            var = invstd.detach().double().pow(-2) - self.eps
+            self.update_running(mean.float(), var.clamp_min(0.0).float())
         else:
             y = F.batch_norm(x, self.running_mean.to(pd), self.running_var.to(pd),
                              w, b, False, 0.0, self.eps)
@@ -288,11 +293,8 @@ class SepConv3d(nn.Module):
         out, (mu1, var1, mu2, var2) = fused_sepconv.fused_sepconv_train(
             x, self.conv_s.weight, self.conv_t.weight, bs.weight, bs.bias,
             bt.weight, bt.bias, self.dtype, sync=bs.global_batch())
-        with torch.no_grad():   # flax momentum, biased variance
-            for bn, mu, var in ((bs, mu1, var1), (bt, mu2, var2)):
-                m = bn.momentum
-                bn.running_mean.mul_(m).add_(mu, alpha=1.0 - m)
-                bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        bs.update_running(mu1, var1)   # flax momentum, biased variance
+        bt.update_running(mu2, var2)
         return out
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import remat
 from .layers import conv, max_pool_3d
 from .resnet2d import _bn, downsample, shortcut
 from .resnet3d import DEPTHS, ResNetStages, spatial_conv, temporal_conv
@@ -104,7 +105,7 @@ class ResNet2Plus1D(ResNetStages):
     def __init__(self, layers: Sequence[int], block_type: str = "basic",
                  aug_points: Tuple[int, ...] = (), graph_cfg: Optional[Dict[str, Any]] = None,
                  partial_bn: bool = False, dtype: torch.dtype = torch.bfloat16,
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: remat.Policy = False):
         super().__init__()
         # the stem's mid width is the RGB stem's whatever the input (JAX
         # resnet2p1d.py:142)
@@ -113,7 +114,7 @@ class ResNet2Plus1D(ResNetStages):
         self.conv1_t = nn.Conv3d(STEM_MID, 64, (7, 1, 1), 1, (3, 0, 0), bias=False)
         self.bn1_t = _bn(64)
         block = BasicBlock2p1d if block_type == "basic" else Bottleneck2p1d
-        self._stages(block, layers, aug_points, graph_cfg, partial_bn, dtype)
+        self._stages(block, layers, aug_points, graph_cfg, partial_bn, dtype, remat)
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:

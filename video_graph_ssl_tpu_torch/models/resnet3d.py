@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
+from . import remat
 from .layers import conv, freeze_bn_, max_pool_3d
 from .resnet2d import _bn, downsample, make_layers, shortcut
 from .s3d import to_bthwc, to_ncdhw
@@ -177,13 +178,17 @@ class ResNetStages(nn.Module):
     """The four stages of a 3D ResNet (R3D, resnet_i3d, R(2+1)D) after its
     stem: ``layer1`` .. ``layer4``, graph blocks on the inputs of the
     stages in ``aug_points``; ``partial_bn`` freezes every BN of the stages
-    outside the graph blocks (the stem's stay live, JAX ``ResNet3D``).
-    Subclasses build the stem and call :meth:`_stages`, then :meth:`_run`
-    on its output."""
+    outside the graph blocks (the stem's stay live, JAX ``ResNet3D``);
+    ``remat`` (``TPU.REMAT``) recomputes each residual block in the
+    backward, as JAX ``nn.remat``s its block class.  Subclasses build the
+    stem and call :meth:`_stages`, then :meth:`_run` on its output."""
+
+    remat: remat.Policy = False
 
     def _stages(self, block_cls, layers: Sequence[int], aug_points, graph_cfg,
-                partial_bn: bool, dtype: torch.dtype) -> None:
+                partial_bn: bool, dtype: torch.dtype, policy: remat.Policy = False) -> None:
         self.aug_points = tuple(int(i) for i in aug_points)
+        self.remat = remat.check_policy(policy)
         cins = make_layers(self, block_cls, layers, dtype)
         for stage in range(1, 5):
             layer = getattr(self, f"layer{stage}")
@@ -201,7 +206,9 @@ class ResNetStages(nn.Module):
             if stage in self.aug_points:
                 graph, layer = layer[0], layer[1]
                 x = to_ncdhw(graph(to_bthwc(x), seed=stage_seed(seed, stage), rows=rows))
-            x = self._after_stage(stage, layer(x))
+            for block in layer:
+                x = remat.run(block, x, self.remat)
+            x = self._after_stage(stage, x)
         return x.float().mean(dim=(2, 3, 4))
 
     def _after_stage(self, stage: int, x: torch.Tensor) -> torch.Tensor:
@@ -217,11 +224,12 @@ class ResNet3D(ResNetStages):
 
     def __init__(self, block: str, layers: Sequence[int], aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None, partial_bn: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3,
+                 remat: remat.Policy = False):
         super().__init__()
         self.conv1 = nn.Conv3d(in_channels, 64, 7, (1, 2, 2), 3, bias=False)
         self.bn1 = _bn(64)
-        self._stages(BLOCKS[block], layers, aug_points, graph_cfg, partial_bn, dtype)
+        self._stages(BLOCKS[block], layers, aug_points, graph_cfg, partial_bn, dtype, remat)
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
+from . import remat
 from .layers import BasicConv3d, InceptionBlock, MaxPool3d, SepConv3d, freeze_bn_
 
 _MIXED_SPECS = {
@@ -54,16 +55,19 @@ def to_bthwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def run_stages(base: nn.Sequential, x: torch.Tensor, aug_points,
-               seed: int, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+               seed: int, rows: Optional[Tuple[int, int]] = None,
+               policy: remat.Policy = False) -> torch.Tensor:
     """Run a backbone's stage Sequential on an NCDHW tensor; aug-wrapped
     stages run their graph block on the (B, T, H, W, C) view first, with
     ``rows`` (row0, global B) placing the batch in a global one for the
-    graph noise."""
+    graph noise.  Under a remat ``policy`` every stage but the pools is a
+    recompute unit (``models/remat.py``); a graph block stays outside its
+    stage's unit."""
     for idx, stage in enumerate(base):
         if idx in aug_points:
             graph, stage = stage[0], stage[1]
             x = to_ncdhw(graph(to_bthwc(x), seed=stage_seed(seed, idx), rows=rows))
-        x = stage(x)
+        x = stage(x) if isinstance(stage, MaxPool3d) else remat.run(stage, x, policy)
     return x
 
 
@@ -80,11 +84,15 @@ class StagedBackbone(nn.Module):
     """A backbone run as one Sequential of stages, ``base`` (S3D, S3DG and
     I3D): the stages at ``aug_points`` are wrapped with a graph block on
     their input; ``partial_bn`` freezes every BN after stage 0 outside the
-    graph blocks.  Subclasses give the stages and each stage's input
-    channels to :meth:`_finish`."""
+    graph blocks; ``remat`` (``TPU.REMAT``: False, True or "conv_saved")
+    recomputes each stage but the pools in the backward, as the JAX S3D and
+    I3D ``nn.remat`` their stem units and Mixed blocks.  Subclasses give
+    the stages and each stage's input channels to :meth:`_finish`."""
 
-    def _finish(self, stages, cins, aug_points, graph_cfg, dtype, partial_bn) -> None:
+    def _finish(self, stages, cins, aug_points, graph_cfg, dtype, partial_bn,
+                policy: remat.Policy = False) -> None:
         self.aug_points = tuple(int(i) for i in aug_points)
+        self.remat = remat.check_policy(policy)
         for idx in self.aug_points:
             graph = TemporalGraphAug(cins[idx], dtype=dtype, **(graph_cfg or {}))
             stages[idx] = nn.Sequential(graph, stages[idx])
@@ -101,7 +109,7 @@ class StagedBackbone(nn.Module):
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         x = to_ncdhw(x).to(self.dtype)
-        x = run_stages(self.base, x, self.aug_points, graph_seed, graph_rows)
+        x = run_stages(self.base, x, self.aug_points, graph_seed, graph_rows, self.remat)
         return head_pool(x)
 
 
@@ -140,7 +148,8 @@ class S3D(StagedBackbone):
                  graph_cfg: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  fused_sepconv: bool = False, partial_bn: bool = False,
-                 temporal_bias: bool = False, in_channels: int = 3):
+                 temporal_bias: bool = False, in_channels: int = 3,
+                 remat: remat.Policy = False):
         super().__init__()
         kw = dict(dtype=dtype)
         skw = dict(temporal_bias=temporal_bias, **kw)
@@ -155,4 +164,4 @@ class S3D(StagedBackbone):
             stem, lambda idx, cin: InceptionBlock(cin, *_MIXED_SPECS[idx],
                                                   fused_sepconv=fused_sepconv, **skw),
             MaxPool3d(3, 2, 1), MaxPool3d(2, 2, 0))
-        self._finish(stages, cins, aug_points, graph_cfg, dtype, partial_bn)
+        self._finish(stages, cins, aug_points, graph_cfg, dtype, partial_bn, remat)

@@ -21,8 +21,9 @@ class Tiny3D(nn.Module):
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16, partial_bn: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat=False):
         super().__init__()
+        self.remat = remat   # TPU.REMAT, carried unread as the JAX Tiny3D carries it
         self.stage0 = BasicConv3d(in_channels, 16, 3, 2, 1, dtype=dtype)
         self.aug_points = tuple(int(i) for i in aug_points)
         if 1 in self.aug_points:

@@ -13,6 +13,13 @@ takes adj in fp32 or in x's dtype and rounds it to x's dtype as it loads
 it.  :func:`propagate_plan` is its launch plan, a pure function: the
 tensor-core route for bf16 x with F a multiple of 8, the CUDA-core route
 otherwise.
+
+The forward is also the registered operator ``vgs_torch::gcn_propagate``
+(``torch.library.custom_op``: the kernel for CUDA tensors, the plain version
+for CPU ones, a fake that gives the output's shape), which the CUDA path
+calls, so that ``torch.export`` keeps the kernel in an exported graph
+(``export_model.py``).  A process that loads such a graph imports this
+module first.
 """
 
 from __future__ import annotations
@@ -121,11 +128,27 @@ def _launch(adj: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor
     return out
 
 
+@torch.library.custom_op("vgs_torch::gcn_propagate", mutates_args=(), device_types="cuda")
+def propagate_op(adj: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """(B, T, ...) in x's dtype, contiguous."""
+    return _launch(adj, x, transpose)
+
+
+@propagate_op.register_kernel("cpu")
+def _propagate_op_cpu(adj, x, transpose):
+    return propagate_plain(adj, x, transpose).contiguous()
+
+
+@propagate_op.register_fake
+def _propagate_op_fake(adj, x, transpose):
+    return x.new_empty(x.shape)
+
+
 class _GcnPropagate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, adj, x):
         ctx.save_for_backward(adj, x)
-        return _launch(adj, x, transpose=False)
+        return propagate_op(adj, x, False)
 
     @staticmethod
     def backward(ctx, g):

@@ -29,6 +29,13 @@ The backward (:func:`_adjacency_bwd`) is the closed form of the JAX
 package's custom VJP, in torch ops on the small (B, T, T) tensors; dq and dk
 are ``torch.bmm``.  ``u`` is a constant of the draw, as in
 ``RelaxedBernoulli.rsample``.
+
+The forward is also the registered operator ``vgs_torch::graph_adjacency``
+(``torch.library.custom_op``: the kernel for CUDA tensors, the plain version
+for CPU ones, a fake that gives the (3, B, T, T) output's shape), which the
+CUDA path of :func:`graph_adjacency` calls, so that ``torch.export`` keeps
+the kernel in an exported graph (``export_model.py``).  A process that
+loads such a graph imports this module first.
 """
 
 from __future__ import annotations
@@ -177,11 +184,11 @@ def _cached_plan(b, t, d, dtype, aligned) -> AdjacencyPlan:
 
 def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
                          u_out: Optional[torch.Tensor] = None, rows: Rows = None
-                         ) -> Tuple[torch.Tensor, ...]:
-    """One call (two launches) -> (adj, S, p), fp32: views of one
-    (3 + splits, B, T, T) buffer whose last planes take the partial
-    similarities.  ``u_out`` (B,T,T fp32), when given, receives the noise
-    the kernel drew; ``rows`` offsets the draw's clip counter."""
+                         ) -> torch.Tensor:
+    """One call (two launches) -> adj, S, p stacked, (3, B, T, T) fp32: the
+    first planes of one (3 + splits, B, T, T) buffer whose last planes take
+    the partial similarities.  ``u_out`` (B,T,T fp32), when given, receives
+    the noise the kernel drew; ``rows`` offsets the draw's clip counter."""
     global launches
     _check(q, k, theta, u)
     q, k = q.contiguous(), k.contiguous()
@@ -210,7 +217,43 @@ def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "vgs_graph_adjacency")
     launches += 1
-    return adj, s, p
+    return buf[:3]
+
+
+def _signed64(seed: int) -> int:
+    """``seed``'s low 64 bits as the signed int an operator's schema takes
+    (the kernel masks them back, the plain version keeps the low 63)."""
+    s = int(seed) & 0xFFFF_FFFF_FFFF_FFFF
+    return s - (1 << 64) if s >= 1 << 63 else s
+
+
+@torch.library.custom_op("vgs_torch::graph_adjacency", mutates_args=(), device_types="cuda")
+def adjacency_op(q: torch.Tensor, k: torch.Tensor, theta: torch.Tensor,
+                 u: Optional[torch.Tensor], seed: int, temperature: float, sample: bool,
+                 nei_size: int, clip0: int, clips: int) -> torch.Tensor:
+    """adj, S, p stacked (3, B, T, T) fp32; ``clips`` 0: no rows."""
+    return adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
+                                rows=(clip0, clips) if clips else None)
+
+
+@adjacency_op.register_kernel("cpu")
+def _adjacency_op_cpu(q, k, theta, u, seed, temperature, sample, nei_size, clip0, clips):
+    return torch.stack(_adjacency_fwd_plain(q, k, theta, u, seed, temperature, sample,
+                                            nei_size, (clip0, clips) if clips else None))
+
+
+@adjacency_op.register_fake
+def _adjacency_op_fake(q, k, theta, u, seed, temperature, sample, nei_size, clip0, clips):
+    b, t, _ = q.shape
+    return q.new_empty((3, b, t, t), dtype=torch.float32)
+
+
+def adjacency_fwd_op(q, k, theta, u, seed, temperature, sample, nei_size,
+                     rows: Rows = None) -> torch.Tensor:
+    """The forward through ``vgs_torch::graph_adjacency`` -> (3, B, T, T)."""
+    clip0, clips = rows if rows is not None else (0, 0)
+    return adjacency_op(q, k, theta, u, _signed64(seed), float(temperature), bool(sample),
+                        int(nei_size), int(clip0), int(clips))
 
 
 def _adjacency_bwd(g, q, k, theta, s, p, adj, temperature, sample):
@@ -260,7 +303,5 @@ def graph_adjacency(q: torch.Tensor, k: torch.Tensor, theta: torch.Tensor,
     if q.device.type == "cpu" and k.device.type == "cpu":
         return graph_adjacency_plain(q, k, theta, seed, temperature, sample,
                                      u, nei_size, rows)
-    fwd = adjacency_fwd_kernel if rows is None else functools.partial(
-        adjacency_fwd_kernel, rows=rows)
-    return GraphAdjacencyFn.apply(fwd, q, k, theta, u, seed,
-                                  temperature, sample, nei_size)
+    return GraphAdjacencyFn.apply(functools.partial(adjacency_fwd_op, rows=rows), q, k,
+                                  theta, u, seed, temperature, sample, nei_size)

@@ -68,8 +68,16 @@ def hop_weight_matrix(tem_len: int, max_hop: int, alpha: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _theta(tem_len: int, max_hop: int, alpha: float, device: str) -> torch.Tensor:
+def _cached_theta(tem_len: int, max_hop: int, alpha: float, device: str) -> torch.Tensor:
     return torch.from_numpy(hop_weight_matrix(tem_len, max_hop, alpha)).to(device)
+
+
+def _theta(tem_len: int, max_hop: int, alpha: float, device: str) -> torch.Tensor:
+    """The (T, T) hop weights on ``device``, made once per process; under
+    ``torch.export`` a new tensor, which becomes a constant of the graph (a
+    tensor made while tracing is not one the cache may hand out later)."""
+    fn = _cached_theta.__wrapped__ if torch.compiler.is_exporting() else _cached_theta
+    return fn(tem_len, max_hop, alpha, device)
 
 
 # --------------------------------------------------------------------------- #
