@@ -277,6 +277,37 @@ Phases (each raises on failure; the script then exits non-zero):
    (CUDA events, host us); (d) Grad-CAM of an S3D classifier (fp32) on the
    card against the CPU, within 1e-3, head self-check below 1e-4.
 
+19. the space-to-depth stem, the frame-axis ring and the sharded
+   checkpoint backend (``phase_s2d_ring_ckpt``): (a) K1-K4 against their
+   plain versions at the bs-128 step's shapes (bf16); the trainer (S3D +
+   graph, bs 128, 16x112x112, bf16) under ``TPU.STEM_S2D`` off, full and
+   spatial, 2 warm-up and 3 timed steps each: ms/step, peak memory, kernel
+   counts; each stem's forward + backward device ms (profiler); one fp32
+   forward + backward (bs 8, eval-mode BN, TF32 off, cuDNN deterministic)
+   of the standard model and of each S2D model on the fold of its
+   weights, with the clip and the stem's kernels on a grid where every
+   fp32 sum of the stem is exact: the stem's output, the features, the
+   loss and every gradient outside the stem within 1e-5 rel-L2, and each
+   stem gradient within 1e-5 of the standard stem's through the fold's
+   adjoint (``stem_same_function``); (b) the
+   graph block at base.5's width (192 channels, 28x28, B 8, T 64) through
+   ``parallel/sequence.py`` on two gloo ranks sharing the card (Tl 32),
+   fp32 and bf16, forward and backward with an injected draw: output, dx
+   and the summed weight gradients in fp32 within 1e-4 rel-L2 of one CPU
+   process (plain versions) with the q/k kernels scaled off the saturated
+   softmax; at the init's own scale, the steps before the propagation in
+   float64 on the card within 1e-9 of the CPU's, and the card's fp32
+   output, dx and each weight gradient no further from a float64 CPU run
+   than 4x the CPU fp32 run's own distance times how much further the
+   card's fp32 similarity is from float64; K2 4 launches per pass per rank, host ms and
+   bytes sent per rank; K2 at the ring's block shape against its plain
+   version; one NCCL rank at T 32 against the single-device module; (c)
+   (a)'s step with ``TPU.CKPT_BACKEND orbax`` and ``TPU.ASYNC_CKPT``: save
+   after step 2, steps 3-4, a fresh model loads the directory bit for bit
+   and its step 3's loss matches the uninterrupted run's no worse than a
+   control from the same state in memory; the directory's bytes, the
+   save's blocking time async and sync, the load time.
+
 ``python3 chip_smoke.py --only phase_fused_ranks`` (development) runs the
 build and the named phase functions alone, without the kernel record and
 the result line.
@@ -1476,9 +1507,10 @@ def _rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: l
         torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(runs: list, world: int = 2, backend: str = "gloo") -> list:
+def spawn_ranks(runs: list, world: int = 2, backend: str = "gloo", target=None) -> list:
     """``world`` rank processes (gloo: all on cuda:0; NCCL: one per card),
-    each making ``runs`` in turn; for each run, the ranks' results."""
+    each making ``runs`` in turn (``target``: the rank's function,
+    ``_rank_main`` by default); for each run, the ranks' results."""
     import torch.multiprocessing as mp
 
     gc.collect()
@@ -1487,7 +1519,7 @@ def spawn_ranks(runs: list, world: int = 2, backend: str = "gloo") -> list:
     init = "file://" + os.path.join(work, "rendezvous")
     outs = [os.path.join(work, f"rank{r}.pt") for r in range(world)]
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main,
+    procs = [ctx.Process(target=target or _rank_main,
                          args=(r, world, backend, init, outs[r], runs, RUN_DIR))
              for r in range(world)]
     t0 = time.perf_counter()
@@ -4383,6 +4415,521 @@ def phase_remat_export_cam(dev, gpu: str) -> dict:
     return exported["worst"]
 
 
+STEM = {"off": [], "full": ["TPU.STEM_S2D", "full"], "spatial": ["TPU.STEM_S2D", "spatial"]}
+STEM_SMALL_BS = 8
+# the fold is exact; only the order of summation differs
+TOL_STEM = 1e-5
+# the fp32 equality's grids: the clip in quarters, the stem's kernels in
+# 64ths, so that each of the stem's fp32 sums is exact in any order
+CLIP_GRID, STEM_GRID = 2.0 ** -2, 2.0 ** -6
+# the ring's q/k kernels times this in its tight comparison: at the init's
+# scale a block's similarities reach the hundreds, its softmax is
+# saturated and the relaxed-Bernoulli draw amplifies the last fp32 bit of
+# p by 1 / p
+EMBED_SCALE = 0.03
+# at the init's scale: the card's fp32 distance from float64 within this
+# many times the CPU fp32 run's (scaled by their similarities' distances),
+# and the card's float64 steps before the propagation within TOL_F64 of
+# the CPU's
+RING_CONTROL = 4.0
+TOL_F64 = 1e-9
+# the graph block at S3D's base.5 input of the 16x112x112 step: 192
+# channels at 28x28, inter 96, one GCN layer; B clips of RING_T frames
+RING_B, RING_T, RING_HW, RING_C = 8, 64, 28, 192
+RING_ITERS = 3
+TOL_RING = 1e-4
+CKPT_STEPS = 4
+
+
+def stem_device_ms(dev, gpu: str) -> dict:
+    """Each stem's forward + backward (train mode, bf16) on the step's
+    input, bs 128 x 3 x 16 x 112 x 112: device ms per pass from the
+    profiler (``kernel_times.device_us``, every kernel of the pass)."""
+    from video_graph_ssl_tpu_torch.models.layers import (SepConv3d, SepConvS2D, init_params_,
+                                                         place)
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn(128, 3, 16, 112, 112, device=dev, generator=g).to(torch.bfloat16)
+    x = x.contiguous(memory_format=CL)
+    gout = torch.randn(128, 64, 8, 56, 56, device=dev, generator=g).to(torch.bfloat16)
+    out = {}
+    for mode in STEM:
+        stem = (SepConv3d(3, 64, 7, 2, 3) if mode == "off"
+                else SepConvS2D(3, 64, temporal_s2d=mode == "full"))
+        init_params_(stem, torch.Generator().manual_seed(3))
+        stem = place(stem, dev).train()
+        out[mode] = device_us(lambda: stem(x).backward(gout), ".", iters=20) / 1e3
+        print(f"  (a) stem {mode}: {out[mode]:.3f} device ms per forward + backward at bs 128 "
+              f"on {gpu}")
+        del stem
+    return out
+
+
+STEM_CHECKS = {"stem_output": "the stem's output (rel-L2)", "features": "features (rel-L2)",
+               "loss": "loss (relative)", "outside_worst": "each gradient outside the stem",
+               "stem_grads_worst": "each stem gradient, fold's adjoint"}
+
+
+def fold_adjoint(grad: torch.Tensor, shape, axes: str) -> torch.Tensor:
+    """The adjoint of the stem's fold (``fold_stem_weight``) applied to a
+    folded kernel's gradient: each standard tap's gradient is the sum of
+    the gradients of the folded entries that copy it (the fold of the
+    taps' 1-based indices says which; 0 marks the zero taps)."""
+    from video_graph_ssl_tpu_torch.models.layers import fold_stem_weight
+
+    n = math.prod(shape)
+    idx = fold_stem_weight(torch.arange(1, n + 1, dtype=torch.float64).reshape(shape), axes)
+    out = torch.zeros(n + 1, dtype=torch.float64)
+    out.index_add_(0, idx.long().flatten(), grad.double().flatten().cpu())
+    return out[1:].reshape(shape)
+
+
+def stem_same_function(dev) -> dict:
+    """One fp32 forward + backward of the GCA MoCo model (S3D, graph at 5,
+    9, 14, bs STEM_SMALL_BS, 16x112x112, eval-mode BN, TF32 off, cuDNN
+    deterministic) with the standard stem, then with each S2D stem on the
+    fold of the same weights.  The weights are the init's, except that
+    the stem's two kernels are rounded to STEM_GRID and bn_s's running
+    variance is 1 - eps (so bn_s maps its input to itself); the clip is on
+    CLIP_GRID.  Then every product and partial sum of the stem's convs is
+    exact in fp32, the summation order cannot matter, and no ReLU or
+    max-pool downstream can flip on a rounding difference.  Held within
+    TOL_STEM rel-L2: the stem's output, the features, the loss, every
+    gradient outside the stem (each on its own), and each stem gradient
+    against the standard stem's through the fold's adjoint."""
+    from video_graph_ssl_tpu_torch.graph_benefit import reproducible_fp32
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+    from video_graph_ssl_tpu_torch.models.layers import place
+    from video_graph_ssl_tpu_torch.models.s3d import stem_params_to_s2d
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
+
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn(STEM_SMALL_BS, 16, 112, 112, 3, generator=g).div(CLIP_GRID).round() \
+        .mul(CLIP_GRID)
+    w = torch.randn(STEM_SMALL_BS, 128, generator=g)
+    stem = "model.encoder.base_model.base.0."
+    runs, base = {}, None
+    with reproducible_fp32():
+        for mode in STEM:
+            model, _ = create_visual_model(load_config(CONFIG, [
+                "MODEL.AUG_FLAG", "True", "TPU.COMPUTE_DTYPE", "float32", *STEM[mode]]))
+            if base is None:
+                eps = model.get_submodule(stem + "bn_s").eps
+                base = dict(model.state_dict())
+                for k in (stem + "conv_s.weight", stem + "conv_t.weight"):
+                    base[k] = base[k].div(STEM_GRID).round().mul(STEM_GRID)
+                var = base[stem + "bn_s.running_var"]
+                base[stem + "bn_s.running_var"] = torch.full_like(var, 1 - eps)
+                if float(base[stem + "bn_s.running_var"][0] + torch.tensor(eps)) != 1.0:
+                    raise RuntimeError("phase 19 (a): bn_s's running variance + eps is not 1")
+            model.load_state_dict(base if mode == "off" else stem_params_to_s2d(base, mode),
+                                  strict=True)
+            model = place(model, dev).eval()
+            got = {}
+            hook = model.get_submodule(stem[:-1]).register_forward_hook(
+                lambda m, i, o: got.update(stem=o.detach().float().cpu()))
+            feat = model(x.to(dev))
+            (feat - w.to(dev)).square().mean().backward()
+            hook.remove()
+            runs[mode] = dict(stem=got["stem"], feat=feat.detach().float().cpu(),
+                              grads={n: p.grad.detach().double().cpu()
+                                     for n, p in model.named_parameters()})
+            del model, feat
+    ref = runs["off"]
+    loss0 = float((ref["feat"] - w).square().mean())
+    out = {}
+    for mode in ("full", "spatial"):
+        run = runs[mode]
+        folded = {"conv_s": "hw", "conv_t": "t"} if mode == "full" else {"conv_s": "hw"}
+        outside, inside = {}, {}
+        for n, g0 in ref["grads"].items():
+            g1 = run["grads"][n]
+            if not n.startswith(stem):
+                outside[n] = rel_l2(g1, g0)
+                continue
+            part = n[len(stem):].split(".")[0]
+            if part in folded and n.endswith(".weight"):
+                g1 = fold_adjoint(g1, g0.shape, folded[part])
+            inside[n[len(stem):]] = rel_l2(g1, g0)
+        errs = {"stem_output": rel_l2(run["stem"], ref["stem"]),
+                "features": rel_l2(run["feat"], ref["feat"]),
+                "loss": abs(float((run["feat"] - w).square().mean()) - loss0) / loss0,
+                "outside_worst": max(outside.values()),
+                "stem_grads_worst": max(inside.values())}
+        worst = max(outside, key=outside.get)
+        for k, v in errs.items():
+            check(f"phase 19 (a) {mode}: {STEM_CHECKS[k]}", v, TOL_STEM)
+        out[mode] = {**errs, "stem_output_bit_equal": bool(torch.equal(run["stem"], ref["stem"])),
+                     "outside_worst_name": worst, "stem_grads": inside}
+        print(f"  (a) {mode}: stem output {errs['stem_output']:.2e} (bit for bit: "
+              f"{out[mode]['stem_output_bit_equal']}), features {errs['features']:.2e}, loss "
+              f"{errs['loss']:.2e}; the {len(outside)} gradients outside the stem: worst "
+              f"{errs['outside_worst']:.2e} ({worst}); the stem's through the fold's adjoint: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in inside.items()))
+    return out
+
+
+def s2d_full_width(dev, gpu: str) -> dict:
+    """(a): the S2D stems at the shipped geometry: K1-K4 against their
+    plain versions at the step's shapes (the stem leaves every later shape
+    as it is), the trainer (bs 128, bf16) under off, full and spatial:
+    ms/step, peak memory and the kernel counts (run_trainer holds them);
+    the stems' device ms; the fp32 equality of the function."""
+    k1_shapes, k2_shapes, pools = geometry(112, 128)[:3]
+    worst = kernel_checks(dev, "phase 19 (a)", k1_shapes, k2_shapes, pools, "bf16")
+    runs = {m: run_trainer(dev, gpu, fused=False, opts=STEM[m]) for m in STEM}
+    out = {m: {"ms_per_step": r["ms"], "peak_gib": r["peak_gib"]} for m, r in runs.items()}
+    for m in ("full", "spatial"):
+        print(f"  (a) STEM_S2D {m}: {out[m]['ms_per_step']:.1f} ms/step against off's "
+              f"{out['off']['ms_per_step']:.1f}, peak {out[m]['peak_gib']:.2f} GiB against "
+              f"{out['off']['peak_gib']:.2f} GiB on {gpu}")
+    _free()
+    stem_ms = stem_device_ms(dev, gpu)
+    _free()
+    same = stem_same_function(dev)
+    _free()
+    return {"worst": worst, "trainer": out, "stem_device_ms": stem_ms, "same_function": same}
+
+
+def ring_inputs(t: int, seed: int = 29, scale: float = EMBED_SCALE) -> tuple:
+    """(state_dict, x, cotangent, noise) on the CPU: the graph block at
+    base.5's width (fan-in init from ``seed``, the q/k kernels times
+    ``scale``: at the init's own scale, 1, the similarities over D = 18,816
+    saturate the softmax, and the relaxed-Bernoulli draw then amplifies the
+    last fp32 bit of p by 1 / p), RING_B clips of ``t`` frames, and a
+    U(eps, 1 - eps) draw of (RING_B, t, t)."""
+    from video_graph_ssl_tpu_torch.models.layers import init_params_
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
+
+    module = TemporalGraphAug(RING_C, dtype=torch.float32)
+    init_params_(module, torch.Generator().manual_seed(seed))
+    with torch.no_grad():   # off the saturated softmax, as in stem_same_function
+        for embed in (module.g_q, module.g_k):
+            embed[0].weight.mul_(scale)
+    g = torch.Generator().manual_seed(seed + 1)
+    shape = (RING_B, t, RING_HW, RING_HW, RING_C)
+    x, gout = torch.randn(shape, generator=g), torch.randn(shape, generator=g)
+    noise = torch.rand(RING_B, t, t, generator=g) * (1 - 2e-6) + 1e-6
+    return module.state_dict(), x, gout, noise
+
+
+def ring_run(device: str, rank: int, world: int, dn: str, t: int, alone: bool = False,
+             scale: float = EMBED_SCALE) -> dict:
+    """This rank's frames of ``ring_inputs(t, scale=scale)`` through the ring
+    (``sp_graph_aug_apply``, relaxed-Bernoulli with the injected draw) in
+    ``dn``: a warm-up, then RING_ITERS forward + backward passes, each
+    timed on the host; the output, dx, the weight gradients summed over the
+    ranks, K2's launches and the bytes sent per pass.  ``alone`` (one
+    rank): the module's own forward with the same draw beside it."""
+    from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
+    from video_graph_ssl_tpu_torch.parallel import sequence
+
+    sd, x, gout, noise = ring_inputs(t, scale=scale)
+    dt = DTYPES[dn]
+    module = TemporalGraphAug(RING_C, dtype=dt)
+    module.load_state_dict(sd)
+    module = module.to(device).train()
+    tl = t // world
+    frames = slice(rank * tl, (rank + 1) * tl)
+    x_local = x[:, frames].to(device).to(dt)
+    g_local = gout[:, frames].to(device).to(dt)
+    kw = dict(tem_len=t, sampler="relaxed_bernoulli", noise=noise[:, frames].to(device))
+
+    def pass_():
+        module.zero_grad()
+        xl = x_local.clone().requires_grad_()
+        y = sequence.sp_graph_aug_apply(module, xl, **kw)
+        y.backward(g_local)
+        return y, xl.grad
+
+    pass_()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    gp.launches = sequence.sent_bytes = 0
+    ms = []
+    for _ in range(RING_ITERS):
+        t0 = time.perf_counter()
+        y, dx = pass_()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res = {"y": y.detach().float().cpu(), "dx": dx.float().cpu(), "ms": ms,
+           "k2": gp.launches / RING_ITERS, "sent": sequence.sent_bytes / RING_ITERS}
+    grads = {}
+    for n, p in module.named_parameters():
+        grads[n] = p.grad.detach().float().cpu()
+        if world > 1:
+            torch.distributed.all_reduce(grads[n])
+    res["grads"] = grads
+    if alone:
+        with torch.no_grad():
+            ref = module(x_local, noise=kw["noise"])
+        res["module_err"] = rel_l2(y.detach().float(), ref.float())
+    return res
+
+
+def _ring_rank_main(rank: int, world: int, backend: str, init: str, out: str, runs: list,
+                    run_dir: str) -> None:
+    """One rank of phase 19 (b) (on cuda:0 over gloo, cuda:rank over
+    NCCL): ``ring_run`` for each of ``runs``."""
+    from video_graph_ssl_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = f"cuda:{rank if backend == 'nccl' else 0}"
+    torch.cuda.set_device(device)
+    dist.init_distributed(backend, init, world, rank)
+    try:
+        torch.save([ring_run(device, rank, world, **run) for run in runs], out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def graph_rows(module, x: torch.Tensor, noise: torch.Tensor, tl: int) -> dict:
+    """The ring's steps before the propagation, in one process on ``x``'s
+    device in ``module``'s dtype: the q embedding, the similarity q . k
+    from the ring's (B, tl, D) x (B, D, tl) block products (summed in that
+    dtype), the adjacency (softmax times the hop weights) and its
+    relaxed-Bernoulli sample on ``noise``."""
+    from video_graph_ssl_tpu_torch.ops.graph_kernel import relaxed_bernoulli
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import _theta
+
+    b, t = x.shape[:2]
+    with torch.no_grad():
+        q = module._embed_apply(module.g_q, x).reshape(b, t, -1)
+        k = module._embed_apply(module.g_k, x).reshape(b, t, -1)
+        sim = torch.cat([torch.cat([torch.bmm(q[:, i:i + tl], k[:, j:j + tl].transpose(1, 2))
+                                    for j in range(0, t, tl)], dim=2)
+                         for i in range(0, t, tl)], dim=1)
+        theta = _theta(t, module.max_hop, float(module.alpha), str(x.device))
+        adj = torch.softmax(sim, dim=-1) * theta.to(sim.dtype)[None]
+        sampled = relaxed_bernoulli(adj, noise.to(adj), module.temperature)
+    return {"q": q, "sim": sim, "adj": adj, "sampled": sampled}
+
+
+def ring_at_init_scale(dev, run: list, on_cpu, gpu: str) -> dict:
+    """(b) at the init's own q/k scale, where a row's similarities reach
+    the thousands and the softmax is saturated.  (1) The steps before the
+    propagation (``graph_rows``) in float64 on the card against float64 on
+    the CPU, within TOL_F64: the same function.  (2) The two gloo ranks'
+    fp32 output, dx and summed weight gradients (``run``) and one CPU fp32
+    process (``on_cpu``), each against a float64 CPU process: the card's
+    distance within RING_CONTROL times the CPU's, times how much further
+    the card's fp32 similarity is from float64 than the CPU's (the
+    saturated softmax carries that error to everything after it)."""
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
+
+    sd, x, _, noise = ring_inputs(RING_T, scale=1.0)
+    stages = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        for dtype in (torch.float32, torch.float64):
+            module = TemporalGraphAug(RING_C, dtype=dtype).to(dtype)
+            module.load_state_dict(sd)
+            got = graph_rows(module.to(device), x.to(device, dtype), noise.to(device),
+                             RING_T // 2)
+            stages[(where, str(dtype)[6:])] = {k: v.cpu() for k, v in got.items()}
+            del module, got
+    ref = stages[("cpu", "float64")]
+    rows = {f"{w} {d}": {k: rel_l2(v, ref[k]) for k, v in got.items()}
+            for (w, d), got in stages.items() if (w, d) != ("cpu", "float64")}
+    print("  (b) init scale, the steps before the propagation (the ring's block products, "
+          "one process, T 64) against float64 on the CPU (rel-L2): " + "; ".join(
+              f"{name}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              for name, errs in rows.items()) + f" on {gpu}")
+    for k, v in rows["card float64"].items():
+        check(f"phase 19 (b) init scale, {k}: card float64 against the CPU's", v, TOL_F64)
+    sim_ratio = max(1.0, rows["card float32"]["sim"] / rows["cpu float32"]["sim"])
+    y64, dx64, g64 = on_cpu(torch.float64, 1.0)
+    y32, dx32, g32 = on_cpu(torch.float32, 1.0)
+    card = {"y": torch.cat([r["y"] for r in run], dim=1),
+            "dx": torch.cat([r["dx"] for r in run], dim=1), **run[0]["grads"]}
+    cpu = {"y": y32, "dx": dx32, **g32}
+    want = {"y": y64, "dx": dx64, **g64}
+    out = {"before_propagation": rows, "sim_ratio": sim_ratio}
+    for k, ref in want.items():
+        out[k] = {"card_vs_f64": rel_l2(card[k], ref), "cpu_fp32_vs_f64": rel_l2(cpu[k], ref),
+                  "card_vs_cpu_fp32": rel_l2(card[k], cpu[k])}
+    print("  (b) init scale, fp32, two gloo ranks on the card and one CPU process, each "
+          "against float64 on the CPU (rel-L2): " + "; ".join(
+              f"{k} card {out[k]['card_vs_f64']:.2e}, CPU {out[k]['cpu_fp32_vs_f64']:.2e}"
+              for k in want) + f"; the card's fp32 similarity {sim_ratio:.1f} x as far from "
+          f"float64 as the CPU's on {gpu}")
+    for k in want:
+        check(f"phase 19 (b) init scale, {k}: card from float64, "
+              f"{RING_CONTROL:g} x {sim_ratio:.1f} x CPU fp32's", out[k]["card_vs_f64"],
+              RING_CONTROL * sim_ratio * out[k]["cpu_fp32_vs_f64"])
+    return out
+
+
+def ring_on_card(dev, gpu: str) -> dict:
+    """(b): the ring on two gloo ranks sharing the card (Tl = 32, K2's
+    limit) in fp32 and bf16 against one CPU process (the plain versions),
+    the q/k kernels times EMBED_SCALE; at the init's own scale, the card's
+    fp32 ring and the CPU's fp32 process each against a float64 CPU
+    process (``ring_at_init_scale``); K2 at the ring's block shape; one
+    NCCL rank at T = 32 against the module."""
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
+    from video_graph_ssl_tpu_torch.parallel import sequence
+
+    tl = RING_T // 2
+    worst = kernel_checks(dev, "phase 19 (b) ring block", [],
+                          [(RING_B, tl, RING_HW, RING_HW, RING_C)], [], "fp32")
+    def on_cpu(dtype, scale):
+        sd, x, gout, noise = ring_inputs(RING_T, scale=scale)
+        module = TemporalGraphAug(RING_C, dtype=dtype).to(dtype)
+        module.load_state_dict(sd)
+        xr = x.to(dtype).requires_grad_()
+        t0 = time.perf_counter()
+        y = sequence.graph_aug_sequence_parallel(module.train(), xr, sampler="relaxed_bernoulli",
+                                                 noise=noise)
+        y.backward(gout.to(dtype))
+        print(f"  (b) one CPU process (plain versions, {str(dtype)[6:]}, q/k scale {scale:g}): "
+              f"{time.perf_counter() - t0:.1f} s")
+        return y.detach(), xr.grad, {n: p.grad for n, p in module.named_parameters()}
+
+    y_ref, dx_ref, grads_ref = on_cpu(torch.float32, EMBED_SCALE)
+    ranks = spawn_ranks([dict(dn="fp32", t=RING_T), dict(dn="bf16", t=RING_T),
+                         dict(dn="fp32", t=RING_T, scale=1.0)], 2, "gloo",
+                        target=_ring_rank_main)
+    out = {}
+    for dn, run in zip(("fp32", "bf16"), ranks):
+        y = torch.cat([r["y"] for r in run], dim=1)
+        dx = torch.cat([r["dx"] for r in run], dim=1)
+        errs = {"y": rel_l2(y, y_ref), "dx": rel_l2(dx, dx_ref),
+                "grads": max(rel_l2(run[0]["grads"][n], v) for n, v in grads_ref.items())}
+        if not (bool(y.isfinite().all()) and bool(dx.isfinite().all())):
+            raise RuntimeError(f"phase 19 (b) {dn}: non-finite output or dx")
+        for r in run:
+            if r["k2"] != 2 * 2:
+                raise RuntimeError(f"phase 19 (b) {dn}: {r['k2']} K2 launches per pass, "
+                                   "want 4 (2 ring steps forward, 2 backward)")
+        if dn == "fp32":
+            for k, v in errs.items():
+                check(f"phase 19 (b) two gloo ranks, fp32, {k} against one CPU process", v,
+                      TOL_RING)
+        ms = [sorted(r["ms"])[len(r["ms"]) // 2] for r in run]
+        out[dn] = {"errors": errs, "host_ms": ms, "sent_bytes": run[0]["sent"],
+                   "k2_per_pass": run[0]["k2"]}
+        print(f"  (b) {dn}, 2 gloo ranks on one card, B {RING_B} x T {RING_T} (Tl {tl}) x "
+              f"{RING_HW}x{RING_HW}x{RING_C}: host ms per forward + backward per rank "
+              f"{[f'{m:.1f}' for m in ms]}, {run[0]['sent'] / 1e6:.2f} MB sent per rank per "
+              f"pass, K2 {run[0]['k2']:.0f} launches per pass; against one CPU process: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (rel-L2) on {gpu}")
+    out["init_scale"] = ring_at_init_scale(dev, ranks[2], on_cpu, gpu)
+    one = spawn_ranks([dict(dn="fp32", t=tl, alone=True)], 1, "nccl",
+                      target=_ring_rank_main)[0][0]
+    check("phase 19 (b) one NCCL rank, T 32: ring against the module (rel-L2)",
+          one["module_err"], TOL["fp32"])
+    print(f"  (b) one NCCL rank, T {tl}: the ring's output against the single-device "
+          f"TemporalGraphAug with the same draw {one['module_err']:.2e} (rel-L2), "
+          f"K2 {one['k2']:.0f} launches per pass")
+    out["nccl_one_rank"] = {"module_err": one["module_err"], "k2_per_pass": one["k2"]}
+    return {"worst": worst, **out}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def sharded_backend(dev, gpu: str) -> dict:
+    """(c): the (a) step (STEM_S2D full, bs 128, bf16, cuDNN deterministic)
+    under TPU.CKPT_BACKEND orbax with TPU.ASYNC_CKPT: steps 1-2, an async
+    save, steps 3-4; a fresh model (another seed) loads the directory and
+    must hold the saved state bit for bit, then runs step 3; a control
+    reruns step 3 from the saved state restored in memory; the sync save's
+    and the load's times."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+    from video_graph_ssl_tpu_torch.utils import checkpoint as ckpt
+
+    opts = ["MODEL.AUG_FLAG", "True", "DATASET.SOURCE", "synthetic", "TPU.CKPT_BACKEND",
+            "orbax", "TPU.ASYNC_CKPT", "True", *STEM["full"]]
+
+    def trainer(seed=None):
+        c = load_config(CONFIG, opts + ([] if seed is None else ["MODEL.SEED", str(seed)]))
+        return Trainer(c, max_steps=CKPT_STEPS, device=str(dev), run_dir=RUN_DIR)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = trainer()
+        feed, step = _stepper(a)
+        epoch = a.train_loader.epoch(0)
+        batches = [feed(b) for b in itertools.islice(epoch, CKPT_STEPS)]
+        epoch.close()
+        lr = a.lr_fn(0)
+        losses = [float(step(batches[i], lr)["loss"]) for i in range(2)]
+        torch.cuda.synchronize()
+        saved = _cpu(ckpt.checkpoint_payload(a.state, 1))
+        t0 = time.perf_counter()
+        path = a.saver.save_checkpoint(a.state, 1, filename="checkpoint_2.pth.tar")
+        blocking_async = time.perf_counter() - t0
+        losses += [float(step(batches[i], lr)["loss"]) for i in range(2, CKPT_STEPS)]
+        t0 = time.perf_counter()
+        ckpt.wait_for_async_checkpoints()
+        drain = time.perf_counter() - t0
+        del a
+        _free()
+        b = trainer(seed=77)
+        t0 = time.perf_counter()
+        meta = ckpt.load_checkpoint_state(path, b.state)
+        load_s = time.perf_counter() - t0
+        bad = ckpt.mismatches(_cpu(ckpt.checkpoint_payload(b.state, 1)), saved)
+        if bad or meta["step"] != 2:
+            raise RuntimeError(f"phase 19 (c): the loaded state differs at {bad[:8]}")
+        resumed = float(_stepper(b)[1](batches[2], lr)["loss"])
+        sync_path = path.replace(".dcp", "_sync.dcp")
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint_orbax(sync_path, b.state, 1)
+        blocking_sync = time.perf_counter() - t0
+        del b
+        _free()
+        c = trainer(seed=78)
+        ckpt.restore_payload(c.state, saved, "the saved state in memory")
+        control = float(_stepper(c)[1](batches[2], lr)["loss"])
+        del c, batches
+        _free()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    err, floor = abs(resumed - losses[2]), abs(control - losses[2])
+    if err > floor:
+        raise RuntimeError(f"phase 19 (c): the resumed step 3's loss {resumed!r} is "
+                           f"{err:.3e} from the uninterrupted {losses[2]!r}, the control "
+                           f"{control!r} {floor:.3e}")
+    out = {"bytes": _dir_bytes(path), "blocking_async_s": blocking_async,
+           "drain_s": drain, "blocking_sync_s": blocking_sync, "load_s": load_s,
+           "losses": losses, "resumed_loss_3": resumed, "control_loss_3": control}
+    print(f"  (c) {os.path.basename(path)}: {out['bytes'] / 1e6:.1f} MB in "
+          f"{len(os.listdir(path))} files; save blocks {blocking_async * 1e3:.1f} ms async "
+          f"(drained {drain * 1e3:.1f} ms later, after steps 3-4), "
+          f"{blocking_sync * 1e3:.1f} ms sync; load {load_s * 1e3:.1f} ms; every parameter, "
+          f"buffer, optimizer slot, queue and EMA entry equal bit for bit; step 3's loss "
+          f"uninterrupted {losses[2]!r}, resumed {resumed!r}, control {control!r} on {gpu}")
+    return out
+
+
+def phase_s2d_ring_ckpt(dev, gpu: str) -> dict:
+    print("phase 19: the space-to-depth stem, the frame-axis ring and the sharded "
+          "checkpoint backend")
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    print("  (a) TPU.STEM_S2D full and spatial on the GCA MoCo step (S3D + graph at 5, 9, 14, "
+          "bs 128, 16x112x112, bf16, NCE_K 16384)")
+    s2d = part("a", s2d_full_width, dev, gpu)
+    print(f"  (b) the graph block's ring over the frame axis (base.5's width, B {RING_B}, "
+          f"T {RING_T})")
+    ring = part("b", ring_on_card, dev, gpu)
+    print("  (c) TPU.CKPT_BACKEND orbax with TPU.ASYNC_CKPT on (a)'s step")
+    sharded = part("c", sharded_backend, dev, gpu)
+    print(json.dumps({"s2d_ring_ckpt": {"s2d": s2d, "ring": ring, "ckpt": sharded,
+                                        "gpu": gpu}}))
+    return {k: max(s2d["worst"].get(k, 0.0), ring["worst"].get(k, 0.0))
+            for k in ("K1", "K2", "K3", "K4")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4433,12 +4980,13 @@ def main() -> int:
     cmc = timed(phase_cmc, dev, gpu)
     nonlocal_text = timed(phase_nonlocal_text, dev, gpu)
     exported = timed(phase_remat_export_cam, dev, gpu)
-    for k in kernels:   # the I3D pools', model_2's, phase 17's and 18's checks join the kernels'
+    s2d_ring = timed(phase_s2d_ring_ckpt, dev, gpu)
+    for k in kernels:   # the I3D pools', model_2's, phase 17's to 19's checks join the kernels'
         kn = {"graph_adjacency": "K1", "gcn_propagate": "K2", "maxpool_bwd_s1": "K3",
               "maxpool_bwd_strided": "K4"}.get(k["name"])
         if kn:
             k["max_abs_err"] = max(k["max_abs_err"], worst.get(kn, 0.0), cmc[kn],
-                                   nonlocal_text[kn], exported[kn])
+                                   nonlocal_text[kn], exported[kn], s2d_ring[kn])
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -398,3 +398,90 @@ def ds_validation_worker(rank, world, opts, run_dir):
             "experiment_dir": trainer.saver.experiment_dir,
             "written": sorted(glob.glob(os.path.join(run_dir, "**", "*.pth.tar"),
                                         recursive=True))}
+
+
+def seq_worker(rank, world, module_kw, state_dict, runs):
+    """The graph block's frame-axis ring (``parallel/sequence.py``) as this
+    rank: for each run ``{"x", "kw", ["gout"], ["noise"], ["float64"]}`` on
+    the global clip ``x``, this rank's frames of the output, the bytes it
+    sent and, with a cotangent ``gout``, the gradient of its frames of
+    ``x`` and the weight gradients summed over the ranks; ``noise`` (B, T,
+    T) is a draw whose rows of this rank are injected; ``float64`` runs the
+    block in float64.  A ValueError is returned as ``{"error": message}``."""
+    from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
+    from video_graph_ssl_tpu_torch.parallel import sequence
+
+    results = []
+    for run in runs:
+        dtype = torch.float64 if run.get("float64") else module_kw["dtype"]
+        module = TemporalGraphAug(**{**module_kw, "dtype": dtype}).to(dtype)
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+        x = torch.from_numpy(run["x"]).requires_grad_("gout" in run)
+        tl = x.shape[1] // world
+        frames = slice(rank * tl, (rank + 1) * tl)
+        kw = dict(run.get("kw", {}))
+        if "noise" in run:
+            kw["noise"] = torch.from_numpy(run["noise"][:, frames])
+        sequence.sent_bytes = 0
+        try:
+            y = sequence.graph_aug_sequence_parallel(module, x, **kw)
+        except ValueError as e:
+            results.append({"error": str(e)})
+            continue
+        res = {"y": y.detach().numpy()}
+        if "gout" in run:
+            (y * torch.from_numpy(run["gout"][:, frames])).sum().backward()
+            res["dx"] = x.grad[:, frames].numpy()
+            grads = {}
+            for name, p in module.named_parameters():
+                g = p.grad.clone()
+                tdist.all_reduce(g)
+                grads[name] = g.numpy()
+            res["grads"] = grads
+        res["sent"] = sequence.sent_bytes
+        results.append(res)
+    return results
+
+
+def dcp_worker(rank, world, directory, clips, load_only=False):
+    """The sharded checkpoint backend as this rank: one fused MoCo step on
+    its rows of ``clips``, then every rank writes ``directory`` together
+    (``save_checkpoint_orbax``); or, with ``load_only``, a fresh state of
+    another seed loaded from it.  Returns the state's arrays."""
+    from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+    from video_graph_ssl_tpu_torch.engine.pretrain import make_fused_pretrain_step
+    from video_graph_ssl_tpu_torch.utils.checkpoint import (load_checkpoint_any,
+                                                            save_checkpoint_orbax)
+
+    c = port_cfg()
+    state = create_pretrain_state(c, _model((), None) if not load_only else
+                                  _seeded_model(c, 99), "cpu")
+    if load_only:
+        meta = load_checkpoint_any(directory, state)
+        return {"state": state_arrays(state), "meta": meta}
+    make_fused_pretrain_step(c)(state, torch.from_numpy(clips[rows(rank, world,
+                                                                   clips.shape[0])]), 0.1)
+    save_checkpoint_orbax(directory, state, epoch=2, best_pred=0.5)
+    return {"state": state_arrays(state)}
+
+
+def async_save_worker(rank, world, config_file, opts, run_dir):
+    """The pretrain ``Trainer`` as this rank, run to its end under the
+    config ``opts`` (the tests' give ``TPU.CKPT_BACKEND orbax`` with
+    ``TPU.ASYNC_CKPT``: a directory saved after each epoch, the first still
+    in flight while the next epoch's steps run their collectives).
+    Returns the final state's arrays, the experiment directory and the
+    number of saves still in flight after the run."""
+    from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
+    from video_graph_ssl_tpu_torch.utils import checkpoint
+
+    trainer = Trainer(load_config(config_file, opts), device="cpu", run_dir=run_dir)
+    trainer.run()
+    return {"state": state_arrays(trainer.state), "in_flight": len(checkpoint._ASYNC_SAVES),
+            "experiment_dir": trainer.saver.experiment_dir, "step": trainer.state.step}
+
+
+def _seeded_model(c, seed):
+    from video_graph_ssl_tpu_torch.models.build import create_visual_model
+
+    return create_visual_model(c, seed=seed)[0]

@@ -7,18 +7,25 @@ The same configs go through both packages' builders
 ``encoder_cfg_from``), the port raises the same class with the same
 message, in JAX's order; where JAX builds, the port builds too (a valid
 ``TPU.REMAT True`` with the backbone's ``remat`` set as JAX's encoder sets
-it), except for a valid ``TPU.STEM_S2D`` other than off, which raises
-``NotImplementedError`` naming ``TPU.STEM_S2D`` (the port builds the
-standard stem only, the same function).
+it); a valid ``TPU.STEM_S2D`` other than off builds the space-to-depth
+stem in both, and the port's encoder features match JAX's on the same
+weights.
 """
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import fill_variables, rel_l2
 from video_graph_ssl_tpu.config import cfg as jax_cfg
 from video_graph_ssl_tpu.models import create_video_model as jax_video
 from video_graph_ssl_tpu.models import create_visual_model as jax_visual
-from video_graph_ssl_tpu_torch.models.build import create_video_model, create_visual_model
+from video_graph_ssl_tpu_torch.models.build import (create_video_model, create_visual_model,
+                                                    stem_s2d_mode)
+from video_graph_ssl_tpu_torch.models.layers import SepConvS2D
+from video_graph_ssl_tpu_torch.utils.jax_weights import pretrain_state_dict
 
 torch.set_num_threads(1)
 BUILDERS = [(jax_visual, create_visual_model), (jax_video, create_video_model)]
@@ -95,8 +102,8 @@ def test_remat_true_builds_in_both(backbone, policy):
         assert encoder.base_model.remat == want
 
 
-# valid TPU.STEM_S2D values: off and its aliases build in both; an S2D stem
-# builds in JAX and raises by name in the port
+# valid TPU.STEM_S2D values: off and its aliases build in both, and so
+# does an S2D stem, whose forward matches JAX's
 STEM_OFF = ["off", "false", "0", "none", "", False]
 STEM_ON = [("S3D", "full"), ("S3D", "true"), ("S3D", "1"), ("S3D", True),
            ("S3D", "spatial"), ("S3DG", "full"), ("S3DG", "Spatial")]
@@ -111,10 +118,43 @@ def test_stem_s2d_off_builds_in_both(value):
         assert isinstance(model, torch.nn.Module)
 
 
+_JAX_FEATURES = {}
+
+
+def _jax_features(c, x):
+    """(variables, encoder features) of JAX's visual model for ``c``, once
+    per (backbone, stem mode): "true", "1" and True are "full"."""
+    key = (c.MODEL.BACKBONE, stem_s2d_mode(c, c.MODEL.BACKBONE))
+    if key not in _JAX_FEATURES:
+        jmodel, _ = jax_visual(c)
+        shapes = jax.eval_shape(lambda v: jmodel.init({"params": jax.random.key(0)}, v), x)
+        v = fill_variables(shapes, 0)
+        feats = jax.jit(lambda vv, xx: jmodel.apply(vv, xx, method=jmodel.encode))(v, x)
+        _JAX_FEATURES[key] = (v, np.asarray(feats))
+    return _JAX_FEATURES[key]
+
+
 @pytest.mark.parametrize("backbone,value", STEM_ON, ids=[f"{b}-{v!r}" for b, v in STEM_ON])
 def test_stem_s2d_on_raises_by_name(backbone, value):
+    """Formerly the port refused a valid S2D stem by name; now each value
+    builds in both builders, and on JAX's weights (the visual model's
+    encoder, carried into the downstream model's backbone) the port's
+    encoder features match JAX's in eval, fp32, at 1e-5 rel-L2."""
     c = _cfg(backbone, STEM_S2D=value)
+    x = np.random.default_rng(0).standard_normal((2, 8, 32, 32, 3)).astype(np.float32)
+    v, want = _jax_features(c, jnp.asarray(x))
+    sd = {k: torch.from_numpy(np.asarray(t)) for k, t in pretrain_state_dict(
+        v["params"], v["batch_stats"], backbone).items()}
+    pre = "model.encoder.base_model."
     for jax_build, port_build in BUILDERS:
         assert _jax_error(jax_build, c) is None
-        with pytest.raises(NotImplementedError, match="TPU.STEM_S2D"):
-            port_build(c)
+        model, _ = port_build(c)
+        encoder = model if hasattr(model, "new_fc") else model.model.encoder
+        assert isinstance(encoder.base_model.base[0], SepConvS2D)
+        encoder.base_model.load_state_dict(
+            {k[len(pre):]: t for k, t in sd.items() if k.startswith(pre)}, strict=True)
+        model.eval()
+        features = model.encode if encoder is model else encoder
+        with torch.no_grad():
+            got = features(torch.from_numpy(x))
+        assert rel_l2(got.numpy(), want) < 1e-5

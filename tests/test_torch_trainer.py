@@ -13,7 +13,8 @@ host side against the JAX tool's behaviour.
   taking from the latter what JAX's ``load_backbone_init`` takes.
 * The saver (experiment directories, best-pred promotion across sibling
   experiments, ``parameters.txt``), the summary writer and the shard
-  builder CLI against the JAX package's.
+  builder CLI against the JAX package's; the saver's sharded backend
+  (``TPU.CKPT_BACKEND orbax``) writes a directory that reads back.
 """
 
 import glob
@@ -273,9 +274,27 @@ def test_saver_matches_jax(tmp_path, monkeypatch):
 
 
 def test_orbax_backend_is_not_ported(tmp_path):
+    """Formerly the saver refused ``TPU.CKPT_BACKEND orbax``; now it writes
+    the sharded backend's directory (``checkpoint_1.dcp`` and its meta
+    file, promoted to ``model_best.dcp``) and the state reads back from it
+    bit for bit."""
+    from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
+    from video_graph_ssl_tpu_torch.utils.checkpoint import (checkpoint_payload,
+                                                            load_checkpoint_state, mismatches)
+
     c = train.load_config(CONFIG, SYNTHETIC + ["TPU.CKPT_BACKEND", "orbax"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        psaver.Saver(c, base_dir=str(tmp_path))
+    state = create_pretrain_state(c, create_visual_model(c)[0], "cpu")
+    s = psaver.Saver(c, base_dir=str(tmp_path))
+    path = s.save_checkpoint(state, epoch=1, best_pred=2.0, is_best=True,
+                             filename="checkpoint_1.pth.tar")
+    assert path.endswith("checkpoint_1.dcp") and os.path.isdir(path)
+    assert os.path.isfile(path + ".meta.json")
+    best = os.path.join(s.directory, "model_best.dcp")
+    assert os.path.isdir(best) and os.path.isfile(best + ".meta.json")
+    for src in (path, best):
+        fresh = create_pretrain_state(c, create_visual_model(c, seed=9)[0], "cpu")
+        assert load_checkpoint_state(src, fresh)["epoch"] == 1
+        assert mismatches(checkpoint_payload(state, 1), checkpoint_payload(fresh, 1)) == []
 
 
 @pytest.mark.parametrize("tensorboard", [True, False])

@@ -44,9 +44,9 @@ from typing import Optional
 import torch
 
 from .engine.build import create_downstream_state, create_pretrain_state
-from .models.build import create_video_model, create_visual_model, is_cmc
+from .models.build import create_video_model, create_visual_model, is_cmc, stem_s2d_mode
 from .train_video_contrast_dis import load_config, resolve_device
-from .utils.checkpoint import save_checkpoint_state
+from .utils.checkpoint import read_payload, save_checkpoint_state
 from .utils.ckpt_convert import export_payload, graft_downstream, graft_pretrain
 from .utils.torch_names import detect_kind
 
@@ -99,6 +99,8 @@ def convert_to_port(args, cfg) -> str:
                          "has CROSS.MODALITY=visual — pass the CMC config/overrides")
     device = resolve_device(args.device)
     backbone = str(cfg.MODEL.BACKBONE)
+    # a TPU.STEM_S2D model takes the reference's stem folded
+    s2d = stem_s2d_mode(cfg, backbone)
     if kind in ("pretrain", "cmc_pretrain"):
         model, _ = create_visual_model(cfg)
         memory = payload.get("contrast") or {}
@@ -107,12 +109,12 @@ def convert_to_port(args, cfg) -> str:
                        for m in ("memory", "memory_1") if m in memory), 1)
         state = create_pretrain_state(cfg, model, device, n_data=n_data)
         with torch.no_grad():
-            notes = graft_pretrain(state, payload, backbone, kind == "cmc_pretrain")
+            notes = graft_pretrain(state, payload, backbone, kind == "cmc_pretrain", s2d)
     else:
         model, _ = create_video_model(cfg)
         state = create_downstream_state(cfg, model, device)
         with torch.no_grad():
-            notes = graft_downstream(state, payload, backbone)
+            notes = graft_downstream(state, payload, backbone, s2d)
     epoch = int(payload.get("epoch", 0))
     out = args.output or default_output(args.torch_ckpt)
     save_checkpoint_state(out, state, epoch, extra={
@@ -124,7 +126,7 @@ def convert_to_port(args, cfg) -> str:
 
 
 def convert_to_reference(args, cfg) -> str:
-    payload = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
+    payload = read_payload(args.checkpoint)
     out = export_payload(payload, str(cfg.MODEL.BACKBONE))
     torch.save(out, args.to_torch)
     print(f"=> wrote '{args.to_torch}' ({len(out['state_dict'])} tensors, "

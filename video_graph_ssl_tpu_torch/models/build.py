@@ -28,8 +28,8 @@ validated as JAX validates them (the same ``ValueError``s).  A valid
 ``TPU.REMAT True`` reaches every 3D backbone as ``remat`` (``models/
 remat.py``; tiny3d and ``i3d_res50_nonlocal`` take it unread, and the 2D
 backbones never see it, as in JAX); a valid ``TPU.STEM_S2D`` other than
-off raises by name (the port builds the standard stem, the same
-function)."""
+off builds S3D's and S3DG's stage 0 as the space-to-depth stem
+(``layers.SepConvS2D``), "full" or "spatial"."""
 
 from __future__ import annotations
 
@@ -54,8 +54,6 @@ from .wrappers import (CmcWrapper, ContrastWrapper, GraphWrapper, SimSiam, Video
 
 MEM_TYPES = ("moco", "bank", "simsiam")
 CMC_MEM_TYPES = ("moco", "bank")
-STEM_S2D_NOT_PORTED = ("TPU.STEM_S2D {!r} is not ported: the space-to-depth stem is a TPU "
-                       "layout of the standard stem's function; set TPU.STEM_S2D off")
 
 
 def _feature_dim(name: str) -> int:
@@ -174,7 +172,8 @@ def resolve_remat(cfg, name: str):
 def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int]:
     """The configured backbone (graph blocks with ``MODEL.AUG_FLAG`` on a 3D
     one, K5's backward with ``TPU.SEPCONV_FUSED`` on S3D, recompute units
-    with ``TPU.REMAT`` on a 3D one) and its feature dim; raises for what is
+    with ``TPU.REMAT`` on a 3D one, the space-to-depth stem with
+    ``TPU.STEM_S2D`` on S3D/S3DG) and its feature dim; raises for what is
     not ported, and JAX's ValueErrors for the TPU layouts JAX refuses, in
     JAX's order (``TPU.STEM_S2D``, then ``TPU.SEPCONV_FUSED``, then
     ``TPU.REMAT``)."""
@@ -197,7 +196,7 @@ def create_backbone(cfg, partial_bn: bool = False) -> Tuple[torch.nn.Module, int
     if btype == "3D":
         extra["remat"] = remat
     if s2d:
-        raise NotImplementedError(STEM_S2D_NOT_PORTED.format(cfg.TPU.STEM_S2D))
+        extra["stem_s2d"] = s2d
     backbone = ctor(
         aug_points=(tuple(cfg.GRAPH.AUG_POINTS) or default_aug) if aug else (),
         graph_cfg=graph_cfg_from(cfg) if aug else None,

@@ -22,6 +22,7 @@ import itertools
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -298,6 +299,130 @@ class SepConv3d(nn.Module):
         return out
 
 
+def space_to_depth_hw(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, H, W) -> (B, 4C, T, H/2, W/2), channel order (dh, dw, c)
+    (JAX ``space_to_depth_hw``); the result is in ``channels_last_3d``
+    memory."""
+    b, c, t, h, w = x.shape
+    y = x.permute(0, 2, 3, 4, 1).reshape(b, t, h // 2, 2, w // 2, 2, c)
+    y = y.permute(0, 1, 2, 4, 3, 5, 6).reshape(b, t, h // 2, w // 2, 4 * c)
+    return y.permute(0, 4, 1, 2, 3)
+
+
+def space_to_depth_t(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, H, W) -> (B, 2C, T/2, H, W), channel order (dt, c) (JAX
+    ``space_to_depth_t``); the result is in ``channels_last_3d`` memory."""
+    b, c, t, h, w = x.shape
+    y = x.permute(0, 2, 3, 4, 1).reshape(b, t // 2, 2, h, w, c)
+    y = y.permute(0, 1, 3, 4, 2, 5).reshape(b, t // 2, h, w, 2 * c)
+    return y.permute(0, 4, 1, 2, 3)
+
+
+def fold_stem_kernel_s2d(w, axes: str) -> np.ndarray:
+    """Fold a k=7 stride-2 conv kernel into its space-to-depth equivalent,
+    in JAX's layout (a numpy copy of JAX ``layers.fold_stem_kernel_s2d``).
+
+    A stride-2 pad-3 7-tap conv equals a stride-1 4-tap conv on the
+    2x-space-to-depth input with pads (2, 1): output o reads input
+    2o + j - 3 (tap j in 0..6); in block space that is block o + a - 2,
+    phase d, with j = 2a + d - 1; only tap (a=0, d=0), j = -1, falls
+    outside the 7-tap support and is zero.  The map is exact.
+
+    ``axes='hw'``: (1,7,7,C,F) -> (1,4,4,4C,F);
+    ``axes='t'``:  (7,1,1,C,F) -> (4,1,1,2C,F).
+    """
+    w = np.asarray(w)
+    if axes == "hw":
+        _, kh, kw, c, f = w.shape
+        assert (kh, kw) == (7, 7), w.shape
+        out = np.zeros((1, 4, 4, 4 * c, f), w.dtype)
+        for a in range(4):
+            for dh in range(2):
+                jh = 2 * a + dh - 1
+                if not 0 <= jh < 7:
+                    continue
+                for bb in range(4):
+                    for dw in range(2):
+                        jw = 2 * bb + dw - 1
+                        if not 0 <= jw < 7:
+                            continue
+                        ch = (dh * 2 + dw) * c
+                        out[0, a, bb, ch:ch + c] = w[0, jh, jw]
+        return out
+    assert axes == "t"
+    kd, _, _, c, f = w.shape
+    assert kd == 7, w.shape
+    out = np.zeros((4, 1, 1, 2 * c, f), w.dtype)
+    for a in range(4):
+        for dt in range(2):
+            j = 2 * a + dt - 1
+            if not 0 <= j < 7:
+                continue
+            out[a, 0, 0, dt * c:(dt + 1) * c] = w[j, 0, 0]
+    return out
+
+
+def fold_stem_weight(w: torch.Tensor, axes: str) -> torch.Tensor:
+    """:func:`fold_stem_kernel_s2d` on a torch conv weight (F, C, kt, kh,
+    kw): transposed to JAX's (kt, kh, kw, C, F), folded, transposed back;
+    same dtype, on the CPU."""
+    src = w.detach().cpu()
+    if src.dtype == torch.bfloat16:     # numpy has no bf16; the fold only copies
+        src = src.float()
+    folded = fold_stem_kernel_s2d(src.permute(2, 3, 4, 1, 0).numpy(), axes)
+    return torch.from_numpy(np.ascontiguousarray(folded.transpose(4, 3, 0, 1, 2))).to(w.dtype)
+
+
+class SepConvS2D(nn.Module):
+    """The space-to-depth S3D stem (``TPU.STEM_S2D``; JAX ``SepConvS2D``):
+    ``SepConv3d(cin, cout, 7, 2, 3)`` as two stride-1 convs on
+    space-to-depth inputs, the same function under the
+    :func:`fold_stem_kernel_s2d` weight map.  The spatial conv is (1, 4, 4)
+    with pads (2, 1) on the 4C-channel input; the temporal conv is (4, 1, 1)
+    with pads (2, 1) on the 2 x cout-channel input (``temporal_s2d``, mode
+    ``full``), or the standard (7, 1, 1) / 2 (mode ``spatial``).  BNs, ReLUs
+    and names are :class:`SepConv3d`'s (``conv_s``, ``bn_s``, ``conv_t``,
+    ``bn_t``); ``temporal_bias`` is S3DG's biased pair, the temporal kernel
+    initialised Normal(0, 0.01) (:func:`init_params_`).  T, H and W must be
+    even, as JAX asserts.  The convolutions are the library's (JAX runs
+    them outside Pallas)."""
+
+    def __init__(self, cin: int, cout: int, temporal_bias: bool = False,
+                 temporal_s2d: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.temporal_bias = bool(temporal_bias)
+        self.temporal_s2d = bool(temporal_s2d)
+        self.conv_s = nn.Conv3d(4 * cin, cout, (1, 4, 4), bias=self.temporal_bias)
+        self.bn_s = BatchNorm(cout, momentum=0.999, eps=1e-3)
+        if self.temporal_s2d:
+            self.conv_t = nn.Conv3d(2 * cout, cout, (4, 1, 1), bias=self.temporal_bias)
+        else:
+            self.conv_t = nn.Conv3d(cout, cout, (7, 1, 1), (2, 1, 1), (3, 0, 0),
+                                    bias=self.temporal_bias)
+        self.bn_t = BatchNorm(cout, momentum=0.999, eps=1e-3)
+        self.dtype = dtype
+
+    def _convbn(self, x, conv, bn, pad=None):
+        dt = self.dtype
+        x = x.to(dt)
+        if pad is not None:
+            x = F.pad(x, pad).contiguous(memory_format=torch.channels_last_3d)
+        bias = None if conv.bias is None else conv.bias.to(dt)
+        y = F.conv3d(x, conv.weight.to(dt), bias, conv.stride, conv.padding)
+        return F.relu(bn(y).to(dt))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t, h, w = x.shape[2:]
+        if t % 2 or h % 2 or w % 2:
+            raise ValueError(f"SepConvS2D needs even T, H, W; got {tuple(x.shape)} "
+                             "(B, C, T, H, W)")
+        x = self._convbn(space_to_depth_hw(x), self.conv_s, self.bn_s, (2, 1, 2, 1))
+        if self.temporal_s2d:
+            return self._convbn(space_to_depth_t(x), self.conv_t, self.bn_t,
+                                (0, 0, 0, 0, 2, 1))
+        return self._convbn(x, self.conv_t, self.bn_t)
+
+
 class MaxPool3d(nn.Module):
     """3D max pooling (``ops/maxpool.py``: library forward; on CUDA tensors
     the backward is kernel K3 for stride-1 pools and K4 for strided ones).
@@ -403,5 +528,5 @@ def init_params_(module: nn.Module,
             if m.bias is not None:
                 m.bias.zero_()
     for m in module.modules():
-        if isinstance(m, SepConv3d) and m.temporal_bias:
+        if isinstance(m, (SepConv3d, SepConvS2D)) and m.temporal_bias:
             nn.init.normal_(m.conv_t.weight, 0.0, 0.01, generator=generator)

@@ -27,7 +27,8 @@ from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
 from . import remat
-from .layers import BasicConv3d, InceptionBlock, MaxPool3d, SepConv3d, freeze_bn_
+from .layers import (BasicConv3d, InceptionBlock, MaxPool3d, SepConv3d, SepConvS2D,
+                     fold_stem_weight, freeze_bn_)
 
 _MIXED_SPECS = {
     5: (64, (96, 128), (16, 32), 32),
@@ -142,19 +143,27 @@ class S3D(StagedBackbone):
 
     ``temporal_bias`` is S3DG (JAX ``S3D(temporal_bias=True)``, reference
     S3DG_Pytorch.py:310-355): every SepConv pair, the stem's included,
-    biased; ``fused_sepconv`` then reaches no pair (``SepConv3d``)."""
+    biased; ``fused_sepconv`` then reaches no pair (``SepConv3d``).
+
+    ``stem_s2d`` (``TPU.STEM_S2D``: True or "full", or "spatial", JAX
+    ``S3D(stem_s2d=...)``) builds stage 0 as :class:`layers.SepConvS2D`,
+    the same function as the standard stem under the fold of
+    :func:`stem_params_to_s2d`; it needs even T, H and W at the input.
+    Under ``remat`` it is a recompute unit like every stage but the pools,
+    as JAX's ``nn.remat(SepConvS2D)``."""
 
     def __init__(self, aug_points: Tuple[int, ...] = (),
                  graph_cfg: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  fused_sepconv: bool = False, partial_bn: bool = False,
                  temporal_bias: bool = False, in_channels: int = 3,
-                 remat: remat.Policy = False):
+                 remat: remat.Policy = False, stem_s2d=False):
         super().__init__()
         kw = dict(dtype=dtype)
         skw = dict(temporal_bias=temporal_bias, **kw)
         stem = [
-            SepConv3d(in_channels, 64, 7, 2, 3, **skw),
+            SepConvS2D(in_channels, 64, temporal_s2d=stem_s2d != "spatial", **skw)
+            if stem_s2d else SepConv3d(in_channels, 64, 7, 2, 3, **skw),
             MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
             BasicConv3d(64, 64, 1, **kw),
             SepConv3d(64, 192, 3, 1, 1, **skw),
@@ -165,3 +174,28 @@ class S3D(StagedBackbone):
                                                   fused_sepconv=fused_sepconv, **skw),
             MaxPool3d(3, 2, 1), MaxPool3d(2, 2, 0))
         self._finish(stages, cins, aug_points, graph_cfg, dtype, partial_bn, remat)
+
+
+def stem_params_to_s2d(state_dict, mode: str = "full"):
+    """A standard-stem S3D/S3DG state_dict -> the ``stem_s2d`` layout (JAX
+    ``stem_params_to_s2d``): every stem conv weight, at any depth of a
+    wrapper tree (``base.0.conv_{s,t}.weight``, or ``base.0.1.`` under a
+    graph block), folded with :func:`layers.fold_stem_kernel_s2d` in its
+    dtype; ``mode='spatial'`` folds the spatial conv only.  Biases and BN
+    entries are unchanged.  Returns a new dict."""
+    if mode not in ("full", "spatial"):
+        raise ValueError(f"mode must be 'full' or 'spatial', got {mode!r}")
+    convs = {"conv_s": "hw"} if mode == "spatial" else {"conv_s": "hw", "conv_t": "t"}
+    out = dict(state_dict)
+    for key, w in state_dict.items():
+        parts = key.split(".")
+        if parts[-1] != "weight" or parts[-2] not in convs:
+            continue
+        stage = parts[:-2]
+        if stage[-3:] == ["base", "0", "1"]:     # under a graph block
+            stage = stage[:-1]
+        if stage[-2:] != ["base", "0"]:
+            continue
+        w = torch.as_tensor(w)
+        out[key] = fold_stem_weight(w, convs[parts[-2]]).to(w.device)
+    return out

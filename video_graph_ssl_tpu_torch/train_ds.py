@@ -65,7 +65,8 @@ from .parallel import dist
 from .solver.build import make_lr_scheduler
 from .train_video_contrast_dis import (add_dist_args, launch, load_backbone_state_dict,
                                        resolve_device)
-from .utils.checkpoint import SSL_ENCODER, transfer_encoder_params
+from .utils.checkpoint import (SSL_ENCODER, read_payload, transfer_encoder_params,
+                               wait_for_async_checkpoints)
 from .utils.meters import AverageMeter, accuracy
 from .utils.summary import creat_saver
 
@@ -148,7 +149,7 @@ class Trainer:
             return
         if not os.path.exists(path):
             raise RuntimeError(f"=> no SSL checkpoint found at '{path}'")
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        payload = read_payload(path)
         sd = payload.get("state_dict") if isinstance(payload, dict) else None
         if not (isinstance(sd, dict)
                 and any(k.startswith((SSL_ENCODER, "model_1.")) for k in sd)):
@@ -273,6 +274,8 @@ class Trainer:
         finally:
             if main:
                 signal.signal(signal.SIGTERM, previous)
+            # a save in flight commits while the process group still exists
+            wait_for_async_checkpoints()
             self.writer.close()
 
 

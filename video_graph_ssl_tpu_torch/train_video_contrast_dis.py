@@ -74,7 +74,8 @@ from .models.build import create_visual_model
 from .models.wrappers import VisualEncoder
 from .parallel import dist
 from .solver.build import make_lr_scheduler
-from .utils.checkpoint import load_checkpoint_state
+from .utils.checkpoint import (load_checkpoint_state, read_payload,
+                               wait_for_async_checkpoints)
 from .utils.meters import AverageMeter
 from .utils.summary import creat_saver
 from .utils.torch_names import detect_kind, port_backbone_names, rgb_stack
@@ -151,7 +152,7 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
     (``base.N...``, ``layer1.0...``); the reference's names (S3DG, I3D, the
     ResNets, BN-Inception, Inception-v3) are mapped to the port's
     (``utils/torch_names.py``)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    obj = read_payload(path)
     sd = obj["state_dict"] if isinstance(obj, dict) and "state_dict" in obj else obj
     with contextlib.suppress(ValueError):   # a bare backbone has no wrapper roots
         if detect_kind(sd) == "cmc_pretrain":
@@ -366,6 +367,8 @@ class Trainer:
         finally:
             if main:
                 signal.signal(signal.SIGTERM, previous)
+            # a save in flight commits while the process group still exists
+            wait_for_async_checkpoints()
             self.writer.close()
 
 

@@ -33,11 +33,13 @@ optimizer is re-initialised.  Each of these is recorded in the notes.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 
 from ..memory.build import contrast_fields
+from ..models.s3d import stem_params_to_s2d
 from .torch_names import port_backbone_names, reference_backbone_names
 
 # the backbones JAX's converter covers (JAX utils/ckpt_convert.py
@@ -122,23 +124,49 @@ def _refuse_graphs(enc: SD, backbone: str) -> None:
             f"defines the reference layout of a graph-wrapped '{backbone.lower()}'")
 
 
-def port_encoder(enc: SD, backbone: str) -> SD:
+def _stem_mode(stem_s2d) -> str:
+    """JAX ``convert_torch_s3d``'s ``stem_s2d``: False/'' (off), True or
+    'full', 'spatial'."""
+    if not stem_s2d:
+        return ""
+    return "spatial" if stem_s2d == "spatial" else "full"
+
+
+def port_encoder(enc: SD, backbone: str, stem_s2d=False) -> SD:
     """A reference backbone's state dict (S3D's graph wraps included) ->
-    the port's names, the classifier and BN counters dropped."""
+    the port's names, the classifier and BN counters dropped.  ``stem_s2d``
+    (JAX ``convert_torch_s3d(stem_s2d=...)``: True/'full' or 'spatial')
+    folds the S3D/S3DG stem for the space-to-depth stem
+    (``models/s3d.py:stem_params_to_s2d``)."""
     lay = layout(backbone)
+    mode = _stem_mode(stem_s2d)
+    if mode and lay not in ("s3d", "s3dg"):
+        raise ValueError(f"stem_s2d only applies to S3D/S3DG, got {backbone}")
     enc = {k: v for k, v in enc.items() if not k.endswith(COUNTER)}
     if lay != "s3d":
         _refuse_graphs(enc, backbone)
-        return port_backbone_names(enc)
-    clean, graphs = split_graphs(enc)
-    clean = {k: v for k, v in clean.items() if not k.startswith(S3D_CLASSIFIER)}
-    return wrap_graphs(clean, graphs)
+        out = port_backbone_names(enc)
+    else:
+        clean, graphs = split_graphs(enc)
+        clean = {k: v for k, v in clean.items() if not k.startswith(S3D_CLASSIFIER)}
+        out = wrap_graphs(clean, graphs)
+    return stem_params_to_s2d(out, mode) if mode else out
+
+
+def _refuse_folded_stem(enc: SD) -> None:
+    """JAX's export has no unfold: a space-to-depth stem has no reference
+    names."""
+    for k, v in enc.items():   # no other S3D conv has a (1, 4, 4) window
+        if k.endswith("conv_s.weight") and tuple(v.shape[-3:]) == (1, 4, 4):
+            raise ValueError(f"{k} is a folded space-to-depth stem (TPU.STEM_S2D): the "
+                             "reference has no such stem and no unfold is defined")
 
 
 def reference_encoder(enc: SD, backbone: str) -> SD:
     """The port's backbone names -> the reference's (the inverse of
-    :func:`port_encoder`)."""
+    :func:`port_encoder` without ``stem_s2d``; a folded stem is refused)."""
     lay = layout(backbone)
+    _refuse_folded_stem(enc)
     if lay == "s3d":
         return dict(enc)
     _refuse_graphs(enc, backbone)
@@ -171,11 +199,12 @@ def _convert(sd: SD, backbone: str, kind: str, encoder_fn) -> SD:
     return out
 
 
-def port_state_dict(sd: SD, backbone: str, kind: str) -> SD:
+def port_state_dict(sd: SD, backbone: str, kind: str, stem_s2d=False) -> SD:
     """A reference state dict of ``kind`` ('pretrain', 'cmc_pretrain' or
     'downstream') -> the port's model's names (``module.`` and the BN
-    counters dropped)."""
-    return _convert(_strip(sd), backbone, kind, port_encoder)
+    counters dropped; the stem folded with ``stem_s2d``)."""
+    return _convert(_strip(sd), backbone, kind,
+                    functools.partial(port_encoder, stem_s2d=stem_s2d))
 
 
 def reference_state_dict(sd: SD, backbone: str, kind: str) -> SD:
@@ -195,19 +224,21 @@ def _memory_map(fields) -> Dict[str, str]:
     return {"memory": "queue" if "queue" in fields else "memory"}
 
 
-def graft_pretrain(state, payload: Dict[str, Any], backbone: str, cmc: bool) -> Dict[str, str]:
+def graft_pretrain(state, payload: Dict[str, Any], backbone: str, cmc: bool,
+                   stem_s2d=False) -> Dict[str, str]:
     """Load a reference pretrain payload into the live ``PretrainState``
     (strict names): the model, the EMA encoder (converted, or copied from
-    the model), the memory where its shape agrees; returns the notes."""
+    the model), the memory where its shape agrees; returns the notes.
+    ``stem_s2d`` folds the stem (:func:`port_encoder`)."""
     kind = "cmc_pretrain" if cmc else "pretrain"
     notes = {"optimizer": "reinitialized"}
     state.model.load_state_dict(_tensors(port_state_dict(payload["state_dict"], backbone,
-                                                         kind)), strict=True)
+                                                         kind, stem_s2d)), strict=True)
     if state.ema_model is not None:
         ema = payload.get("model_ema")
         if ema is not None:
-            state.ema_model.load_state_dict(_tensors(port_state_dict(ema, backbone, kind)),
-                                            strict=True)
+            state.ema_model.load_state_dict(
+                _tensors(port_state_dict(ema, backbone, kind, stem_s2d)), strict=True)
             notes["model_ema"] = "converted"
         else:
             # the reference starts the EMA encoder as a copy
@@ -236,11 +267,13 @@ def graft_pretrain(state, payload: Dict[str, Any], backbone: str, cmc: bool) -> 
     return notes
 
 
-def graft_downstream(state, payload: Dict[str, Any], backbone: str) -> Dict[str, str]:
+def graft_downstream(state, payload: Dict[str, Any], backbone: str,
+                     stem_s2d=False) -> Dict[str, str]:
     """Load a reference downstream payload into the live downstream state
-    (strict names); returns the notes."""
+    (strict names; the stem folded with ``stem_s2d``); returns the notes."""
     state.model.load_state_dict(_tensors(port_state_dict(payload["state_dict"], backbone,
-                                                         "downstream")), strict=True)
+                                                         "downstream", stem_s2d)),
+                                strict=True)
     return {"optimizer": "reinitialized"}
 
 

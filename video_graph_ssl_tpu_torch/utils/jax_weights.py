@@ -142,7 +142,10 @@ def _stage(p: dict, idx: int) -> str:
 
 def s3d_state_dict(p: dict, s: dict, sub_sample: bool = True) -> SD:
     """JAX ``S3D`` variables -> the port's ``S3D`` state_dict; with
-    ``temporal_bias`` (S3DG) each SepConv conv's bias comes along."""
+    ``temporal_bias`` (S3DG) each SepConv conv's bias comes along.  A
+    folded stem (JAX ``S3D(stem_s2d=...)``, ``SepConvS2D``: the same
+    ``spatial``/``temporal`` subtrees, (1, 4, 4) and (4, 1, 1) kernels)
+    maps onto the port's ``SepConvS2D`` under the same names."""
     out: SD = {}
     for ours, (idx, kind) in _S3D_STAGES.items():
         base = _stage(p, idx)
