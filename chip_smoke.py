@@ -354,6 +354,7 @@ from video_graph_ssl_tpu_torch.kernel_times import (K1_SHAPES, K2_SHAPES, PATTER
                                                     SEPCONVS, device_us, event_ms, geometry,
                                                     gpu_line, host_us, sepconv_inputs,
                                                     step_calls)
+from video_graph_ssl_tpu_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "visual_moco.yaml")
@@ -999,7 +1000,7 @@ def small_step_parity(dev, fused: bool, backbone: str = "S3D", opts=(),
           float((dg - dc).norm() / dc.norm()), 1e-1)
 
 
-def _counters():
+def _kernel_modules():
     from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
     from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
     from video_graph_ssl_tpu_torch.ops import maxpool as mp
@@ -1008,16 +1009,14 @@ def _counters():
 
 
 def reset_counts() -> None:
-    gk, gp, mp, sb = _counters()
-    gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = 0
-    sb.launches = sb.launches_tc = mp.dy_copies = sb.g_copies = 0
+    tracing.reset_counters()
 
 
 def read_counts() -> dict:
-    gk, gp, mp, sb = _counters()
-    return {"graph_adjacency": gk.launches, "gcn_propagate": gp.launches,
-            "maxpool_bwd_s1": mp.launches_s1, "maxpool_bwd_strided": mp.launches_strided,
-            "sepconv_bwd": sb.launches}
+    """Each kernel's wrapper calls since :func:`reset_counts`."""
+    n = tracing.counters()
+    return {k: n[k] for k in ("graph_adjacency", "gcn_propagate", "maxpool_bwd_s1",
+                              "maxpool_bwd_strided", "sepconv_bwd")}
 
 
 def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
@@ -1032,7 +1031,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
     (``ckpt``)."""
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import Trainer, load_config
 
-    _, _, mp, sb = _counters()
+    _, _, mp, sb = _kernel_modules()
     print(f"  trainer at full {backbone} width, bs {bsz}, 16x{size}x{size}, "
           f"SEPCONV_FUSED {fused}")
     frames = [] if size == 112 else ["INPUT.BASE_SIZE", f"[{size}, {size}]",
@@ -1082,8 +1081,9 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
             losses.append(float(metrics["loss"]))
             ptrs.append((ptr0, state.contrast.ptr))
         counts = read_counts()
-        copies = (mp.dy_copies, sb.g_copies)
-        tc_calls = sb.launches_tc
+        n = tracing.counters()
+        copies = (n["maxpool_dy_copies"], n["sepconv_g_copies"])
+        tc_calls = n["sepconv_bwd_tc"]
     finally:
         mp._launch, sb.sepconv_bwd = pool_launch, sep_launch
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3227,9 +3227,9 @@ def k5_rank_pairs(device: str, rank: int, world: int, dn: str) -> list:
         rows = slice(rank * b // world, (rank + 1) * b // world)
         count = torch.full((f,), float(math.prod(bthw)), device=device)
         local = (x[rows], ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, gy[rows], dt)
-        r0 = sb.reduces
+        r0 = tracing.counters()["sepconv_reduces"]
         got = sb.sepconv_bwd(*local, count=count, reduce=sync_bn.all_reduce_sums)
-        res = {"grads": _cpu(got), "reduces": sb.reduces - r0}
+        res = {"grads": _cpu(got), "reduces": tracing.counters()["sepconv_reduces"] - r0}
         if dn == "bf16":   # every rank makes the same calls, so the collectives pair up
 
             def call():
@@ -3257,10 +3257,11 @@ def staged_k5(dev) -> None:
     for tag, pairs in (("bs 128", SEPCONVS), ("bs 32", SEPCONVS_112_32)):
         for (name, bthw, c, f), (dn, dt) in itertools.product(pairs, DTYPES.items()):
             args = sepconv_inputs((*bthw, c, f), dev, dt, g)
-            s0 = sb.stage_calls
+            s0 = tracing.counters()["sepconv_stage_calls"]
             staged = sb.sepconv_bwd(*args)
-            if sb.stage_calls - s0 != 3:
-                raise RuntimeError(f"K5 {name}: {sb.stage_calls - s0} stage calls, want 3")
+            calls = tracing.counters()["sepconv_stage_calls"] - s0
+            if calls != 3:
+                raise RuntimeError(f"K5 {name}: {calls} stage calls, want 3")
             one = sb.sepconv_bwd_one_call(*args)
             bad = [n for n, a, b in zip(names, staged, one) if not torch.equal(a, b)]
             if bad:
@@ -3583,7 +3584,7 @@ def model2_kernel_inputs(dev, dn: str) -> list:
     from video_graph_ssl_tpu_torch.models.wrappers import temporal_diff
     from video_graph_ssl_tpu_torch.train_video_contrast_dis import load_config
 
-    gk, gp, mp, _ = _counters()
+    gk, gp, mp, _ = _kernel_modules()
     dtype = {"fp32": "float32", "bf16": "bfloat16"}[dn]
     c = load_config(CONFIG, CMC_RUNS["moco"] + ["TPU.COMPUTE_DTYPE", dtype])
     loader, _ = build_video_contrastive_loader(c)
@@ -4156,7 +4157,8 @@ TOL_EXPORT = 1e-4   # the JAX tool's live-against-artifact bound
 # one's features and K1/K2 launches (arguments: path, input, output, ...)
 EXPORT_LOAD = """
 import json, sys, numpy as np, torch
-from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp, graph_kernel as gk
+import video_graph_ssl_tpu_torch.ops  # noqa: F401  (registers K1's and K2's operators)
+from video_graph_ssl_tpu_torch.utils import tracing
 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 for path, raw_in, feats_out in zip(*[iter(sys.argv[1:])] * 3):
@@ -4165,11 +4167,13 @@ for path, raw_in, feats_out in zip(*[iter(sys.argv[1:])] * 3):
     with torch.no_grad():
         fn(raw)
         torch.cuda.synchronize()
-        gk.launches = gp.launches = 0
+        tracing.reset_counters()
         out = fn(raw)
         torch.cuda.synchronize()
     np.save(feats_out, out.cpu().numpy())
-    print(json.dumps({"graph_adjacency": gk.launches, "gcn_propagate": gp.launches}))
+    n = tracing.counters()
+    print(json.dumps({"graph_adjacency": n["graph_adjacency"],
+                      "gcn_propagate": n["gcn_propagate"]}))
 """
 
 
@@ -4621,7 +4625,6 @@ def ring_run(device: str, rank: int, world: int, dn: str, t: int, alone: bool = 
     timed on the host; the output, dx, the weight gradients summed over the
     ranks, K2's launches and the bytes sent per pass.  ``alone`` (one
     rank): the module's own forward with the same draw beside it."""
-    from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
     from video_graph_ssl_tpu_torch.ops.temporal_graph import TemporalGraphAug
     from video_graph_ssl_tpu_torch.parallel import sequence
 
@@ -4646,7 +4649,8 @@ def ring_run(device: str, rank: int, world: int, dn: str, t: int, alone: bool = 
     pass_()
     torch.cuda.synchronize()
     torch.distributed.barrier()
-    gp.launches = sequence.sent_bytes = 0
+    tracing.reset_counters()
+    sequence.sent_bytes = 0
     ms = []
     for _ in range(RING_ITERS):
         t0 = time.perf_counter()
@@ -4654,7 +4658,8 @@ def ring_run(device: str, rank: int, world: int, dn: str, t: int, alone: bool = 
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     res = {"y": y.detach().float().cpu(), "dx": dx.float().cpu(), "ms": ms,
-           "k2": gp.launches / RING_ITERS, "sent": sequence.sent_bytes / RING_ITERS}
+           "k2": tracing.counters()["gcn_propagate"] / RING_ITERS,
+           "sent": sequence.sent_bytes / RING_ITERS}
     grads = {}
     for n, p in module.named_parameters():
         grads[n] = p.grad.detach().float().cpu()
@@ -4948,8 +4953,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.library()
-    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.last_build_seconds:.1f} s) -> {_build.library_path().name}")
+    print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"-> {_build.library_path().name}")
 
     def timed(fn, *args):
         t = time.perf_counter()

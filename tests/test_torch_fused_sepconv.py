@@ -23,7 +23,7 @@ from video_graph_ssl_tpu_torch.models.build import create_visual_model
 from video_graph_ssl_tpu_torch.models.layers import SepConv3d
 from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
 from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
-from video_graph_ssl_tpu_torch.utils import jax_weights
+from video_graph_ssl_tpu_torch.utils import jax_weights, tracing
 
 torch.set_num_threads(1)
 B, T, H, W, C, F = 2, 4, 6, 6, 5, 7
@@ -286,7 +286,7 @@ def test_cuda_cotangent_slice_is_read_in_place(dtype):
     args = _card_args(shape, dtype, dev, g_pad=16)
     g = args[-2]
     assert not g.is_contiguous(memory_format=torch.channels_last_3d)
-    sb.g_copies = 0
+    tracing.reset_counters()
     want = sb.sepconv_bwd(*args[:-2], g.contiguous(memory_format=torch.channels_last_3d),
                           dtype)
     btchw = g.permute(0, 2, 1, 3, 4).contiguous().permute(0, 2, 1, 3, 4)
@@ -294,10 +294,10 @@ def test_cuda_cotangent_slice_is_read_in_place(dtype):
         got = sb.sepconv_bwd(*args[:-2], layout, dtype)
         for name, a, b in zip(GRAD_NAMES, got, want):
             assert torch.equal(a, b), name
-    assert sb.g_copies == 0
+    assert tracing.counters()["sepconv_g_copies"] == 0
     other = torch.float64 if dtype == torch.float32 else torch.float32
     sb.sepconv_bwd(*args[:-2], g.to(other), dtype)
-    assert sb.g_copies == 1
+    assert tracing.counters()["sepconv_g_copies"] == 1
 
 
 @pytest.mark.cuda
@@ -317,11 +317,13 @@ def test_cuda_two_calls_bit_equal(shape, dtype):
 @pytest.mark.cuda
 def test_cuda_route_counters():
     dev = _cuda()
-    sb.launches = sb.launches_tc = 0
+    tracing.reset_counters()
     for shape, dtype, tc in (((2, 4, 6, 6, 16, 24), torch.bfloat16, 1),
                              ((2, 4, 6, 6, 16, 24), torch.float32, 0),
                              ((2, 4, 6, 6, 5, 7), torch.bfloat16, 0)):
-        before = (sb.launches, sb.launches_tc)
+        n = tracing.counters()
+        before = (n["sepconv_bwd"], n["sepconv_bwd_tc"])
         sb.sepconv_bwd(*_card_args(shape, dtype, dev))
-        assert (sb.launches, sb.launches_tc) == (before[0] + 1, before[1] + tc)
+        n = tracing.counters()
+        assert (n["sepconv_bwd"], n["sepconv_bwd_tc"]) == (before[0] + 1, before[1] + tc)
         assert sb.plan(*shape, dtype).route == ("tc" if tc else "simt")

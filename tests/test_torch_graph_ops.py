@@ -22,6 +22,7 @@ from video_graph_ssl_tpu.ops.pallas.graph_kernel import graph_adjacency_xla
 from video_graph_ssl_tpu_torch.ops import gcn_propagate as tgp
 from video_graph_ssl_tpu_torch.ops import graph_kernel as tgk
 from video_graph_ssl_tpu_torch.ops import temporal_graph as ttg
+from video_graph_ssl_tpu_torch.utils import tracing
 from video_graph_ssl_tpu_torch.utils.jax_weights import graph_aug_state_dict
 
 torch.set_num_threads(1)
@@ -149,12 +150,13 @@ def test_k2_grads_match_jax():
 
 
 def test_wrappers_count_no_launch_on_cpu():
-    tgk.launches = tgp.launches = 0
+    tracing.reset_counters()
     q, k, theta = _qk(6)
     tgk.graph_adjacency(_t(q), _t(k), _t(theta))
     adj, x = _adj_x(6)
     tgp.gcn_propagate(_t(adj), _t(x))
-    assert tgk.launches == 0 and tgp.launches == 0
+    n = tracing.counters()
+    assert n["graph_adjacency"] == 0 and n["gcn_propagate"] == 0
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():

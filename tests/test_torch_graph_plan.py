@@ -32,6 +32,7 @@ from video_graph_ssl_tpu_torch import profile_step
 from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
 from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
 from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
+from video_graph_ssl_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -209,10 +210,10 @@ def test_propagate_kernel_equals_plain_on_card(shape, dn, adj_fp32):
     adj = adj if adj_fp32 else adj.to(dt)
     tol = 8e-3 if dt == torch.bfloat16 else 1e-5     # a bf16 rounding flip
     for tr in (False, True):
-        before = gp.launches
+        before = tracing.counters()["gcn_propagate"]
         got = gp._launch(adj, x, transpose=tr)
         again = gp._launch(adj, x, transpose=tr)
-        assert gp.launches - before == 2
+        assert tracing.counters()["gcn_propagate"] - before == 2
         assert got.shape == x.shape and got.dtype == dt
         assert torch.equal(got, again)
         assert _rel(got, gp.propagate_plain(adj, x, transpose=tr)) <= tol

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from video_graph_ssl_tpu_torch.models.layers import MaxPool3d
 from video_graph_ssl_tpu_torch.ops import maxpool
+from video_graph_ssl_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -157,13 +158,15 @@ def _cuda():
 
 def _card_call(x, y, dy, k, s, p):
     """One backward call: (dx, wrapper calls counted, allocations made)."""
-    before = (maxpool.launches_s1, maxpool.launches_strided)
+    n = tracing.counters()
+    before = (n["maxpool_bwd_s1"], n["maxpool_bwd_strided"])
     torch.cuda.synchronize()
     allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     dx = maxpool._launch(x, y, dy, k, s, p)
     torch.cuda.synchronize()
     allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
-    counted = (maxpool.launches_s1 - before[0], maxpool.launches_strided - before[1])
+    n = tracing.counters()
+    counted = (n["maxpool_bwd_s1"] - before[0], n["maxpool_bwd_strided"] - before[1])
     return dx, counted, allocs
 
 

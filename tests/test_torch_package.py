@@ -29,8 +29,8 @@ from video_graph_ssl_tpu_torch.ops import fused_sepconv as fs
 from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
 from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
 from video_graph_ssl_tpu_torch.ops import maxpool as mp
-from video_graph_ssl_tpu_torch.ops import sepconv_bwd as sb
 from video_graph_ssl_tpu_torch.ops.temporal_graph import hop_weight_matrix
+from video_graph_ssl_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,11 +53,13 @@ def _cuda():
 
 
 def _reset_counts():
-    gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = sb.launches = 0
+    tracing.reset_counters()
 
 
 def _counts():
-    return (gk.launches, gp.launches, mp.launches_s1, mp.launches_strided, sb.launches)
+    n = tracing.counters()
+    return (n["graph_adjacency"], n["gcn_propagate"], n["maxpool_bwd_s1"],
+            n["maxpool_bwd_strided"], n["sepconv_bwd"])
 
 
 def _backward_inputs(device, dtype=torch.float32):
@@ -219,7 +221,7 @@ def test_cuda_kernels_match_plain_versions():
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, theta, adj, x = _inputs(dev)
-    gk.launches = gp.launches = 0
+    _reset_counts()
     u = torch.rand(3, 8, 8, device=dev) * 0.99 + 0.005
     for sample in (False, True):
         out = gk.graph_adjacency(q, k, theta, sample=sample, u=u)
@@ -230,7 +232,7 @@ def test_cuda_kernels_match_plain_versions():
         ref = gp.propagate_plain(adj.to(dt), x.to(dt))
         torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2 if dt == torch.bfloat16
                                    else 1e-5, atol=1e-2 if dt == torch.bfloat16 else 1e-5)
-    assert gk.launches == 2 and gp.launches == 2
+    assert _counts()[:2] == (2, 2)
     torch.backends.cudnn.allow_tf32 = False
     for dt in (torch.float32, torch.bfloat16):
         xb, params = _backward_inputs(dev, dt)

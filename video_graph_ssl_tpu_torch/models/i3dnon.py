@@ -43,6 +43,7 @@ from torch import nn
 
 from ..ops.matmul import bmm_f32
 from ..ops.temporal_graph import TemporalGraphAug
+from ..utils import tracing
 from .layers import conv, freeze_bn_, max_pool_3d
 from .resnet2d import _bn, downsample, shortcut
 from .resnet3d import ResNetStages
@@ -176,7 +177,8 @@ class I3DResNetNonLocal(ResNetStages):
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         dt = self.dtype
-        x = F.relu(self.bn1(conv(to_ncdhw(x), self.conv1, dt)).to(dt))
+        with tracing.span("stem"):
+            x = F.relu(self.bn1(conv(to_ncdhw(x), self.conv1, dt)).to(dt))
         x = max_pool_3d(x, 3, 2, 1)
         return self._run(x, graph_seed, graph_rows)
 

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..ops import fused_sepconv, maxpool
 from ..parallel import dist, sync_bn
+from ..utils import tracing
 from . import remat
 
 
@@ -78,6 +79,9 @@ class BatchNorm(nn.Module):
     the running statistics and leaves them as they are, as eval mode does;
     gradients still reach the scale, the bias and the input (flax
     ``use_running_average`` under the JAX package's ``bn_frozen``).
+
+    The forward runs under a ``batch_norm`` span (``utils/tracing.py``):
+    the statistics, the normalisation, the running update and the cast.
     """
 
     def __init__(self, num_features: int, momentum: float, eps: float,
@@ -112,6 +116,10 @@ class BatchNorm(nn.Module):
         self.running_var.mul_(m).add_(var, alpha=1.0 - m)
 
     def forward(self, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
+        with tracing.span("batch_norm"):
+            return self._forward(x, channel_dim)
+
+    def _forward(self, x: torch.Tensor, channel_dim: int) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
         if channel_dim not in (1, x.dim() - 1, -1):
             raise ValueError(f"channel_dim {channel_dim} for a {x.dim()}-d input")

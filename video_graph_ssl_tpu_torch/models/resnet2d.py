@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
 from .layers import BatchNorm, conv, freeze_bn_
 
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5
@@ -123,7 +124,8 @@ class ResNet2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(conv(x, self.conv1, dt)).to(dt))
+        with tracing.span("stem"):
+            x = F.relu(self.bn1(conv(x, self.conv1, dt)).to(dt))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(1, 5):
             x = getattr(self, f"layer{stage}")(x)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
 from . import remat
 from .layers import conv, max_pool_3d
 from .resnet2d import _bn, downsample, shortcut
@@ -118,7 +119,8 @@ class ResNet2Plus1D(ResNetStages):
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        x = _pair(self, 1, to_ncdhw(x), True)
+        with tracing.span("stem"):
+            x = _pair(self, 1, to_ncdhw(x), True)
         x = max_pool_3d(x, 3, 2, 1)
         return self._run(x, graph_seed, graph_rows)
 

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
+from ..utils import tracing
 from . import remat
 from .layers import conv, freeze_bn_, max_pool_3d
 from .resnet2d import _bn, downsample, make_layers, shortcut
@@ -234,7 +235,8 @@ class ResNet3D(ResNetStages):
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         dt = self.dtype
-        x = F.relu(self.bn1(conv(to_ncdhw(x), self.conv1, dt)).to(dt))
+        with tracing.span("stem"):
+            x = F.relu(self.bn1(conv(to_ncdhw(x), self.conv1, dt)).to(dt))
         x = max_pool_3d(x, 3, 2, 1)
         return self._run(x, graph_seed, graph_rows)
 

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
+from ..utils import tracing
 from . import remat
 from .layers import (BasicConv3d, InceptionBlock, MaxPool3d, SepConv3d, SepConvS2D,
                      fold_stem_weight, freeze_bn_)
@@ -63,12 +64,14 @@ def run_stages(base: nn.Sequential, x: torch.Tensor, aug_points,
     ``rows`` (row0, global B) placing the batch in a global one for the
     graph noise.  Under a remat ``policy`` every stage but the pools is a
     recompute unit (``models/remat.py``); a graph block stays outside its
-    stage's unit."""
+    stage's unit.  Stage 0, the stem unit, runs under a ``stem`` span
+    (``utils/tracing.py``)."""
     for idx, stage in enumerate(base):
         if idx in aug_points:
             graph, stage = stage[0], stage[1]
             x = to_ncdhw(graph(to_bthwc(x), seed=stage_seed(seed, idx), rows=rows))
-        x = stage(x) if isinstance(stage, MaxPool3d) else remat.run(stage, x, policy)
+        with tracing.span("stem") if idx == 0 else tracing.OFF:
+            x = stage(x) if isinstance(stage, MaxPool3d) else remat.run(stage, x, policy)
     return x
 
 

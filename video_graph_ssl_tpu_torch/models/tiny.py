@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..ops.temporal_graph import TemporalGraphAug, stage_seed
+from ..utils import tracing
 from .layers import BasicConv3d, freeze_bn_, max_pool_3d
 from .s3d import to_bthwc, to_ncdhw
 
@@ -42,7 +43,8 @@ class Tiny3D(nn.Module):
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        x = self.stage0(to_ncdhw(x).to(self.dtype))
+        with tracing.span("stem"):
+            x = self.stage0(to_ncdhw(x).to(self.dtype))
         if 1 in self.aug_points:
             x = to_ncdhw(self.graph_aug_1(to_bthwc(x), seed=stage_seed(graph_seed, 1),
                                           rows=graph_rows))

@@ -23,7 +23,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -62,9 +61,6 @@ SIGNATURES = {
     # fields of the plan array vgs_sepconv_bwd reads
     "vgs_sepconv_plan_fields": (),
 }
-
-# seconds the last build of this process took (0.0 when it came from cache)
-last_build_seconds = 0.0
 
 
 def _nvcc() -> str:
@@ -106,12 +102,10 @@ def _run_all(cmds) -> None:
 @functools.cache
 def library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global last_build_seconds
     out = library_path()
     if not out.exists():
         cu, _ = _sources()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             objs = [os.path.join(tmp, f"{f.stem}.o") for f in cu]
             _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(f)]
@@ -119,7 +113,6 @@ def library() -> ctypes.CDLL:
             so = os.path.join(tmp, out.name)
             _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", so, *objs]])
             os.replace(so, out)
-        last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

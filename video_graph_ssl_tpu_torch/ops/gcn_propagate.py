@@ -4,8 +4,10 @@ Counterpart of ``video_graph_ssl_tpu/ops/pallas/gcn_propagate.py``.  On a
 CUDA tensor :func:`gcn_propagate` launches the hand-written kernel in
 ``csrc/gcn_propagate.cu`` (forward, and the backward's dx through the same
 kernel on adj^T); on a CPU tensor it runs :func:`propagate_plain`, the plain
-PyTorch version that the tests and ``chip_smoke.py`` hold the kernel to.
-There is no fallback from the kernel to the plain version.
+PyTorch version that the tests and ``chip_smoke.py`` hold the kernel to, for
+the forward and the backward.  There is no fallback from the kernel to the
+plain version.  Both run under a ``gcn_propagate`` span
+(``utils/tracing.py``).
 
 Contract (the JAX GCN's): the adjacency is cast to ``x.dtype``, products
 accumulate in fp32, the result is cast back to ``x.dtype``.  The kernel
@@ -29,11 +31,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from .matmul import bmm_f32
-
-# Kernel launches since the last reset (one per forward or dx backward).
-launches = 0
 
 MAX_T = 32
 TC_WARPS, TC_COLS, TC_STAGES = 4, 64, 4     # csrc/gcn_propagate.cu
@@ -109,7 +109,6 @@ def _check(adj: torch.Tensor, x: torch.Tensor) -> None:
 def _launch(adj: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor:
     """One kernel launch.  adj is read in fp32 or x's dtype (other dtypes
     are cast to fp32 first) and rounded to x's dtype in the kernel."""
-    global launches
     _check(adj, x)
     if adj.dtype not in (torch.float32, x.dtype):
         adj = adj.float()
@@ -124,7 +123,7 @@ def _launch(adj: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor
         int(plan.route == "tc"), plan.kpad, plan.blocks, plan.per_warp, plan.vec,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "vgs_gcn_propagate")
-    launches += 1
+    tracing.count("gcn_propagate")
     return out
 
 
@@ -145,18 +144,27 @@ def _propagate_op_fake(adj, x, transpose):
 
 
 class _GcnPropagate(torch.autograd.Function):
+    """The forward and the backward's dx (adj^T) through K2 on CUDA tensors,
+    each under a ``gcn_propagate`` span (dadj is a library GEMM outside it);
+    on CPU tensors :func:`propagate_plain` and its gradients, under the
+    span too."""
+
     @staticmethod
     def forward(ctx, adj, x):
         ctx.save_for_backward(adj, x)
-        return propagate_op(adj, x, False)
+        with tracing.span("gcn_propagate"):
+            return propagate_op(adj, x, False) if x.is_cuda else propagate_plain(adj, x)
 
     @staticmethod
     def backward(ctx, g):
         adj, x = ctx.saved_tensors
+        if not g.is_cuda:
+            return _plain_vjp(adj, x, g)
         dadj = dx = None
         g = g.contiguous()
         if ctx.needs_input_grad[1]:
-            dx = _launch(adj, g, transpose=True)
+            with tracing.span("gcn_propagate"):
+                dx = _launch(adj, g, transpose=True)
         if ctx.needs_input_grad[0]:
             b, t = x.shape[:2]
             # dadj[b,i,j] = sum_f g[b,i,f] x[b,j,f]: a library GEMM, as the
@@ -166,9 +174,15 @@ class _GcnPropagate(torch.autograd.Function):
         return dadj, dx
 
 
+def _plain_vjp(adj: torch.Tensor, x: torch.Tensor, g: torch.Tensor):
+    """(dadj, dx) of :func:`propagate_plain` as autograd forms them (the
+    JAX rounding of ``ops/matmul.py``), under a ``gcn_propagate`` span."""
+    with tracing.span("gcn_propagate"), torch.enable_grad():
+        a, xx = adj.detach().requires_grad_(), x.detach().requires_grad_()
+        return torch.autograd.grad(propagate_plain(a, xx), (a, xx), g)
+
+
 def gcn_propagate(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Frame-axis propagation; the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    if x.device.type == "cpu" and adj.device.type == "cpu":
-        return propagate_plain(adj, x)
     return _GcnPropagate.apply(adj, x)

@@ -36,6 +36,9 @@ for CPU ones, a fake that gives the (3, B, T, T) output's shape), which the
 CUDA path of :func:`graph_adjacency` calls, so that ``torch.export`` keeps
 the kernel in an exported graph (``export_model.py``).  A process that
 loads such a graph imports this module first.
+
+The forward, kernel or plain, runs under a ``graph_adjacency`` span
+(``utils/tracing.py``); the closed-form backward runs outside it.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from .matmul import bmm_f32
 
@@ -55,9 +59,6 @@ THREADS = 128          # sim_partial_kernel's block
 # blocks of the similarity launch to aim for: four per SM, so that each SM
 # keeps tens of KB of loads in flight
 TARGET_BLOCKS = 4 * NUM_SMS
-
-# Kernel launches since the last reset (one per forward).
-launches = 0
 
 
 Rows = Optional[Tuple[int, int]]
@@ -189,7 +190,6 @@ def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
     first planes of one (3 + splits, B, T, T) buffer whose last planes take
     the partial similarities.  ``u_out`` (B,T,T fp32), when given, receives
     the noise the kernel drew; ``rows`` offsets the draw's clip counter."""
-    global launches
     _check(q, k, theta, u)
     q, k = q.contiguous(), k.contiguous()
     if theta.dtype != torch.float32 or not theta.is_contiguous():
@@ -216,7 +216,7 @@ def adjacency_fwd_kernel(q, k, theta, u, seed, temperature, sample, nei_size,
         int(nei_size), plan.vec, plan.tile, plan.splits, plan.per_split,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "vgs_graph_adjacency")
-    launches += 1
+    tracing.count("graph_adjacency")
     return buf[:3]
 
 
@@ -280,7 +280,8 @@ class GraphAdjacencyFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fwd: Callable, q, k, theta, u, seed, temperature,
                 sample, nei_size):
-        adj, s, p = fwd(q, k, theta, u, seed, temperature, sample, nei_size)
+        with tracing.span("graph_adjacency"):
+            adj, s, p = fwd(q, k, theta, u, seed, temperature, sample, nei_size)
         ctx.save_for_backward(q, k, theta, s, p, adj)
         ctx.temperature, ctx.sample = temperature, sample
         return adj
@@ -301,7 +302,8 @@ def graph_adjacency(q: torch.Tensor, k: torch.Tensor, theta: torch.Tensor,
     CUDA tensors, the plain version on CPU tensors.  ``rows`` (clip0,
     clips): the clips' place in a global batch, for the noise draw."""
     if q.device.type == "cpu" and k.device.type == "cpu":
-        return graph_adjacency_plain(q, k, theta, seed, temperature, sample,
-                                     u, nei_size, rows)
+        with tracing.span("graph_adjacency"):
+            return graph_adjacency_plain(q, k, theta, seed, temperature, sample,
+                                         u, nei_size, rows)
     return GraphAdjacencyFn.apply(functools.partial(adjacency_fwd_op, rows=rows), q, k,
                                   theta, u, seed, temperature, sample, nei_size)

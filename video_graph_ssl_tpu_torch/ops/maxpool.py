@@ -41,6 +41,10 @@ input's end, so a high-side pad needs nothing more of it.
 
 Tensors are ``(B, C, T, H, W)``; the kernel takes them in
 ``torch.channels_last_3d`` memory, the backbone's layout.
+
+The forward runs under a ``maxpool_fwd`` span and the backward (the dy cast
+and copy, dx's allocation and the launch, or the plain version) under a
+``maxpool_bwd`` span (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -52,15 +56,8 @@ from typing import NamedTuple, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build
-
-# Backward calls since the last reset (one call = one kernel launch):
-# K3, stride-1 pools; K4, strided pools.
-launches_s1 = 0
-launches_strided = 0
-# dy cotangents that reached the kernel in another memory format and were
-# copied to channels_last_3d first.
-dy_copies = 0
 
 MAX_WINDOW = 3
 MAX_SMEM_BYTES = 232448   # 227 KB, the most shared memory one block may take
@@ -387,8 +384,10 @@ def _launch(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
             k, s, padding) -> torch.Tensor:
     """One backward call (one kernel launch): dx in channels_last_3d.
     ``padding`` as :func:`resolve_padding` takes it; the kernel gets the
-    low pads and y's extents."""
-    global launches_s1, launches_strided, dy_copies
+    low pads and y's extents.  Counts the call as ``maxpool_bwd_s1`` (K3,
+    a stride-1 pool) or ``maxpool_bwd_strided`` (K4), and a dy that reached
+    it in another memory format and was copied first as
+    ``maxpool_dy_copies``."""
     k, s = _triple(k), _triple(s)
     pads = resolve_padding(padding, x.shape[2:], k, s)
     _check(x, y, k, s, pads)
@@ -400,7 +399,7 @@ def _launch(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     dy = dy.to(y.dtype)
     if not dy.is_contiguous(memory_format=_CL):
         dy = dy.contiguous(memory_format=_CL)
-        dy_copies += 1
+        tracing.count("maxpool_dy_copies")
     dx = torch.empty_like(x, memory_format=_CL)
     _, c, _, h, w = x.shape
     ho, wo = y.shape[3:]
@@ -412,19 +411,17 @@ def _launch(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
         plan.y_frames, plan.y_rows, int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "vgs_maxpool3d_bwd")
-    if s == (1, 1, 1):
-        launches_s1 += 1
-    else:
-        launches_strided += 1
+    tracing.count("maxpool_bwd_s1" if s == (1, 1, 1) else "maxpool_bwd_strided")
     return dx
 
 
 class _MaxPool3d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, k, s, p):
-        y = pool_forward(x, k, s, p)
-        if x.is_cuda:
-            y = y.contiguous(memory_format=_CL)
+        with tracing.span("maxpool_fwd"):
+            y = pool_forward(x, k, s, p)
+            if x.is_cuda:
+                y = y.contiguous(memory_format=_CL)
         ctx.save_for_backward(x, y)
         ctx.geom = (k, s, p)
         return y
@@ -433,9 +430,10 @@ class _MaxPool3d(torch.autograd.Function):
     def backward(ctx, dy):
         x, y = ctx.saved_tensors
         k, s, p = ctx.geom
-        if x.device.type == "cpu":
-            return max_pool3d_bwd_plain(x, y, dy, k, s, p), None, None, None
-        return _launch(x, y, dy, k, s, p), None, None, None
+        with tracing.span("maxpool_bwd"):
+            if x.device.type == "cpu":
+                return max_pool3d_bwd_plain(x, y, dy, k, s, p), None, None, None
+            return _launch(x, y, dy, k, s, p), None, None, None
 
 
 def max_pool3d(x: torch.Tensor, kernel_size, stride, padding: Padding = 0) -> torch.Tensor:

@@ -28,19 +28,17 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build, fused_sepconv
 
-# Wrapper calls since the last reset (one call = the three sweeps):
-# all routes, and the tensor-core route alone.
-launches = 0
-launches_tc = 0
-# C entries those calls launched (three stages each), and the cross-rank
-# reductions of their BN sums (two per call on ranks, none on one process)
-stage_calls = 0
-reduces = 0
-# cotangents that reached the kernel in another dtype than the compute
-# dtype and were converted (copied) first; any layout is read in place.
-g_copies = 0
+# Counters (``utils/tracing.py``): ``sepconv_bwd``, wrapper calls (one call
+# = the three sweeps), and ``sepconv_bwd_tc``, those on the tensor-core
+# route; ``sepconv_stage_calls``, the C entries the staged calls launched
+# (three each), and ``sepconv_reduces``, the cross-rank reductions of their
+# BN sums (two per call on ranks, none on one process);
+# ``sepconv_g_copies``, cotangents that reached the kernel in another dtype
+# than the compute dtype and were converted (copied) first (any layout is
+# read in place).
 
 _CL = torch.channels_last_3d
 SMS = 132                 # the H100's streaming multiprocessors
@@ -420,7 +418,6 @@ class _Call(NamedTuple):
 
 
 def _setup(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype) -> _Call:
-    global g_copies
     _check(x, ws, wt, g, dtype)
     b, c, t, h, w = x.shape
     f = ws.shape[0]
@@ -430,7 +427,7 @@ def _setup(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype) -> _Call:
     if p.route == "tc" and xc.data_ptr() % 16:
         xc = xc.clone(memory_format=_CL)
     if g.dtype != dtype:
-        g_copies += 1
+        tracing.count("sepconv_g_copies")
     gc = _as(g, dtype)
     params = [_f32(v) for v in (ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2)]
     buf = torch.empty(p.f32_size, dtype=torch.float32, device=dev)
@@ -457,6 +454,11 @@ def _outputs(call: _Call, out: torch.Tensor, x, ws, wt, g1, b1, g2, b2):
             _as(s_g2, b2.dtype))
 
 
+def _count_call(p: Plan) -> None:
+    tracing.count("sepconv_bwd")
+    tracing.count("sepconv_bwd_tc", p.route == "tc")
+
+
 def sepconv_bwd(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype,
                 count: Optional[torch.Tensor] = None,
                 reduce: Optional[Callable[[torch.Tensor], None]] = None):
@@ -472,7 +474,6 @@ def sepconv_bwd(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype,
     rank's own sums (``DistributedDataParallel`` averages them, as
     ``parallel/sync_bn.py`` leaves them).  Without ``reduce`` the stages
     launch the kernels of :func:`sepconv_bwd_one_call`, in its order."""
-    global launches, launches_tc, stage_calls, reduces
     if (reduce is None) != (count is None):
         raise ValueError("sepconv_bwd: reduce and count go together")
     call = _setup(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype)
@@ -492,14 +493,13 @@ def sepconv_bwd(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype,
             # stage 2 takes S_g2, S_gx2 over every rank, stage 3 S_g1, S_gx1
             reduced = sums[2:4].clone() if stage == 2 else sums[0:2].clone()
             reduce(reduced)
-            reduces += 1
+            tracing.count("sepconv_reduces")
         code = entry(*call.head, out.data_ptr(), call.act.data_ptr(), call.dx.data_ptr(),
                      *call.tail, 0 if reduced is None else reduced.data_ptr(),
                      0 if count is None else count.data_ptr(), stream)
         _build.check(code, f"vgs_sepconv_bwd_stage{stage}")
-        stage_calls += 1
-    launches += 1
-    launches_tc += p.route == "tc"
+        tracing.count("sepconv_stage_calls")
+    _count_call(p)
     return _outputs(call, out, x, ws, wt, g1, b1, g2, b2)
 
 
@@ -507,12 +507,10 @@ def sepconv_bwd_one_call(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dty
     """The same function through the one C entry that runs all three
     stages with no reduce between them (``vgs_sepconv_bwd``): the staged
     call on one process must equal it bit for bit (``chip_smoke.py``)."""
-    global launches, launches_tc
     call = _setup(x, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, g, dtype)
     code = _build.library().vgs_sepconv_bwd(
         *call.head, call.act.data_ptr(), call.dx.data_ptr(), *call.tail,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "vgs_sepconv_bwd")
-    launches += 1
-    launches_tc += call.plan.route == "tc"
+    _count_call(call.plan)
     return _outputs(call, call.buf, x, ws, wt, g1, b1, g2, b2)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
 from .gcn_propagate import gcn_propagate
 from .graph_kernel import Rows, global_rows, graph_adjacency, relaxed_bernoulli
 
@@ -207,7 +208,12 @@ class TemporalGraphAug(nn.Module):
         replaces the draw: U(eps, 1-eps) for the relaxed-Bernoulli samplers,
         N(0, 1) for ``gaussian``.  ``rows`` (row0, global B): ``x`` holds
         rows ``[row0, row0 + B)`` of a global batch, and the draws are
-        those rows of the global batch's."""
+        those rows of the global batch's.  Runs under a ``graph_block``
+        span (``utils/tracing.py``)."""
+        with tracing.span("graph_block"):
+            return self._forward(x, seed, noise, rows)
+
+    def _forward(self, x, seed, noise, rows) -> torch.Tensor:
         b, t = x.shape[:2]
         q = self._embed_apply(self.g_q, x).reshape(b, t, -1)
         k = self._embed_apply(self.g_k, x).reshape(b, t, -1)

@@ -49,12 +49,9 @@ from collections import defaultdict
 
 import torch
 
-from .ops import gcn_propagate as gp
-from .ops import graph_kernel as gk
-from .ops import maxpool as mp
-from .ops import sepconv_bwd as sb
 from .engine.pretrain import PHASES, REGIME_PHASES, regime_of
 from .train_video_contrast_dis import Trainer, load_config
+from .utils import tracing
 
 DOWNSTREAM_CONFIGS = {"finetune": "configs/action_fine_tune.yaml",
                       "probe": "configs/action_linear_probe.yaml"}
@@ -174,8 +171,7 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    gk.launches = gp.launches = mp.launches_s1 = mp.launches_strided = 0
-    sb.launches = sb.launches_tc = mp.dy_copies = sb.g_copies = 0
+    tracing.reset_counters()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
@@ -214,9 +210,10 @@ def main(argv=None) -> None:
     print(f"step: {plain_step_ms:.1f} ms untraced ({bsz / plain_step_ms * 1e3:.1f} "
           f"clips/s), {step_ms:.1f} ms traced (host clock, {args.steps} steps each); "
           f"kernels per step: {len(kernels) / args.steps:.0f}")
-    calls = {"K1": gk.launches, "K2": gp.launches, "K3": mp.launches_s1,
-             "K4": mp.launches_strided, "K5": sb.launches, "K5 tc": sb.launches_tc,
-             "pool dy copies": mp.dy_copies, "sepconv g copies": sb.g_copies}
+    n = tracing.counters()
+    calls = {"K1": n["graph_adjacency"], "K2": n["gcn_propagate"], "K3": n["maxpool_bwd_s1"],
+             "K4": n["maxpool_bwd_strided"], "K5": n["sepconv_bwd"], "K5 tc": n["sepconv_bwd_tc"],
+             "pool dy copies": n["maxpool_dy_copies"], "sepconv g copies": n["sepconv_g_copies"]}
     print("kernel wrapper calls per step: " + ", ".join(
         f"{k} {v / args.steps:g}" for k, v in calls.items()))
     print(f"traced: device busy {busy:.1f} ms of a {span:.1f} ms kernel span and "

@@ -1,20 +1,29 @@
-"""Utils: checkpoints, experiment directories, metrics, telemetry, and the
-weight bridge from the JAX package (exports as the JAX package's
-``utils``, without its orbax backend)."""
+"""Utils: checkpoints, experiment directories, metrics, telemetry, op-level
+spans and counters (``tracing``), and the weight bridge from the JAX package
+(exports as the JAX package's ``utils``, without its orbax backend).
 
-from .checkpoint import load_checkpoint_state, save_checkpoint_state
-from .meters import AverageMeter, accuracy, average_precision, mean_average_precision
-from .saver import Saver
-from .summary import TensorboardSummary, creat_saver
+The exports below load on first use, so that ``ops/`` and ``models/`` can
+import ``utils.tracing`` without loading the checkpoint code, which imports
+them."""
 
-__all__ = [
-    "Saver",
-    "TensorboardSummary",
-    "creat_saver",
-    "AverageMeter",
-    "accuracy",
-    "average_precision",
-    "mean_average_precision",
-    "save_checkpoint_state",
-    "load_checkpoint_state",
-]
+import importlib
+
+_EXPORTS = {
+    "Saver": "saver",
+    "TensorboardSummary": "summary",
+    "creat_saver": "summary",
+    "AverageMeter": "meters",
+    "accuracy": "meters",
+    "average_precision": "meters",
+    "mean_average_precision": "meters",
+    "save_checkpoint_state": "checkpoint",
+    "load_checkpoint_state": "checkpoint",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
