@@ -33,7 +33,14 @@ Phases (each raises on failure; the script then exits non-zero):
    shapes (C not a multiple of 8, odd H and W, T = 1) against the plain
    version (exact); then every pool of the 16x224x224 and 16x112x112
    steps at bs 32 against the plain version (exact), each with its plan (strips of dx
-   rows where a slab exceeds a block), the strip plans timed.
+   rows where a slab exceeds a block), the strip plans timed.  Then the
+   pool forward kernel (``csrc/maxpool_fwd.cu``) against the library's
+   pool on the card, bit for bit (NaN where the library has NaN), at every
+   pool of S3D's steps (bs 128 and 32, 16x112x112 and 16x224x224), of
+   I3D's (TF "SAME") and of I3D-R50-NL's, fp32 and bf16, on inputs with
+   NaNs and on tie-rich inputs (-1, -0, +0, 1); its device ms per pool of
+   the bs-128 S3D pass and of I3D-R50-NL against the library and the byte
+   bound (x read once, y written once).
 5. K5 (SepConv pair backward) against its plain version on all seven
    outputs at five Mixed-block shapes, one small ragged shape (the simt
    route in both dtypes) and one small aligned shape (128-row tiles that
@@ -350,10 +357,10 @@ import torch
 # pool and SEPCONVS every fused SepConv pair of one S3D pass there
 # step_calls: each kernel's wrapper calls per step of a regime; geometry:
 # the same tables for another frame size and batch
-from video_graph_ssl_tpu_torch.kernel_times import (K1_SHAPES, K2_SHAPES, PATTERNS, POOLS,
-                                                    SEPCONVS, device_us, event_ms, geometry,
-                                                    gpu_line, host_us, sepconv_inputs,
-                                                    step_calls)
+from video_graph_ssl_tpu_torch.kernel_times import (BACKBONE_CALLS, K1_SHAPES, K2_SHAPES,
+                                                    PATTERNS, POOLS, REGIME_PASSES, SEPCONVS,
+                                                    device_us, event_ms, geometry, gpu_line,
+                                                    host_us, sepconv_inputs, step_calls)
 from video_graph_ssl_tpu_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -808,7 +815,84 @@ def phase_pools(dev) -> list:
              "max_abs_err": worst["K3"], "bound_by": "bytes", **sums["K3"]},
             {"name": "maxpool_bwd_strided", "route": "cuda", "source": src,
              "replaces": "video_graph_ssl_tpu/ops/pallas/maxpool_kernel.py:259",
-             "max_abs_err": worst["K4"], "bound_by": "bytes", **sums["K4"]}]
+             "max_abs_err": worst["K4"], "bound_by": "bytes", **sums["K4"]},
+            pool_fwd_checks(dev, g)]
+
+
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements of ``a`` whose bits differ from ``b``'s, counting NaN as
+    one value: NaN where ``b`` has NaN, every other value bit for bit (the
+    sign of a tied zero included)."""
+    a, b = a.contiguous(), b.contiguous()
+    nan = torch.isnan(b)
+    itype = torch.int16 if b.dtype == torch.bfloat16 else torch.int32
+    return int((torch.isnan(a) != nan).sum()) + int(
+        (a.view(itype)[~nan] != b.view(itype)[~nan]).sum())
+
+
+def pool_fwd_checks(dev, g) -> dict:
+    """The pool forward kernel, through its operator, against the library
+    (``maxpool.pool_forward``) at every pool geometry the card drives (S3D's
+    at bs 256, 128 and 32, 16x112x112 and 16x224x224; I3D's TF "SAME"
+    pools; I3D-R50-NL's two at bs 256 and 128): x with a few NaNs in fp32 and
+    bf16, and tie-rich bf16 x (-1, -0, +0, 1), bit for bit (NaN where the
+    library has NaN); device ms per pool at the bs-128 S3D pass and the
+    I3D-R50-NL pools against the library and the byte bound (x read once, y
+    written once)."""
+    from video_graph_ssl_tpu_torch.kernel_times import I3DNON
+    from video_graph_ssl_tpu_torch.ops import maxpool as mp
+
+    print("phase 4 (fwd): the max-pool forward kernel vs the library (bit for bit)")
+    timed = {"S3D": POOLS, I3DNON: geometry(112, 128, I3DNON)[2]}
+    sets = {**timed, "S3D bs256": geometry(112, 256, "S3D")[2],
+            f"{I3DNON} bs256": geometry(112, 256, I3DNON)[2],
+            "S3D 224 bs32": POOLS_224, "S3D 112 bs32": POOLS_112_32,
+            "I3D": geometry(112, 128, "I3D")[2], "I3D 224 bs32": geometry(224, 32, "I3D")[2],
+            f"{I3DNON} 224 bs32": geometry(224, 32, I3DNON)[2]}
+    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    worst = 0
+    for label, pools in sets.items():
+        for name, _, shape, k, s, p in pools:
+            for dn, dt in DTYPES.items():
+                x = _ncdhw(shape, dev, dt, g)
+                x.as_strided((x.numel(),), (1,))[torch.randint(
+                    0, x.numel(), (max(1, x.numel() // 4096),), device=dev,
+                    generator=g)] = float("nan")
+                pads = mp.resolve_padding(p, x.shape[2:], k, s)
+                flat = [v for pair in pads for v in pair]
+                n = bits_differ(mp.max_pool3d_fwd_op(x, k, s, flat),
+                                mp.pool_forward(x, k, s, pads))
+                if dn == "bf16":
+                    levels = torch.tensor([-1.0, -0.0, 0.0, 1.0], device=dev)
+                    xt = _ncdhw(shape, dev, dt, g, fill=lambda sh: levels[torch.randint(
+                        0, 4, sh, device=dev, generator=g)])
+                    n += bits_differ(mp.max_pool3d_fwd_op(xt, k, s, flat),
+                                     mp.pool_forward(xt, k, s, pads))
+                    del xt
+                check(f"fwd {label} {name} {shape} {dn} vs library (bits differing)", n, 0)
+                worst = max(worst, n)
+                if dn == "bf16" and label in timed:
+                    b, c = shape[0], shape[4]
+                    y_numel = b * c * math.prod(mp.out_sizes(x.shape[2:], k, s, pads))
+                    tk = event_ms(lambda: mp.max_pool3d_fwd_op(x, k, s, flat))
+                    tl = event_ms(lambda: mp.pool_forward(x, k, s, pads))
+                    bm, _ = bound((x.numel() + y_numel) * x.element_size(), 0, dn)
+                    plan = mp.fwd_plan(x.shape, k, s, p, dt)
+                    print(f"  fwd {label} {name} {shape} bf16: kernel {tk:.4f} ms  library "
+                          f"{tl:.4f} ms  bound {bm:.4f} ms ({100 * bm / tk:.1f}%)  [{plan.slab} "
+                          f"slabs, strips {plan.t_strip}x{plan.h_strip} of y, {plan.group}-"
+                          f"channel groups, {plan.smem_bytes} B, {plan.blocks} blocks]")
+                    if label == "S3D":
+                        for key, v in zip(sums, (tk, tl, tl, bm)):
+                            sums[key] += v
+                del x
+    print(f"  fwd S3D pass (13 pools, bs 128, bf16): kernel {sums['ms']:.4f} ms  library "
+          f"{sums['library_ms']:.4f} ms  bound {sums['bound_ms']:.4f} ms")
+    # the plain version of the forward is the library's pool itself
+    return {"name": "maxpool_fwd", "route": "cuda",
+            "source": "video_graph_ssl_tpu_torch/csrc/maxpool_fwd.cu",
+            "replaces": "video_graph_ssl_tpu/ops/pallas/maxpool_kernel.py:59 (never launched "
+                        "there)", "max_abs_err": float(worst), "bound_by": "bytes", **sums}
 
 
 def _sep_bound(bthwc, dn):
@@ -1016,7 +1100,7 @@ def read_counts() -> dict:
     """Each kernel's wrapper calls since :func:`reset_counts`."""
     n = tracing.counters()
     return {k: n[k] for k in ("graph_adjacency", "gcn_propagate", "maxpool_bwd_s1",
-                              "maxpool_bwd_strided", "sepconv_bwd")}
+                              "maxpool_bwd_strided", "sepconv_bwd", "maxpool_fwd")}
 
 
 def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
@@ -1103,7 +1187,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
     n = len(batches)
     # K3/K4/K5 run in the query pass's backward only (the key pass takes no
     # gradient)
-    want = _want_counts(n, fused=fused, backbone=backbone)
+    want = _want_counts(n, fused=fused, backbone=backbone, remat=bool(c.TPU.REMAT))
     print(f"  kernel calls in the 5 steps: {counts} (want {want})")
     print(f"  cotangents copied to channels_last_3d in the 5 steps: pool dy "
           f"{copies[0]}, SepConv g {copies[1]}")
@@ -1428,10 +1512,17 @@ def drive_steps(trainer, n: int = RANK_STEPS, bn_mode=None) -> dict:
 
 
 def _want_counts(n: int = RANK_STEPS, mem_type: str = "moco", fused: bool = False,
-                 **kw) -> dict:
+                 remat: bool = False, **kw) -> dict:
     """Each kernel's wrapper calls in n steps of ``mem_type`` (``kw``:
-    ``step_calls``'s ``partial_bn``, ``graph`` and ``cmc``)."""
-    return {k: v * n for k, v in step_calls(mem_type, fused, **kw).items()}
+    ``step_calls``'s ``partial_bn``, ``graph``, ``backbone`` and ``cmc``);
+    under ``remat`` (``TPU.REMAT``) each backward recomputes its units, and
+    with them the Inception blocks' branch pools (the stage pools are no
+    unit)."""
+    want = {k: v * n for k, v in step_calls(mem_type, fused, **kw).items()}
+    if remat:
+        pools_s1 = BACKBONE_CALLS[kw.get("backbone", "S3D")][1]
+        want["maxpool_fwd"] += pools_s1 * REGIME_PASSES[mem_type][1] * n
+    return want
 
 
 def rank_run(opts: list, config: str = CONFIG, per_rank: bool = False,
@@ -3566,7 +3657,8 @@ CMC_RUNS = {
 # the launches per step recorded before the first chip run (PERF.md §6):
 # twice the visual MoCo step's, one encoder stack each
 CMC_PREDICTED = {"graph_adjacency": 12, "gcn_propagate": 18, "maxpool_bwd_s1": 18,
-                 "maxpool_bwd_strided": 8, "sepconv_bwd": 0}
+                 "maxpool_bwd_strided": 8, "sepconv_bwd": 0,
+                 "maxpool_fwd": 52}   # the pool forward's kernel, added with it
 CMC_PREDICTED_FUSED = {**CMC_PREDICTED, "sepconv_bwd": 36}
 CMC_STEPS = 5          # (c): 2 warm-up, 3 timed
 
@@ -4154,10 +4246,11 @@ TOL_HEAD = 1e-4
 TOL_EXPORT = 1e-4   # the JAX tool's live-against-artifact bound
 # a fresh interpreter loads artifacts with torch and the port's ops alone
 # (TF32 off and cuDNN deterministic, as in this process) and writes each
-# one's features and K1/K2 launches (arguments: path, input, output, ...)
+# one's features and K1, K2 and pool forward launches (arguments: path,
+# input, output, ...)
 EXPORT_LOAD = """
 import json, sys, numpy as np, torch
-import video_graph_ssl_tpu_torch.ops  # noqa: F401  (registers K1's and K2's operators)
+import video_graph_ssl_tpu_torch.ops  # noqa: F401  (registers the port's operators)
 from video_graph_ssl_tpu_torch.utils import tracing
 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -4173,7 +4266,7 @@ for path, raw_in, feats_out in zip(*[iter(sys.argv[1:])] * 3):
     np.save(feats_out, out.cpu().numpy())
     n = tracing.counters()
     print(json.dumps({"graph_adjacency": n["graph_adjacency"],
-                      "gcn_propagate": n["gcn_propagate"]}))
+                      "gcn_propagate": n["gcn_propagate"], "maxpool_fwd": n["maxpool_fwd"]}))
 """
 
 
@@ -4215,7 +4308,8 @@ def remat_same_step(gpu: str) -> str:
                 save = "phase18_off.pth.tar" if (policy, fused) == ("off", False) else None
                 run = runs[policy] = remat_small_run(policy, fused, save)
                 tag = f"phase 18 (a) {policy}, SEPCONV_FUSED {fused}"
-                _hold_counts(tag, run["counts"], _want_counts(REMAT_STEPS, fused=fused))
+                _hold_counts(tag, run["counts"], _want_counts(REMAT_STEPS, fused=fused,
+                                                              remat=policy != "off"))
                 print(f"  {tag}: losses {run['losses']}, host ms {[f'{m:.1f}' for m in run['ms']]}"
                       f", peak {run['peak_gib']:.2f} GiB, kernel calls {run['counts']}")
                 if policy == "off":
@@ -4301,7 +4395,8 @@ def export_on_card(dev, gpu: str, ckpt: str) -> dict:
 
     k1_shapes, k2_shapes = geometry(112, EXPORT_BATCH)[:2]
     worst = kernel_checks(dev, "phase 18 (c)", k1_shapes, k2_shapes, [], "fp32")
-    want = {"graph_adjacency": 3, "gcn_propagate": 3}
+    # one pass: K1 and K2 at the three graph blocks, the 13 pools' forwards
+    want = {"graph_adjacency": 3, "gcn_propagate": 3, "maxpool_fwd": 13}
     opts = ["MODEL.AUG_FLAG", "True", "TPU.COMPUTE_DTYPE", "float32"]
     live, _, _ = export_model.build_infer_fn(load_config(CONFIG, opts), "encoder", ckpt, dev)
     out, fresh_args, here = {}, [], {}
@@ -4333,8 +4428,8 @@ def export_on_card(dev, gpu: str, ckpt: str) -> dict:
         fresh_args += [path, os.path.join(directory, "raw.npy"),
                        os.path.join(directory, "fresh.npy")]
         print(f"  (c) {name}: exported in {seconds:.1f} s, {manifest['bytes'] / 1e6:.1f} MB; "
-              f"batch {b}: K1 {counts['graph_adjacency']}, K2 {counts['gcn_propagate']} "
-              "launches per artifact call")
+              f"batch {b}: K1 {counts['graph_adjacency']}, K2 {counts['gcn_propagate']}, "
+              f"pool forward {counts['maxpool_fwd']} launches per artifact call")
         out[name] = {"live_err": err, "bytes": manifest["bytes"], "export_s": seconds}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", EXPORT_LOAD, *fresh_args], cwd=REPO,

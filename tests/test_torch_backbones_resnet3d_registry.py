@@ -174,7 +174,7 @@ def test_backbone_of_tells_nonlocal_i3d_from_resnet3d_50():
     assert backbone_of({**r50, "layer2_1": nl["layer2_1"]}) == "i3d_res50_nonlocal"
     assert step_calls("moco", backbone="i3d_res50_nonlocal") == {
         "graph_adjacency": 6, "gcn_propagate": 9, "maxpool_bwd_s1": 0,
-        "maxpool_bwd_strided": 2, "sepconv_bwd": 0}
+        "maxpool_bwd_strided": 2, "sepconv_bwd": 0, "maxpool_fwd": 4}
     assert step_calls("finetune", partial_bn=True, backbone="i3d_res50_nonlocal") == {
         "graph_adjacency": 3, "gcn_propagate": 6, "maxpool_bwd_s1": 0,
-        "maxpool_bwd_strided": 2, "sepconv_bwd": 0}
+        "maxpool_bwd_strided": 2, "sepconv_bwd": 0, "maxpool_fwd": 2}

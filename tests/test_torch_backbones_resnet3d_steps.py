@@ -132,10 +132,10 @@ def test_kernel_times_resnet3d_tables_match_jax(name, size, batch):
 def test_step_calls_of_the_new_backbones():
     assert step_calls("moco", backbone="resnet3d_18") == {
         "graph_adjacency": 6, "gcn_propagate": 9, "maxpool_bwd_s1": 0,
-        "maxpool_bwd_strided": 1, "sepconv_bwd": 0}
+        "maxpool_bwd_strided": 1, "sepconv_bwd": 0, "maxpool_fwd": 2}
     assert step_calls("finetune", partial_bn=True, backbone="resnet2p1d_50") == {
         "graph_adjacency": 3, "gcn_propagate": 6, "maxpool_bwd_s1": 0,
-        "maxpool_bwd_strided": 1, "sepconv_bwd": 0}
+        "maxpool_bwd_strided": 1, "sepconv_bwd": 0, "maxpool_fwd": 1}
     for name in ("resnet101", "bninception", "inception_v3"):
         assert set(step_calls("moco", fused=True, backbone=name).values()) == {0}
         assert geometry(224, 16, name) == ([], [], [], [])

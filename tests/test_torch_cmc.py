@@ -398,7 +398,8 @@ def test_cmc_stacks_draw_distinct_graph_noise(monkeypatch):
 
 def test_step_calls_of_the_cmc_step_match_jax(monkeypatch):
     """K1 per graph block and encoder pass, K2 per block and pass plus one
-    transposed call per backward, K3/K4 per pool and backward: JAX's S3D
+    transposed call per backward, the pool forward per pool and pass, K3/K4
+    per pool and backward: JAX's S3D
     CmcWrapper holds 2 x 3 graph blocks (its parameters) and calls the
     backbone's max pool 2 x (9 stride-1 + 4 strided) times per forward
     (counted while ``jax.eval_shape`` traces it); its MoCo step applies the
@@ -426,13 +427,13 @@ def test_step_calls_of_the_cmc_step_match_jax(monkeypatch):
     for mem_type, applies in (("moco", 2), ("bank", 1)):
         want = {"graph_adjacency": blocks * applies, "gcn_propagate": blocks * (applies + 1),
                 "maxpool_bwd_s1": pools["s1"], "maxpool_bwd_strided": pools["strided"],
-                "sepconv_bwd": 0}
+                "sepconv_bwd": 0, "maxpool_fwd": (pools["s1"] + pools["strided"]) * applies}
         assert step_calls(mem_type, cmc=True) == want
         visual = step_calls(mem_type)
         assert {k: 2 * n for k, n in visual.items()} == want
     assert step_calls("moco", cmc=True) == {
         "graph_adjacency": 12, "gcn_propagate": 18, "maxpool_bwd_s1": 18,
-        "maxpool_bwd_strided": 8, "sepconv_bwd": 0}
+        "maxpool_bwd_strided": 8, "sepconv_bwd": 0, "maxpool_fwd": 52}
     assert step_calls("moco", fused=True, cmc=True)["sepconv_bwd"] == 36
     with pytest.raises(ValueError, match="moco or bank"):
         step_calls("simsiam", cmc=True)
@@ -443,7 +444,7 @@ def test_step_calls_count_what_one_port_step_launches(mem_type, monkeypatch):
     """One CMC step of the port (tiny3d: one graph block and one strided
     pool per stack) on the CPU, where the wrappers take their plain
     versions, counting the calls that reach them."""
-    calls = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    calls = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "fwd": 0}
 
     def counted(key, fn):
         def spy(*a, **kw):
@@ -460,6 +461,7 @@ def test_step_calls_count_what_one_port_step_launches(mem_type, monkeypatch):
     monkeypatch.setattr(ttg, "graph_adjacency", counted("k1", ttg.graph_adjacency))
     monkeypatch.setattr(ttg, "gcn_propagate", counted("k2", ttg.gcn_propagate))
     monkeypatch.setattr(mp, "max_pool3d_bwd_plain", pool_bwd)
+    monkeypatch.setattr(mp, "pool_forward", counted("fwd", mp.pool_forward))
     c = cmc_cfg(mem_type=mem_type)
     state = create_pretrain_state(c, create_visual_model(c)[0], "cpu", n_data=16)
     clips = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -470,4 +472,4 @@ def test_step_calls_count_what_one_port_step_launches(mem_type, monkeypatch):
     want = step_calls(mem_type, backbone="tiny3d", cmc=True)
     assert want == {"graph_adjacency": calls["k1"], "gcn_propagate": calls["k2"] + backwards,
                     "maxpool_bwd_s1": calls["k3"], "maxpool_bwd_strided": calls["k4"],
-                    "sepconv_bwd": 0}
+                    "sepconv_bwd": 0, "maxpool_fwd": calls["fwd"]}

@@ -187,21 +187,22 @@ def test_fused_step_draws_from_its_own_stream(tiny_cfg):
 
 
 @pytest.mark.parametrize("mem_type,kw,want", [
-    ("finetune", dict(partial_bn=True, graph=False), (0, 0, 9, 4, 0)),
-    ("finetune", dict(partial_bn=True), (3, 6, 9, 4, 0)),
-    ("finetune", dict(fused=True, partial_bn=True), (3, 6, 9, 4, 0)),
-    ("finetune", dict(fused=True, graph=False), (0, 0, 9, 4, 18)),
-    ("probe", dict(partial_bn=True), (3, 3, 0, 0, 0)),
-    ("probe", dict(fused=True, graph=False), (0, 0, 0, 0, 0)),
-    ("eval", dict(), (3, 3, 0, 0, 0)),
+    ("finetune", dict(partial_bn=True, graph=False), (0, 0, 9, 4, 0, 13)),
+    ("finetune", dict(partial_bn=True), (3, 6, 9, 4, 0, 13)),
+    ("finetune", dict(fused=True, partial_bn=True), (3, 6, 9, 4, 0, 13)),
+    ("finetune", dict(fused=True, graph=False), (0, 0, 9, 4, 18, 13)),
+    ("probe", dict(partial_bn=True), (3, 3, 0, 0, 0, 13)),
+    ("probe", dict(fused=True, graph=False), (0, 0, 0, 0, 0, 13)),
+    ("eval", dict(), (3, 3, 0, 0, 0, 13)),
 ])
 def test_step_calls_of_the_downstream_steps(mem_type, kw, want):
-    """K1-K5 wrapper calls per step, as chip_smoke.py holds the card's
-    counts: a fine-tune step is one pass and one backward, the probe and
-    the eval forward one pass; partial BN takes every pair off K5."""
+    """K1-K5 and pool forward wrapper calls per step, as chip_smoke.py
+    holds the card's counts: a fine-tune step is one pass and one backward,
+    the probe and the eval forward one pass (13 pool forwards each); partial
+    BN takes every pair off K5."""
     from video_graph_ssl_tpu_torch.kernel_times import step_calls
 
     calls = step_calls(mem_type, **kw)
     assert tuple(calls.values()) == want
     assert list(calls) == ["graph_adjacency", "gcn_propagate", "maxpool_bwd_s1",
-                           "maxpool_bwd_strided", "sepconv_bwd"]
+                           "maxpool_bwd_strided", "sepconv_bwd", "maxpool_fwd"]

@@ -2,8 +2,10 @@
 K1's and K2's registered operators, on the CPU.
 
 * ``torch.library.opcheck`` on ``vgs_torch::graph_adjacency`` (unsampled,
-  with given noise, with a rank's rows) and ``vgs_torch::gcn_propagate``
-  (both directions): schema, fake tensors, dispatch.
+  with given noise, with a rank's rows), ``vgs_torch::gcn_propagate``
+  (both directions) and ``vgs_torch::max_pool3d_fwd`` (symmetric pads,
+  "SAME" pads through ``ceil_mode`` and through the -inf copy): schema,
+  fake tensors, dispatch.
 * A module that calls both operators exports, saves and loads in a fresh
   process that imports torch and the port's ops alone; the graph keeps
   both operators.
@@ -34,6 +36,7 @@ from video_graph_ssl_tpu_torch.engine.build import create_downstream_state, crea
 from video_graph_ssl_tpu_torch.models.build import create_video_model, create_visual_model
 from video_graph_ssl_tpu_torch.ops import gcn_propagate as gp
 from video_graph_ssl_tpu_torch.ops import graph_kernel as gk
+from video_graph_ssl_tpu_torch.ops import maxpool as mp
 from video_graph_ssl_tpu_torch.utils.checkpoint import save_checkpoint_state
 from video_graph_ssl_tpu_torch.utils.jax_weights import load_pretrain_weights
 
@@ -99,6 +102,21 @@ def test_opcheck_gcn_propagate(transpose):
     torch.library.opcheck(torch.ops.vgs_torch.gcn_propagate.default, (adj, x, transpose))
     assert torch.equal(gp.propagate_op(adj, x, transpose),
                        gp.propagate_plain(adj, x, transpose))
+
+
+POOL_CASES = [((3, 3, 3), (1, 1, 1), (1, 1, 1, 1, 1, 1)),    # symmetric: F.max_pool3d
+              ((1, 3, 3), (1, 2, 2), (0, 0, 0, 1, 0, 1)),    # SAME, ceil_mode's windows
+              ((2, 2, 2), (1, 1, 1), (0, 1, 0, 1, 0, 1))]    # SAME at stride 1: the -inf copy
+
+
+@pytest.mark.parametrize("k,s,pads", POOL_CASES, ids=["symmetric", "ceil_mode", "copy"])
+def test_opcheck_max_pool3d_fwd(k, s, pads):
+    x = torch.randn(2, 6, 5, 9, 7, generator=torch.Generator().manual_seed(0))
+    torch.library.opcheck(torch.ops.vgs_torch.max_pool3d_fwd.default,
+                          (x, list(k), list(s), list(pads)))
+    y = mp.max_pool3d_fwd_op(x, k, s, pads)
+    assert y.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(y, mp.pool_forward(x, k, s, mp._pairs(pads)))
 
 
 class _Both(torch.nn.Module):

@@ -145,7 +145,8 @@ def test_step_calls_of_the_ab_steps(regime, aug, monkeypatch):
     model on the CPU, where the wrappers take their plain versions, counting
     the calls that reach them (K1: ``graph_adjacency``; K2's forwards:
     ``gcn_propagate``, plus one transposed call per backward; K4: the
-    strided pool's backward, one per backward)."""
+    strided pool's backward, one per backward; the pool forward: one per
+    pass)."""
     from video_graph_ssl_tpu_torch.engine.build import create_pretrain_state
     from video_graph_ssl_tpu_torch.engine.pretrain import make_pretrain_step
     from video_graph_ssl_tpu_torch.kernel_times import step_calls
@@ -153,7 +154,7 @@ def test_step_calls_of_the_ab_steps(regime, aug, monkeypatch):
     from video_graph_ssl_tpu_torch.ops import maxpool as mp
     from video_graph_ssl_tpu_torch.ops import temporal_graph as ttg
 
-    calls = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    calls = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "fwd": 0}
 
     def counted(key, fn):
         def spy(*a, **kw):
@@ -169,6 +170,7 @@ def test_step_calls_of_the_ab_steps(regime, aug, monkeypatch):
     monkeypatch.setattr(ttg, "graph_adjacency", counted("k1", ttg.graph_adjacency))
     monkeypatch.setattr(ttg, "gcn_propagate", counted("k2", ttg.gcn_propagate))
     monkeypatch.setattr(mp, "max_pool3d_bwd_plain", pool_bwd)
+    monkeypatch.setattr(mp, "pool_forward", counted("fwd", mp.pool_forward))
     c = gb.make_cfg(regime, aug, 8, 16)
     clips, _ = tsyn.temporal_shortcut_clips(per_class=4)
     model, _ = create_visual_model(c)
@@ -179,7 +181,7 @@ def test_step_calls_of_the_ab_steps(regime, aug, monkeypatch):
     assert want == {"graph_adjacency": calls["k1"],
                     "gcn_propagate": calls["k2"] + (backwards if aug else 0),
                     "maxpool_bwd_s1": calls["k3"], "maxpool_bwd_strided": calls["k4"],
-                    "sepconv_bwd": 0}
+                    "sepconv_bwd": 0, "maxpool_fwd": calls["fwd"]}
     assert backwards == (2 if regime == "simsiam" else 1)
 
 

@@ -24,8 +24,15 @@
   for bit, on the same geometries plus ragged C, odd H/W and T = 1, in fp32
   and bf16, with one launch and one allocation (dx) per call; and at the
   224x224 stem and Mixed_3b pools, whose slabs the kernel cuts into
-  strips; and at the TF "SAME" geometries.  JAX is imported inside the
-  tests that use it, so the file also runs where JAX is absent.
+  strips; and at the TF "SAME" geometries.
+* The forward kernel on the card (``cuda`` marker) against the library's
+  pool on the card, at the same geometries, ragged C, odd H/W, T = 1, the
+  224x224 strips and the "SAME" pads, in fp32 and bf16, on random inputs
+  with NaNs and on tie-rich inputs (-1, -0, +0, 1): NaN where the library
+  has NaN and every other value bit for bit, one counted launch and one
+  allocation (y) per call; and its operator through ``opcheck``.  JAX is
+  imported inside the tests that use it, so the file also runs where JAX
+  is absent.
 """
 
 import numpy as np
@@ -335,3 +342,97 @@ def test_kernel_equals_plain_on_card_same(case, shape, dtype):
         assert counted == ((1, 0) if s == (1, 1, 1) else (0, 1)) and allocs == 1
         want = maxpool.max_pool3d_bwd_plain(x.cpu(), y.cpu(), dy.cpu(), k, s, pads)
         assert torch.equal(dx.cpu(), want)
+
+
+# --------------------------------------------------------------------------- #
+# The forward kernel (``csrc/maxpool_fwd.cu``) against the library's
+# ``F.max_pool3d`` on the card
+# --------------------------------------------------------------------------- #
+def _card_fwd_call(x, k, s, padding):
+    """One forward through the module's path: (y, launches counted,
+    allocations made)."""
+    before = tracing.counters()["maxpool_fwd"]
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with torch.no_grad():
+        y = maxpool.max_pool3d(x, k, s, padding)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    return y, tracing.counters()["maxpool_fwd"] - before, allocs
+
+
+def _same_bits(got, want):
+    """NaN exactly where ``want`` is NaN, every other value bit for bit (the
+    sign of a tied zero included)."""
+    got, want = got.cpu().contiguous(), want.cpu().contiguous()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    itype = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(itype)[~nan], want.view(itype)[~nan]), \
+        float((got.float() - want.float()).nan_to_num().abs().max())
+
+
+def _forward_inputs(shape, dtype, dev, seed):
+    """x (B, C, T, H, W) channels_last_3d for a (B, T, H, W, C) shape: random
+    normal with a few NaNs, then tie-rich values (-1, -0, +0, 1; in bf16 also
+    random normal rounded), each once."""
+    g = np.random.default_rng(seed)
+    a = g.standard_normal(shape).astype(np.float32)
+    flat = a.reshape(-1)
+    flat[g.choice(flat.size, size=max(1, flat.size // 500), replace=False)] = np.nan
+    ties = g.choice(np.array([-1.0, -0.0, 0.0, 1.0], np.float32), size=shape)
+    return [_ncdhw(v).to(dev, dtype).contiguous(memory_format=torch.channels_last_3d)
+            for v in (a, ties)]
+
+
+def _forward_equals_torch(case, shape, dtype, dev, seed=8):
+    """The kernel (through ``max_pool3d``: one counted launch, one
+    allocation) equals the library's pool on the card (``pool_forward``:
+    ``F.max_pool3d`` for symmetric pads, ``ceil_mode`` or the -inf copy for
+    other (lo, hi) pads and "SAME")."""
+    k, s, p = case
+    for x in _forward_inputs(shape, dtype, dev, seed):
+        want = maxpool.pool_forward(x, k, s, maxpool.resolve_padding(p, x.shape[2:], k, s))
+        y, counted, allocs = _card_fwd_call(x, k, s, p)
+        assert counted == 1 and allocs == 1
+        assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last_3d)
+        assert y.shape == want.shape
+        _same_bits(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,shape,dtype", CARD_GRID, ids=CARD_IDS)
+def test_forward_kernel_equals_torch_on_card(case, shape, dtype):
+    _forward_equals_torch(case, shape, dtype, _cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case,shape", SAME_GRID, ids=SAME_IDS)
+def test_forward_kernel_equals_torch_on_card_same(case, shape, dtype):
+    k, s = case
+    for c in (shape[4], 12 if dtype == torch.bfloat16 else 6):   # and ragged C
+        _forward_equals_torch((k, s, "SAME"), shape[:4] + (c,), dtype, _cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", list(STRIP_SHAPES))
+def test_forward_kernel_equals_torch_on_card_in_strips(name, dtype):
+    case, (b, t, h, w, c) = STRIP_SHAPES[name]
+    plan = maxpool.fwd_plan((b, c, t, h, w), *case, dtype)
+    assert plan.t_strips * plan.h_strips > 1
+    _forward_equals_torch(case, (b, t, h, w, c), dtype, _cuda())
+
+
+@pytest.mark.cuda
+def test_forward_operator_opcheck_on_card():
+    """``vgs_torch::max_pool3d_fwd`` on a CUDA tensor: schema, the fake's
+    shape and channels_last_3d strides against the kernel's, dispatch."""
+    dev = _cuda()
+    x = _forward_inputs((2, 5, 9, 7, 16), torch.bfloat16, dev, 9)[0]
+    x = torch.nan_to_num(x)
+    for k, s, pads in (((3, 3, 3), (1, 1, 1), (1, 1, 1, 1, 1, 1)),
+                       ((1, 3, 3), (1, 2, 2), (0, 0, 0, 1, 0, 1))):
+        torch.library.opcheck(torch.ops.vgs_torch.max_pool3d_fwd.default,
+                              (x, list(k), list(s), list(pads)))

@@ -1,5 +1,6 @@
-"""The launch plan of the port's max-pool backward kernel (K3/K4,
-``video_graph_ssl_tpu_torch/ops/maxpool.py:bwd_plan``), on the CPU.
+"""The launch plans of the port's max-pool kernels, the backward (K3/K4,
+``video_graph_ssl_tpu_torch/ops/maxpool.py:bwd_plan``) and the forward
+(``fwd_plan``), on the CPU.
 
 The kernel runs only on the card; its plan is a pure function, so the
 blocking is checked here:
@@ -24,10 +25,22 @@ blocking is checked here:
   steps, and the port's forward gives them; ownership holds at ragged
   SAME shapes, and the strip emulation equals the plain version bit for
   bit at SAME strip plans (the stem pool's frame strips at 224x224, pool_7
-  strips along T and H with odd and even extents).
+  strips along T and H with odd and even extents);
+* the forward's plan at the 13 S3D pools, I3D-R50-NL's two and I3D's
+  SAME pools, at 112x112 and 224x224, and at the small, ragged, T = 1 and
+  SAME shapes: every output written by exactly one block, the staged x
+  covering every (clipped) window of a block's outputs, shared memory
+  within four blocks per SM (227 KB at the least); the strips it cuts at
+  112x112 and 224x224; a plain emulation of strip plans equal to the
+  library's pool bit for bit; only a W too wide for one output row of one
+  output frame raises;
+* the profiler classes of the forward kernel's name (``profile_step.py``
+  and the benchmark's frozen copy): not K3/K4's.
 """
 
 import itertools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -326,3 +339,193 @@ def test_same_plan_outputs_equal_jax(size, batch):
         assert maxpool.out_sizes((t, h, w), k, s, pads) == tuple(want[1:4]), name
         y = maxpool.pool_forward(torch.zeros(1, 1, t, h, w), k, s, pads)
         assert tuple(y.shape[2:]) == tuple(want[1:4]), name
+
+
+# --------------------------------------------------------------------------- #
+# The forward kernel's plan (``maxpool.fwd_plan``): a block per strip of y
+# outputs, staging the x their windows read
+# --------------------------------------------------------------------------- #
+def _check_fwd_plan(plan, thw, k, s, padding):
+    """Every output written by exactly one block; each block's staged x
+    covers every (clipped) window of its outputs and fits the plan's shared
+    layout; the layout within what one block may take."""
+    t, h, w = thw
+    pads = maxpool.resolve_padding(padding, thw, k, s)
+    p = tuple(lo for lo, _ in pads)
+    to, ho, wo = maxpool.out_sizes(thw, k, s, pads)
+    assert plan.rows_out == ho and plan.rows == h and plan.frames == t
+    assert plan.smem_bytes == plan.x_frames * plan.x_rows * w * plan.group * plan.element_size
+    assert plan.smem_bytes <= maxpool.MAX_SMEM_BYTES
+    assert 32 <= plan.threads <= maxpool.FWD_THREADS and plan.threads % 32 == 0
+    assert plan.threads % (plan.group // plan.vec) == 0
+    b, c = plan.slabs // (t if plan.slab == "frame" else 1), plan.channels
+    written = np.zeros((b, c, to, ho), np.int64)     # a block writes whole Wo
+    for blk in range(plan.blocks):
+        e = plan.block(blk)
+        (c0, c1), (ot0, ot1), (oh0, oh1) = e.chans, e.out_t, e.out_h
+        assert 0 < c1 - c0 <= plan.group and ot1 > ot0 and oh1 > oh0
+        written[e.b, c0:c1, ot0:ot1, oh0:oh1] += 1
+        assert e.x_t[1] - e.x_t[0] <= (plan.x_frames if plan.slab == "clip" else 1)
+        assert e.x_h[1] - e.x_h[0] <= plan.x_rows
+        for axis, (o0, o1), (x0, x1) in ((0, e.out_t, e.x_t), (1, e.out_h, e.x_h)):
+            n = thw[axis]
+            for o in range(o0, o1):          # every tap of every window it writes
+                taps = [o * s[axis] - p[axis] + i for i in range(k[axis])]
+                inside = [i for i in taps if 0 <= i < n]
+                assert inside and all(x0 <= i < x1 for i in inside), (blk, axis, o)
+    assert (written == 1).all()
+
+
+def emulate_fwd_plan(plan, x, k, s, padding):
+    """y by the plan's blocks in plain PyTorch: each block's staged x (the
+    rows outside it, and the padding, as -inf) through ``F.max_pool3d``;
+    only the block's own outputs are kept."""
+    pairs = maxpool.resolve_padding(padding, x.shape[2:], k, s)
+    p = tuple(lo for lo, _ in pairs)
+    _, _, to, ho, wo = (*x.shape[:2], *maxpool.out_sizes(x.shape[2:], k, s, pairs))
+    y = torch.full((x.shape[0], x.shape[1], to, ho, wo), float("nan"), dtype=x.dtype)
+    for i in range(0, plan.blocks, plan.groups):   # channels: all at once
+        e = plan.block(i)
+        xt, ot, xh, oh = e.x_t, e.out_t, e.x_h, e.out_h
+        pads = []
+        for (o0, o1), (x0, x1), ka, sa, pa in ((ot, xt, k[0], s[0], p[0]),
+                                               (oh, xh, k[1], s[1], p[1])):
+            first, end = o0 * sa - pa, (o1 - 1) * sa - pa + ka
+            assert x0 >= first and end >= x1       # never more than the windows read
+            pads = [x0 - first, end - x1] + pads
+        xs = F.pad(x[e.b:e.b + 1, :, xt[0]:xt[1], xh[0]:xh[1]],
+                   (*pairs[2], *pads), value=float("-inf"))
+        y[e.b, :, ot[0]:ot[1], oh[0]:oh[1]] = F.max_pool3d(xs, k, s, 0)[0]
+    return y
+
+
+# the 13 S3D pools (bs 1: blocks repeat per slab), I3D-R50-NL's two and the
+# SAME pools of I3D, at 112x112 and 224x224: name -> (x (B, T, H, W, C),
+# window, stride, padding)
+def _fwd_pools():
+    from video_graph_ssl_tpu_torch.kernel_times import geometry
+
+    pools = {}
+    for size in (112, 224):
+        for backbone in ("S3D", "i3d_res50_nonlocal", "I3D"):
+            for name, _, (_, t, h, w, c), k, s, p in geometry(size, 1, backbone)[2]:
+                pools[f"{backbone}-{size}-{name.split()[0]}"] = ((1, t, h, w, c), k, s, p)
+    return pools
+
+
+FWD_POOLS = _fwd_pools()
+
+
+@pytest.mark.parametrize("dn", list(DTYPES))
+@pytest.mark.parametrize("name", list(FWD_POOLS))
+def test_fwd_plan_of_the_backbone_pools(name, dn):
+    shape, k, s, p = FWD_POOLS[name]
+    b, t, h, w, c = shape
+    plan = maxpool.fwd_plan((b, c, t, h, w), k, s, p, DTYPES[dn])
+    assert plan.slab == ("frame" if k[0] == 1 else "clip")
+    assert plan.vec * plan.element_size == 16          # no ragged pool on the path
+    assert plan.smem_bytes <= maxpool.FWD_SMEM           # four blocks per SM
+    _check_fwd_plan(plan, (t, h, w), k, s, p)
+
+
+# the pools whose y the forward cuts into strips at 112x112 and 224x224
+# (bf16; every other pool keeps a slab per block): (output frames, output
+# rows) of a strip, and its group bytes.  A wider group with halo rows wins
+# over a narrower one without (``FWD_WIDTH_COST``).
+FWD_STRIPPED = {"S3D-112-pool_1": ((1, 3), 128), "S3D-112-pool_4": ((1, 8), 128),
+                "S3D-112-pool_7": ((4, 4), 64), "S3D-112-mixed_3b": ((8, 7), 64),
+                "S3D-112-mixed_3c": ((8, 7), 64), "S3D-224-pool_1": ((1, 3), 64),
+                "S3D-224-pool_4": ((1, 3), 128), "S3D-224-pool_7": ((4, 3), 32),
+                "S3D-224-pool_13": ((2, 2), 256), "S3D-224-mixed_3b": ((8, 6), 32),
+                "S3D-224-mixed_3c": ((8, 6), 32),
+                **{f"S3D-224-mixed_4{i}": ((4, 7), 128) for i in "bcdef"}}
+
+
+@pytest.mark.parametrize("name", [n for n in FWD_POOLS if n.startswith("S3D")])
+def test_fwd_plan_strips_at_112_and_224(name):
+    shape, k, s, p = FWD_POOLS[name]
+    b, t, h, w, c = shape
+    plan = maxpool.fwd_plan((b, c, t, h, w), k, s, p, torch.bfloat16)
+    strips = plan.t_strips * plan.h_strips > 1
+    assert (((plan.t_strip, plan.h_strip), plan.group * 2) if strips else None) == \
+        FWD_STRIPPED.get(name), plan
+
+
+FWD_OWNERSHIP = [(case, shape, dn) for case, shape, dn in itertools.product(
+    CASES + SAME_CASES, [(2, 6, 9, 9, 8), (2, 5, 9, 9, 16), (2, 5, 9, 7, None),
+                         (2, 1, 9, 9, None), (2, 4, 7, 8, 16)], DTYPES)
+    if shape[1] + 2 * maxpool.resolve_padding(case[2], shape[1:4], *case[:2])[0][0]
+    >= case[0][0]]
+
+
+@pytest.mark.parametrize("case,shape,dn", FWD_OWNERSHIP,
+                         ids=[f"{i}-{dn}" for i, (_, _, dn) in enumerate(FWD_OWNERSHIP)])
+def test_fwd_every_output_in_exactly_one_block(case, shape, dn):
+    k, s, p = case
+    b, t, h, w, c = shape
+    c = c or (12 if dn == "bf16" else 6)         # ragged: the scalar path
+    plan = maxpool.fwd_plan((b, c, t, h, w), k, s, p, DTYPES[dn])
+    assert plan.vec == (1 if c % (16 // plan.element_size) else 16 // plan.element_size)
+    _check_fwd_plan(plan, (t, h, w), k, s, p)
+
+
+# strip plans with shrunk channels: the 224x224 stem pool and Mixed_3b, a
+# pool_7 cut along T and H, the I3D-R50-NL stem pool at 112x112, and I3D's
+# SAME stem and pool_7 pools
+FWD_EMULATED = {"stem_224": (CASES[3], (1, 2, 112, 112, 64)),
+                "mixed_3b_224": (CASES[0], (2, 8, 28, 28, 64)),
+                "pool7_t_and_h": (CASES[1], (1, 16, 28, 80, 64)),
+                "i3dnl_stem_112": (CASES[1], (1, 8, 56, 56, 64)),
+                "i3d_stem_224_same": (SAME_CASES[0], (1, 2, 112, 112, 64)),
+                "i3d_pool7_same": (SAME_CASES[1], (1, 16, 27, 81, 64))}
+
+
+@pytest.mark.parametrize("dn", list(DTYPES))
+@pytest.mark.parametrize("name", list(FWD_EMULATED))
+def test_fwd_strip_plan_emulation_equals_pool(name, dn):
+    (k, s, p), (b, t, h, w, c) = FWD_EMULATED[name]
+    dt = DTYPES[dn]
+    plan = maxpool.fwd_plan((b, c, t, h, w), k, s, p, dt)
+    assert plan.t_strips * plan.h_strips > 1
+    _check_fwd_plan(plan, (t, h, w), k, s, p)
+    x = torch.randn((b, c, t, h, w), generator=torch.Generator().manual_seed(4)).to(dt)
+    want = maxpool.pool_forward(x, k, s, maxpool.resolve_padding(p, (t, h, w), k, s))
+    assert torch.equal(emulate_fwd_plan(plan, x, k, s, p), want)
+
+
+# (window, stride) -> the widest W a strip of one output row of one output
+# frame plans at (x rows x frames x W x 32 bytes within 227 KB)
+FWD_WIDEST = {((1, 3, 3), (1, 2, 2), (0, 1, 1)): 2421, ((3, 3, 3), (2, 2, 2), (1, 1, 1)): 807,
+              ((2, 2, 2), (2, 2, 2), (0, 0, 0)): 1816, ((3, 3, 3), (1, 1, 1), (1, 1, 1)): 807}
+
+
+@pytest.mark.parametrize("dn", list(DTYPES))
+@pytest.mark.parametrize("case", list(FWD_WIDEST))
+def test_fwd_oversized_w_raises(case, dn):
+    k, s, p = case
+    widest = FWD_WIDEST[case]
+    plan = maxpool.fwd_plan((1, 64, 4, 8, widest), k, s, p, DTYPES[dn])
+    assert plan.smem_bytes <= maxpool.MAX_SMEM_BYTES and plan.group * plan.element_size == 32
+    with pytest.raises(ValueError, match="a strip of one output row"):
+        maxpool.fwd_plan((1, 64, 4, 8, widest + 1), k, s, p, DTYPES[dn])
+
+
+@pytest.mark.parametrize("dtype,vec", [("__nv_bfloat16", 8), ("__nv_bfloat16", 1),
+                                       ("float", 4), ("float", 1)])
+def test_profile_classes_the_forward_kernel(dtype, vec):
+    """``profile_step.py`` files the forward kernel as "max-pool forward";
+    the benchmark's frozen classes as "max pool", so K3/K4's class (and its
+    roofline) keeps the backward alone."""
+    from portbench.core.trace import classify
+    from portbench.metrics._classes import CLASSES
+    from video_graph_ssl_tpu_torch import profile_step
+
+    text = (Path(maxpool.__file__).resolve().parent.parent / "csrc" / "maxpool_fwd.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                       text)
+    assert names == ["maxpool_fwd_kernel"]
+    traced = (f"void (anonymous namespace)::maxpool_fwd_kernel<{dtype}, {vec}>({dtype} const*, "
+              f"{dtype}*, (anonymous namespace)::FwdGeom, int, int, int)")
+    for name in (traced, names[0]):
+        assert profile_step.classify(name) == "max-pool forward"
+        assert classify(name, CLASSES) == "max pool"

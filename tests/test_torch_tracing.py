@@ -93,6 +93,7 @@ def test_kernel_spans_are_entered_as_often_as_the_kernels_run(step_events):
     assert names["graph_adjacency"] == want["graph_adjacency"] == 2
     assert names["gcn_propagate"] == want["gcn_propagate"] == 3
     assert names["maxpool_bwd"] == want["maxpool_bwd_s1"] + want["maxpool_bwd_strided"] == 1
+    assert names["maxpool_fwd"] == want["maxpool_fwd"] == 2
 
 
 def test_counter_registry_counts_and_resets():

@@ -23,12 +23,13 @@ asserts.
 
 The graph blocks run in eval mode: the adjacency (K1, sampling off) and the
 GCN propagation (K2) stay in the exported graph as the operators
-``vgs_torch::graph_adjacency`` and ``vgs_torch::gcn_propagate``.  So a
-serving process registers them before it loads the artifact (JAX's
-StableHLO artifact needs no model code; this one needs the port's ops)::
+``vgs_torch::graph_adjacency`` and ``vgs_torch::gcn_propagate``, and a
+CUDA export's max pools as ``vgs_torch::max_pool3d_fwd``.  So a serving
+process registers them before it loads the artifact (JAX's StableHLO
+artifact needs no model code; this one needs the port's ops)::
 
     import torch
-    import video_graph_ssl_tpu_torch.ops   # registers K1's and K2's operators
+    import video_graph_ssl_tpu_torch.ops   # registers the port's operators
     fn = torch.export.load("export/encoder.pt2").module()
     feats = fn(frames_uint8)               # on the device of the export
 

@@ -1,7 +1,8 @@
 """Device and host time of the graph kernels (K1, K2), the max-pool
-backward (K3/K4) and the SepConv pair backward (K5) at the shapes of the
-bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED True`` step),
-or with ``--size 224 --batch 32`` at those of the 16x224x224 step; with
+forward and backward (K3/K4) and the SepConv pair backward (K5) at the
+shapes of the bs-128 16x112x112 GCA step (K5: of the ``TPU.SEPCONV_FUSED
+True`` step), or with ``--size 224 --batch 32`` at those of the 16x224x224
+step; with
 ``--backbone I3D`` (or S3DG, InceptionI3d) at that backbone's shapes (I3D:
 TF "SAME" pools, a 4x4 stage 14; no K5 for either); with ``--backbone
 resnet3d_18`` (any 3D ResNet: ``resnet3d_*``, ``resnet_i3d_*``,
@@ -30,10 +31,13 @@ For each shape in bf16 it prints one JSON line with three times:
 * ``event_ms``: CUDA events around one call, wrapper included, the median
   of 20 (what ``chip_smoke.py`` records per launch).
 
-Then one line per kernel of K3, K4 and K5 with ``pass_device_ms``: the sum
-of ``device_us`` over the calls of one encoder pass (13 pools, 18 SepConv
-pairs); and one line per kernel with its wrapper calls and device ms per
-step of the regime ``--mem_type`` (``CONTRAST.MEM_TYPE``, or a downstream
+The pool forward's lines (``pool fwd``) add ``library_device_us``, the
+device time of the library's ``F.max_pool3d`` (with its indices) at the
+same pool, and ``bound_us``, x read once and y written once at 3.35 TB/s.
+Then one line per kernel of K3, K4, K5 and the pool forward with
+``pass_device_ms``: the sum of ``device_us`` over the calls of one encoder
+pass (13 pools, 18 SepConv pairs); and one line per kernel with its
+wrapper calls and device ms per step of the regime ``--mem_type`` (``CONTRAST.MEM_TYPE``, or a downstream
 step; default moco), as :func:`step_calls` counts them: a MoCo step runs
 two encoder passes (key and query) and one backward, a SimSiam step two
 passes and two backwards (one per view), a bank step one of each; a
@@ -197,13 +201,14 @@ def gpu_line() -> str:
 
 def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
                graph: bool = True, backbone: str = "S3D", cmc: bool = False) -> dict:
-    """Wrapper calls per step of K1-K5 in the regime ``mem_type`` (S3D,
-    S3DG, I3D or InceptionI3d, graph blocks at 5, 9, 14 with ``graph``,
-    ``MODEL.AUG_FLAG``; tiny3d, one block at 1, one strided pool; a 3D
+    """Wrapper calls per step of K1-K5 and the pool forward in the regime
+    ``mem_type`` (S3D, S3DG, I3D or InceptionI3d, graph blocks at 5, 9, 14
+    with ``graph``, ``MODEL.AUG_FLAG``; tiny3d, one block at 1, one strided pool; a 3D
     ResNet, blocks at 2, 3, 4, one strided pool; i3d_res50_nonlocal, the
     same blocks and two strided pools; a 2D backbone, none): K1 and
     K2 once per block and pass, K2 again (transposed) in each backward,
-    K3/K4 in each backward, K5 (with ``TPU.SEPCONV_FUSED``, S3D only) in
+    the pool forward (``maxpool_fwd``) once per pool and pass, K3/K4 in
+    each backward, K5 (with ``TPU.SEPCONV_FUSED``, S3D only) in
     each backward unless ``partial_bn`` freezes the pairs' BNs, which takes
     them off K5.  ``cmc``: CMC's step (moco or bank), whose passes and
     backward run through two encoder stacks, each with its own graph blocks
@@ -219,7 +224,8 @@ def step_calls(mem_type: str, fused: bool = False, partial_bn: bool = False,
     return {"graph_adjacency": blocks * passes,
             "gcn_propagate": blocks * (passes + grads),
             "maxpool_bwd_s1": pools_s1 * grads, "maxpool_bwd_strided": pools_strided * grads,
-            "sepconv_bwd": sepconvs * grads if fused and not partial_bn else 0}
+            "sepconv_bwd": sepconvs * grads if fused and not partial_bn else 0,
+            "maxpool_fwd": (pools_s1 + pools_strided) * passes}
 
 
 def geometry(size: int = 112, batch: int = 128, backbone: str = "S3D"):
@@ -265,6 +271,7 @@ def pool_output(x, k, s, p):
 
 
 PATTERNS = {"K1": r"adjacency|sim_partial", "K2": r"propagate", "K3/K4": r"maxpool_bwd",
+            "pool fwd": r"maxpool_fwd_kernel", "library pool fwd": r"max_pool3d_with_indices",
             "K5": r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|bn_means_kernel|"
                   r"bn_bwd_kernel|bn_bwd_vec_kernel|split_sum_kernel|sep_prep_kernel|"
                   r"sep_tc_p[1-6]_"}
@@ -391,7 +398,8 @@ def main(argv=None) -> int:
         print(json.dumps({"tag": tag, "kernel": kernel, "shape": list(shape),
                           "dtype": "bf16", "gpu": gpu, **t}))
 
-    pass_us = {"K1": 0.0, "K2": 0.0, "K2 transpose": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0}
+    pass_us = {"K1": 0.0, "K2": 0.0, "K2 transpose": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0,
+               "pool fwd": 0.0}
     for b, t, d in k1_shapes:
         q = torch.randn(b, t, d, device=dev, generator=g).to(bf)
         k = torch.randn(b, t, d, device=dev, generator=g).to(bf)
@@ -418,14 +426,24 @@ def main(argv=None) -> int:
         t_ = times(lambda: mp._launch(x, y, dy, k, s, p), PATTERNS["K3/K4"])
         pass_us[kn] += t_["device_us"]
         emit(f"{kn} {name}", (b, t, h, w, c), t_)
+        # the operator the forward calls, so host_us holds its dispatch
+        flat = [v for pair in mp.resolve_padding(p, (t, h, w), k, s) for v in pair]
+        t_ = times(lambda: mp.max_pool3d_fwd_op(x, k, s, flat), PATTERNS["pool fwd"])
+        t_["library_device_us"] = device_us(lambda: pool_output(x, k, s, p),
+                                            PATTERNS["library pool fwd"])
+        # x read once, y written once, at 3.35 TB/s
+        t_["bound_us"] = (x.numel() + y.numel()) * x.element_size() / 3.35e6
+        pass_us["pool fwd"] += t_["device_us"]
+        emit(f"pool fwd {name}", (b, t, h, w, c), t_)
     for name, (b, t, h, w), c, f in sepconvs:
         sep = sepconv_inputs((b, t, h, w, c, f), dev, bf, g)
         t_ = times(lambda: sb.sepconv_bwd(*sep), PATTERNS["K5"])
         pass_us["K5"] += t_["device_us"]
         emit(f"K5 {name}", (b, t, h, w, c, f), t_)
         del sep
-    for kn in ("K3", "K4", "K5"):
-        calls = len(sepconvs) if kn == "K5" else sum(r[1] == kn for r in pools)
+    for kn in ("K3", "K4", "K5", "pool fwd"):
+        calls = (len(sepconvs) if kn == "K5" else len(pools) if kn == "pool fwd"
+                 else sum(r[1] == kn for r in pools))
         print(json.dumps({"tag": tag, "kernel": kn, "calls_per_pass": calls,
                           "pass_device_ms": pass_us[kn] / 1e3, "dtype": "bf16", "gpu": gpu}))
     # per step of the regime: K1 and K2 per encoder pass, K2 transposed and
@@ -438,7 +456,8 @@ def main(argv=None) -> int:
                        pass_us["K2"] * passes + pass_us["K2 transpose"] * grads),
                 "K3": (calls["maxpool_bwd_s1"], pass_us["K3"] * grads),
                 "K4": (calls["maxpool_bwd_strided"], pass_us["K4"] * grads),
-                "K5 (SEPCONV_FUSED)": (calls["sepconv_bwd"], pass_us["K5"] * grads)}
+                "K5 (SEPCONV_FUSED)": (calls["sepconv_bwd"], pass_us["K5"] * grads),
+                "pool fwd": (calls["maxpool_fwd"], pass_us["pool fwd"] * passes)}
     for kn, (n, us) in per_step.items():
         print(json.dumps({"tag": tag, "kernel": kn, "mem_type": args.mem_type,
                           "cmc": args.cmc,

@@ -432,8 +432,10 @@ class SepConvS2D(nn.Module):
 
 
 class MaxPool3d(nn.Module):
-    """3D max pooling (``ops/maxpool.py``: library forward; on CUDA tensors
-    the backward is kernel K3 for stride-1 pools and K4 for strided ones).
+    """3D max pooling (``ops/maxpool.py``: on CUDA tensors the forward is
+    the hand-written y-only kernel, ``csrc/maxpool_fwd.cu``, and the
+    backward kernel K3 for stride-1 pools and K4 for strided ones; on CPU
+    tensors the library's forward and the plain backward).
     ``padding``: PyTorch's symmetric padding (an int or one per axis),
     ``(lo, hi)`` pairs, or ``"SAME"`` (TF padding, resolved per input:
     I3D's pools, JAX ``nn.max_pool(padding="SAME")``).

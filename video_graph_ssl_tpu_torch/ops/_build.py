@@ -49,6 +49,10 @@ SIGNATURES = {
     # x, y, dy, dx, slabs, T, H, W, C, To, Ho, Wo, kt, kh, kw, st, sh, sw,
     # pt, ph, pw, group, threads, ts, hs, nxt, nxh, nyt, nyh, is_bf16, stream
     "vgs_maxpool3d_bwd": (_P, _P, _P, _P) + (_I,) * 26 + (_P,),
+    # x, y, the call's 24 integers (a C int array: slabs, T, H, W, C, To, Ho,
+    # Wo, kt, kh, kw, st, sh, sw, pt, ph, pw, group, threads, ts, hs, nxt,
+    # nxh, is_bf16), stream
+    "vgs_maxpool3d_fwd": (_P, _P, _P, _P),
     # x, g, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, f32 buffer,
     # compute-dtype buffer, dx, plan (int64 array), g's five strides,
     # g_vec, eps, stream

@@ -61,6 +61,7 @@ CLASSES = (
     ("K1 adjacency", r"sim_partial_kernel|adjacency_epilogue_kernel"),
     ("K2 propagate", r"propagate_tc_kernel|propagate_simt_kernel"),
     ("K3/K4 max-pool backward", r"maxpool_bwd_kernel"),
+    ("max-pool forward", r"maxpool_fwd_kernel"),
     ("K5 sepconv backward", r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|bn_means_kernel|"
                             r"bn_bwd_kernel|bn_bwd_vec_kernel|split_sum_kernel|"
                             r"sep_prep_kernel|sep_tc_p[1-6]_"),
@@ -213,6 +214,7 @@ def main(argv=None) -> None:
     n = tracing.counters()
     calls = {"K1": n["graph_adjacency"], "K2": n["gcn_propagate"], "K3": n["maxpool_bwd_s1"],
              "K4": n["maxpool_bwd_strided"], "K5": n["sepconv_bwd"], "K5 tc": n["sepconv_bwd_tc"],
+             "pool fwd": n["maxpool_fwd"],
              "pool dy copies": n["maxpool_dy_copies"], "sepconv g copies": n["sepconv_g_copies"]}
     print("kernel wrapper calls per step: " + ", ".join(
         f"{k} {v / args.steps:g}" for k, v in calls.items()))
