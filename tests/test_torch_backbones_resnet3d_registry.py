@@ -143,8 +143,8 @@ def test_nonlocal_i3d_builds_for_every_regime(monkeypatch):
     c.TPU.SEPCONV_FUSED = True
     with pytest.raises(ValueError, match="SEPCONV_FUSED"):
         build.create_visual_model(c)
-    # every JAX 3D name builds in the port
-    assert set(build.BACKBONES_3D) == set(JAX_BACKBONES_3D)
+    # every JAX 3D name builds in the port, which adds SlowFast-R50 of its own
+    assert set(build.BACKBONES_3D) == set(JAX_BACKBONES_3D) | {"slowfast_r50"}
     assert not hasattr(build, "NOT_PORTED_3D")
 
 

@@ -7,7 +7,8 @@ the backbones ported so far, the visual pretrain regimes
 the 3D ResNets ``resnet3d_{10..200}``, the factorized ``resnet_i3d_{18,50,
 101}`` and ``resnet2p1d_{10..200}``, ``i3d_res50_nonlocal`` (non-local
 blocks on layer2.1 and layer2.3), and the test backbone tiny3d: every name
-of JAX's ``BACKBONES_3D``.  2D
+of JAX's ``BACKBONES_3D``; and ``slowfast_r50`` (SlowFast-R50 8x8, graph
+blocks on its Fast pathway), which the JAX package does not have.  2D
 (``MODEL.BACKBONE_TYPE 2D``, frames folded into the batch and aggregated
 under ``MODEL.POOLING_TYPE``): ``resnet18`` .. ``resnet152``,
 ``bninception`` and ``inception_v3``; a 2D backbone builds no graph block,
@@ -48,6 +49,7 @@ from .layers import init_params_
 from .resnet2p1d import RESNET2P1D
 from .resnet3d import RESNET3D, RESNET_I3D
 from .s3d import S3D, S3D_FEATURE_DIM
+from .slowfast import SLOWFAST_FEATURE_DIM, slowfast_r50
 from .tiny import TINY3D_FEATURE_DIM, Tiny3D
 from .wrappers import (CmcWrapper, ContrastWrapper, GraphWrapper, SimSiam, VideoModel,
                        VisualEncoder)
@@ -71,6 +73,8 @@ BACKBONES_3D = {
     "I3D": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
     "InceptionI3d": (I3D, I3D_FEATURE_DIM, (5, 9, 14)),
     "i3d_res50_nonlocal": (i3d_res50_nonlocal, I3DNON_FEATURE_DIM, (2, 3, 4)),
+    # the port's own: graph blocks on the Fast pathway's inputs of res3-res5
+    "slowfast_r50": (slowfast_r50, SLOWFAST_FEATURE_DIM, (2, 3, 4)),
     **{name: (ctor, _feature_dim(name), (2, 3, 4))
        for name, ctor in {**RESNET2P1D, **RESNET3D, **RESNET_I3D}.items()},
     "tiny3d": (Tiny3D, TINY3D_FEATURE_DIM, (1,)),
