@@ -323,6 +323,22 @@ Phases (each raises on failure; the script then exits non-zero):
    forward kernel bit for bit against the library there; the largest
    |kernel - plain| beside PERF.md's K1 and K2 rows; K1, K2 and K4 times.
 
+21. The stems' convolution forward (``phase_stem``, ``csrc/stem_conv_fwd.cu``,
+   row S of PERF.md's kernel table) against its plain version
+   (``stem_conv3d_plain``: ``F.conv3d`` on the bf16 NCDHW clip, cuDNN here)
+   at every stem of the benchmark's cells (S3D's and I3D-R50-NL's at bs 256,
+   16x112x112; SlowFast's Slow, on its frame table, and Fast at bs 64,
+   32x224x224) and at I3D's, R3D's and the 2-channel Flow stem's at bs 128:
+   the bf16 clip in the layout it reaches the stem in (contiguous after
+   S3D's and I3D's cast, else a view of the augmentation's output with each
+   frame's channel planes apart), outputs within one bf16 ulp of the
+   largest output; each call's event ms, its bound (x read once and y
+   written once, or its bf16 operations), ``F.conv3d``'s ms and the ms of
+   the library's tensor-core path (C zero-padded to 8 in one copy of the
+   clip, then cuDNN's bf16 channels-last convolution); the instantiations
+   the build reports.  S3D's stem gives row S of the kernel record, whose
+   launches are phase 6's (one stem in each of MoCo's two passes).
+
 ``python3 chip_smoke.py --only phase_fused_ranks`` (development) runs the
 build and the named phase functions alone, without the kernel record and
 the result line.
@@ -1186,6 +1202,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
         n = tracing.counters()
         copies = (n["maxpool_dy_copies"], n["sepconv_g_copies"])
         tc_calls = n["sepconv_bwd_tc"]
+        stem_calls = n["stem_conv_fwd"]
     finally:
         mp._launch, sb.sepconv_bwd = pool_launch, sep_launch
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1210,6 +1227,7 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
     print(f"  cotangents copied to channels_last_3d in the 5 steps: pool dy "
           f"{copies[0]}, SepConv g {copies[1]}")
     print(f"  K5 calls on the tensor-core route: {tc_calls} (want {want['sepconv_bwd']})")
+    print(f"  stem convolution kernel calls: {stem_calls}")
     if counts != want:
         raise RuntimeError(f"kernel call counts {counts} != {want}")
     if tc_calls != want["sepconv_bwd"] or copies[1] != 0:
@@ -1236,17 +1254,23 @@ def run_trainer(dev, gpu: str, fused: bool, bsz: int = 128, size: int = 112,
     gc.collect()
     torch.cuda.empty_cache()
     return {"counts": counts, "ms": mean_ms, "peak_gib": peak, "ckpt": ckpt,
-            "graph_blocks": graph_blocks, "nonlocal_blocks": nonlocal_blocks}
+            "graph_blocks": graph_blocks, "nonlocal_blocks": nonlocal_blocks,
+            "steps": n, "stem_calls": stem_calls}
 
 
 def phase_slice(dev, gpu: str) -> dict:
     """The default GCA step, then the TPU.SEPCONV_FUSED step, then the
     default step at 16x224x224; each kernel's count comes from the 112x112
-    run of the path that uses it."""
+    run of the path that uses it (the stems' kernel: S3D's one stem in each
+    of MoCo's two passes)."""
     print("phase 6a: the GCA step")
     small_step_parity(dev, fused=False)
     run = run_trainer(dev, gpu, fused=False)
     counts, synthetic_ms = run["counts"], run["ms"]
+    want_stems = REGIME_PASSES["moco"][0] * run["steps"]
+    if run["stem_calls"] != want_stems:
+        raise RuntimeError(f"stem convolution kernel calls {run['stem_calls']} != {want_stems}")
+    counts["stem_conv_fwd"] = run["stem_calls"]
     print("phase 6b: the GCA step with TPU.SEPCONV_FUSED True")
     small_step_parity(dev, fused=True)
     counts["sepconv_bwd"] = run_trainer(dev, gpu, fused=True)["counts"]["sepconv_bwd"]
@@ -5133,6 +5157,137 @@ def phase_slowfast(dev, gpu: str) -> dict:
     return worst
 
 
+# the stems of the benchmark's cells and the other 3D backbones' (x (B, T, H,
+# W, C), weight (F, C, kt, kh, kw), stride, (lo, hi) pads, Slow frames, the
+# layout the stem meets: "cl" a contiguous bf16 clip (S3D's and I3D's
+# StagedBackbone casts it), "planar" a view of the augmentation's bf16 output,
+# one of two views, each frame's channel planes apart with H fastest)
+STEM_SHAPES = {
+    "S3D conv_s bs256": ((256, 16, 112, 112, 3), (64, 3, 1, 7, 7), (1, 2, 2),
+                         ((0, 0), (3, 3), (3, 3)), None, "cl"),
+    "I3D-R50-NL conv1 bs256": ((256, 16, 112, 112, 3), (64, 3, 5, 7, 7), (2, 2, 2),
+                               ((2, 2), (3, 3), (3, 3)), None, "planar"),
+    "SlowFast Slow bs64": ((64, 32, 224, 224, 3), (64, 3, 1, 7, 7), (1, 2, 2),
+                           ((0, 0), (3, 3), (3, 3)), (0, 4, 8, 13, 17, 22, 26, 31), "planar"),
+    "SlowFast Fast bs64": ((64, 32, 224, 224, 3), (8, 3, 5, 7, 7), (1, 2, 2),
+                           ((2, 2), (3, 3), (3, 3)), None, "planar"),
+    "I3D conv3d_1a bs128": ((128, 16, 112, 112, 3), (64, 3, 7, 7, 7), (2, 2, 2),
+                            ((2, 3), (2, 3), (2, 3)), None, "cl"),
+    "R3D conv1 bs128": ((128, 16, 112, 112, 3), (64, 3, 7, 7, 7), (1, 2, 2),
+                        ((3, 3), (3, 3), (3, 3)), None, "planar"),
+    "CMC Flow conv_s bs128": ((128, 16, 112, 112, 2), (64, 2, 1, 7, 7), (1, 2, 2),
+                              ((0, 0), (3, 3), (3, 3)), None, "planar"),
+}
+
+
+def stem_input(xs, layout: str, g, dev) -> torch.Tensor:
+    """A bf16 clip (B, T, H, W, C) as the stem meets it (``STEM_SHAPES``)."""
+    b, t, h, w, c = xs
+    if layout == "cl":
+        return torch.randn(xs, generator=g, device=dev).to(torch.bfloat16)
+    two = torch.randn((b, 2, t, c, w, h), generator=g, device=dev).to(torch.bfloat16)
+    return two.permute(0, 1, 2, 5, 4, 3)[:, 1]
+
+
+def phase_stem(dev, gpu: str, shapes=None) -> dict:
+    """Phase 21: the stems' convolution kernel through its operator against
+    its plain version (``F.conv3d`` on the bf16 NCDHW clip) at
+    ``STEM_SHAPES``, the bf16 clip as the stem meets it: the largest
+    |kernel - plain| within one bf16 ulp of the plain version's largest
+    output; each call's event ms beside its bound, ``F.conv3d``'s ms (the
+    plain version, which is the library path the stems took before the
+    kernel) and the ms of the library's tensor-core path for the same
+    convolution: C zero-padded to 8 in one copy of the clip, then cuDNN's
+    bf16 channels-last convolution, with cuDNN's own choice and its
+    fastest (``cudnn.benchmark``), and that convolution alone.  Returns
+    the kernel record (row S) from S3D's stem."""
+    import torch.nn.functional as F
+
+    from video_graph_ssl_tpu_torch.ops import stem_conv as sc
+
+    print(f"phase 21: the stems' convolution forward vs F.conv3d ({gpu})")
+    variants = sc.kernel_variants(True)
+    print("  instantiations (index, NT, MT, warps, blocks an SM, registers; bf16 x): "
+          + ", ".join(str(tuple(v)) for v in variants))
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for name, (xs, ws, stride, pads, frames, layout) in (shapes or STEM_SHAPES).items():
+        x = stem_input(xs, layout, g, dev)
+        w = (torch.randn(ws, generator=g, device=dev) / math.sqrt(math.prod(ws[1:]))).to(
+            torch.bfloat16)
+        fr = None if frames is None else torch.tensor(frames, dtype=torch.int64, device=dev)
+        flat = [v for pair in pads for v in pair]
+        tsel = xs[1] if fr is None else len(fr)
+        plan = sc.plan(xs, tsel, ws, stride, pads, variants)
+        c = xs[4]
+        wp = F.pad(w, (0, 0, 0, 0, 0, 0, 0, 8 - c)).contiguous(
+            memory_format=torch.channels_last_3d)
+        sym = all(lo == hi for lo, hi in pads)
+        conv_pad = [lo for lo, _ in pads] if sym else 0
+
+        def kern():
+            return sc.stem_conv3d_fwd_op(x, w, None, list(stride), flat, fr)
+
+        def plain():
+            return sc.stem_conv3d_plain(x, w, None, stride, flat, fr)
+
+        def c8():
+            """x's frames with C zero-padded to 8 (and the asymmetric pads),
+            contiguous: (B, C, T, H, W) in channels_last_3d."""
+            xf = x if fr is None else x.index_select(1, fr)
+            spatial = () if sym else (*pads[2], *pads[1], *pads[0])
+            return F.pad(xf, (0, 8 - c, *spatial)).permute(0, 4, 1, 2, 3)
+
+        def padded():
+            return F.conv3d(c8(), wp, None, stride, conv_pad)
+
+        y, want = kern(), plain()
+        torch.cuda.synchronize()
+        big = float(want.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(big)) - 7)
+        err = max_abs(y, want)
+        check(f"{name} vs F.conv3d (max abs, 1 bf16 ulp of {big:.3f})", err, ulp)
+        if not y.is_contiguous(memory_format=torch.channels_last_3d) or y.shape != want.shape:
+            raise RuntimeError(f"{name}: y {tuple(y.shape)} not {tuple(want.shape)} "
+                               "in channels_last_3d")
+        padded_err = max_abs(padded(), want)
+        del y, want
+        tk, tl, tp = event_ms(kern), event_ms(plain), event_ms(padded)
+        x8 = c8()
+        tc = event_ms(lambda: F.conv3d(x8, wp, None, stride, conv_pad))
+        torch.backends.cudnn.benchmark = True
+        try:
+            padded()
+            tpb = event_ms(padded)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        del x8
+        b, f = xs[0], ws[0]
+        m = b * math.prod(plan.out)
+        nbytes = b * tsel * math.prod(xs[2:]) * x.element_size() + m * f * 2
+        flops = 2 * m * f * math.prod(ws[1:])
+        bm, by = bound(nbytes, flops, "bf16")
+        print(f"  {name} ({layout}): kernel {tk:.4f} ms  bound {bm:.4f} ms ({by}, "
+              f"{100 * bm / tk:.1f}%)  F.conv3d {tl:.4f} ms  C padded to 8: {tp:.4f} ms "
+              f"(cuDNN's fastest {tpb:.4f}, the convolution alone {tc:.4f}; max abs "
+              f"{padded_err:.3e})  [strip {plan.rh} rows, {plan.warps} warps, {plan.smem} B, "
+              f"{plan.units} units, variant {plan.variant}]")
+        out[name] = {"ms": tk, "bound_ms": bm, "bound_by": by, "library_ms": tl,
+                     "padded_ms": tp, "padded_fastest_ms": tpb, "padded_conv_ms": tc,
+                     "max_abs_err": err, "ulp": ulp, "padded_max_abs_err": padded_err}
+        del x
+        _free()
+    print(json.dumps({"stem": {"calls": out, "gpu": gpu}}))
+    s3d = out.get("S3D conv_s bs256", next(iter(out.values())))
+    # the plain version of the forward is the library's convolution itself
+    return {"name": "stem_conv_fwd", "route": "cuda",
+            "source": "video_graph_ssl_tpu_torch/csrc/stem_conv_fwd.cu",
+            "replaces": "none (the JAX package leaves the stems to XLA)",
+            "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "ms": s3d["ms"], "plain_ms": s3d["library_ms"], "bound_ms": s3d["bound_ms"],
+            "bound_by": s3d["bound_by"], "library_ms": s3d["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5185,6 +5340,7 @@ def main() -> int:
     exported = timed(phase_remat_export_cam, dev, gpu)
     s2d_ring = timed(phase_s2d_ring_ckpt, dev, gpu)
     slowfast = timed(phase_slowfast, dev, gpu)
+    kernels.append(timed(phase_stem, dev, gpu))
     for k in kernels:   # the I3D pools', model_2's, phase 17's to 20's checks join the kernels'
         kn = {"graph_adjacency": "K1", "gcn_propagate": "K2", "maxpool_bwd_s1": "K3",
               "maxpool_bwd_strided": "K4"}.get(k["name"])

@@ -25,9 +25,10 @@ S3D's:
 Stage 13's output is 4x4 where S3D's ``MaxPool3d(2, 2, 0)`` gives 3x3, so
 the graph block at 14 sees (B, 2, 4, 4, 832).  Every strided pool pads one
 more on its high side than on its low side; ``ops/maxpool.py`` takes that
-padding, forward and backward (K4).  The stem conv's (2, 3) padding is a
-zero-pad copy of the 3-channel clip (``layers.conv3d_same``); the 3x3x3/1
-and 1x1x1 convs pad symmetrically, in the convolution.
+padding, forward and backward (K4).  The stem conv's (2, 3) padding is read
+as zeros past the clip by the stem kernel on the card (``layers.conv3d_same``,
+``ops/stem_conv.py``) and is a zero-pad copy of the clip elsewhere; the
+3x3x3/1 and 1x1x1 convs pad symmetrically, in the convolution.
 
 The JAX ``TPU.PACK_POINTWISE`` packing is the same math on the same
 parameters, so the three 1x1x1 convs of a Mixed block stay separate.
@@ -57,7 +58,7 @@ class Unit3D(BasicConv3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
-        y = conv3d_same(x.to(self.dtype), c.weight.to(self.dtype), None, c.stride)
+        y = conv3d_same(x, c.weight, None, c.stride, self.dtype)
         return F.relu(self.bn(y).to(self.dtype))
 
 

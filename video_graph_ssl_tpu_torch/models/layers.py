@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import fused_sepconv, maxpool
+from ..ops import fused_sepconv, maxpool, stem_conv
 from ..parallel import dist, sync_bn
 from ..utils import tracing
 from . import remat
@@ -147,23 +147,45 @@ class BatchNorm(nn.Module):
         return y.to(out_dtype)
 
 
+def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], stride,
+           padding, dtype: torch.dtype, frames: Optional[torch.Tensor] = None,
+           groups: int = 1, dilation=1) -> torch.Tensor:
+    """The 3D convolution of the backbones: x (B, C, T, H, W) (its frames
+    ``frames`` where given) with the fp32 parameters cast to ``dtype``, the
+    JAX modules' compute dtype; ``padding`` as ``ops/maxpool.py``'s
+    ``resolve_padding`` takes it (symmetric, or a ``(lo, hi)`` pair per
+    axis).  Where ``stem_conv.routes`` says so (a stem on a CUDA tensor in
+    bf16), the hand-written forward ``ops/stem_conv.py``; else ``F.conv3d``,
+    on x zero-padded (lo, hi) first where a high pad is larger."""
+    pads = maxpool.resolve_padding(padding, None, weight.shape[2:], stride)
+    if stem_conv.routes(x.device, dtype, weight, groups, dilation):
+        return stem_conv.stem_conv3d(x, weight, bias, stride, pads, dtype, frames)
+    if frames is not None:
+        x = x.index_select(2, frames)
+    x, padding = stem_conv.conv_pads(x.to(dtype), pads)
+    b = None if bias is None else bias.to(dtype)
+    return F.conv3d(x, weight.to(dtype), b, stride, padding, dilation, groups)
+
+
 def conv3d_same(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                stride) -> torch.Tensor:
-    """``F.conv3d`` with TF "SAME" padding (JAX ``nn.Conv(padding="SAME")``,
-    ``lax.padtype_to_pads``): symmetric pads go to the convolution; where
-    the high side is larger (I3D's 7x7x7/2 stem: (2, 3) at even extents) x
-    is zero-padded (lo, hi) first."""
+                stride, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`conv3d` with TF "SAME" padding (JAX ``nn.Conv(padding="SAME")``,
+    ``lax.padtype_to_pads``): where the high side is larger (I3D's 7x7x7/2
+    stem: (2, 3) at even extents) the kernel reads zero past x, and
+    ``F.conv3d`` takes x zero-padded (lo, hi) first."""
     pads = maxpool.same_padding(x.shape[2:], weight.shape[2:], stride)
-    if all(lo == hi for lo, hi in pads):
-        return F.conv3d(x, weight, bias, stride, tuple(lo for lo, _ in pads))
-    return F.conv3d(F.pad(x, (*pads[2], *pads[1], *pads[0])), weight, bias, stride)
+    return conv3d(x, weight, bias, stride, pads, dtype)
 
 
-def conv(x: torch.Tensor, c: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+def conv(x: torch.Tensor, c: nn.Module, dtype: torch.dtype,
+         frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The 2D or 3D convolution ``c`` (no bias) on ``x`` in ``dtype``, the
-    JAX modules' compute dtype, with fp32 parameters cast to it."""
-    fn = F.conv3d if isinstance(c, nn.Conv3d) else F.conv2d
-    return fn(x.to(dtype), c.weight.to(dtype), None, c.stride, c.padding)
+    JAX modules' compute dtype, with fp32 parameters cast to it; a 3D one
+    through :func:`conv3d` (on frames ``frames`` of x where given)."""
+    if isinstance(c, nn.Conv3d):
+        return conv3d(x, c.weight, None, c.stride, c.padding, dtype, frames, c.groups,
+                      c.dilation)
+    return F.conv2d(x.to(dtype), c.weight.to(dtype), None, c.stride, c.padding)
 
 
 class BasicConv2d(nn.Module):
@@ -240,9 +262,7 @@ class BasicConv3d(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.conv
-        y = F.conv3d(x.to(self.dtype), c.weight.to(self.dtype), None,
-                     c.stride, c.padding)
+        y = conv3d(x, self.conv.weight, None, self.conv.stride, self.conv.padding, self.dtype)
         return F.relu(self.bn(y).to(self.dtype))
 
 
@@ -290,11 +310,8 @@ class SepConv3d(nn.Module):
         if self.fused and self.training and not self.bn_s.frozen:
             return self._fused_train(x)
         dt = self.dtype
-        for conv, bn in ((self.conv_s, self.bn_s), (self.conv_t, self.bn_t)):
-            bias = None if conv.bias is None else conv.bias.to(dt)
-            x = F.conv3d(x.to(dt), conv.weight.to(dt), bias, conv.stride,
-                         conv.padding)
-            x = F.relu(bn(x).to(dt))
+        for c, bn in ((self.conv_s, self.bn_s), (self.conv_t, self.bn_t)):
+            x = F.relu(bn(conv3d(x, c.weight, c.bias, c.stride, c.padding, dt)).to(dt))
         return x
 
     def _fused_train(self, x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ resolve_remat``):
 * ``True`` (``block``): keep nothing inside the unit.
 * ``"conv_saved"``: keep every convolution's output and recompute the BN
   and ReLU epilogues (JAX's ``save_only_these_names("conv_out")``), as
-  selective checkpointing that saves ``aten.convolution``.
+  selective checkpointing that saves ``aten.convolution`` and the stems'
+  ``vgs_torch::stem_conv3d_fwd``.
 
 JAX's recompute is functional: the BN statistics it recomputes are thrown
 away.  The port's BNs update their running statistics in place inside
@@ -44,6 +45,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..ops.stem_conv import stem_conv3d_fwd_op
+
 Policy = Union[bool, str]
 POLICIES = (False, True, "conv_saved")
 
@@ -65,7 +68,7 @@ def _recompute_scope():
 
 
 def _save_convs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
-    if op == torch.ops.aten.convolution.default:
+    if op == torch.ops.aten.convolution.default or op == stem_conv3d_fwd_op:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

@@ -153,16 +153,17 @@ class SlowFast(nn.Module):
             self._frames[key] = torch.tensor(slow_frames(t), device=device)
         return self._frames[key]
 
-    def _stem(self, x: torch.Tensor, c: nn.Conv3d, bn: nn.Module) -> torch.Tensor:
-        return F.relu(bn(conv(to_ncdhw(x), c, self.dtype)).to(self.dtype))
+    def _stem(self, x: torch.Tensor, c: nn.Conv3d, bn: nn.Module,
+              frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return F.relu(bn(conv(to_ncdhw(x), c, self.dtype, frames)).to(self.dtype))
 
     def forward(self, x: torch.Tensor, graph_seed: int = 0,
                 graph_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if x.shape[1] % ALPHA:
             raise ValueError(f"slowfast_r50 takes a multiple of {ALPHA} frames, got {x.shape[1]}")
         with tracing.span("stem"):
-            slow = self._stem(x.index_select(1, self._slow_index(x.shape[1], x.device)),
-                              self.slow_conv1, self.slow_bn1)
+            slow = self._stem(x, self.slow_conv1, self.slow_bn1,
+                              self._slow_index(x.shape[1], x.device))
             fast = self._stem(x, self.fast_conv1, self.fast_bn1)
         slow = max_pool_3d(slow, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         fast = max_pool_3d(fast, (1, 3, 3), (1, 2, 2), (0, 1, 1))

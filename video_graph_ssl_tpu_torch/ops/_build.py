@@ -53,6 +53,12 @@ SIGNATURES = {
     # Wo, kt, kh, kw, st, sh, sw, pt, ph, pw, group, threads, ts, hs, nxt,
     # nxh, is_bf16), stream
     "vgs_maxpool3d_fwd": (_P, _P, _P, _P),
+    # x, w, bias (or null), frames (or null), y, the call's 43 integers (a C
+    # long long array, ops/stem_conv.py:launch_args), stream
+    "vgs_stem_conv3d_fwd": (_P,) * 7,
+    # rows (a C long long array), the rows it holds: each instantiation's
+    # NT, MT, launch bound and registers (ops/stem_conv.py:kernel_variants)
+    "vgs_stem_conv3d_variants": (_P, _I),
     # x, g, ws, wt, g1, b1, g2, b2, mu1, var1, mu2, var2, f32 buffer,
     # compute-dtype buffer, dx, plan (int64 array), g's five strides,
     # g_vec, eps, stream

@@ -62,6 +62,7 @@ CLASSES = (
     ("K2 propagate", r"propagate_tc_kernel|propagate_simt_kernel"),
     ("K3/K4 max-pool backward", r"maxpool_bwd_kernel"),
     ("max-pool forward", r"maxpool_fwd_kernel"),
+    ("stem conv forward", r"stem_conv_fwd_kernel"),
     ("K5 sepconv backward", r"conv_taps_kernel|wgrad_taps_kernel|bn_sums_kernel|bn_means_kernel|"
                             r"bn_bwd_kernel|bn_bwd_vec_kernel|split_sum_kernel|"
                             r"sep_prep_kernel|sep_tc_p[1-6]_"),
